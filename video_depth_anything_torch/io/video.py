@@ -1,0 +1,72 @@
+"""Video decode/encode with cv2: frame reading with max-resolution
+downscale and fps striding, and depth video writing with a global min-max
+normalization and cv2's inferno colormap."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import cv2
+import numpy as np
+
+
+def ensure_even(value: int) -> int:
+    return value if value % 2 == 0 else value + 1
+
+
+def read_video_frames(video_path: str, process_length: int = -1, target_fps: float = -1,
+                      max_res: int = -1) -> Tuple[np.ndarray, float]:
+    """RGB frames ``(N, H, W, 3)`` uint8 and the fps they are sampled at."""
+    cap = cv2.VideoCapture(video_path)
+    if not cap.isOpened():
+        raise FileNotFoundError(f"cannot open video: {video_path}")
+    src_fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    height = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    width = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    resize_to = None
+    if max_res > 0 and max(height, width) > max_res:
+        scale = max_res / max(height, width)
+        resize_to = (ensure_even(round(width * scale)), ensure_even(round(height * scale)))
+    fps = src_fps if target_fps <= 0 else target_fps
+    stride = max(round(src_fps / fps), 1)
+    frames = []
+    idx = 0
+    while True:
+        ret, frame = cap.read()
+        if not ret:
+            break
+        if idx % stride == 0:
+            frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            if resize_to is not None:
+                frame = cv2.resize(frame, resize_to)
+            frames.append(frame)
+            if 0 < process_length <= len(frames):
+                break
+        idx += 1
+    cap.release()
+    if not frames:
+        raise ValueError(f"no frames decoded from {video_path}")
+    return np.stack(frames, axis=0), fps
+
+
+def colorize_depth(depths: np.ndarray, grayscale: bool = False) -> np.ndarray:
+    """Depth stack → uint8 RGB frames (global min-max, inferno)."""
+    d_min, d_max = float(depths.min()), float(depths.max())
+    norm = ((depths - d_min) / ((d_max - d_min) or 1.0) * 255.0).astype(np.uint8)
+    if grayscale:
+        return np.repeat(norm[..., None], 3, axis=-1)
+    return np.stack([cv2.applyColorMap(f, cv2.COLORMAP_INFERNO)[..., ::-1] for f in norm])
+
+
+def save_video(frames: np.ndarray, output_path: str, fps: float = 10, is_depths: bool = False,
+               grayscale: bool = False) -> None:
+    """Write RGB uint8 frames, or depth frames colorized, to an mp4 (mp4v)."""
+    if is_depths:
+        frames = colorize_depth(frames, grayscale=grayscale)
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(output_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f"cannot open video writer for {output_path}")
+    for frame in frames:
+        writer.write(cv2.cvtColor(np.ascontiguousarray(frame), cv2.COLOR_RGB2BGR))
+    writer.release()

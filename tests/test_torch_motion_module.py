@@ -111,3 +111,21 @@ def test_weight_fragment_order():
                         for e in range(2):
                             want = w_nk[8 * nt + g, 32 * kb + 16 * ks + 8 * j + 2 * c + e]
                             assert frag[nt, kb, lane, 4 * ks + 2 * j + e] == want
+
+
+def test_kernel_weights_built_once_until_a_parameter_changes():
+    """TemporalModule keeps Kernel C's prepared weights across calls and
+    rebuilds them when a parameter is written in place."""
+    tmod = TModule(TCfg(), 64)
+    first = tmod.kernel_weights()
+    assert tmod.kernel_weights() is first
+    want = t_motion.kernel_weights(tmod.raw_params(), TCfg())
+    assert first.keys() == want.keys()
+    for name in want:
+        torch.testing.assert_close(first[name], want[name], rtol=0, atol=0)
+    with torch.no_grad():
+        tmod.temporal_transformer.proj_in.weight.add_(1.0)
+    rebuilt = tmod.kernel_weights()
+    assert rebuilt is not first
+    torch.testing.assert_close(
+        rebuilt["w_in"], t_motion._frag(tmod.raw_params()["w_in"]), rtol=0, atol=0)

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from video_depth_anything_torch.ops import temporal_attention as t_temporal
 from video_depth_anything_tpu.ops.pallas_temporal import temporal_attention_window
 
@@ -42,3 +43,24 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
 ])
 def test_temporal_gate(shape, expected):
     assert t_temporal.temporal_gate(shape, 8) is expected
+
+
+@pytest.mark.parametrize("c", [64, 192])  # d = 8 (vits m2), 24 (m0)
+def test_smoke_check_separates_right_from_wrong(c):
+    """chip_smoke.py's check of Kernel B on its inputs: the JAX Pallas
+    kernel, a right implementation with its own bf16 rounding points, is
+    within the tolerance of the plain version; uniform attention over the
+    frames and a dropped last frame are not."""
+    heads, t, s = 8, 32, 24
+    qkv = chip_smoke.attention_inputs((1, t, s, c), torch.Generator().manual_seed(c), "cpu")
+    q, k, v = (x.contiguous() for x in qkv.split(c, dim=-1))
+    scale = (c // heads) ** -0.5
+    want = t_temporal.temporal_attention_plain(q, k, v, heads, scale)
+    jax_out = temporal_attention_window(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)), heads=heads,
+        scale=scale, interpret=True)
+    got = torch.from_numpy(np.asarray(jax_out, np.float32))
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
+    plain = lambda q_, k_, v_, sc: t_temporal.temporal_attention_plain(q_, k_, v_, heads, sc)  # noqa: E731
+    mutants = chip_smoke.mutant_errors(plain, q, k, v, scale, axis=1, tile=1)
+    assert min(mutants.values()) > chip_smoke.ATTN_TOL, mutants

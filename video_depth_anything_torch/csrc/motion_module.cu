@@ -387,12 +387,10 @@ extern "C" int vda_motion_module(
   p.scale = scale;
   p.ln_eps = ln_eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // The vits widths (m0: 192; m1-m3 at the gate's sizes: 64).
   switch (C) {
     case 64: return launch<64, 128>(p, st);
-    case 128: return launch<128, 128>(p, st);
     case 192: return launch<192, 64>(p, st);
-    case 256: return launch<256, 64>(p, st);
-    case 384: return launch<384, 32>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

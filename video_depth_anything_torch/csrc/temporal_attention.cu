@@ -122,18 +122,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T, i
 }  // namespace
 
 // q, k, v, o: contiguous (B, T, S, C) bf16, C = heads * head_dim, T <= 32.
-// Returns cudaErrorInvalidValue for a head_dim without an instantiation.
+// Returns cudaErrorInvalidValue for a head_dim without an instantiation:
+// the vits head dims that the gate sends here (m2: 8, m0: 24).
 extern "C" int vda_temporal_attention(const void* q, const void* k, const void* v, void* o,
                                       int B, int T, int S, int C, int heads, float scale,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C / heads) {
     case 8: return launch<8>(q, k, v, o, B, T, S, C, heads, scale, st);
-    case 16: return launch<16>(q, k, v, o, B, T, S, C, heads, scale, st);
     case 24: return launch<24>(q, k, v, o, B, T, S, C, heads, scale, st);
-    case 32: return launch<32>(q, k, v, o, B, T, S, C, heads, scale, st);
-    case 48: return launch<48>(q, k, v, o, B, T, S, C, heads, scale, st);
-    case 64: return launch<64>(q, k, v, o, B, T, S, C, heads, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -24,6 +24,7 @@ from video_depth_anything_torch.models.layers import GroupNorm, LayerNorm, Linea
 from video_depth_anything_torch.ops.dispatch import kernels_enabled
 from video_depth_anything_torch.ops.motion_module import (
     fused_motion_module,
+    kernel_weights,
     motion_gate,
     sinusoidal_position_table,
 )
@@ -143,11 +144,24 @@ class TemporalModule(nn.Module):
             w_out=lin(tt.proj_out), b_out=tt.proj_out.bias,
         )
 
+    def kernel_weights(self) -> dict:
+        """Kernel C's operands from the parameters, built once and rebuilt
+        only when a parameter changes (in place, or moved to another
+        device or dtype)."""
+        key = tuple((p.data_ptr(), p.device, p.dtype, p._version) for p in self.parameters())
+        if getattr(self, "_kernel_weights_key", None) != key:
+            self._kernel_weights = kernel_weights(self.raw_params(), self.cfg)
+            self._kernel_weights_key = key
+        return self._kernel_weights
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
         if kernels_enabled() and motion_gate(self.cfg, c, self.inner, t, h, w):
-            out = fused_motion_module(
-                x.reshape(b, t, h * w, c), self.raw_params(), self.cfg, self.cfg.num_heads)
+            xs, heads = x.reshape(b, t, h * w, c), self.cfg.num_heads
+            if x.device.type == "cuda":
+                out = fused_motion_module(xs, None, self.cfg, heads, self.kernel_weights())
+            else:
+                out = fused_motion_module(xs, self.raw_params(), self.cfg, heads)
             return out.reshape(x.shape)
         tt = self.temporal_transformer
         y = tt.proj_in(tt.norm(x)).reshape(b, t, h * w, self.inner)

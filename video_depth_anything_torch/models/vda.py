@@ -71,6 +71,11 @@ class VDAModel:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype != torch.bfloat16:
             raise NotImplementedError("fp32 inference on the card is not yet ported")
+        if self.device.type == "cuda" and self.cfg.encoder != "vits":
+            # vitb/vitl reach kernel shapes and a TPU kernel (vitl's output
+            # tail) that the port does not have yet; the CPU runs them plain.
+            raise NotImplementedError(
+                f"encoder {self.cfg.encoder!r} on the card is not yet ported (vits only)")
         self.dtype = dtype
         self.module = VideoDepthAnything(self.cfg).to(self.device).eval()
 

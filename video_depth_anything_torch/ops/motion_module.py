@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -187,39 +187,64 @@ def _kernel():
     return _fn
 
 
-_SUPPORTED_C = (64, 128, 192, 256, 384)
+# The instantiations of csrc/motion_module.cu: the vits widths (m0 192,
+# m1-m3 64).  Other widths come with the slices whose path runs them.
+_SUPPORTED_C = (64, 192)
+# Kernel operands after x, gna and gnb, in the C entry point's order.
+_OPERANDS = ("pe", "w_in", "b_in", "ln_scale", "ln_bias", "wq", "wk", "wv", "wo", "bo",
+             "w1", "b1", "w2", "b2", "w_out", "b_out")
 
 
-def fused_motion_module(x: torch.Tensor, p: Dict, cfg: MotionModuleConfig, heads: int):
+def kernel_weights(p: Dict, cfg: MotionModuleConfig) -> Dict[str, torch.Tensor]:
+    """Kernel C's operands that depend only on the parameters: bf16 weights
+    in fragment order, fp32 biases and norm parameters, the bf16 APE table
+    (``temporal_max_len`` rows), on the parameters' device.  A caller that
+    runs the module more than once builds this once (``TemporalModule``
+    caches it)."""
+    c = p["w_in"].shape[0]
+    f32 = lambda v: v.to(torch.float32).contiguous()  # noqa: E731
+    stack = lambda name: torch.stack([_frag(w) for w in p[name]]).contiguous()  # noqa: E731
+    w = {k: f32(p[k]) for k in ("gn_scale", "gn_bias", "b_in", "ln_scale", "ln_bias", "bo",
+                                "b1", "b2", "b_out")}
+    w.update({k: _frag(p[k]) for k in ("w_in", "w1", "w2", "w_out")})
+    w.update({k: stack(k) for k in ("wq", "wk", "wv", "wo")})
+    w["pe"] = torch.from_numpy(sinusoidal_position_table(cfg.temporal_max_len, c)).to(
+        p["w_in"].device, torch.bfloat16)
+    return w
+
+
+def fused_motion_module(x: torch.Tensor, p: Optional[Dict], cfg: MotionModuleConfig,
+                        heads: int, weights: Optional[Dict[str, torch.Tensor]] = None):
     """``(B, T, S, C)`` → whole motion module output.  CPU tensors take the
-    plain version; CUDA tensors launch Kernel C or raise."""
+    plain version of the raw parameters ``p``; CUDA tensors launch Kernel C
+    or raise.  ``weights`` is ``kernel_weights(p, cfg)``, built here from
+    ``p`` when not given."""
     if x.device.type == "cpu":
         return motion_module_plain(x, p, cfg, heads)
+    w = kernel_weights(p, cfg) if weights is None else weights
+    gna, gnb = gn_fold(x, w, cfg)
+    return motion_module_launch(x, gna, gnb, w, cfg, heads)
+
+
+def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
+                         w: Dict[str, torch.Tensor], cfg: MotionModuleConfig, heads: int):
+    """Kernel C's launch alone, given the folded GroupNorm (``gn_fold``) and
+    ``kernel_weights``; counts on ``fused_motion_module.launches``."""
     b, t, s, c = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"motion_module kernel takes bf16, got {x.dtype}")
-    if heads != 8 or c not in _SUPPORTED_C or t not in (8, 16, 32):
+    if heads != 8 or c not in _SUPPORTED_C or t not in (8, 16, 32) or t > w["pe"].shape[0]:
         raise NotImplementedError(
-            f"motion_module kernel takes 8 heads, C in {_SUPPORTED_C}, T in 8/16/32; "
-            f"got heads={heads}, C={c}, T={t}")
+            f"motion_module kernel takes 8 heads, C in {_SUPPORTED_C}, T in 8/16/32 within "
+            f"the APE table; got heads={heads}, C={c}, T={t}")
     if cfg.num_attention_blocks != 2 or cfg.num_transformer_blocks != 1:
         raise NotImplementedError("motion_module kernel takes one block of two attentions")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("motion_module needs a 16-byte aligned input")
-    dev = x.device
-    p = {k: v.to(dev) for k, v in p.items()}
-    gna, gnb = gn_fold(x, p, cfg)
-    f32 = lambda v: v.to(torch.float32).contiguous()  # noqa: E731
-    stack = lambda name: torch.stack([_frag(w) for w in p[name]]).contiguous()  # noqa: E731
-    pe = torch.from_numpy(sinusoidal_position_table(cfg.temporal_max_len, c)[:t]).to(
-        dev, torch.bfloat16)
-    args = [
-        x, gna, gnb, pe, _frag(p["w_in"]), f32(p["b_in"]), f32(p["ln_scale"]),
-        f32(p["ln_bias"]), stack("wq"), stack("wk"), stack("wv"), stack("wo"), f32(p["bo"]),
-        _frag(p["w1"]), f32(p["b1"]), _frag(p["w2"]), f32(p["b2"]), _frag(p["w_out"]),
-        f32(p["b_out"]),
-    ]
+    args = [x, gna, gnb] + [w[k] for k in _OPERANDS]
+    if any(a.device != x.device for a in args):
+        raise ValueError("motion_module operands must share x's device")
     out = torch.empty_like(x)
     err = _kernel()(
         *(cuda_build.ptr(a) for a in args), cuda_build.ptr(out), b, t, s, c,

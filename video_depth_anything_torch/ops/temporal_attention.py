@@ -59,6 +59,9 @@ def temporal_attention_plain(q, k, v, heads: int, scale: float) -> torch.Tensor:
 
 
 _fn = None
+# The instantiations of csrc/temporal_attention.cu: the vits head dims
+# (m2: 8, m0: 24).  Others come with the slices whose path runs them.
+_SUPPORTED_D = (8, 24)
 
 
 def _kernel():
@@ -81,10 +84,10 @@ def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
     d = c // heads
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"temporal_attention kernel takes bf16, got {q.dtype}")
-    if c % heads or d not in (8, 16, 24, 32, 48, 64) or t > 32 or heads > 32 or c > 1024:
+    if c % heads or d not in _SUPPORTED_D or t > 32 or heads > 32 or c > 1024:
         raise NotImplementedError(
-            f"temporal_attention kernel takes T <= 32, <= 32 heads of 8..64 and C <= 1024, "
-            f"got T={t}, heads={heads}, d={d}")
+            f"temporal_attention kernel takes T <= 32, <= 32 heads of {_SUPPORTED_D} and "
+            f"C <= 1024, got T={t}, heads={heads}, d={d}")
     q, k, v = (x.contiguous() for x in (q, k, v))
     for x in (k, v):
         if x.shape != q.shape or x.device != q.device:

@@ -22,7 +22,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Video Depth Anything (PyTorch/CUDA)")
     p.add_argument("--input_video", type=str, required=True)
     p.add_argument("--output_dir", type=str, default="./outputs")
-    p.add_argument("--encoder", type=str, default="vits", choices=["vits", "vitb", "vitl"])
+    p.add_argument("--encoder", type=str, default="vits", choices=["vits", "vitb", "vitl"],
+                   help="vits on the card; vitb and vitl on the CPU only for now")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="torch .pth; default ./checkpoints/video_depth_anything_<encoder>.pth")
     p.add_argument("--random_init", action="store_true", help="seeded random weights")

@@ -7,18 +7,23 @@ Phases (each failure ends the run with a non-zero exit):
 1. card: print the card's name and power limit, build the CUDA kernels
    from ``video_depth_anything_torch/csrc``.
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   in bf16 at the main path's vits shapes (one window), on inputs whose
-   attention is peaked, and show that two wrong kernels (uniform attention,
-   a dropped last key tile) would fail the same tolerance; time kernel,
-   plain version, and the library call where one exists.
-3. window: one full-width, full-depth vits window (noised seeded weights)
-   at 518x518 and 518x924, kernel path against the plain path on the card;
-   frames/s of ``infer_window`` with 4 windows per call.
+   in bf16 at the main path's vits and vitl shapes (one window), on inputs
+   whose attention is peaked, and show that wrong kernels (uniform
+   attention, a dropped last key tile; for the output tail, align_corners
+   False taps and a conv3x3 without its off-centre taps) would fail the
+   same tolerance; time kernel, plain version, and the library call where
+   one exists.
+3. window: one full-width, full-depth vits window and one vitl window
+   (noised seeded weights) at 518x518 and 518x924, kernel path against the
+   plain path on the card; frames/s of ``infer_window`` at the pipeline's
+   window batch (4 windows per call for vits, 1 for vitl) and the plain
+   reference's peak device memory.
 4. cli: ``python -m video_depth_anything_torch.run --random_init`` (called
    in-process through ``run.main``) on synthetic 480x480 and 854x480 mp4s
-   of 76 frames; the depth must be finite and of the clip's shape and every
-   kernel's launch count must move.  This is the main path: the counts are
-   zeroed just before and read just after.
+   of 76 frames with vits, and on the 480x480 one with vitl; the depth must
+   be finite and of the clip's shape and every kernel's launch count must
+   move.  This is the main path: the counts are zeroed just before and read
+   just after.
 The last two lines are the kernels JSON object and the contract line
 ``{"ok": true, "device": {...}}``.
 """
@@ -96,6 +101,10 @@ MOTION_TOL = 5e-2  # Kernel C, relative to max|plain - x| (the module's own
 # contribution): the plain version rounds each GEMM output and each bias add
 # to bf16 separately, the kernel once per fused epilogue, through ~10
 # chained products.
+TAIL_TOL = 2.5 * 2.0**-8  # the output tail, relative to max|plain|: the JAX
+# package's bound for its fused tail against the XLA chain
+# (tests/test_output_stack.py:56).  Kernel and plain chain round at the same
+# points; they differ in fp32 summation order.
 
 
 def attention_inputs(shape, gen, device):
@@ -125,6 +134,39 @@ def mutant_errors(plain, q, k, v, scale, axis: int, tile: int) -> dict:
     return {"uniform": rel_err(uniform, want), "drop_last_tile": rel_err(dropped, want)}
 
 
+def tail_inputs(n: int, h: int, w: int, gen, device):
+    """x ~ N(0, 1) bf16 ``(n, h, w, 128)`` and output_conv2's weights (torch
+    layout) at the scales of the JAX tail test (tests/test_output_stack.py:25-31)."""
+    import torch
+
+    c = 128
+    r = lambda *s, std: torch.randn(*s, generator=gen, device=device) * std  # noqa: E731
+    x = r(n, h, w, c, std=1.0).to(torch.bfloat16)
+    return x, r(32, c, 3, 3, std=0.1), r(32, std=0.1), r(1, 32, 1, 1, std=0.3), r(1, std=0.1)
+
+
+def tail_mutant_errors(x, w1, b1, w2, b2, out_h: int, out_w: int) -> dict:
+    """How far two wrong tails miss the plain version on the same inputs,
+    relative to max|plain|: align_corners=False taps, and a conv3x3 that
+    keeps only its centre tap."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops.output_tail import output_tail_plain
+
+    want = output_tail_plain(x, w1, b1, w2, b2, out_h, out_w)
+    dt = x.dtype
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
+                      align_corners=False)
+    y = torch.relu(F.conv2d(y, w1.to(dt), b1.to(dt), padding=1))
+    shifted = torch.relu(F.conv2d(y, w2.to(dt), b2.to(dt))).permute(0, 2, 3, 1)
+    centre = torch.zeros_like(w1)
+    centre[:, :, 1, 1] = w1[:, :, 1, 1]
+    centre_only = output_tail_plain(x, centre, b1, w2, b2, out_h, out_w)
+    return {"align_corners_false": rel_err(shifted, want),
+            "centre_tap_only": rel_err(centre_only, want)}
+
+
 def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
@@ -132,13 +174,16 @@ def phase_kernels(dev):
     from video_depth_anything_torch.config import MotionModuleConfig
     from video_depth_anything_torch.ops import flash_attention as fa
     from video_depth_anything_torch.ops import motion_module as mm
+    from video_depth_anything_torch.ops import output_tail as ot
     from video_depth_anything_torch.ops import temporal_attention as ta
 
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
-    for label, n in (("518x518", 1370), ("518x924", 2443)):
-        bt, h, d = 32, 6, 64
+    # vits (6 heads) and vitl (16 heads) token counts at 518x518 and 518x924
+    for label, n, h in (("518x518", 1370, 6), ("518x924", 2443, 6),
+                        ("vitl 518x518", 1370, 16), ("vitl 518x924", 2443, 16)):
+        bt, d = 32, 64
         qkv = attention_inputs((bt, n, h * d), g, dev)
         q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
         scale = d**-0.5
@@ -180,7 +225,9 @@ def phase_kernels(dev):
     # fold done before; the fold is timed on its own.
     cfg = MotionModuleConfig()
     for label, c, s in (("m3 518x518", 64, 5476), ("m0 518x924", 192, 2442),
-                        ("m2 518x924", 64, 2442), ("m3 518x924", 64, 9768)):
+                        ("m2 518x924", 64, 2442), ("m3 518x924", 64, 9768),
+                        ("vitl m3 518x518", 256, 5476), ("vitl m2 518x924", 256, 2442),
+                        ("vitl m3 518x924", 256, 9768)):
         b, t = 1, 32
         x = (torch.randn(b, t, s, c, device=dev, generator=g)).to(torch.bfloat16)
         p = motion_params(c, seed=c, device=dev)
@@ -200,6 +247,28 @@ def phase_kernels(dev):
         rows.append(dict(kernel="motion_module", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
                          max_abs_err=err, rel_err=rel, tol=MOTION_TOL, ms=ms, gn_fold_ms=fold_ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # The output tail at vitl's map sizes; 518x924 is beyond the JAX gate's
+    # VMEM term, so only this phase runs the kernel there.  ``plain_ms`` is
+    # the library chain (F.interpolate and cuDNN's conv2d); no single
+    # PyTorch call computes the tail, so ``library_ms`` is None.
+    for label, (n, h, w, oh, ow) in (("vitl 518x518", (32, 296, 296, 518, 518)),
+                                     ("vitl 518x924", (32, 296, 528, 518, 924))):
+        x, w1, b1, w2, b2 = tail_inputs(n, h, w, g, dev)
+        got = ot.output_tail(x, w1, b1, w2, b2, oh, ow)
+        want = ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow)
+        mutants = tail_mutant_errors(x, w1, b1, w2, b2, oh, ow)
+        ms = time_ms(lambda: ot.output_tail(x, w1, b1, w2, b2, oh, ow))
+        plain_ms = time_ms(lambda: ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow), iters=5)
+        c = x.shape[-1]
+        flops = n * oh * ow * (2.0 * 9 * c * 32 + 2.0 * 32)
+        nbytes = x.numel() * 2 + n * oh * ow * 2 + (9 * c * 32 + 65) * 2
+        b_ms, b_by = bound(flops, nbytes)
+        rows.append(dict(kernel="output_tail", shape=f"{label} ({n}x{h}x{w}x{c} -> {oh}x{ow})",
+                         max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
+                         tol=TAIL_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del x, got, want
     torch.cuda.synchronize()
     failed = False
     for r in rows:
@@ -210,7 +279,7 @@ def phase_kernels(dev):
         extra = "".join(f" mutant {k} rel_err={v:.3e}" for k, v in mutants.items())
         if "gn_fold_ms" in r:
             extra += f" gn_fold_ms={r['gn_fold_ms']:.4f}"
-        log(f"[kernels] {r['kernel']:<19} {r['shape']:<46} rel_err={err:.3e} (tol {r['tol']}) "
+        log(f"[kernels] {r['kernel']:<19} {r['shape']:<52} rel_err={err:.3e} (tol {r['tol']}) "
             f"max_abs_err={r['max_abs_err']:.3e}{extra} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms={r['library_ms']} {'OK' if ok else 'FAIL'}")
@@ -244,7 +313,7 @@ def main() -> int:
         logf = cuda_build.BUILD_DIR / f"{name}.log"
         if logf.exists():
             for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"[ptxas] {name}: {line.strip()}")
 
     rows = phase_kernels(dev)
@@ -258,6 +327,8 @@ def main() -> int:
                                "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
         "motion_module": ("fused_motion_module", "csrc/motion_module.cu",
                           "video_depth_anything_tpu/ops/pallas_motion.py:107"),
+        "output_tail": ("output_tail", "csrc/output_tail.cu",
+                        "video_depth_anything_tpu/ops/pallas_output_stack.py:180"),
     }
     kernels = []
     for name, (wrapper, src, replaces) in info.items():
@@ -284,9 +355,10 @@ def launch_counts() -> dict:
 def zero_counts() -> None:
     from video_depth_anything_torch.ops.flash_attention import flash_attention
     from video_depth_anything_torch.ops.motion_module import fused_motion_module
+    from video_depth_anything_torch.ops.output_tail import output_tail
     from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
-    for f in (flash_attention, temporal_attention, fused_motion_module):
+    for f in (flash_attention, temporal_attention, fused_motion_module, output_tail):
         f.launches = 0
 
 
@@ -310,7 +382,18 @@ def noise_weights(module, seed: int) -> None:
 
 
 WINDOW_TOL = 5e-2  # relative to max|plain|: bf16 rounding differs at every
-# fused epilogue and attention through 12 ViT blocks and 4 motion modules
+# fused epilogue and attention through 12 (vits) or 24 (vitl) ViT blocks and
+# 4 motion modules
+
+# Kernels each window must launch (count > 0) and must not launch (count 0),
+# from the port's gates (tests/test_torch_dispatch.py holds them to JAX's).
+WINDOW_PLANS = {
+    ("vits", 518, 518): (("flash_attention", "temporal_attention", "fused_motion_module"),
+                         ("output_tail",)),
+    ("vits", 518, 924): (("flash_attention", "fused_motion_module"), ("output_tail",)),
+    ("vitl", 518, 518): (("flash_attention", "fused_motion_module", "output_tail"), ()),
+    ("vitl", 518, 924): (("flash_attention", "fused_motion_module"), ("output_tail",)),
+}
 
 
 def phase_window(dev, smi: str):
@@ -319,47 +402,57 @@ def phase_window(dev, smi: str):
     from video_depth_anything_torch.models.vda import VDAModel
     from video_depth_anything_torch.ops.dispatch import plain_reference
 
-    model = VDAModel("vits", device=dev)
-    model.init_params(seed=0)
-    noise_weights(model.module, seed=1)
     g = torch.Generator(device=dev).manual_seed(2)
-    expect = {(518, 518): ("flash_attention", "temporal_attention", "fused_motion_module"),
-              (518, 924): ("flash_attention", "fused_motion_module")}
-    for (h, w), names in expect.items():
-        x = torch.randn(1, 32, h, w, 3, device=dev, generator=g)
-        zero_counts()
-        got = model.infer_window(x)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        with plain_reference():
-            want = model.infer_window(x)
-        ref = want.float()
-        rel = float((got.float() - ref).abs().max() / ref.abs().max())
-        finite = bool(torch.isfinite(got).all())
-        log(f"[window] vits 1x32x{h}x{w}: rel err kernels vs plain {rel:.3e} (tol {WINDOW_TOL}), "
-            f"finite={finite}, launches {counts}")
-        if not finite or not rel <= WINDOW_TOL or any(counts[n] == 0 for n in names):
-            raise SystemExit(f"window {h}x{w} failed")
-        xb = torch.randn(4, 32, h, w, 3, device=dev, generator=g)
-        model.infer_window(xb)
-        torch.cuda.synchronize()
-        iters = 3
-        t0 = time.perf_counter()
-        for _ in range(iters):
+    for encoder, wb in (("vits", 4), ("vitl", 1)):
+        model = VDAModel(encoder, device=dev)
+        model.init_params(seed=0)
+        noise_weights(model.module, seed=1)
+        for (enc, h, w), (needed, absent) in WINDOW_PLANS.items():
+            if enc != encoder:
+                continue
+            x = torch.randn(1, 32, h, w, 3, device=dev, generator=g)
+            zero_counts()
+            got = model.infer_window(x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with plain_reference():
+                want = model.infer_window(x)
+            torch.cuda.synchronize()
+            plain_peak = torch.cuda.max_memory_allocated() / 2**30
+            ref = want.float()
+            rel = float((got.float() - ref).abs().max() / ref.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            log(f"[window] {encoder} 1x32x{h}x{w}: rel err kernels vs plain {rel:.3e} "
+                f"(tol {WINDOW_TOL}), finite={finite}, launches {counts}, plain reference "
+                f"peak device memory {plain_peak:.2f} GiB")
+            if (not finite or not rel <= WINDOW_TOL or any(counts[k] == 0 for k in needed)
+                    or any(counts[k] != 0 for k in absent)):
+                raise SystemExit(f"{encoder} window {h}x{w} failed")
+            del got, want, ref
+            xb = torch.randn(wb, 32, h, w, 3, device=dev, generator=g)
             model.infer_window(xb)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / iters
-        log(f"[window] vits {h}x{w} window_batch 4: {dt * 1e3:.2f} ms per call, "
-            f"{4 * 32 / dt:.1f} frames/s ({smi})")
-        with plain_reference():
-            model.infer_window(xb[:1])
             torch.cuda.synchronize()
+            iters = 3
             t0 = time.perf_counter()
-            model.infer_window(xb[:1])
+            for _ in range(iters):
+                model.infer_window(xb)
             torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        log(f"[window] vits {h}x{w} plain path, window_batch 1: {dt * 1e3:.2f} ms per call, "
-            f"{32 / dt:.1f} frames/s ({smi})")
+            dt = (time.perf_counter() - t0) / iters
+            log(f"[window] {encoder} {h}x{w} window_batch {wb}: {dt * 1e3:.2f} ms per call, "
+                f"{wb * 32 / dt:.1f} frames/s ({smi})")
+            with plain_reference():
+                model.infer_window(xb[:1])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.infer_window(xb[:1])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            log(f"[window] {encoder} {h}x{w} plain path, window_batch 1: {dt * 1e3:.2f} ms per "
+                f"call, {32 / dt:.1f} frames/s ({smi})")
+            del xb
+        del model
+        torch.cuda.empty_cache()
 
 
 def write_clip(path: str, h: int, w: int, n: int = 76) -> None:
@@ -382,29 +475,28 @@ def phase_cli(smi: str) -> dict:
 
     from video_depth_anything_torch import run
 
-    clips = {"square": (480, 480, ("flash_attention", "temporal_attention",
-                                   "fused_motion_module")),
-             "wide": (480, 854, ("flash_attention", "fused_motion_module"))}
+    clips = {"square": (480, 480), "wide": (480, 854)}
+    runs = (("vits", "square", ("flash_attention", "temporal_attention", "fused_motion_module")),
+            ("vits", "wide", ("flash_attention", "fused_motion_module")),
+            ("vitl", "square", ("flash_attention", "fused_motion_module", "output_tail")))
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (h, w, _) in clips.items():
+        for name, (h, w) in clips.items():
             write_clip(os.path.join(tmp, f"{name}.mp4"), h, w)
-        zero_counts()
-        per_clip = {}
-        for name, (h, w, needed) in clips.items():
-            before = launch_counts()
+        totals = dict.fromkeys(launch_counts(), 0)
+        for encoder, name, needed in runs:
+            h, w = clips[name]
+            zero_counts()
             rc = run.main(["--input_video", os.path.join(tmp, f"{name}.mp4"), "--output_dir", tmp,
-                           "--encoder", "vits", "--random_init", "--save_npz"])
-            after = launch_counts()
-            delta = {k: after[k] - before[k] for k in after}
+                           "--encoder", encoder, "--random_init", "--save_npz"])
+            delta = launch_counts()
+            totals = {k: totals[k] + delta[k] for k in totals}
             depth = np.load(os.path.join(tmp, f"{name}_depth.npz"))["depth"]
             ok = (rc == 0 and depth.shape == (76, h, w) and bool(np.isfinite(depth).all())
                   and all(delta[k] > 0 for k in needed))
-            log(f"[cli] {name} {w}x{h}: rc={rc} depth {depth.shape} finite="
+            log(f"[cli] {encoder} {name} {w}x{h}: rc={rc} depth {depth.shape} finite="
                 f"{bool(np.isfinite(depth).all())} launches {delta} {'OK' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"cli run on the {name} clip failed")
-            per_clip[name] = delta
-        totals = launch_counts()
+                raise SystemExit(f"cli run of {encoder} on the {name} clip failed")
     log(f"[cli] launches over the main path: {totals} ({smi})")
     return totals
 

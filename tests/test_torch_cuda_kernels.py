@@ -9,6 +9,7 @@ import chip_smoke
 from video_depth_anything_torch.config import MotionModuleConfig
 from video_depth_anything_torch.ops import flash_attention as fa
 from video_depth_anything_torch.ops import motion_module as mm
+from video_depth_anything_torch.ops import output_tail as ot
 from video_depth_anything_torch.ops import temporal_attention as ta
 
 pytestmark = pytest.mark.cuda
@@ -39,6 +40,16 @@ def test_flash_attention_kernel(dev, n):
     assert chip_smoke.rel_err(got, fa.flash_attention_plain(q, k, v, d**-0.5)) <= chip_smoke.ATTN_TOL
 
 
+@pytest.mark.parametrize("n", [1370, 2443])  # vitl's 16 heads at 518² and 518×924
+def test_flash_attention_kernel_sixteen_heads(dev, n):
+    b, h, d = 2, 16, 64
+    g = torch.Generator(device=dev).manual_seed(n + h)
+    qkv = chip_smoke.attention_inputs((b, n, h * d), g, dev)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    got = fa.flash_attention(q, k, v, d**-0.5)
+    assert chip_smoke.rel_err(got, fa.flash_attention_plain(q, k, v, d**-0.5)) <= chip_smoke.ATTN_TOL
+
+
 @pytest.mark.parametrize("c,t", [(64, 32), (192, 32), (192, 8)])
 def test_temporal_attention_kernel(dev, c, t):
     g = torch.Generator(device=dev).manual_seed(c + t)
@@ -49,7 +60,8 @@ def test_temporal_attention_kernel(dev, c, t):
     assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
 
 
-@pytest.mark.parametrize("c,t,s", [(64, 32, 70), (192, 32, 33), (64, 8, 50), (192, 16, 20)])
+@pytest.mark.parametrize("c,t,s", [(64, 32, 70), (192, 32, 33), (64, 8, 50), (192, 16, 20),
+                                   (256, 32, 37), (256, 8, 21)])
 def test_motion_module_kernel(dev, c, t, s):
     g = torch.Generator().manual_seed(c)
     n = lambda *sh, std: (torch.randn(*sh, generator=g) * std).to(dev)  # noqa: E731
@@ -66,3 +78,19 @@ def test_motion_module_kernel(dev, c, t, s):
     # chip_smoke.py's tolerance, relative to the module's own contribution
     module_part = float((want - x.float()).abs().max())
     assert float((got - want).abs().max()) <= chip_smoke.MOTION_TOL * module_part
+
+
+@pytest.mark.parametrize("n,h,w,oh,ow", [
+    (1, 8, 12, 14, 21),      # one frame, one ragged tile in each direction
+    (3, 24, 40, 42, 70),     # several frames and tiles, out_w not a multiple of 32
+    (2, 37, 21, 65, 37),     # odd sizes, out_h not a multiple of 8
+])
+def test_output_tail_kernel(dev, n, h, w, oh, ow):
+    x, w1, b1, w2, b2 = chip_smoke.tail_inputs(n, h, w, torch.Generator(device=dev).manual_seed(n),
+                                               dev)
+    before = ot.output_tail.launches
+    got = ot.output_tail(x, w1, b1, w2, b2, oh, ow)
+    assert ot.output_tail.launches == before + 1
+    assert got.shape == (n, oh, ow, 1)
+    assert chip_smoke.rel_err(got, ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow)) <= \
+        chip_smoke.TAIL_TOL

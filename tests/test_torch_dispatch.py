@@ -1,21 +1,31 @@
-"""Which module takes which kernel on the vits main path, at 518×518 and
-518×924, in the port and in the JAX package.
+"""Which module takes which kernel on the vits and vitl main paths, at
+518×518 and 518×924, in the port and in the JAX package.
 
 The JAX side runs the JAX package's own gate functions with the kernels
-they would launch replaced by tags (and, for the temporal gate, a device
-list that says TPU), so the expected plan is derived from the JAX gates
-themselves.  Pure Python: nothing is computed."""
+they would launch replaced by tags (and, for the temporal gate and the
+output tail, a device check that says TPU), so the expected plan is derived
+from the JAX gates themselves.  Pure Python: nothing is computed."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from video_depth_anything_torch.config import get_model_config
 from video_depth_anything_torch.ops.flash_attention import flash_gate
 from video_depth_anything_torch.ops.motion_module import motion_gate
+from video_depth_anything_torch.ops.output_tail import output_tail_gate
 from video_depth_anything_torch.ops.temporal_attention import temporal_gate
 from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
-from video_depth_anything_tpu.ops import pallas_attention, pallas_motion, pallas_temporal
+from video_depth_anything_tpu.config import get_model_config as j_model_config
+from video_depth_anything_tpu.models.layers import _s2d_profitable
+from video_depth_anything_tpu.ops import (
+    pallas_attention,
+    pallas_motion,
+    pallas_output_stack,
+    pallas_temporal,
+)
 
 
 class _Tag(str):
@@ -27,31 +37,42 @@ class _FakeTPU:
     platform = "tpu"
 
 
-def _module_shapes(h, w):
-    """(name, h, w, C) of the four vits motion modules for one frame size."""
-    cfg = get_model_config("vits")
+class _Spec:
+    """Shape and dtype of an array, for gates that read nothing else."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.ndim, self.dtype = shape, len(shape), np.dtype(dtype)
+
+
+def _module_shapes(encoder, h, w):
+    """(name, h, w, C) of the four motion modules for one frame size."""
+    cfg = get_model_config(encoder)
     ph, pw = h // 14, w // 14
     oc, f = cfg.out_channels, cfg.features
     return [("m0", ph, pw, oc[2]), ("m1", (ph + 1) // 2, (pw + 1) // 2, oc[3]),
             ("m2", ph, pw, f), ("m3", 2 * ph, 2 * pw, f)]
 
 
-def port_plan(h, w):
-    cfg = get_model_config("vits")
+def port_plan(encoder, h, w):
+    cfg = get_model_config(encoder)
     heads = cfg.motion.num_heads
-    n = (h // 14) * (w // 14) + 1
-    plan = {"vit": "flash_attention" if flash_gate((32, n, 6, 64)) else "plain"}
-    for name, mh, mw, c in _module_shapes(h, w):
+    ph, pw = h // 14, w // 14
+    n = ph * pw + 1
+    plan = {"vit": "flash_attention" if flash_gate((32, n, cfg.vit.num_heads, 64)) else "plain"}
+    for name, mh, mw, c in _module_shapes(encoder, h, w):
         if motion_gate(cfg.motion, c, c, 32, mh, mw):
             plan[name] = "motion_module"
         elif temporal_gate((1, 32, mh * mw, c), heads):
             plan[name] = "temporal_attention"
         else:
             plan[name] = "plain"
+    tail = (32, 8 * ph, 8 * pw, cfg.features // 2)
+    plan["tail"] = ("output_tail" if output_tail_gate(cfg, tail, torch.bfloat16, 14 * ph, 14 * pw)
+                    else "plain")
     return plan
 
 
-def jax_plan(h, w, monkeypatch):
+def jax_plan(encoder, h, w, monkeypatch):
     monkeypatch.setattr(pallas_attention, "flash_attention_native",
                         lambda *a, **k: _Tag("flash_attention"))
     monkeypatch.setattr(pallas_attention, "spatial_flash_attention",
@@ -60,12 +81,17 @@ def jax_plan(h, w, monkeypatch):
                         lambda *a, **k: _Tag("temporal_attention"))
     monkeypatch.setattr(pallas_motion, "fused_motion_module",
                         lambda *a, **k: _Tag("motion_module"))
+    monkeypatch.setattr(pallas_output_stack, "fused_output_tail",
+                        lambda *a, **k: _Tag("output_tail"))
+    monkeypatch.setattr(pallas_output_stack, "_on_tpu", lambda: True)
     monkeypatch.setattr(jax, "devices", lambda *a: [_FakeTPU()])
+    mcfg = j_model_config(encoder)
     cfg, heads = JCfg(), JCfg().num_heads
-    n = (h // 14) * (w // 14) + 1
-    q = np.empty((32, n, 6, 64), np.uint8)
+    ph, pw = h // 14, w // 14
+    n = ph * pw + 1
+    q = np.empty((32, n, mcfg.vit.num_heads, 64), np.uint8)
     plan = {"vit": pallas_attention.try_spatial_attention(q, q, q, 0.125) or "plain"}
-    for name, mh, mw, c in _module_shapes(h, w):
+    for name, mh, mw, c in _module_shapes(encoder, h, w):
         x = np.empty((1, 32, mh * mw, c), np.uint8)
         d = c // heads
         # models/temporal.py:410-423: inner == channels, h·w ≥ 2048, d ≤ 64
@@ -75,15 +101,27 @@ def jax_plan(h, w, monkeypatch):
                                                           interpret=True)
         plan[name] = (fused or pallas_temporal.try_temporal_attention(
             x, x, x, heads=heads, scale=d**-0.5, auto=True) or "plain")
+    # models/dpt.py:172-233: no packed output stack, then the kernel's gate
+    f = mcfg.features
+    tail = None
+    if not (_s2d_profitable(f, f // 2) or _s2d_profitable(f // 2, 32)):
+        x = _Spec((32, 8 * ph, 8 * pw, f // 2), jnp.bfloat16)
+        k1, k2 = np.empty((3, 3, f // 2, 32), np.float32), np.empty((1, 1, 32, 1), np.float32)
+        tail = pallas_output_stack.try_fused_output_tail(x, k1, None, k2, None, 14 * ph, 14 * pw)
+    plan["tail"] = tail or "plain"
     return {k: str(v) for k, v in plan.items()}
 
 
-@pytest.mark.parametrize("h,w,expected", [
-    (518, 518, dict(vit="flash_attention", m0="temporal_attention", m1="plain",
-                    m2="temporal_attention", m3="motion_module")),
-    (518, 924, dict(vit="flash_attention", m0="motion_module", m1="plain",
-                    m2="motion_module", m3="motion_module")),
-])
-def test_dispatch_plan_matches_jax_gates(h, w, expected, monkeypatch):
-    assert jax_plan(h, w, monkeypatch) == expected
-    assert port_plan(h, w) == expected
+@pytest.mark.parametrize("encoder,h,w,expected", [
+    ("vits", 518, 518, dict(vit="flash_attention", m0="temporal_attention", m1="plain",
+                            m2="temporal_attention", m3="motion_module", tail="plain")),
+    ("vits", 518, 924, dict(vit="flash_attention", m0="motion_module", m1="plain",
+                            m2="motion_module", m3="motion_module", tail="plain")),
+    ("vitl", 518, 518, dict(vit="flash_attention", m0="plain", m1="plain", m2="plain",
+                            m3="motion_module", tail="output_tail")),
+    ("vitl", 518, 924, dict(vit="flash_attention", m0="plain", m1="plain",
+                            m2="motion_module", m3="motion_module", tail="plain")),
+], ids=["518-518-expected0", "518-924-expected1", "vitl-518-518", "vitl-518-924"])
+def test_dispatch_plan_matches_jax_gates(encoder, h, w, expected, monkeypatch):
+    assert jax_plan(encoder, h, w, monkeypatch) == expected
+    assert port_plan(encoder, h, w) == expected

@@ -1,6 +1,7 @@
 """Kernel C's plain version and the port's TemporalModule against the JAX
 motion module (``motion_module_reference`` and ``TemporalModule``) at the
-vits widths C = 64 and C = 192, plus the host-side pieces of the kernel
+vits widths C = 64 and C = 192 and the vitl width C = 256 (Kernel C's
+plain version), plus the host-side pieces of the kernel
 (GroupNorm fold, weight fragment order)."""
 
 import jax.numpy as jnp
@@ -48,7 +49,7 @@ def _raw(params, n=2):
     )
 
 
-@pytest.mark.parametrize("c,t,s", [(64, 8, 16), (192, 32, 9)])
+@pytest.mark.parametrize("c,t,s", [(64, 8, 16), (192, 32, 9), (256, 8, 9)])
 def test_plain_matches_motion_module_reference(c, t, s):
     _, params = _jax_module(c, t, 1, s, seed=c)
     raw = _raw(params)

@@ -387,10 +387,13 @@ extern "C" int vda_motion_module(
   p.scale = scale;
   p.ln_eps = ln_eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // The vits widths (m0: 192; m1-m3 at the gate's sizes: 64).
+  // The vits widths (m0: 192; m1-m3 at the gate's sizes: 64) and vitl's
+  // m2/m3 width (256: 5 * 64 * 264 * 2 = 165 KB of shared memory; the fp32
+  // FF accumulator, 64 KB, fits over the q/k buffers, 66 KB).
   switch (C) {
     case 64: return launch<64, 128>(p, st);
     case 192: return launch<192, 64>(p, st);
+    case 256: return launch<256, 64>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,8 +4,10 @@ Projections, the k = s transposed-conv resize stack, the scratch RN convs
 and refinenets, motion modules at the four points of the reference
 (layer_3 and layer_4 before the scratch convs, after refinenet4 and
 refinenet3), and the output head (output_conv1 → bilinear align_corners
-to 14·ph × 14·pw → output_conv2).  Parameter names are the reference torch
-keys (``projects``, ``resize_layers``, ``scratch``, ``motion_modules``).
+to 14·ph × 14·pw → output_conv2, ``ops/output_tail.py``).  Where the JAX
+gate sends that tail to its fused Pallas kernel (vitl at 518²), the tail
+kernel runs it.  Parameter names are the reference torch keys
+(``projects``, ``resize_layers``, ``scratch``, ``motion_modules``).
 Only the batch-window forward is ported; the streaming methods come with
 the streaming slices.
 """
@@ -20,6 +22,12 @@ import torch.nn as nn
 from video_depth_anything_torch.config import ModelConfig
 from video_depth_anything_torch.models.layers import Conv1x1, Conv2d, ConvTranspose2d
 from video_depth_anything_torch.models.temporal import TemporalModule
+from video_depth_anything_torch.ops.dispatch import kernels_enabled
+from video_depth_anything_torch.ops.output_tail import (
+    output_tail,
+    output_tail_gate,
+    output_tail_plain,
+)
 from video_depth_anything_torch.ops.resize import bilinear_resize
 
 
@@ -98,8 +106,12 @@ class DPTHeadTemporal(nn.Module):
     def _output_head(self, path1: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
         sc = self.scratch
         out = sc.output_conv1(path1)
-        out = bilinear_resize(out, ph * 14, pw * 14)
-        return sc.output_conv2(out)
+        oh, ow = ph * 14, pw * 14
+        conv3, conv1 = sc.output_conv2[0], sc.output_conv2[2]
+        args = (out, conv3.weight, conv3.bias, conv1.weight, conv1.bias, oh, ow)
+        if kernels_enabled() and output_tail_gate(self.cfg, out.shape, out.dtype, oh, ow):
+            return output_tail(*args)
+        return output_tail_plain(*args)
 
     def forward(self, features, batch: int, ph: int, pw: int,
                 skip_tmp_block: bool = False) -> torch.Tensor:

@@ -71,11 +71,12 @@ class VDAModel:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype != torch.bfloat16:
             raise NotImplementedError("fp32 inference on the card is not yet ported")
-        if self.device.type == "cuda" and self.cfg.encoder != "vits":
-            # vitb/vitl reach kernel shapes and a TPU kernel (vitl's output
-            # tail) that the port does not have yet; the CPU runs them plain.
+        if self.device.type == "cuda" and self.cfg.encoder not in ("vits", "vitl"):
+            # vitb reaches Kernel C at C = 128 and 384 and Kernel B at d = 16,
+            # which come with its own slice; the CPU runs it plain.
             raise NotImplementedError(
-                f"encoder {self.cfg.encoder!r} on the card is not yet ported (vits only)")
+                f"encoder {self.cfg.encoder!r} on the card is not yet ported (vits and vitl "
+                "only; vitb needs Kernel C at C = 128 and 384 and Kernel B at d = 16)")
         self.dtype = dtype
         self.module = VideoDepthAnything(self.cfg).to(self.device).eval()
 

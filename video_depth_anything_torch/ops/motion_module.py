@@ -188,8 +188,9 @@ def _kernel():
 
 
 # The instantiations of csrc/motion_module.cu: the vits widths (m0 192,
-# m1-m3 64).  Other widths come with the slices whose path runs them.
-_SUPPORTED_C = (64, 192)
+# m1-m3 64) and vitl's m2/m3 width (256).  Other widths come with the
+# slices whose path runs them.
+_SUPPORTED_C = (64, 192, 256)
 # Kernel operands after x, gna and gnb, in the C entry point's order.
 _OPERANDS = ("pe", "w_in", "b_in", "ln_scale", "ln_bias", "wq", "wk", "wv", "wo", "bo",
              "w1", "b1", "w2", "b2", "w_out", "b_out")

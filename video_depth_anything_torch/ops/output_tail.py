@@ -1,0 +1,188 @@
+"""The fused output tail of the DPT head (``csrc/output_tail.cu``).
+
+Replaces ``video_depth_anything_tpu/ops/pallas_output_stack.py``
+``_tail_kernel`` (``fused_output_tail``).  On ``output_conv1``'s map
+``(N, H, W, C)`` it computes bilinear align_corners resize to
+``(out_h, out_w)`` → conv3×3 C→32 + bias → ReLU → conv1×1 32→1 + bias →
+ReLU, and writes only the ``(N, out_h, out_w, 1)`` depth.
+``output_tail_plain`` is the same chain in plain PyTorch (``F.interpolate``
+and ``F.conv2d``), what ``DPTHeadTemporal._output_head`` runs where the
+gate says no, and the port of ``xla_output_tail``
+(``pallas_output_stack.py:463``).
+
+``output_tail_gate`` is the JAX dispatch rule (``models/dpt.py:172-233``
+and ``try_fused_output_tail``): bf16, no packed small-channel output stack
+(of the shipped heads only vitl's, C = 128, has none), C in {32, 64, 128},
+h, w ≥ 2, and the TPU kernel's VMEM estimate within its 97 MiB budget.
+That admits vitl's 518² window and refuses 518×924.
+
+Weights use the port's (the reference torch) layout: ``w1 (32, C, 3, 3)``,
+``b1 (32,)``, ``w2 (1, 32, 1, 1)``, ``b2 (1,)``.
+
+Bound on the H100: tensor-core FLOPs (73,728 per output pixel at C = 128);
+see the source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from video_depth_anything_torch.ops import cuda_build
+from video_depth_anything_torch.ops.motion_module import _frag
+from video_depth_anything_torch.ops.resize import _linear_taps, bilinear_resize
+
+_MID = 32  # output_conv2's hidden width, fixed by the architecture
+_CHUNK = 256  # the TPU kernel's horizontal GEMM chunk (enters its VMEM estimate)
+_VMEM_BUDGET = 97 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _s2d_profitable(cin: int, cout: int) -> bool:
+    """The JAX rule for the 2×2 space-to-depth conv layout
+    (``models/layers.py:65-74``): packing pays where it cuts the TPU's
+    128-lane padding."""
+    pad = lambda c: _round_up(c, 128)  # noqa: E731
+    return pad(4 * cin) * pad(4 * cout) // 4 < pad(cin) * pad(cout)
+
+
+def _packed_plan(features: int):
+    """``DPTHeadTemporal._packed_plan``: "pre" (vits), "post" (vitb) or
+    None (vitl); only None leaves the tail to the fused kernel."""
+    if _s2d_profitable(features, features // 2):
+        return "pre"
+    if _s2d_profitable(features // 2, _MID):
+        return "post"
+    return None
+
+
+def _pick_row_block(out_h: int, top: int = 104) -> int:
+    best = None
+    for r in range(top, 31, -8):
+        hr = -(-out_h // r) * r
+        if best is None or hr < best[0] or (hr == best[0] and r > best[1]):
+            best = (hr, r)
+    return best[1]
+
+
+def _row_span(in_h: int, out_h: int, r_blk: int) -> int:
+    """Input rows the TPU kernel holds per row block (``_block_tables``)."""
+    lo, hi, _, _ = _linear_taps(in_h, out_h)
+    span = 0
+    for rb in range(-(-out_h // r_blk)):
+        first = lo[max(rb * r_blk - 1, 0)]
+        last = hi[min(rb * r_blk + r_blk, out_h - 1)]
+        span = max(span, int(last - first + 1))
+    return min(span, in_h)
+
+
+def _vmem_estimate(n: int, h: int, w: int, c: int, out_h: int, out_w: int) -> int:
+    """The TPU kernel's VMEM estimate (``pallas_output_stack.py:558-570``)."""
+    groups = {32: 4, 64: 2}.get(c, 1)
+    if groups > 1 and n % groups:
+        groups = 1
+    r_blk = _pick_row_block(out_h)
+    cl = max(groups * c, 128)
+    r_sub = r_blk if r_blk <= 24 else -(-r_blk // 4)
+    span = _row_span(h, out_h, r_blk)
+    ws = _round_up(out_w + 2, 8)
+    w2 = _round_up(max(ws + 8, 1 + max(out_w, _CHUNK)), 8)
+    xbuf = span * _round_up(w, 8) * cl * 2
+    h2 = span * w2 * cl * 4
+    r2 = (r_blk + 2) * (w2 + 2 * ws) * cl * 2
+    conv_tmp = 3 * (r_sub + 2) * ws * cl * 2 + 3 * (r_sub + 2) * ws * 128 * 4
+    return xbuf + h2 + r2 + conv_tmp
+
+
+def output_tail_gate(cfg, shape, dtype, out_h: int, out_w: int) -> bool:
+    """True where the JAX package runs the fused Pallas tail on
+    ``output_conv1``'s map of ``shape (N, H, W, C)``.  The weight shapes
+    the JAX gate also checks, ``(3, 3, C, 32)`` and 32, hold by
+    construction when C is the head's ``features // 2``."""
+    if dtype != torch.bfloat16 or len(shape) != 4 or _packed_plan(cfg.features) is not None:
+        return False
+    n, h, w, c = shape
+    if c not in (32, 64, 128) or c != cfg.features // 2 or h < 2 or w < 2:
+        return False
+    return _vmem_estimate(n, h, w, c, out_h, out_w) <= _VMEM_BUDGET
+
+
+def output_tail_plain(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
+    """``(N, H, W, C)`` → ``(N, out_h, out_w, 1)``: ``F.interpolate``
+    (align_corners, fp32 arithmetic, one rounding to x's dtype), then
+    ``F.conv2d`` twice with ReLUs, in x's dtype."""
+    dt = x.dtype
+    y = bilinear_resize(x, out_h, out_w).permute(0, 3, 1, 2)
+    y = torch.relu(F.conv2d(y, w1.to(dt), b1.to(dt), padding=1))
+    y = torch.relu(F.conv2d(y, w2.to(dt), b2.to(dt)))
+    return y.permute(0, 2, 3, 1)
+
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = cuda_build.library("output_tail").vda_output_tail
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 8 + [i] * 6 + [vp]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+# The instantiation of csrc/output_tail.cu: vitl's head width.
+_SUPPORTED_C = (128,)
+
+
+@functools.lru_cache(maxsize=16)
+def _taps(in_size: int, out_size: int, device: torch.device):
+    """Device tables of the align_corners taps: int32 ``[lo; hi]`` and fp32
+    ``[w_lo; w_hi]``, each ``(2 * out_size,)``."""
+    lo, hi, wlo, whi = _linear_taps(in_size, out_size)
+    idx = torch.from_numpy(np.concatenate([lo, hi]).astype(np.int32)).to(device)
+    wts = torch.from_numpy(np.concatenate([wlo, whi])).to(device)
+    return idx, wts
+
+
+def output_tail(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
+    """``(N, H, W, C)`` → ``(N, out_h, out_w, 1)`` depth.  CPU tensors take
+    the plain version; CUDA tensors launch the tail kernel or raise."""
+    if x.device.type == "cpu":
+        return output_tail_plain(x, w1, b1, w2, b2, out_h, out_w)
+    n, h, w, c = x.shape
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"output_tail kernel takes bf16, got {x.dtype}")
+    if c not in _SUPPORTED_C:
+        raise NotImplementedError(f"output_tail kernel takes C in {_SUPPORTED_C}, got {c}")
+    if (tuple(w1.shape) != (_MID, c, 3, 3) or b1.numel() != _MID or w2.numel() != _MID
+            or b2.numel() != 1):
+        raise ValueError("output_tail takes w1 (32, C, 3, 3), b1 (32,), w2 (1, 32, 1, 1), b2 (1,)")
+    if any(t.device != x.device for t in (w1, b1, w2, b2)):
+        raise ValueError("output_tail operands must share x's device")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("output_tail needs a 16-byte aligned input")
+    wf = _frag(w1.permute(2, 3, 1, 0).reshape(9 * c, _MID))
+    epi = torch.cat([b1.reshape(-1), w2.reshape(-1), b2.reshape(-1)]).to(torch.bfloat16).float()
+    yi, yw = _taps(h, out_h, x.device)
+    xi, xw = _taps(w, out_w, x.device)
+    out = torch.empty((n, out_h, out_w, 1), dtype=x.dtype, device=x.device)
+    err = _kernel()(
+        *(cuda_build.ptr(t) for t in (x, yi, yw, xi, xw, wf, epi, out)),
+        n, h, w, c, out_h, out_w, cuda_build.stream_of(x),
+    )
+    cuda_build.check(err, "output_tail")
+    output_tail.launches += 1
+    return out
+
+
+output_tail.launches = 0

@@ -1,9 +1,10 @@
 """Where a window's time goes on the card.
 
-    python -m video_depth_anything_torch.profile_window [--height 518 --width 518]
+    python -m video_depth_anything_torch.profile_window [--encoder vitl] [--height 518 --width 518]
 
-Runs ``VDAModel.infer_window`` for vits (noised seeded weights, full
-width and depth) on ``window_batch`` windows of 32 frames under
+Runs ``VDAModel.infer_window`` for ``--encoder`` (vits by default; noised
+seeded weights, full width and depth) on ``window_batch`` windows of 32
+frames (the pipeline's default: 4 for vits, 1 for vitl) under
 ``torch.profiler``, then prints: the wall time per call, the device busy
 share (sum of kernel times over the wall time of the profiled calls), the
 top kernels by device time, and the device time grouped by the port's
@@ -19,7 +20,8 @@ import time
 from collections import defaultdict
 
 
-PORT_KERNELS = ("flash_fwd_kernel", "temporal_attn_kernel", "motion_module_kernel")
+PORT_KERNELS = ("flash_fwd_kernel", "temporal_attn_kernel", "motion_module_kernel",
+                "output_tail_kernel")
 
 
 def category(name: str) -> str:
@@ -43,9 +45,11 @@ def category(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--encoder", type=str, default="vits", choices=["vits", "vitl"])
     ap.add_argument("--height", type=int, default=518)
     ap.add_argument("--width", type=int, default=518)
-    ap.add_argument("--window_batch", type=int, default=4)
+    ap.add_argument("--window_batch", type=int, default=None,
+                    help="windows per call (default: the pipeline's, 4 for vits, 1 for vitl)")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", type=str, default=None, help="chrome trace output path")
@@ -58,7 +62,9 @@ def main(argv=None) -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    model = VDAModel("vits")
+    model = VDAModel(args.encoder)
+    if args.window_batch is None:
+        args.window_batch = 4 if model.cfg.features <= 128 else 1
     model.init_params(seed=0)
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -88,7 +94,7 @@ def main(argv=None) -> int:
             for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]]
     frames = args.window_batch * 32
     print(f"{smi}")
-    print(f"vits {args.window_batch}x32x{args.height}x{args.width}: {wall * 1e3:.2f} ms per call, "
+    print(f"{args.encoder} {args.window_batch}x32x{args.height}x{args.width}: {wall * 1e3:.2f} ms per call, "
           f"{frames / wall:.1f} frames/s")
     dev_ms = total / args.iters / 1e3
     print(f"device kernel time {dev_ms:.2f} ms per call, busy share {dev_ms / (wall * 1e3):.3f}")

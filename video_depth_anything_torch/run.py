@@ -23,7 +23,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_video", type=str, required=True)
     p.add_argument("--output_dir", type=str, default="./outputs")
     p.add_argument("--encoder", type=str, default="vits", choices=["vits", "vitb", "vitl"],
-                   help="vits on the card; vitb and vitl on the CPU only for now")
+                   help="vits and vitl on the card; vitb on the CPU only for now")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="torch .pth; default ./checkpoints/video_depth_anything_<encoder>.pth")
     p.add_argument("--random_init", action="store_true", help="seeded random weights")
@@ -46,10 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
 def kernel_launches() -> dict:
     from video_depth_anything_torch.ops.flash_attention import flash_attention
     from video_depth_anything_torch.ops.motion_module import fused_motion_module
+    from video_depth_anything_torch.ops.output_tail import output_tail
     from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
     return {f.__name__: f.launches for f in (flash_attention, temporal_attention,
-                                              fused_motion_module)}
+                                              fused_motion_module, output_tail)}
 
 
 def main(argv=None) -> int:

@@ -7,12 +7,13 @@ Phases (each failure ends the run with a non-zero exit):
 1. card: print the card's name and power limit, build the CUDA kernels
    from ``video_depth_anything_torch/csrc``.
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   in bf16 at the main path's vits and vitl shapes (one window), on inputs
-   whose attention is peaked, and show that wrong kernels (uniform
-   attention, a dropped last key tile; for the output tail, align_corners
-   False taps and a conv3x3 without its off-centre taps) would fail the
-   same tolerance; time kernel, plain version, and the library call where
-   one exists.
+   in bf16 at the main path's vits and vitl shapes (one window; for Kernel
+   A's backward, the training shapes), on inputs whose attention is peaked,
+   and show that wrong kernels (uniform attention, a dropped last key tile;
+   for the backward, Delta = 0 and a dropped last query tile; for the
+   output tail, align_corners False taps and a conv3x3 without its
+   off-centre taps) would fail the same tolerance; time kernel, plain
+   version, and the library call where one exists.
 3. window: one full-width, full-depth vits window and one vitl window
    (noised seeded weights) at 518x518 and 518x924, kernel path against the
    plain path on the card; frames/s of ``infer_window`` at the pipeline's
@@ -24,6 +25,18 @@ Phases (each failure ends the run with a non-zero exit):
    be finite and of the clip's shape and every kernel's launch count must
    move.  This is the main path: the counts are zeroed just before and read
    just after.
+5. train: one ``Trainer.step`` (encoder trained, bf16) on the kernel path
+   against one on the plain path, same noised weights and batch: vits at
+   518x518 with 16 frames (Kernels A forward and backward, B and C) and
+   vitl at 266x266 with 8 (A at 16 heads, the tail kernel); the loss, the
+   gradient of every parameter group, no parameter without a gradient, and
+   the launch counts.  Then a frozen-encoder step, which must leave the
+   encoder bit-identical.
+6. train-cli: ``python -m video_depth_anything_torch.train`` (in-process)
+   on a synthetic PointOdyssey tree, vits at 518x518 with 32-frame clips,
+   6 steps and a resume for 2 more; the losses must be finite, the steps
+   continue, and Kernels A (forward and backward), B and C must all run.
+   The main path of training: counts zeroed before, read after.
 The last two lines are the kernels JSON object and the contract line
 ``{"ok": true, "device": {...}}``.
 """
@@ -101,6 +114,12 @@ MOTION_TOL = 5e-2  # Kernel C, relative to max|plain - x| (the module's own
 # contribution): the plain version rounds each GEMM output and each bias add
 # to bf16 separately, the kernel once per fused epilogue, through ~10
 # chained products.
+BWD_TOL = 2e-2  # Kernel A's backward, relative to max|plain| of each of dq,
+# dk and dv: the kernel recomputes P from Kernel A's log-sum-exp and takes
+# Delta from the bf16 output, and its fp32 sums over 64-wide tiles run in
+# another order than the dense plain version's; ds, p and the gradients
+# are rounded to bf16 at the same points in both.  bwd_mutant_errors shows
+# that wrong kernels miss by far more.
 TAIL_TOL = 2.5 * 2.0**-8  # the output tail, relative to max|plain|: the JAX
 # package's bound for its fused tail against the XLA chain
 # (tests/test_output_stack.py:56).  Kernel and plain chain round at the same
@@ -132,6 +151,41 @@ def mutant_errors(plain, q, k, v, scale, axis: int, tile: int) -> dict:
     uniform = v.float().mean(axis, keepdim=True).expand(v.shape).to(v.dtype)
     dropped = plain(q, k.narrow(axis, 0, keep), v.narrow(axis, 0, keep), scale)
     return {"uniform": rel_err(uniform, want), "drop_last_tile": rel_err(dropped, want)}
+
+
+def bwd_rel_err(got, want) -> float:
+    """The worst of dq, dk and dv, each relative to its own max|plain|."""
+    return max(rel_err(a, b) for a, b in zip(got, want))
+
+
+def bwd_inputs(b: int, n: int, h: int, gen, device):
+    """Peaked bf16 q, k, v (``attention_inputs``) as strided views of one
+    qkv tensor, Kernel A's output and log-sum-exp on them, and a cotangent
+    g ~ N(0, 1)."""
+    import torch
+
+    from video_depth_anything_torch.ops.flash_attention import flash_attention
+
+    d = 64
+    qkv = attention_inputs((b, n, h * d), gen, device)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    o, lse = flash_attention(q, k, v, d**-0.5, with_lse=True)
+    g = torch.randn(b, n, h, d, generator=gen, device=device).to(torch.bfloat16)
+    return q, k, v, o, lse, g
+
+
+def bwd_mutant_errors(q, k, v, o, g, scale) -> dict:
+    """How far two wrong backward kernels miss the plain version on the
+    same inputs (``bwd_rel_err``): one that takes Delta = 0, and one whose
+    dK/dV loop drops the last (ragged) query tile."""
+    from video_depth_anything_torch.ops.flash_attention import flash_attention_bwd_plain as bwd
+
+    want = bwd(q, k, v, o, g, scale)
+    no_delta = bwd(q, k, v, o * 0, g, scale)
+    keep = (q.shape[1] - 1) // 64 * 64
+    _, dk, dv = bwd(q[:, :keep], k, v, o[:, :keep], g[:, :keep], scale)
+    return {"delta_zero": bwd_rel_err(no_delta, want),
+            "drop_last_query_tile": bwd_rel_err((want[0], dk, dv), want)}
 
 
 def tail_inputs(n: int, h: int, w: int, gen, device):
@@ -199,6 +253,34 @@ def phase_kernels(dev):
                          max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=ATTN_TOL,
                          mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
+
+    # Kernel A's backward at the training shapes: a 518² window of 32
+    # frames and the CLI's default clip (8 frames at 266², 362 tokens) for
+    # vits (6 heads) and vitl (16).  The library call is the backward alone
+    # of SDPA through autograd.
+    for label, bt, n, h in (("vits 518x518", 32, 1370, 6), ("vits 266x266", 8, 362, 6),
+                            ("vitl 266x266", 8, 362, 16)):
+        d = 64
+        scale = d**-0.5
+        q, k, v, o, lse, g_ = bwd_inputs(bt, n, h, g, dev)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, g_, scale)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, g_, scale)
+        mutants = bwd_mutant_errors(q, k, v, o, g_, scale)
+        ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g_, scale))
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, g_, scale), iters=3,
+                           warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        gt = g_.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+        elems = bt * n * h * d
+        b_ms, b_by = bound(10.0 * bt * h * n * n * d, 8.0 * elems * 2 + bt * h * n * 4)
+        rows.append(dict(kernel="flash_attention_bwd",
+                         shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
+                         max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
+                         rel_err=bwd_rel_err(got, want), tol=BWD_TOL, mutants=mutants, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        del q, k, v, o, lse, g_, got, want, qt, kt, vt, out, gt
 
     for label, c in (("m0 518x518", 192), ("m2 518x518", 64)):
         b, t, s, heads = 1, 32, 1369, 8
@@ -306,7 +388,7 @@ def main() -> int:
     dev = torch.device("cuda")
     from video_depth_anything_torch.ops import cuda_build
 
-    t0 = time.time()
+    t_start = t0 = time.time()
     cuda_build.build_all()
     log(f"[card] kernels built in {time.time() - t0:.1f} s")
     for name in cuda_build.SOURCES:
@@ -319,10 +401,14 @@ def main() -> int:
     rows = phase_kernels(dev)
     phase_window(dev, smi)
     launches = phase_cli(smi)
+    phase_train_check(dev, smi)
+    train_launches = phase_train_cli(smi)
 
     info = {
         "flash_attention": ("flash_attention", "csrc/flash_attention.cu",
                             "video_depth_anything_tpu/ops/pallas_attention.py:202"),
+        "flash_attention_bwd": ("flash_attention_bwd", "csrc/flash_attention_bwd.cu",
+                                "video_depth_anything_tpu/ops/pallas_attention.py:248"),
         "temporal_attention": ("temporal_attention", "csrc/temporal_attention.cu",
                                "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
         "motion_module": ("fused_motion_module", "csrc/motion_module.cu",
@@ -335,10 +421,11 @@ def main() -> int:
         first = next(r for r in rows if r["kernel"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
-            "replaces": replaces, "launches": launches[wrapper],
+            "replaces": replaces, "launches": launches[wrapper] + train_launches[wrapper],
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
         })
+    log(f"[done] every phase passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -353,12 +440,13 @@ def launch_counts() -> dict:
 
 
 def zero_counts() -> None:
-    from video_depth_anything_torch.ops.flash_attention import flash_attention
+    from video_depth_anything_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from video_depth_anything_torch.ops.motion_module import fused_motion_module
     from video_depth_anything_torch.ops.output_tail import output_tail
     from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
-    for f in (flash_attention, temporal_attention, fused_motion_module, output_tail):
+    for f in (flash_attention, flash_attention_bwd, temporal_attention, fused_motion_module,
+              output_tail):
         f.launches = 0
 
 
@@ -386,13 +474,17 @@ WINDOW_TOL = 5e-2  # relative to max|plain|: bf16 rounding differs at every
 # 4 motion modules
 
 # Kernels each window must launch (count > 0) and must not launch (count 0),
-# from the port's gates (tests/test_torch_dispatch.py holds them to JAX's).
+# from the port's gates (tests/test_torch_dispatch.py holds them to JAX's);
+# inference never runs the backward.
 WINDOW_PLANS = {
     ("vits", 518, 518): (("flash_attention", "temporal_attention", "fused_motion_module"),
-                         ("output_tail",)),
-    ("vits", 518, 924): (("flash_attention", "fused_motion_module"), ("output_tail",)),
-    ("vitl", 518, 518): (("flash_attention", "fused_motion_module", "output_tail"), ()),
-    ("vitl", 518, 924): (("flash_attention", "fused_motion_module"), ("output_tail",)),
+                         ("output_tail", "flash_attention_bwd")),
+    ("vits", 518, 924): (("flash_attention", "fused_motion_module"),
+                         ("output_tail", "flash_attention_bwd")),
+    ("vitl", 518, 518): (("flash_attention", "fused_motion_module", "output_tail"),
+                         ("flash_attention_bwd",)),
+    ("vitl", 518, 924): (("flash_attention", "fused_motion_module"),
+                         ("output_tail", "flash_attention_bwd")),
 }
 
 
@@ -468,6 +560,196 @@ def write_clip(path: str, h: int, w: int, n: int = 76) -> None:
         cv2.circle(f, (int(w * (0.2 + 0.6 * i / n)), h // 2), h // 6, (255, 255, 255), -1)
         writer.write(f)
     writer.release()
+
+
+LOSS_TOL = 2e-2  # training check, kernel path vs plain path: the loss, relative
+GRAD_TOL = 5e-2  # ||g_kernel - g_plain|| / ||g_plain|| over all parameters
+GROUP_TOL = 1e-1  # the same within each group (encoder, each motion module, the
+# rest of the head): bf16 rounds at other points in every kernel and the
+# error of the forward (WINDOW_TOL) reaches every gradient
+
+# Kernel launches of one kernel-path Trainer.step with the encoder trained
+# (whole-forward recompute: Kernel A's forward runs twice per block), and
+# the kernels that must run in it.
+TRAIN_PLANS = {
+    ("vits", 518, 16): ("flash_attention", "flash_attention_bwd", "temporal_attention",
+                        "fused_motion_module"),
+    ("vitl", 266, 8): ("flash_attention", "flash_attention_bwd", "output_tail"),
+}
+
+
+def grad_groups(name: str) -> str:
+    if name.startswith("pretrained."):
+        return "encoder"
+    if name.startswith("head.motion_modules."):
+        return "motion_module_" + name.split(".")[2]
+    return "head"
+
+
+def train_batch(t: int, side: int, gen, device) -> dict:
+    """One clip of noise frames with a smooth disparity ramp as the target
+    and 10 % of the pixels masked out."""
+    import torch
+
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, side, device=device),
+                            torch.linspace(0, 1, side, device=device), indexing="ij")
+    return {"frames": torch.randn(1, t, side, side, 3, generator=gen, device=device),
+            "disparity": (0.3 + 0.5 * xx + 0.2 * yy).expand(1, t, side, side).contiguous(),
+            "mask": (torch.rand(1, t, side, side, generator=gen, device=device) > 0.1).float()}
+
+
+def train_step(model, init: dict, batch: dict, train_encoder: bool = True):
+    """Reset the weights to ``init``, run one ``Trainer.step``; return the
+    metrics, every parameter's gradient (fp32, zeros where none) and the
+    launch counts of that step."""
+    import torch
+
+    from video_depth_anything_torch.train.trainer import Trainer, make_optimizer
+
+    model.module.load_state_dict(init)
+    trainer = Trainer(model.module, make_optimizer(1e-5, train_encoder=train_encoder),
+                      train_encoder=train_encoder)
+    zero_counts()
+    metrics = trainer.step(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.float().clone()
+             for n, p in model.module.named_parameters()}
+    model.module.zero_grad(set_to_none=True)
+    del trainer
+    return {k: float(v) for k, v in metrics.items()}, grads, counts
+
+
+def phase_train_check(dev, smi: str) -> None:
+    """One Trainer.step on the kernel path against one on the plain path,
+    same noised weights and batch, encoder trained, bf16; then one step
+    with the encoder frozen, which must leave ``pretrained.*`` bit-identical."""
+    import torch
+
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for (encoder, side, t), needed in TRAIN_PLANS.items():
+        model = VDAModel(encoder, device=dev)
+        model.init_params(seed=0)
+        noise_weights(model.module, seed=1)
+        init = {k: v.clone() for k, v in model.module.state_dict().items()}
+        batch = train_batch(t, side, g, dev)
+        got, g_kernel, counts = train_step(model, init, batch)
+        torch.cuda.reset_peak_memory_stats()
+        with plain_reference():
+            want, g_plain, _ = train_step(model, init, batch)
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        depth = model.cfg.vit.depth
+        loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        sq = {}
+        for n in g_plain:
+            d2, p2 = sq.get(grad_groups(n), (0.0, 0.0))
+            sq[grad_groups(n)] = (d2 + float((g_kernel[n] - g_plain[n]).pow(2).sum()),
+                                  p2 + float(g_plain[n].pow(2).sum()))
+        total = (sum(d for d, _ in sq.values()) / sum(p for _, p in sq.values())) ** 0.5
+        groups = {k: (d / p) ** 0.5 for k, (d, p) in sq.items()}
+        missing = [n for n in g_plain if bool(g_plain[n].any()) and not bool(g_kernel[n].any())]
+        ok = (loss_rel <= LOSS_TOL and total <= GRAD_TOL and max(groups.values()) <= GROUP_TOL
+              and not missing and all(counts[k] > 0 for k in needed)
+              and counts["flash_attention"] == 2 * depth and counts["flash_attention_bwd"] == depth)
+        log(f"[train] {encoder} 1x{t}x{side}x{side} encoder trained: loss kernel {got['loss']:.6f} "
+            f"plain {want['loss']:.6f} (rel {loss_rel:.3e}, tol {LOSS_TOL}); grad rel err all "
+            f"{total:.3e} (tol {GRAD_TOL}), by group "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sorted(groups.items()))
+            + f" (tol {GROUP_TOL}); parameters with a plain gradient but none on the kernel path: "
+            f"{missing}; launches {counts}; plain reference peak device memory {plain_peak:.2f} GiB "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"training check of {encoder} failed")
+        if encoder == "vits":
+            small = train_batch(8, 266, g, dev)
+            got, grads, _ = train_step(model, init, small, train_encoder=False)
+            after = model.module.state_dict()
+            frozen = all(torch.equal(after[k], init[k]) for k in init if k.startswith("pretrained."))
+            moved = any(not torch.equal(after[k], init[k]) for k in init if k.startswith("head."))
+            log(f"[train] vits 1x8x266x266 encoder frozen: loss {got['loss']:.6f}, pretrained.* "
+                f"bit-identical {frozen}, head moved {moved} {'OK' if frozen and moved else 'FAIL'}")
+            if not (frozen and moved):
+                raise SystemExit("the frozen-encoder step changed the encoder or left the head")
+        del model, init, g_kernel, g_plain
+        torch.cuda.empty_cache()
+
+
+def phase_train_cli(smi: str) -> dict:
+    """``python -m video_depth_anything_torch.train`` in-process on a
+    synthetic PointOdyssey tree: vits, encoder trained, 518², 32-frame
+    clips, 6 steps with accumulation, a schedule, checkpoints and
+    validation, then a resume for 2 more.  The main path of training: the
+    counts are zeroed just before and read just after."""
+    import json
+
+    import numpy as np
+
+    from video_depth_anything_torch.train.__main__ import main as train_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = os.path.join(tmp, "po"), os.path.join(tmp, "out")
+        write_pointodyssey(root)
+        args = ["--dataset", "pointodyssey", "--root", root, "--encoder", "vits", "--train_encoder",
+                "--input_size", "518", "--clip_len", "32", "--accum_steps", "2", "--warmup_steps",
+                "2", "--decay_steps", "6", "--save_every", "3", "--eval_every", "3",
+                "--log_every", "1", "--out", out]
+        zero_counts()
+        rc = train_main(args + ["--steps", "6"])
+        rc_resumed = train_main(args + ["--steps", "8", "--resume"])
+        counts = launch_counts()
+        lines = [json.loads(x) for x in open(os.path.join(out, "train_log.jsonl"))]
+        saved = sorted(f for f in os.listdir(out) if f.endswith(".pth"))
+    steps = [x["step"] for x in lines]
+    finite = all(np.isfinite(x[k]) for x in lines for k in ("loss", "ssi", "tgm", "grad_norm"))
+    needed = ("flash_attention", "flash_attention_bwd", "temporal_attention", "fused_motion_module")
+    # the first run's step k was logged (k / sps) s after its start, before
+    # that step's validation: steps 2 and 3 run back to back
+    t1, t3 = (k / lines[k - 1]["sps"] for k in (1, 3))
+    clips_s = 2 / (t3 - t1)
+    ok = (rc == 0 and rc_resumed == 0 and steps == list(range(1, 9)) and finite
+          and "val_absrel_disp" in lines[2] and all(counts[k] > 0 for k in needed))
+    log(f"[train-cli] vits 518x518 clips of 32, encoder trained: rc {rc}/{rc_resumed}, logged steps "
+        f"{steps}, losses {[round(x['loss'], 5) for x in lines]}, finite {finite}, validation "
+        f"{ {k: lines[2].get(k) for k in ('val_absrel_disp', 'val_delta1_disp')} }, checkpoints "
+        f"{saved}, launches {counts} {'OK' if ok else 'FAIL'}")
+    log(f"[train-cli] steps 2-3: {clips_s:.3f} clips/s, {32 * clips_s:.1f} frames/s ({smi})")
+    if not ok:
+        raise SystemExit("the training CLI run failed")
+    return counts
+
+
+def write_pointodyssey(root: str, scenes: int = 2, frames: int = 40, h: int = 360, w: int = 640,
+                       seed: int = 0) -> None:
+    """A synthetic PointOdyssey tree (``train/<scene>/rgbs/rgb_*.jpg``,
+    ``depths/depth_*.png`` 16-bit at meters·65.535, ``anno.npz``): a
+    tilted depth ramp with a disc that moves nearer over the clip, and
+    frames whose brightness follows the depth."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for s in range(scenes):
+        base = os.path.join(root, "train", f"scene_{s:02d}")
+        os.makedirs(os.path.join(base, "rgbs"))
+        os.makedirs(os.path.join(base, "depths"))
+        tilt = rng.uniform(0.5, 2.0, size=2)
+        for i in range(frames):
+            depth = 2.0 + tilt[0] * xx / w + tilt[1] * yy / h
+            cx, cy = w * (0.2 + 0.6 * i / frames), h * (0.5 + 0.1 * s)
+            disc = (xx - cx) ** 2 + (yy - cy) ** 2 < (h / 5) ** 2
+            depth = np.where(disc, 1.0 + 0.5 * i / frames, depth)
+            shade = (255 * (1.2 - depth / 5.0)).clip(0, 255)
+            rgb = np.stack([shade, shade * 0.8, 255 - shade], -1) + rng.randint(0, 8, (h, w, 1))
+            cv2.imwrite(os.path.join(base, "rgbs", f"rgb_{i:05d}.jpg"), rgb.clip(0, 255).astype(np.uint8))
+            cv2.imwrite(os.path.join(base, "depths", f"depth_{i:05d}.png"),
+                        np.round(depth / 1000.0 * 65535.0).astype(np.uint16))
+        np.savez(os.path.join(base, "anno.npz"),
+                 intrinsics=np.tile(np.eye(3, dtype=np.float32) * 300, (frames, 1, 1)),
+                 extrinsics=np.tile(np.eye(4, dtype=np.float32), (frames, 1, 1)))
 
 
 def phase_cli(smi: str) -> dict:

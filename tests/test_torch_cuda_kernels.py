@@ -50,6 +50,52 @@ def test_flash_attention_kernel_sixteen_heads(dev, n):
     assert chip_smoke.rel_err(got, fa.flash_attention_plain(q, k, v, d**-0.5)) <= chip_smoke.ATTN_TOL
 
 
+@pytest.mark.parametrize("n,h", [(257, 6), (362, 6), (362, 16), (1370, 6)])
+def test_flash_attention_bwd_kernel(dev, n, h):
+    # chip_smoke.py's inputs and tolerance; ragged last query and key tiles
+    g = torch.Generator(device=dev).manual_seed(n + h)
+    q, k, v, o, lse, go = chip_smoke.bwd_inputs(2, n, h, g, dev)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, go, 0.125)
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, go, 0.125)
+    assert chip_smoke.bwd_rel_err(got, want) <= chip_smoke.BWD_TOL
+    assert min(chip_smoke.bwd_mutant_errors(q, k, v, o, go, 0.125).values()) > chip_smoke.BWD_TOL
+
+
+def test_flash_attention_lse(dev):
+    """Kernel A's log-sum-exp: log2 of the softmax denominator of the
+    scaled scores, per (b, h, row), within fp32 rounding."""
+    b, n, h, d = 2, 300, 6, 64
+    qkv = chip_smoke.attention_inputs((b, n, h * d), torch.Generator(device=dev).manual_seed(1), dev)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    _, lse = fa.flash_attention(q, k, v, d**-0.5, with_lse=True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d**-0.5
+    want = torch.logsumexp(s, dim=-1) / torch.log(torch.tensor(2.0, device=dev))
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [362, 1370, 2443])  # 2443 > 2048: the plain backward
+def test_flash_attention_fn_gradients(dev, n):
+    """FlashAttentionFn through strided views of one qkv tensor: the qkv
+    gradient against fp32 autograd through the plain attention on the same
+    bf16 inputs, within chip_smoke.py's tolerance."""
+    b, h, d = 2, 6, 64
+    gen = torch.Generator(device=dev).manual_seed(n)
+    qkv = chip_smoke.attention_inputs((b, n, h * d), gen, dev).requires_grad_()
+    go = torch.randn(b, n, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    before = fa.flash_attention_bwd.launches
+    (got,) = torch.autograd.grad(fa.FlashAttentionFn.apply(q, k, v, d**-0.5), qkv, go)
+    assert fa.flash_attention_bwd.launches == before + int(fa.bwd_gate((b, n, h, d)))
+    ref = qkv.detach().float().requires_grad_()
+    rq, rk, rv = (t.view(b, n, h, d) for t in ref.split(h * d, dim=-1))
+    (want,) = torch.autograd.grad(fa.flash_attention_plain(rq, rk, rv, d**-0.5), ref, go.float())
+    for part in range(3):
+        sl = slice(part * h * d, (part + 1) * h * d)
+        assert chip_smoke.rel_err(got[..., sl], want[..., sl]) <= chip_smoke.BWD_TOL
+
+
 @pytest.mark.parametrize("c,t", [(64, 32), (192, 32), (192, 8)])
 def test_temporal_attention_kernel(dev, c, t):
     g = torch.Generator(device=dev).manual_seed(c + t)

@@ -3,8 +3,9 @@
 The same frozen dataclasses as ``video_depth_anything_tpu/config.py``,
 kept as a copy so that this package never imports the JAX one.  Only the
 fields that the port reads are carried: the TPU layout switches
-(``packed_output_stack``, ``fused_output_tail``, ``remat_motion``) have no
-meaning here.
+(``packed_output_stack``, ``fused_output_tail``) have no meaning here.
+``remat_motion`` recomputes the four motion modules in the backward
+(``torch.utils.checkpoint``), as JAX's ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -63,6 +64,10 @@ class ModelConfig:
     intermediate_layer_idx: Tuple[int, int, int, int]
     motion: MotionModuleConfig = MotionModuleConfig()
     num_frames: int = 32
+    # Recompute the motion modules in the backward instead of keeping their
+    # activations (fp32 norm statistics, the 8x-wide GEGLU input, attention
+    # probabilities); one more forward through them per training step.
+    remat_motion: bool = False
 
 
 _VIT_CONFIGS: Mapping[str, ViTConfig] = {

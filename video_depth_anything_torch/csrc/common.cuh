@@ -48,3 +48,20 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, uint
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// The attention kernels' tile load: 64 rows x 64 bf16 (rows row0.. of an
+// n-row matrix, `stride` elements apart) into shared rows of kTileLds bf16
+// (144 B: conflict-free ldmatrix).  Rows >= n are zero.  128 threads,
+// 16-byte copies.
+constexpr int kTileLds = 72;
+
+__device__ __forceinline__ void load_tile64(bf16* dst, const bf16* src, long long stride,
+                                            int row0, int n, int tid) {
+#pragma unroll
+  for (int i = tid; i < 64 * 8; i += 128) {
+    int r = i >> 3, c = (i & 7) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n) val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride + c);
+    *reinterpret_cast<uint4*>(dst + r * kTileLds + c) = val;
+  }
+}

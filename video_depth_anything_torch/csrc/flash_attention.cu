@@ -22,6 +22,12 @@
 // Tiles: 64 queries per CTA (4 warps x 16 rows), 64 keys per step, D = 64.
 // Pad keys of the ragged last tile are masked to -inf; pad query rows are
 // computed on zeros and never stored.
+//
+// For training, the kernel also writes each real query row's log-sum-exp
+// in the exp2 domain, lse = m + log2(l) over the scaled scores
+// s * scale * log2(e), fp32, laid out (B, H, N); the backward kernels
+// (flash_attention_bwd.cu) recompute P = exp2(s * scale * log2(e) - lse)
+// from it.  Inference passes a null pointer and writes nothing.
 #include "common.cuh"
 
 namespace {
@@ -29,19 +35,7 @@ namespace {
 constexpr int D = 64;
 constexpr int BM = 64;
 constexpr int BN = 64;
-constexpr int LDS = D + 8;  // padded smem row (144 B): conflict-free ldmatrix
-
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride,
-                                          int row0, int n, int tid) {
-  // 64 rows x 64 bf16 = 512 16-byte chunks over 128 threads
-#pragma unroll
-  for (int i = tid; i < 64 * 8; i += 128) {
-    int r = i >> 3, c = (i & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-  }
-}
+constexpr int LDS = kTileLds;
 
 __global__ void __launch_bounds__(128) flash_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -49,7 +43,7 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(
     long long q_sb, long long q_sn, long long q_sh,
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
-    long long o_sb, long long o_sn, long long o_sh, float scale_log2) {
+    long long o_sb, long long o_sn, long long o_sh, float scale_log2, float* __restrict__ lse) {
   __shared__ __align__(16) bf16 sQ[BM * LDS];
   __shared__ __align__(16) bf16 sK[BN * LDS];
   __shared__ __align__(16) bf16 sV[BN * LDS];
@@ -62,7 +56,7 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(
   const bf16* vb = v + b * v_sb + h * v_sh;
   bf16* ob = o + b * o_sb + h * o_sh;
 
-  load_tile(sQ, qb, q_sn, q0, n, tid);
+  load_tile64(sQ, qb, q_sn, q0, n, tid);
   __syncthreads();
 
   uint32_t qf[4][4];
@@ -84,8 +78,8 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sK, kb, k_sn, k0, n, tid);
-    load_tile(sV, vb, v_sn, k0, n, tid);
+    load_tile64(sK, kb, k_sn, k0, n, tid);
+    load_tile64(sV, vb, v_sn, k0, n, tid);
     __syncthreads();
 
     float s[8][4];
@@ -166,6 +160,9 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[rr] = 1.f / l;
+    const int row = q0 + warp * 16 + (lane >> 2) + rr * 8;
+    if (lse != nullptr && (lane & 3) == 0 && row < n)
+      lse[(long long)blockIdx.y * n + row] = m_i[rr] + log2f(l);
   }
   const int r0 = q0 + warp * 16 + (lane >> 2);
 #pragma unroll
@@ -187,11 +184,11 @@ extern "C" int vda_flash_attention_fwd(
     long long q_sb, long long q_sn, long long q_sh,
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
-    long long o_sb, long long o_sn, long long o_sh, float scale, void* stream) {
+    long long o_sb, long long o_sn, long long o_sh, float scale, void* lse, void* stream) {
   dim3 grid((n + BM - 1) / BM, batch * heads);
   flash_fwd_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), n, heads, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
-      o_sb, o_sn, o_sh, scale * 1.4426950408889634f);
+      o_sb, o_sn, o_sh, scale * 1.4426950408889634f, static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,11 +6,17 @@
   that needs no JAX.  The deterministic APE buffers are re-synthesized and
   ``mask_token`` is zero-filled, as there.
 * ``load_pth(path)``: a released ``.pth`` state dict as tensors, for
-  ``VDAModel.load_state_dict(..., strict=True)``.
+  ``VDAModel.load_state_dict(..., strict=True)``; ``load_init_checkpoint``
+  is the training CLI's ``--init_checkpoint``, which refuses the JAX
+  package's orbax directories.
+* ``save_pth(path, state_dict)``: a reference-keyed ``.pth`` (the training
+  CLI's step checkpoints), which ``load_pth`` and the JAX package's
+  ``load_torch_checkpoint`` both read.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -138,3 +144,21 @@ def load_pth(path: str):
     if "state_dict" in sd:
         sd = sd["state_dict"]
     return {k: v.float() for k, v in sd.items()}
+
+
+def load_init_checkpoint(path: str):
+    """``load_pth`` for a ``.pth`` file; an orbax directory (the JAX
+    package's native checkpoints) raises."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package); convert it to a "
+            "reference-keyed .pth first: torch.save of export_torch_state_dict(load_native(path), "
+            "cfg) from video_depth_anything_tpu.io.checkpoint")
+    return load_pth(path)
+
+
+def save_pth(path: str, state_dict) -> None:
+    """Save a reference-keyed state dict as a ``.pth`` of CPU tensors."""
+    import torch
+
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)

@@ -6,7 +6,9 @@ and refinenets, motion modules at the four points of the reference
 refinenet3), and the output head (output_conv1 → bilinear align_corners
 to 14·ph × 14·pw → output_conv2, ``ops/output_tail.py``).  Where the JAX
 gate sends that tail to its fused Pallas kernel (vitl at 518²), the tail
-kernel runs it.  Parameter names are the reference torch keys
+kernel runs it.  With ``cfg.remat_motion`` each motion module runs under
+``torch.utils.checkpoint`` where gradients are recorded (JAX ``nn.remat``,
+``models/dpt.py:126-128`` there).  Parameter names are the reference torch keys
 (``projects``, ``resize_layers``, ``scratch``, ``motion_modules``).
 Only the batch-window forward is ported; the streaming methods come with
 the streaming slices.
@@ -18,13 +20,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from video_depth_anything_torch.config import ModelConfig
 from video_depth_anything_torch.models.layers import Conv1x1, Conv2d, ConvTranspose2d
 from video_depth_anything_torch.models.temporal import TemporalModule
 from video_depth_anything_torch.ops.dispatch import kernels_enabled
 from video_depth_anything_torch.ops.output_tail import (
-    output_tail,
+    OutputTailFn,
     output_tail_gate,
     output_tail_plain,
 )
@@ -98,9 +101,12 @@ class DPTHeadTemporal(nn.Module):
             for i, f in enumerate(features)
         )
 
-    @staticmethod
-    def _temporal(module, x: torch.Tensor, batch: int) -> torch.Tensor:
-        y = module(x.reshape((batch, x.shape[0] // batch) + x.shape[1:]))
+    def _temporal(self, module, x: torch.Tensor, batch: int) -> torch.Tensor:
+        x5 = x.reshape((batch, x.shape[0] // batch) + x.shape[1:])
+        if self.cfg.remat_motion and torch.is_grad_enabled():
+            y = checkpoint(module, x5, use_reentrant=False)
+        else:
+            y = module(x5)
         return y.reshape(x.shape)
 
     def _output_head(self, path1: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -110,7 +116,7 @@ class DPTHeadTemporal(nn.Module):
         conv3, conv1 = sc.output_conv2[0], sc.output_conv2[2]
         args = (out, conv3.weight, conv3.bias, conv1.weight, conv1.bias, oh, ow)
         if kernels_enabled() and output_tail_gate(self.cfg, out.shape, out.dtype, oh, ow):
-            return output_tail(*args)
+            return OutputTailFn.apply(*args)
         return output_tail_plain(*args)
 
     def forward(self, features, batch: int, ph: int, pw: int,

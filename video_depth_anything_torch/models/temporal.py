@@ -9,8 +9,9 @@ Dispatch follows the JAX package: a module that the JAX gate sends to the
 fused Pallas module goes to Kernel C (``ops/motion_module.py``); otherwise
 each attention whose shape the JAX gate sends to the Pallas temporal core
 goes to Kernel B (``ops/temporal_attention.py``), and the rest is plain
-PyTorch.  Only the full-window forward is ported; the KV-streaming methods
-come with the streaming slices.
+PyTorch.  Kernels are called through their autograd Functions, so the
+module trains on either path.  Only the full-window forward is ported; the
+KV-streaming methods come with the streaming slices.
 """
 
 from __future__ import annotations
@@ -23,13 +24,13 @@ from video_depth_anything_torch.models.dinov2 import gelu
 from video_depth_anything_torch.models.layers import GroupNorm, LayerNorm, Linear
 from video_depth_anything_torch.ops.dispatch import kernels_enabled
 from video_depth_anything_torch.ops.motion_module import (
-    fused_motion_module,
+    FusedMotionModuleFn,
     kernel_weights,
     motion_gate,
     sinusoidal_position_table,
 )
 from video_depth_anything_torch.ops.temporal_attention import (
-    temporal_attention,
+    TemporalAttentionFn,
     temporal_attention_plain,
     temporal_gate,
 )
@@ -61,7 +62,7 @@ class TemporalSelfAttention(nn.Module):
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         scale = (q.shape[-1] // heads) ** -0.5
         if kernels_enabled() and temporal_gate(q.shape, heads):
-            out = temporal_attention(q, k, v, heads, scale)
+            out = TemporalAttentionFn.apply(q, k, v, heads, scale)
         else:
             out = temporal_attention_plain(q, k, v, heads, scale)
         return self.to_out[0](out)
@@ -147,21 +148,21 @@ class TemporalModule(nn.Module):
     def kernel_weights(self) -> dict:
         """Kernel C's operands from the parameters, built once and rebuilt
         only when a parameter changes (in place, or moved to another
-        device or dtype)."""
+        device or dtype): in training, once per optimizer step."""
         key = tuple((p.data_ptr(), p.device, p.dtype, p._version) for p in self.parameters())
         if getattr(self, "_kernel_weights_key", None) != key:
-            self._kernel_weights = kernel_weights(self.raw_params(), self.cfg)
+            with torch.no_grad():
+                self._kernel_weights = kernel_weights(self.raw_params(), self.cfg)
             self._kernel_weights_key = key
         return self._kernel_weights
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
         if kernels_enabled() and motion_gate(self.cfg, c, self.inner, t, h, w):
-            xs, heads = x.reshape(b, t, h * w, c), self.cfg.num_heads
-            if x.device.type == "cuda":
-                out = fused_motion_module(xs, None, self.cfg, heads, self.kernel_weights())
-            else:
-                out = fused_motion_module(xs, self.raw_params(), self.cfg, heads)
+            p = self.raw_params()
+            weights = self.kernel_weights() if x.device.type == "cuda" else None
+            out = FusedMotionModuleFn.apply(x.reshape(b, t, h * w, c), self.cfg,
+                                            self.cfg.num_heads, weights, tuple(p), *p.values())
             return out.reshape(x.shape)
         tt = self.temporal_transformer
         y = tt.proj_in(tt.norm(x)).reshape(b, t, h * w, self.inner)

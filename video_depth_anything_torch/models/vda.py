@@ -9,6 +9,7 @@ a released ``.pth`` loads with ``load_state_dict(strict=True)``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -29,12 +30,16 @@ class VideoDepthAnything(nn.Module):
         self.pretrained = DinoViT(cfg.vit)
         self.head = DPTHeadTemporal(cfg)
 
-    def forward(self, x: torch.Tensor, skip_tmp_block: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip_tmp_block: bool = False,
+                freeze_encoder: bool = False) -> torch.Tensor:
+        """``freeze_encoder`` runs the encoder under ``torch.no_grad()``: no
+        encoder backward (the JAX trainer's frozen-encoder step)."""
         b, t, h, w, _ = x.shape
         p = self.cfg.vit.patch_size
         if h % p or w % p:
             raise ValueError(f"frame size ({h}, {w}) must be a multiple of the patch size {p}")
-        feats = self.pretrained(x.reshape(b * t, h, w, 3), self.cfg.intermediate_layer_idx)
+        with torch.no_grad() if freeze_encoder else contextlib.nullcontext():
+            feats = self.pretrained(x.reshape(b * t, h, w, 3), self.cfg.intermediate_layer_idx)
         depth = self.head(feats, b, h // p, w // p, skip_tmp_block).to(x.dtype)
         return bilinear_resize(depth, h, w).reshape(b, t, h, w)
 

@@ -10,7 +10,7 @@ nothing falls back to another path.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` as an int; ``check`` turns a non-zero code into an
-exception.
+exception.  ``no_history`` is the guard of every raw launch function.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention", "temporal_attention", "motion_module", "output_tail")
+SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention", "motion_module",
+           "output_tail")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -96,6 +97,20 @@ def library(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def no_history(what: str, *tensors) -> None:
+    """Raise where a raw kernel launch would drop gradients: the launches
+    keep no autograd history, so with grad mode on and an input that
+    requires a gradient the caller must go through the op's
+    ``torch.autograd.Function``."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} keeps no autograd history and an input requires a gradient; call it "
+            "through its autograd Function (FlashAttentionFn, TemporalAttentionFn, "
+            "FusedMotionModuleFn, OutputTailFn)")
 
 
 def ptr(t) -> ctypes.c_void_p:

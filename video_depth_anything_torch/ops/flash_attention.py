@@ -1,13 +1,25 @@
-"""Kernel A: spatial flash attention (``csrc/flash_attention.cu``).
+"""Kernel A: spatial flash attention (``csrc/flash_attention.cu``) and its
+backward (``csrc/flash_attention_bwd.cu``).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_attention.py``
 ``_flash_kernel_native`` (``flash_attention_native``) and ``_flash_kernel``
-(``_flash_forward`` via ``spatial_flash_attention``).  ``flash_gate`` is
-the JAX dispatch rule of ``try_spatial_attention``: head_dim a multiple of
-64 but not of 128, and at least 256 tokens.  The kernel takes D = 64, the
-head width of every shipped encoder.
+(``_flash_forward`` via ``spatial_flash_attention``); the backward kernel
+replaces ``_flash_kernel_native_bwd`` (``_native_bwd_pallas``).
+``flash_gate`` is the JAX dispatch rule of ``try_spatial_attention``:
+head_dim a multiple of 64 but not of 128, and at least 256 tokens.  The
+kernels take D = 64, the head width of every shipped encoder.
+``bwd_gate`` is where the JAX package runs the Pallas backward (the native
+layout: D = 64, H even, at most 2048 padded keys); elsewhere its VJP is the
+dense einsum backward, and so is the port's.
 
-Bound on the H100: tensor-core FLOPs (4·N²·D·H·B); see the source note.
+``FlashAttentionFn`` is the differentiable entry: its forward launches
+Kernel A (saving the per-row log-sum-exp), its backward the backward
+kernel; on CPU tensors both are the plain versions.  ``flash_attention``
+and ``flash_attention_bwd`` are the raw launches and keep no autograd
+history.
+
+Bound on the H100: tensor-core FLOPs (4·N²·D·H·B forward, 10·N²·D·H·B
+backward); see the source notes.
 """
 
 from __future__ import annotations
@@ -18,13 +30,19 @@ import torch
 
 from video_depth_anything_torch.ops import cuda_build
 
-
 def flash_gate(shape) -> bool:
     """True where the JAX package sends ``(B, N, H, D)`` to a flash kernel."""
     if len(shape) != 4:
         return False
     _, n, _, d = shape
     return d % 64 == 0 and d % 128 != 0 and n >= 256
+
+
+def bwd_gate(shape) -> bool:
+    """True where the JAX package's VJP is the Pallas backward kernel
+    (``flash_attention_native``, ``pallas_attention.py:676-687``)."""
+    _, n, h, d = shape
+    return flash_gate(shape) and d == 64 and h % 2 == 0 and -(-n // 128) * 128 <= 2048
 
 
 def flash_attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -38,47 +56,138 @@ def flash_attention_plain(q, k, v, scale: float) -> torch.Tensor:
     return out.to(dtype)
 
 
-_fn = None
+def flash_attention_bwd_plain(q, k, v, o, g, scale: float):
+    """``(dq, dk, dv)`` of ``flash_attention_plain`` at the output ``o``
+    for the cotangent ``g``: the dense fp32 math of the JAX einsum backward
+    (``pallas_attention.py:425-439``) with the backward kernel's rounding
+    points (the TPU kernel's): p normalised in fp32 and rounded to the
+    input dtype before pᵀg, ds rounded before both products, dq and dk
+    scaled in fp32 after them.  Δ = rowsum(g⊙o) as in the kernel, which
+    is rowsum(dp⊙p) up to the rounding of o.  q and g may have fewer rows
+    than k and v (``chip_smoke.py`` drops a query tile that way)."""
+    dt = q.dtype
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (gf * o.float()).sum(-1).permute(0, 2, 1)[..., None]
+    ds = (p * (dp - delta)).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.library("flash_attention").vda_flash_attention_fwd
-        ll, vp = ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ll] * 12 + [
-            ctypes.c_float, vp]
+_fns = {}
+
+
+def _kernel(name: str):
+    if name not in _fns:
+        ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        if name == "fwd":
+            fn = cuda_build.library("flash_attention").vda_flash_attention_fwd
+            fn.argtypes = [vp] * 4 + [i] * 3 + [ll] * 12 + [ctypes.c_float, vp, vp]
+        else:
+            fn = cuda_build.library("flash_attention_bwd").vda_flash_attention_bwd
+            fn.argtypes = [vp] * 10 + [i] * 3 + [ll] * 9 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
-def flash_attention(q, k, v, scale: float) -> torch.Tensor:
+def _check_inputs(what: str, *tensors) -> None:
+    q = tensors[0]
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"{what} kernel takes bf16, got {[t.dtype for t in tensors]}")
+    if q.shape[3] != 64:
+        raise NotImplementedError(f"{what} kernel takes head_dim 64, got {q.shape[3]}")
+    for t in tensors:
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{what}: operands must share shape and device")
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{what} needs 16-byte aligned rows with unit stride in D")
+
+
+def flash_attention(q, k, v, scale: float, with_lse: bool = False):
     """Attention over ``(B, N, H, D)`` tensors, which may be strided views
     of a fused qkv projection.  CPU tensors take the plain version; CUDA
-    tensors launch Kernel A or raise."""
+    tensors launch Kernel A or raise.  ``with_lse`` (CUDA only) also
+    returns the fp32 ``(B, H, N)`` log-sum-exp of the scaled scores in the
+    exp2 domain, which ``flash_attention_bwd`` takes."""
+    cuda_build.no_history("flash_attention", q, k, v)
     if q.device.type == "cpu":
+        if with_lse:
+            raise ValueError("the log-sum-exp comes from the CUDA kernel only")
         return flash_attention_plain(q, k, v, scale)
+    _check_inputs("flash_attention", q, k, v)
     b, n, h, d = q.shape
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes bf16, got {q.dtype}")
-    if d != 64:
-        raise NotImplementedError(f"flash_attention kernel takes head_dim 64, got {d}")
-    for t in (q, k, v):
-        if t.shape != q.shape or t.device != q.device:
-            raise ValueError("q, k and v must share shape and device")
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError("flash_attention needs 16-byte aligned rows with unit stride in D")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    err = _kernel()(
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    err = _kernel("fwd")(
         cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
         b, n, h,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        float(scale), cuda_build.stream_of(q),
+        float(scale), None if lse is None else cuda_build.ptr(lse), cuda_build.stream_of(q),
     )
     cuda_build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
+    """``(dq, dk, dv)`` from the backward kernel, given Kernel A's output
+    ``o`` and ``lse`` (``flash_attention(..., with_lse=True)``) and the
+    cotangent ``g``; CUDA tensors only.  q, k, v may be strided views;
+    the gradients come back contiguous ``(B, N, H, D)``."""
+    cuda_build.no_history("flash_attention_bwd", q, k, v, o, g)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd is the CUDA kernel; the CPU takes "
+                         "flash_attention_bwd_plain")
+    o, g = o.contiguous(), g.contiguous()
+    _check_inputs("flash_attention_bwd", q, k, v, o, g)
+    b, n, h, d = q.shape
+    if lse is None or lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd takes Kernel A's fp32 (B, H, N) log-sum-exp")
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    err = _kernel("bwd")(
+        *(cuda_build.ptr(t) for t in (q, k, v, o, g, lse, delta, dq, dk, dv)),
+        b, n, h, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(scale), cuda_build.stream_of(q),
+    )
+    cuda_build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable Kernel A: ``apply(q, k, v, scale)`` on ``(B, N, H, D)``.
+    On the card the forward launches Kernel A and keeps its log-sum-exp;
+    the backward launches the backward kernel where ``bwd_gate`` holds and
+    runs ``flash_attention_bwd_plain`` elsewhere (as the JAX package's
+    blocked path does).  On the CPU both directions are the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, scale), None
+        else:
+            out, lse = flash_attention(q, k, v, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cuda" and bwd_gate(q.shape):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, g, ctx.scale)
+        return dq, dk, dv, None

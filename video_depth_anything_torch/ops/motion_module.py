@@ -16,6 +16,13 @@ Raw parameters use the JAX layout: ``w_*`` are ``(in, out)`` so that
 ``y = x @ w``; ``wq/wk/wv/wo`` and ``bo`` are stacked over the attention
 blocks, ``ln_scale/ln_bias`` over [attention blocks..., ff].
 
+``FusedMotionModuleFn`` is the differentiable entry: Kernel C forward (the
+plain version on CPU tensors), and a backward that recomputes through
+``motion_module_plain`` as the JAX VJP recomputes through
+``motion_module_reference`` (``pallas_motion.py:401-407``), with gradients
+for x and every raw parameter.  ``fused_motion_module`` and
+``motion_module_launch`` are raw and keep no autograd history.
+
 Bound on the H100: tensor-core FLOPs (~44·C² per token); see the source.
 """
 
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 
 from video_depth_anything_torch.config import MotionModuleConfig
 from video_depth_anything_torch.ops import cuda_build
+from video_depth_anything_torch.ops.dispatch import recompute_vjp
 
 _LANES = 128
 _VMEM_BUDGET = 96 * 1024 * 1024
@@ -220,6 +228,7 @@ def fused_motion_module(x: torch.Tensor, p: Optional[Dict], cfg: MotionModuleCon
     plain version of the raw parameters ``p``; CUDA tensors launch Kernel C
     or raise.  ``weights`` is ``kernel_weights(p, cfg)``, built here from
     ``p`` when not given."""
+    cuda_build.no_history("fused_motion_module", x, *(p or {}).values())
     if x.device.type == "cpu":
         return motion_module_plain(x, p, cfg, heads)
     w = kernel_weights(p, cfg) if weights is None else weights
@@ -244,6 +253,7 @@ def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
     if x.data_ptr() % 16:
         raise ValueError("motion_module needs a 16-byte aligned input")
     args = [x, gna, gnb] + [w[k] for k in _OPERANDS]
+    cuda_build.no_history("motion_module_launch", *args)
     if any(a.device != x.device for a in args):
         raise ValueError("motion_module operands must share x's device")
     out = torch.empty_like(x)
@@ -257,3 +267,24 @@ def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
 
 
 fused_motion_module.launches = 0
+
+
+class FusedMotionModuleFn(torch.autograd.Function):
+    """Differentiable Kernel C: ``apply(x, cfg, heads, weights, names,
+    *values)`` with the raw parameters ``dict(zip(names, values))`` and
+    ``weights`` their ``kernel_weights`` (or None: built from them)."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, heads, weights, names, *values):
+        ctx.save_for_backward(x, *values)
+        ctx.cfg, ctx.heads, ctx.names = cfg, heads, names
+        return fused_motion_module(x, dict(zip(names, values)), cfg, heads, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(x, *values):
+            return motion_module_plain(x, dict(zip(ctx.names, values)), ctx.cfg, ctx.heads)
+
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[5:]
+        dx, *dvalues = recompute_vjp(plain, ctx.saved_tensors, needs, g)
+        return (dx, None, None, None, None, *dvalues)

@@ -19,6 +19,11 @@ That admits vitl's 518² window and refuses 518×924.
 Weights use the port's (the reference torch) layout: ``w1 (32, C, 3, 3)``,
 ``b1 (32,)``, ``w2 (1, 32, 1, 1)``, ``b2 (1,)``.
 
+``OutputTailFn`` is the differentiable entry: the tail kernel forward (the
+plain chain on CPU tensors) and the plain chain's gradient backward, as the
+JAX VJP (``pallas_output_stack.py:547-552``).  ``output_tail`` is the raw
+launch and keeps no autograd history.
+
 Bound on the H100: tensor-core FLOPs (73,728 per output pixel at C = 128);
 see the source.
 """
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from video_depth_anything_torch.ops import cuda_build
+from video_depth_anything_torch.ops.dispatch import recompute_vjp
 from video_depth_anything_torch.ops.motion_module import _frag
 from video_depth_anything_torch.ops.resize import _linear_taps, bilinear_resize
 
@@ -156,6 +162,7 @@ def _taps(in_size: int, out_size: int, device: torch.device):
 def output_tail(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
     """``(N, H, W, C)`` → ``(N, out_h, out_w, 1)`` depth.  CPU tensors take
     the plain version; CUDA tensors launch the tail kernel or raise."""
+    cuda_build.no_history("output_tail", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return output_tail_plain(x, w1, b1, w2, b2, out_h, out_w)
     n, h, w, c = x.shape
@@ -186,3 +193,21 @@ def output_tail(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
 
 
 output_tail.launches = 0
+
+
+class OutputTailFn(torch.autograd.Function):
+    """Differentiable tail: ``apply(x, w1, b1, w2, b2, out_h, out_w)``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, out_h, out_w):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.out_hw = (out_h, out_w)
+        return output_tail(x, w1, b1, w2, b2, out_h, out_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(*args):
+            return output_tail_plain(*args, *ctx.out_hw)
+
+        grads = recompute_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:5], g)
+        return (*grads, None, None)

@@ -7,6 +7,12 @@ the JAX ``auto`` dispatch rule of ``try_temporal_attention``
 kernel and head_dim ≤ 24.  On vits at 518² that is m0 (C = 192, d = 24)
 and m2 (C = 64, d = 8).
 
+``TemporalAttentionFn`` is the differentiable entry: Kernel B forward (the
+plain version on CPU tensors) and ``temporal_attention_bwd_plain``, the
+port of the JAX custom VJP ``_attention_bwd_math``
+(``pallas_temporal.py:117-145``), backward.  ``temporal_attention`` is the
+raw launch and keeps no autograd history.
+
 Bound on the H100: memory bytes (q, k, v read once, out written once).
 """
 
@@ -58,6 +64,23 @@ def temporal_attention_plain(q, k, v, heads: int, scale: float) -> torch.Tensor:
     return out.to(q.dtype).reshape(b, t, s, c)
 
 
+def temporal_attention_bwd_plain(q, k, v, g, heads: int, scale: float):
+    """``(dq, dk, dv)`` of per-location frame attention: the einsum backward
+    of the JAX package (``_attention_bwd_math``): fp32 scores, softmax and
+    products; p rounded to g's dtype for dv, ds scaled then rounded to q's
+    dtype; outputs in the inputs' dtypes."""
+    b, t, s, c = q.shape
+    d = c // heads
+    q5, k5, v5, g5 = (x.reshape(b, t, s, heads, d) for x in (q, k, v, g))
+    p = torch.softmax(torch.einsum("bqshd,bkshd->bshqk", q5.float(), k5.float()) * scale, dim=-1)
+    dv = torch.einsum("bshqk,bqshd->bkshd", p.to(g.dtype).float(), g5.float()).to(v.dtype)
+    dp = torch.einsum("bqshd,bkshd->bshqk", g5.float(), v5.float())
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(q.dtype).float()
+    dq = torch.einsum("bshqk,bkshd->bqshd", ds, k5.float()).to(q.dtype)
+    dk = torch.einsum("bshqk,bqshd->bkshd", ds, q5.float()).to(k.dtype)
+    return tuple(x.reshape(b, t, s, c) for x in (dq, dk, dv))
+
+
 _fn = None
 # The instantiations of csrc/temporal_attention.cu: the vits head dims
 # (m2: 8, m0: 24).  Others come with the slices whose path runs them.
@@ -78,6 +101,7 @@ def _kernel():
 def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
     """``(B, T, S, C)`` → ``(B, T, S, C)``.  CPU tensors take the plain
     version; CUDA tensors launch Kernel B or raise."""
+    cuda_build.no_history("temporal_attention", q, k, v)
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, heads, scale)
     b, t, s, c = q.shape
@@ -105,3 +129,19 @@ def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
 
 
 temporal_attention.launches = 0
+
+
+class TemporalAttentionFn(torch.autograd.Function):
+    """Differentiable Kernel B: ``apply(q, k, v, heads, scale)`` on
+    ``(B, T, S, C)``; backward ``temporal_attention_bwd_plain``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads, ctx.scale = heads, scale
+        return temporal_attention(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*temporal_attention_bwd_plain(q, k, v, g, ctx.heads, ctx.scale), None, None)

@@ -20,7 +20,7 @@ import time
 from collections import defaultdict
 
 
-PORT_KERNELS = ("flash_fwd_kernel", "temporal_attn_kernel", "motion_module_kernel",
+PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd", "temporal_attn_kernel", "motion_module_kernel",
                 "output_tail_kernel")
 
 
@@ -41,6 +41,32 @@ def category(name: str) -> str:
     if "copy" in n:
         return "plain: copies and dtype casts"
     return "plain: other elementwise"
+
+
+def report(prof, iters: int, wall: float, top: int) -> None:
+    """Print the device kernel time per call and its busy share of the
+    host wall time ``wall`` (seconds per call), the time by group, and the
+    top kernels, from a ``torch.profiler`` run of ``iters`` calls."""
+    import torch
+
+    # device-side events only (one per kernel launch): CPU ops would count
+    # their kernels a second time
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.device_time_total
+            by_name[e.name][1] += 1
+    total = sum(us for us, _ in by_name.values())
+    groups = defaultdict(float)
+    for name, (us, _) in by_name.items():
+        groups[category(name)] += us
+    dev_ms = total / iters / 1e3
+    print(f"device kernel time {dev_ms:.2f} ms per call, busy share {dev_ms / (wall * 1e3):.3f}")
+    for k, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  group {k}: {us / iters / 1e3:.2f} ms ({us / total:.3f})")
+    print("top kernels by self device time (ms per call, launches per call, name):")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {us / iters / 1e3:9.3f}  {n // iters:5d}  {name[:110]}")
 
 
 def main(argv=None) -> int:
@@ -79,30 +105,11 @@ def main(argv=None) -> int:
             model.infer_window(x)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.iters
-    # device-side events only (one per kernel launch): CPU ops would count
-    # their kernels a second time
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += e.device_time_total
-            by_name[e.name][1] += 1
-    total = sum(us for us, _ in by_name.values())
-    groups = defaultdict(float)
-    for name, (us, _) in by_name.items():
-        groups[category(name)] += us
-    rows = [(us / args.iters / 1e3, n // args.iters, name)
-            for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]]
     frames = args.window_batch * 32
     print(f"{smi}")
     print(f"{args.encoder} {args.window_batch}x32x{args.height}x{args.width}: {wall * 1e3:.2f} ms per call, "
           f"{frames / wall:.1f} frames/s")
-    dev_ms = total / args.iters / 1e3
-    print(f"device kernel time {dev_ms:.2f} ms per call, busy share {dev_ms / (wall * 1e3):.3f}")
-    for k, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  group {k}: {us / args.iters / 1e3:.2f} ms ({us / total:.3f})")
-    print("top kernels by self device time (ms per call, launches per call, name):")
-    for ms, n, name in rows:
-        print(f"  {ms:9.3f}  {n:5d}  {name[:110]}")
+    report(prof, args.iters, wall, args.top)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     return 0

@@ -44,13 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def kernel_launches() -> dict:
-    from video_depth_anything_torch.ops.flash_attention import flash_attention
+    from video_depth_anything_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from video_depth_anything_torch.ops.motion_module import fused_motion_module
     from video_depth_anything_torch.ops.output_tail import output_tail
     from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
-    return {f.__name__: f.launches for f in (flash_attention, temporal_attention,
-                                              fused_motion_module, output_tail)}
+    return {f.__name__: f.launches for f in (flash_attention, flash_attention_bwd,
+                                              temporal_attention, fused_motion_module,
+                                              output_tail)}
 
 
 def main(argv=None) -> int:

@@ -8,7 +8,10 @@ Phases (each failure ends the run with a non-zero exit):
    from ``video_depth_anything_torch/csrc``.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    in bf16 at the main path's vits and vitl shapes (one window; for Kernel
-   A's backward, the training shapes), on inputs whose attention is peaked,
+   A's backward, the training shapes, also from the fast forward's
+   log-sum-exp; Kernel A's fast variant also at the streaming shapes, one
+   frame and a chunk of 8; Kernel A at D = 192 and at 3 heads on synthetic
+   shapes), on inputs whose attention is peaked,
    and show that wrong kernels (uniform attention, a dropped last key tile;
    for the backward, Delta = 0 and a dropped last query tile; for the
    output tail, align_corners False taps and a conv3x3 without its
@@ -18,27 +21,37 @@ Phases (each failure ends the run with a non-zero exit):
    (noised seeded weights) at 518x518 and 518x924, kernel path against the
    plain path on the card; frames/s of ``infer_window`` at the pipeline's
    window batch (4 windows per call for vits, 1 for vitl) and the plain
-   reference's peak device memory.
+   reference's peak device memory; the vits 518x924 window again under
+   ``--attn_impl auto:fast`` (Kernel A's fast variant only).
 4. cli: ``python -m video_depth_anything_torch.run --random_init`` (called
    in-process through ``run.main``) on synthetic 480x480 and 854x480 mp4s
    of 76 frames with vits, and on the 480x480 one with vitl; the depth must
    be finite and of the clip's shape and every kernel's launch count must
    move.  This is the main path: the counts are zeroed just before and read
    just after.
-5. train: one ``Trainer.step`` (encoder trained, bf16) on the kernel path
+5. stream: feature-cache streaming (``--process_single_image``).  The
+   pipeline's kernel path against its plain path on a 76-frame 854x480
+   clip (31 warm-up frames, 21 transition steps, 3 steady chunks of 8),
+   plain mode under auto:fast and aligned mode; the CLI in streaming mode
+   on 76-frame clips, vits 854x480 under auto:fast, vits and vitl on
+   480x480, with their launch plans (the main path of streaming: counts
+   zeroed before each run, read after); steady-state frames/s at chunks 8
+   and 1 (``profile_streaming``).
+6. train: one ``Trainer.step`` (encoder trained, bf16) on the kernel path
    against one on the plain path, same noised weights and batch: vits at
    518x518 with 16 frames (Kernels A forward and backward, B and C) and
    vitl at 266x266 with 8 (A at 16 heads, the tail kernel); the loss, the
    gradient of every parameter group, no parameter without a gradient, and
    the launch counts.  Then a frozen-encoder step, which must leave the
    encoder bit-identical.
-6. train-cli: ``python -m video_depth_anything_torch.train`` (in-process)
+7. train-cli: ``python -m video_depth_anything_torch.train`` (in-process)
    on a synthetic PointOdyssey tree, vits at 518x518 with 32-frame clips,
    6 steps and a resume for 2 more; the losses must be finite, the steps
    continue, and Kernels A (forward and backward), B and C must all run.
    The main path of training: counts zeroed before, read after.
-The last two lines are the kernels JSON object and the contract line
-``{"ok": true, "device": {...}}``.
+The last two lines are the kernels JSON object (launches summed over the
+main-path runs of phases cli, stream and train-cli; Kernel A's fast variant
+is its own entry) and the contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -158,10 +171,10 @@ def bwd_rel_err(got, want) -> float:
     return max(rel_err(a, b) for a, b in zip(got, want))
 
 
-def bwd_inputs(b: int, n: int, h: int, gen, device):
+def bwd_inputs(b: int, n: int, h: int, gen, device, fast: bool = False):
     """Peaked bf16 q, k, v (``attention_inputs``) as strided views of one
-    qkv tensor, Kernel A's output and log-sum-exp on them, and a cotangent
-    g ~ N(0, 1)."""
+    qkv tensor, Kernel A's output and log-sum-exp on them (its fast
+    variant's where ``fast``), and a cotangent g ~ N(0, 1)."""
     import torch
 
     from video_depth_anything_torch.ops.flash_attention import flash_attention
@@ -169,7 +182,7 @@ def bwd_inputs(b: int, n: int, h: int, gen, device):
     d = 64
     qkv = attention_inputs((b, n, h * d), gen, device)
     q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
-    o, lse = flash_attention(q, k, v, d**-0.5, with_lse=True)
+    o, lse = flash_attention(q, k, v, d**-0.5, with_lse=True, fast=fast)
     g = torch.randn(b, n, h, d, generator=gen, device=device).to(torch.bfloat16)
     return q, k, v, o, lse, g
 
@@ -234,35 +247,53 @@ def phase_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
-    # vits (6 heads) and vitl (16 heads) token counts at 518x518 and 518x924
-    for label, n, h in (("518x518", 1370, 6), ("518x924", 2443, 6),
-                        ("vitl 518x518", 1370, 16), ("vitl 518x924", 2443, 16)):
-        bt, d = 32, 64
+    # Kernel A: vits (6 heads) and vitl (16 heads) token counts at 518x518
+    # and 518x924; the fast (no-max) variant at the vits window shapes and
+    # the streaming steps' (one frame, and a chunk of 8, at 518x924); D = 192
+    # and an odd head count on synthetic shapes (no shipped encoder has
+    # them: the JAX package's _flash_kernel_single domain).
+    for kernel, label, bt, n, h, d in (
+            ("flash_attention", "518x518", 32, 1370, 6, 64),
+            ("flash_attention", "518x924", 32, 2443, 6, 64),
+            ("flash_attention", "vitl 518x518", 32, 1370, 16, 64),
+            ("flash_attention", "vitl 518x924", 32, 2443, 16, 64),
+            ("flash_attention", "synthetic D=192", 32, 1370, 2, 192),
+            ("flash_attention", "synthetic odd heads", 32, 1370, 3, 64),
+            ("flash_attention_fast", "518x924", 32, 2443, 6, 64),
+            ("flash_attention_fast", "518x518", 32, 1370, 6, 64),
+            ("flash_attention_fast", "stream 518x924 frame", 1, 2443, 6, 64),
+            ("flash_attention_fast", "stream 518x924 chunk", 8, 2443, 6, 64)):
+        fast = kernel == "flash_attention_fast"
         qkv = attention_inputs((bt, n, h * d), g, dev)
         q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
         scale = d**-0.5
-        got = fa.flash_attention(q, k, v, scale)
-        want = fa.flash_attention_plain(q, k, v, scale)
-        mutants = mutant_errors(fa.flash_attention_plain, q, k, v, scale, axis=1, tile=64)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale))
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale), iters=3, warmup=1)
+        plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
+        got = fa.flash_attention(q, k, v, scale, fast=fast)
+        want = plain(q, k, v, scale)
+        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=64)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast))
+        plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
         b_ms, b_by = bound(4.0 * bt * h * n * n * d, 4.0 * bt * n * h * d * 2)
-        rows.append(dict(kernel="flash_attention", shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
+        rows.append(dict(kernel=kernel, shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
                          max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=ATTN_TOL,
                          mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
+        del qkv, q, k, v, got, want, qt, kt, vt
 
     # Kernel A's backward at the training shapes: a 518² window of 32
     # frames and the CLI's default clip (8 frames at 266², 362 tokens) for
-    # vits (6 heads) and vitl (16).  The library call is the backward alone
-    # of SDPA through autograd.
-    for label, bt, n, h in (("vits 518x518", 32, 1370, 6), ("vits 266x266", 8, 362, 6),
-                            ("vitl 266x266", 8, 362, 16)):
+    # vits (6 heads) and vitl (16), and at 518² from the fast forward's
+    # log-sum-exp.  The library call is the backward alone of SDPA through
+    # autograd.
+    for label, bt, n, h, fast in (("vits 518x518", 32, 1370, 6, False),
+                                  ("vits 266x266", 8, 362, 6, False),
+                                  ("vitl 266x266", 8, 362, 16, False),
+                                  ("vits 518x518, fast forward's lse", 32, 1370, 6, True)):
         d = 64
         scale = d**-0.5
-        q, k, v, o, lse, g_ = bwd_inputs(bt, n, h, g, dev)
+        q, k, v, o, lse, g_ = bwd_inputs(bt, n, h, g, dev, fast=fast)
         got = fa.flash_attention_bwd(q, k, v, o, lse, g_, scale)
         want = fa.flash_attention_bwd_plain(q, k, v, o, g_, scale)
         mutants = bwd_mutant_errors(q, k, v, o, g_, scale)
@@ -361,7 +392,7 @@ def phase_kernels(dev):
         extra = "".join(f" mutant {k} rel_err={v:.3e}" for k, v in mutants.items())
         if "gn_fold_ms" in r:
             extra += f" gn_fold_ms={r['gn_fold_ms']:.4f}"
-        log(f"[kernels] {r['kernel']:<19} {r['shape']:<52} rel_err={err:.3e} (tol {r['tol']}) "
+        log(f"[kernels] {r['kernel']:<20} {r['shape']:<62} rel_err={err:.3e} (tol {r['tol']}) "
             f"max_abs_err={r['max_abs_err']:.3e}{extra} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms={r['library_ms']} {'OK' if ok else 'FAIL'}")
@@ -398,15 +429,24 @@ def main() -> int:
                 if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"[ptxas] {name}: {line.strip()}")
 
-    rows = phase_kernels(dev)
-    phase_window(dev, smi)
-    launches = phase_cli(smi)
-    phase_train_check(dev, smi)
-    train_launches = phase_train_cli(smi)
+    def timed(name, phase, *args):
+        t = time.time()
+        out = phase(*args)
+        log(f"[time] phase {name}: {time.time() - t:.1f} s")
+        return out
+
+    rows = timed("kernels", phase_kernels, dev)
+    timed("window", phase_window, dev, smi)
+    launches = timed("cli", phase_cli, smi)
+    stream_launches = timed("stream", phase_stream, dev, smi)
+    timed("train", phase_train_check, dev, smi)
+    train_launches = timed("train-cli", phase_train_cli, smi)
 
     info = {
         "flash_attention": ("flash_attention", "csrc/flash_attention.cu",
                             "video_depth_anything_tpu/ops/pallas_attention.py:202"),
+        "flash_attention_fast": ("flash_attention_fast", "csrc/flash_attention.cu",
+                                 "video_depth_anything_tpu/ops/pallas_attention.py:123"),
         "flash_attention_bwd": ("flash_attention_bwd", "csrc/flash_attention_bwd.cu",
                                 "video_depth_anything_tpu/ops/pallas_attention.py:248"),
         "temporal_attention": ("temporal_attention", "csrc/temporal_attention.cu",
@@ -421,10 +461,13 @@ def main() -> int:
         first = next(r for r in rows if r["kernel"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
-            "replaces": replaces, "launches": launches[wrapper] + train_launches[wrapper],
+            "replaces": replaces,
+            "launches": launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper],
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
         })
+    if any(k["launches"] == 0 for k in kernels):
+        raise SystemExit(f"a kernel of the main path never launched: {kernels}")
     log(f"[done] every phase passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -448,6 +491,7 @@ def zero_counts() -> None:
     for f in (flash_attention, flash_attention_bwd, temporal_attention, fused_motion_module,
               output_tail):
         f.launches = 0
+    flash_attention.fast_launches = 0
 
 
 def noise_weights(module, seed: int) -> None:
@@ -478,14 +522,59 @@ WINDOW_TOL = 5e-2  # relative to max|plain|: bf16 rounding differs at every
 # inference never runs the backward.
 WINDOW_PLANS = {
     ("vits", 518, 518): (("flash_attention", "temporal_attention", "fused_motion_module"),
-                         ("output_tail", "flash_attention_bwd")),
+                         ("output_tail", "flash_attention_bwd", "flash_attention_fast")),
     ("vits", 518, 924): (("flash_attention", "fused_motion_module"),
-                         ("output_tail", "flash_attention_bwd")),
+                         ("output_tail", "flash_attention_bwd", "flash_attention_fast")),
     ("vitl", 518, 518): (("flash_attention", "fused_motion_module", "output_tail"),
-                         ("flash_attention_bwd",)),
+                         ("flash_attention_bwd", "flash_attention_fast")),
     ("vitl", 518, 924): (("flash_attention", "fused_motion_module"),
-                         ("output_tail", "flash_attention_bwd")),
+                         ("output_tail", "flash_attention_bwd", "flash_attention_fast")),
 }
+# under --attn_impl auto:fast every ViT block takes Kernel A's fast variant
+FAST_WINDOW_PLAN = (("flash_attention_fast", "fused_motion_module"),
+                    ("flash_attention", "output_tail", "flash_attention_bwd"))
+
+
+def check_window(model, x, label: str, needed, absent) -> None:
+    """One window on the kernel path against the plain path: relative max
+    error, finite output and the launch plan."""
+    import torch
+
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+
+    zero_counts()
+    got = model.infer_window(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_reference():
+        want = model.infer_window(x)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref = want.float()
+    rel = float((got.float() - ref).abs().max() / ref.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    log(f"[window] {label}: rel err kernels vs plain {rel:.3e} (tol {WINDOW_TOL}), "
+        f"finite={finite}, launches {counts}, plain reference peak device memory "
+        f"{plain_peak:.2f} GiB")
+    if (not finite or not rel <= WINDOW_TOL or any(counts[k] == 0 for k in needed)
+            or any(counts[k] != 0 for k in absent)):
+        raise SystemExit(f"window {label} failed")
+
+
+def time_window(model, xb, label: str, smi: str) -> None:
+    import torch
+
+    model.infer_window(xb)
+    torch.cuda.synchronize()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        model.infer_window(xb)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    log(f"[window] {label} window_batch {len(xb)}: {dt * 1e3:.2f} ms per call, "
+        f"{len(xb) * 32 / dt:.1f} frames/s ({smi})")
 
 
 def phase_window(dev, smi: str):
@@ -503,36 +592,15 @@ def phase_window(dev, smi: str):
             if enc != encoder:
                 continue
             x = torch.randn(1, 32, h, w, 3, device=dev, generator=g)
-            zero_counts()
-            got = model.infer_window(x)
-            torch.cuda.synchronize()
-            counts = launch_counts()
-            torch.cuda.reset_peak_memory_stats()
-            with plain_reference():
-                want = model.infer_window(x)
-            torch.cuda.synchronize()
-            plain_peak = torch.cuda.max_memory_allocated() / 2**30
-            ref = want.float()
-            rel = float((got.float() - ref).abs().max() / ref.abs().max())
-            finite = bool(torch.isfinite(got).all())
-            log(f"[window] {encoder} 1x32x{h}x{w}: rel err kernels vs plain {rel:.3e} "
-                f"(tol {WINDOW_TOL}), finite={finite}, launches {counts}, plain reference "
-                f"peak device memory {plain_peak:.2f} GiB")
-            if (not finite or not rel <= WINDOW_TOL or any(counts[k] == 0 for k in needed)
-                    or any(counts[k] != 0 for k in absent)):
-                raise SystemExit(f"{encoder} window {h}x{w} failed")
-            del got, want, ref
+            check_window(model, x, f"{encoder} 1x32x{h}x{w}", needed, absent)
             xb = torch.randn(wb, 32, h, w, 3, device=dev, generator=g)
-            model.infer_window(xb)
-            torch.cuda.synchronize()
-            iters = 3
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                model.infer_window(xb)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) / iters
-            log(f"[window] {encoder} {h}x{w} window_batch {wb}: {dt * 1e3:.2f} ms per call, "
-                f"{wb * 32 / dt:.1f} frames/s ({smi})")
+            time_window(model, xb, f"{encoder} {h}x{w}", smi)
+            if (encoder, h, w) == ("vits", 518, 924):
+                fast = VDAModel(encoder, device=dev, attn_impl="auto:fast")
+                fast.module.load_state_dict(model.module.state_dict())
+                check_window(fast, x, f"vits 1x32x{h}x{w} auto:fast", *FAST_WINDOW_PLAN)
+                time_window(fast, xb, f"vits {h}x{w} auto:fast", smi)
+                del fast
             with plain_reference():
                 model.infer_window(xb[:1])
                 torch.cuda.synchronize()
@@ -547,17 +615,25 @@ def phase_window(dev, smi: str):
         torch.cuda.empty_cache()
 
 
-def write_clip(path: str, h: int, w: int, n: int = 76) -> None:
+def clip_frames(h: int, w: int, n: int = 76):
+    """uint8 ``(n, h, w, 3)``: colour ramps with a white disc moving across."""
     import cv2
     import numpy as np
 
-    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, (w, h))
     yy, xx = np.mgrid[0:h, 0:w]
+    frames = np.zeros((n, h, w, 3), np.uint8)
     for i in range(n):
-        f = np.zeros((h, w, 3), np.uint8)
-        f[..., 0] = (xx * 255 // w).astype(np.uint8)
-        f[..., 1] = (yy * 255 // h).astype(np.uint8)
-        cv2.circle(f, (int(w * (0.2 + 0.6 * i / n)), h // 2), h // 6, (255, 255, 255), -1)
+        frames[i, ..., 0] = (xx * 255 // w).astype(np.uint8)
+        frames[i, ..., 1] = (yy * 255 // h).astype(np.uint8)
+        cv2.circle(frames[i], (int(w * (0.2 + 0.6 * i / n)), h // 2), h // 6, (255, 255, 255), -1)
+    return frames
+
+
+def write_clip(path: str, h: int, w: int, n: int = 76) -> None:
+    import cv2
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, (w, h))
+    for f in clip_frames(h, w, n):
         writer.write(f)
     writer.release()
 
@@ -780,6 +856,105 @@ def phase_cli(smi: str) -> dict:
             if not ok:
                 raise SystemExit(f"cli run of {encoder} on the {name} clip failed")
     log(f"[cli] launches over the main path: {totals} ({smi})")
+    return totals
+
+
+STREAM_TOL = 5e-2  # relative to max|plain depth|, as WINDOW_TOL: each step
+# runs the model on one 32-frame window (12 ViT blocks on the new frame, 4
+# motion modules over the window); in aligned mode each frame's (s, t) comes
+# from those depths, one more scale and shift per frame
+STREAM = dict(inference_length=32, keyframe_list=(20,), chunk_size=8)
+# 76 frames: 31 warm-up encodes, 21 transition steps (frames 31-51) and 3
+# steady chunks of 8 (frames 52-75); plain mode gives depth from frame 31 on
+STREAM_FRAMES = 76 - 31
+
+# The streaming CLI runs (--process_single_image, 76-frame clips): the
+# kernels each must launch and must not launch.
+STREAM_PLANS = (
+    ("vits", "wide", "auto:fast", ("flash_attention_fast", "fused_motion_module"),
+     ("flash_attention", "temporal_attention", "output_tail", "flash_attention_bwd")),
+    ("vits", "square", "auto", ("flash_attention", "temporal_attention", "fused_motion_module"),
+     ("flash_attention_fast", "output_tail", "flash_attention_bwd")),
+    ("vitl", "square", "auto", ("flash_attention", "fused_motion_module", "output_tail"),
+     ("flash_attention_fast", "flash_attention_bwd")),
+)
+
+
+def phase_stream(dev, smi: str) -> dict:
+    """Feature-cache streaming: the pipeline's kernel path against its plain
+    path on a 76-frame 854x480 clip (plain mode under auto:fast, aligned
+    mode under auto), the CLI in streaming mode with its launch plans (the
+    main path: counts zeroed before each run, read after), and steady-state
+    frames/s (``profile_streaming``: time per steady step / chunk)."""
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch import run
+    from video_depth_anything_torch.inference.streaming import StreamingDepthPipeline
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+    from video_depth_anything_torch.profile_streaming import seconds_per_frame, steady_step
+
+    frames = clip_frames(480, 854)
+    models = {}
+    for impl in ("auto:fast", "auto"):
+        models[impl] = VDAModel("vits", device=dev, attn_impl=impl)
+        models[impl].init_params(seed=0)
+        noise_weights(models[impl].module, seed=1)
+    for impl, align in (("auto:fast", False), ("auto", True)):
+        pipe = StreamingDepthPipeline(models[impl], align_each_new_frame=align, **STREAM)
+        zero_counts()
+        got, _ = pipe.infer(frames)
+        counts = launch_counts()
+        with plain_reference():
+            want, _ = pipe.infer(frames)
+        n = len(frames) - (1 if align else STREAM["inference_length"] - 1)
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        ok = (got.shape == want.shape == (n, 480, 854) and bool(np.isfinite(got).all())
+              and rel <= STREAM_TOL)
+        log(f"[stream] vits 854x480 {'aligned' if align else 'plain'} {impl}: depth {got.shape}, "
+            f"rel err kernels vs plain {rel:.3e} (tol {STREAM_TOL}), launches {counts} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"streaming parity ({'aligned' if align else 'plain'}) failed")
+
+    clips = {"square": (480, 480), "wide": (480, 854)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (h, w) in clips.items():
+            write_clip(os.path.join(tmp, f"{name}.mp4"), h, w)
+        totals = dict.fromkeys(launch_counts(), 0)
+        for encoder, name, impl, needed, absent in STREAM_PLANS:
+            h, w = clips[name]
+            zero_counts()
+            rc = run.main(["--input_video", os.path.join(tmp, f"{name}.mp4"), "--output_dir", tmp,
+                           "--encoder", encoder, "--random_init", "--save_npz",
+                           "--process_single_image", "--attn_impl", impl])
+            delta = launch_counts()
+            totals = {k: totals[k] + delta[k] for k in totals}
+            depth = np.load(os.path.join(tmp, f"{name}_depth.npz"))["depth"]
+            ok = (rc == 0 and depth.shape == (STREAM_FRAMES, h, w)
+                  and bool(np.isfinite(depth).all()) and all(delta[k] > 0 for k in needed)
+                  and all(delta[k] == 0 for k in absent))
+            log(f"[stream] cli {encoder} {name} {w}x{h} {impl}: rc={rc} depth {depth.shape} "
+                f"finite={bool(np.isfinite(depth).all())} launches {delta} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"streaming cli run of {encoder} on the {name} clip failed")
+    log(f"[stream] launches over the streaming CLI runs: {totals} ({smi})")
+
+    models["vitl"] = VDAModel("vitl", device=dev)
+    models["vitl"].init_params(seed=0)
+    noise_weights(models["vitl"].module, seed=1)
+    for key, (h, w), chunks in (("auto", (518, 518), (8, 1)), ("auto", (518, 924), (8, 1)),
+                                ("auto:fast", (518, 924), (8, 1)), ("vitl", (518, 518), (8,))):
+        for chunk in chunks:
+            step, k = steady_step(models[key], h, w, chunk)
+            spf = seconds_per_frame(step, k)
+            label = "vitl auto" if key == "vitl" else f"vits {key}"
+            log(f"[stream] steady {label} {h}x{w} chunk {k}: {spf * 1e3:.3f} ms per frame, "
+                f"{1 / spf:.2f} frames/s ({smi})")
+            del step
+    del models
+    torch.cuda.empty_cache()
     return totals
 
 

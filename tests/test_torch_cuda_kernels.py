@@ -50,6 +50,50 @@ def test_flash_attention_kernel_sixteen_heads(dev, n):
     assert chip_smoke.rel_err(got, fa.flash_attention_plain(q, k, v, d**-0.5)) <= chip_smoke.ATTN_TOL
 
 
+@pytest.mark.parametrize("n,h,d,fast", [
+    (257, 6, 64, True), (1370, 6, 64, True), (2443, 6, 64, True),   # the no-max variant
+    (300, 3, 64, False), (1370, 3, 64, True),                       # odd head counts
+    (257, 2, 192, False), (1370, 2, 192, False), (2443, 1, 192, True),  # D = 192
+])
+def test_flash_attention_variants(dev, n, h, d, fast):
+    """Kernel A's fast variant, odd head counts and D = 192 against their
+    plain versions, with chip_smoke.py's inputs and tolerance; each variant
+    counts on its own launch counter."""
+    g = torch.Generator(device=dev).manual_seed(n + h + d)
+    qkv = chip_smoke.attention_inputs((2, n, h * d), g, dev)
+    q, k, v = (t.view(2, n, h, d) for t in qkv.split(h * d, dim=-1))
+    before = (fa.flash_attention.launches, fa.flash_attention.fast_launches)
+    got = fa.flash_attention(q, k, v, d**-0.5, fast=fast)
+    assert (fa.flash_attention.launches, fa.flash_attention.fast_launches) == \
+        (before[0] + (not fast), before[1] + fast)
+    want = fa.flash_attention_plain(q, k, v, d**-0.5, fast=fast)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
+
+
+def test_flash_attention_fast_lse_and_backward(dev):
+    """The fast forward's log-sum-exp is log2 of the exact softmax
+    denominator, so the backward kernel from it matches the plain
+    backward."""
+    b, n, h, d = 2, 362, 6, 64
+    qkv = chip_smoke.attention_inputs((b, n, h * d), torch.Generator(device=dev).manual_seed(2), dev)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    o, lse = fa.flash_attention(q, k, v, d**-0.5, with_lse=True, fast=True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d**-0.5
+    want = torch.logsumexp(s, dim=-1) / torch.log(torch.tensor(2.0, device=dev))
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+    go = torch.randn(b, n, h, d, generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev).to(torch.bfloat16)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, go, d**-0.5)
+    assert chip_smoke.bwd_rel_err(got, fa.flash_attention_bwd_plain(q, k, v, o, go, d**-0.5)) <= \
+        chip_smoke.BWD_TOL
+
+
+def test_flash_attention_other_head_dims_raise(dev):
+    q = torch.zeros(1, 300, 2, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q, q, q, 0.1)
+
+
 @pytest.mark.parametrize("n,h", [(257, 6), (362, 6), (362, 16), (1370, 6)])
 def test_flash_attention_bwd_kernel(dev, n, h):
     # chip_smoke.py's inputs and tolerance; ragged last query and key tiles

@@ -5,6 +5,8 @@ bicubic-interpolated positional embedding (scale factors ``(ph + 0.1) /
 37``), pre-norm blocks with LayerScale, and the tapped blocks' tokens after
 the final LayerNorm with the cls token dropped.  Parameter names are the
 reference torch keys (``patch_embed.proj``, ``blocks.{i}.attn.qkv``, …).
+``attn_impl`` (``auto|pallas|xla`` with an optional ``:fast``) goes to
+every block's attention, as in the JAX ``Attention``/``Block``/``DinoViT``.
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
@@ -37,7 +40,7 @@ class Attention(nn.Module):
         b, n, c = x.shape
         q, k, v = self.qkv(x).split(c, dim=-1)
         shape = (b, n, self.num_heads, c // self.num_heads)
-        out = multi_head_attention(q.view(shape), k.view(shape), v.view(shape))
+        out = multi_head_attention(q.view(shape), k.view(shape), v.view(shape), self.attn_impl)
         return self.proj(out.reshape(b, n, c))
 
 
@@ -73,11 +76,11 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, attn_impl: str = "auto"):
         super().__init__()
         d = cfg.embed_dim
         self.norm1 = LayerNorm(d, eps=cfg.norm_eps)
-        self.attn = Attention(d, cfg.num_heads)
+        self.attn = Attention(d, cfg.num_heads, attn_impl)
         self.ls1 = LayerScale(d, cfg.init_values)
         self.norm2 = LayerNorm(d, eps=cfg.norm_eps)
         ffn = SwiGLU if cfg.ffn_layer == "swiglufused" else Mlp
@@ -109,7 +112,7 @@ class DinoViT(nn.Module):
     """``forward(x, layer_idx)`` with ``x: (N, H, W, 3)`` → tuple of
     ``(N, ph·pw, D)`` post-norm patch tokens of the tapped blocks."""
 
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, attn_impl: str = "auto"):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
@@ -117,7 +120,7 @@ class DinoViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.pos_grid**2 + 1, d))
         self.mask_token = nn.Parameter(torch.zeros(1, d))  # unused at inference
-        self.blocks = nn.ModuleList([Block(cfg) for _ in range(cfg.depth)])
+        self.blocks = nn.ModuleList([Block(cfg, attn_impl) for _ in range(cfg.depth)])
         self.norm = LayerNorm(d, eps=cfg.norm_eps)
 
     def interpolate_pos_encoding(self, ph: int, pw: int) -> torch.Tensor:

@@ -10,8 +10,11 @@ kernel runs it.  With ``cfg.remat_motion`` each motion module runs under
 ``torch.utils.checkpoint`` where gradients are recorded (JAX ``nn.remat``,
 ``models/dpt.py:126-128`` there).  Parameter names are the reference torch keys
 (``projects``, ``resize_layers``, ``scratch``, ``motion_modules``).
-Only the batch-window forward is ported; the streaming methods come with
-the streaming slices.
+``attn_impl`` goes to the motion modules (the tail gate does not read it,
+as in JAX).  Besides the batch-window forward, the feature-cache streaming
+methods are ported (``streaming_forward``, ``streaming_head_step``,
+``streaming_chunk_forward``, ``dpt.py:412-543`` there); the KV-streaming
+ones wait for the KV-streaming slice.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ class Scratch(nn.Module):
 
 
 class DPTHeadTemporal(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, attn_impl: str = "auto"):
         super().__init__()
         self.cfg = cfg
         oc, d = cfg.out_channels, cfg.vit.embed_dim
@@ -89,7 +92,7 @@ class DPTHeadTemporal(nn.Module):
         ])
         self.scratch = Scratch(cfg)
         self.motion_modules = nn.ModuleList([
-            TemporalModule(cfg.motion, c)
+            TemporalModule(cfg.motion, c, attn_impl)
             for c in (oc[2], oc[3], cfg.features, cfg.features)
         ])
 
@@ -132,6 +135,73 @@ class DPTHeadTemporal(nn.Module):
             path4 = self._temporal(mm[2], path4, batch)
         path3 = sc.refinenet3(path4, r3, out_hw=tuple(r2.shape[-3:-1]))
         path3 = self._temporal(mm[3], path3, batch)
+        path2 = sc.refinenet2(path3, r2, out_hw=tuple(r1.shape[-3:-1]))
+        path1 = sc.refinenet1(path2, r1)
+        return self._output_head(path1, ph, pw)
+
+    # -- feature-cache streaming ----------------------------------------------
+
+    def streaming_forward(self, new_features, cached, ph: int, pw: int, pred_idx=None,
+                          skip_tmp_block: bool = False):
+        """One streaming step: the current frame's encoder taps (each
+        ``(1, N, D)``) and the gathered pre-motion level windows (each
+        ``(T-1, h_l, w_l, C_l)``) → (depth ``(P, 14ph, 14pw, 1)``, the
+        frame's 4 level features).  ``pred_idx``: window positions whose
+        depth is predicted besides the current frame; ``None`` predicts the
+        current frame only."""
+        levels = self.level_features(new_features, ph, pw)
+        return self.streaming_head_step(levels, cached, ph, pw, pred_idx, skip_tmp_block)
+
+    def streaming_head_step(self, levels, cached, ph: int, pw: int, pred_idx=None,
+                            skip_tmp_block: bool = False):
+        """The post-encoder half of ``streaming_forward``.  Cached levels 1
+        and 2 are read only at ``pred_idx`` and may be ``None`` without
+        it."""
+        sc, mm = self.scratch, self.motion_modules
+        n1, n2, n3, n4 = levels
+        c1, c2, c3, c4 = cached
+        t = c3.shape[0] + 1
+        if pred_idx is not None:
+            idx = torch.as_tensor(pred_idx, dtype=torch.long, device=n1.device)
+            l1p, l2p = torch.cat([c1[idx], n1]), torch.cat([c2[idx], n2])
+        else:
+            l1p, l2p = n1, n2
+        r1, r2 = sc.layer1_rn(l1p), sc.layer2_rn(l2p)
+        r4 = sc.layer4_rn(self._temporal(mm[1], torch.cat([c4, n4]), 1))
+        r3 = sc.layer3_rn(self._temporal(mm[0], torch.cat([c3, n3]), 1))
+        path4 = sc.refinenet4(r4, out_hw=tuple(r3.shape[-3:-1]))
+        if not skip_tmp_block:
+            path4 = self._temporal(mm[2], path4, 1)
+        path3 = sc.refinenet3(path4, r3, out_hw=tuple(r2.shape[-3:-1]))
+        path3 = self._temporal(mm[3], path3, 1)
+        # keep the frames whose depth is asked for, the current one last
+        if pred_idx is not None:
+            path3 = path3[torch.cat([idx, idx.new_tensor([t - 1])])]
+        else:
+            path3 = path3[-1:]
+        path2 = sc.refinenet2(path3, r2, out_hw=tuple(r1.shape[-3:-1]))
+        path1 = sc.refinenet1(path2, r1)
+        return self._output_head(path1, ph, pw), (n1, n2, n3, n4)
+
+    def streaming_chunk_forward(self, n1, n2, w3, w4, ph: int, pw: int,
+                                skip_tmp_block: bool = False) -> torch.Tensor:
+        """K steady streaming steps as one batch: ``n1, n2`` the newest
+        frame's level-1/2 maps per chunk position ``(K, h, w, C)``, ``w3,
+        w4`` each position's whole window ``(K, T, h, w, C)``.  The same
+        math as K ``streaming_forward`` calls without ``pred_idx``; returns
+        depth ``(K, 14ph, 14pw, 1)``."""
+        sc, mm = self.scratch, self.motion_modules
+        k, t = w3.shape[:2]
+        flat = lambda x: x.reshape((k * t,) + x.shape[2:])  # noqa: E731
+        unflat = lambda x: x.reshape((k, t) + x.shape[1:])  # noqa: E731
+        r1, r2 = sc.layer1_rn(n1), sc.layer2_rn(n2)
+        r4 = sc.layer4_rn(flat(mm[1](w4)))
+        r3 = sc.layer3_rn(flat(mm[0](w3)))
+        path4 = sc.refinenet4(r4, out_hw=tuple(r3.shape[-3:-1]))
+        if not skip_tmp_block:
+            path4 = flat(mm[2](unflat(path4)))
+        path3 = sc.refinenet3(path4, r3, out_hw=tuple(r2.shape[-3:-1]))
+        path3 = mm[3](unflat(path3))[:, -1]  # the newest frame per chunk position
         path2 = sc.refinenet2(path3, r2, out_hw=tuple(r1.shape[-3:-1]))
         path1 = sc.refinenet1(path2, r1)
         return self._output_head(path1, ph, pw)

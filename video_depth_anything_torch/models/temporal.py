@@ -10,8 +10,12 @@ fused Pallas module goes to Kernel C (``ops/motion_module.py``); otherwise
 each attention whose shape the JAX gate sends to the Pallas temporal core
 goes to Kernel B (``ops/temporal_attention.py``), and the rest is plain
 PyTorch.  Kernels are called through their autograd Functions, so the
-module trains on either path.  Only the full-window forward is ported; the
-KV-streaming methods come with the streaming slices.
+module trains on either path.  ``attn_impl`` is the JAX switch: its base
+``xla`` (the part before ``:``, so ``:fast`` never reaches these kernels)
+turns both Kernel B and Kernel C off, as ``temporal.py:125-126`` and
+``:408-409`` there.  The window forward serves the sliding window and the
+feature-cache streaming steps; the KV-streaming methods (``collect``,
+``kv_step``) wait for the KV-streaming slice.
 """
 
 from __future__ import annotations
@@ -47,9 +51,10 @@ class PositionalEncoding(nn.Module):
 
 
 class TemporalSelfAttention(nn.Module):
-    def __init__(self, cfg: MotionModuleConfig, dim: int):
+    def __init__(self, cfg: MotionModuleConfig, dim: int, attn_impl: str = "auto"):
         super().__init__()
         self.cfg = cfg
+        self.use_kernels = attn_impl.partition(":")[0] != "xla"
         self.to_q = Linear(dim, dim, bias=False)
         self.to_k = Linear(dim, dim, bias=False)
         self.to_v = Linear(dim, dim, bias=False)
@@ -61,7 +66,7 @@ class TemporalSelfAttention(nn.Module):
         x = self.pos_encoder(x)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         scale = (q.shape[-1] // heads) ** -0.5
-        if kernels_enabled() and temporal_gate(q.shape, heads):
+        if self.use_kernels and kernels_enabled() and temporal_gate(q.shape, heads):
             out = TemporalAttentionFn.apply(q, k, v, heads, scale)
         else:
             out = temporal_attention_plain(q, k, v, heads, scale)
@@ -88,10 +93,11 @@ class FeedForward(nn.Module):
 
 
 class TemporalTransformerBlock(nn.Module):
-    def __init__(self, cfg: MotionModuleConfig, dim: int):
+    def __init__(self, cfg: MotionModuleConfig, dim: int, attn_impl: str = "auto"):
         super().__init__()
         n = cfg.num_attention_blocks
-        self.attention_blocks = nn.ModuleList([TemporalSelfAttention(cfg, dim) for _ in range(n)])
+        self.attention_blocks = nn.ModuleList(
+            [TemporalSelfAttention(cfg, dim, attn_impl) for _ in range(n)])
         self.norms = nn.ModuleList([LayerNorm(dim, eps=cfg.layer_norm_eps) for _ in range(n)])
         self.ff = FeedForward(dim, cfg.ff_mult)
         self.ff_norm = LayerNorm(dim, eps=cfg.layer_norm_eps)
@@ -103,13 +109,14 @@ class TemporalTransformerBlock(nn.Module):
 
 
 class TemporalTransformer(nn.Module):
-    def __init__(self, cfg: MotionModuleConfig, channels: int):
+    def __init__(self, cfg: MotionModuleConfig, channels: int, attn_impl: str = "auto"):
         super().__init__()
         inner = cfg.num_heads * (channels // cfg.num_heads)
         self.norm = GroupNorm(cfg.norm_num_groups, channels, eps=cfg.group_norm_eps)
         self.proj_in = Linear(channels, inner)
         self.transformer_blocks = nn.ModuleList(
-            [TemporalTransformerBlock(cfg, inner) for _ in range(cfg.num_transformer_blocks)])
+            [TemporalTransformerBlock(cfg, inner, attn_impl)
+             for _ in range(cfg.num_transformer_blocks)])
         self.proj_out = Linear(inner, channels)
 
 
@@ -117,12 +124,13 @@ class TemporalModule(nn.Module):
     """Motion module over ``(B, T, H, W, C)``; key prefix
     ``temporal_transformer`` as in the reference."""
 
-    def __init__(self, cfg: MotionModuleConfig, channels: int):
+    def __init__(self, cfg: MotionModuleConfig, channels: int, attn_impl: str = "auto"):
         super().__init__()
         self.cfg = cfg
         self.channels = channels
         self.inner = cfg.num_heads * (channels // cfg.num_heads)
-        self.temporal_transformer = TemporalTransformer(cfg, channels)
+        self.use_kernels = attn_impl.partition(":")[0] != "xla"
+        self.temporal_transformer = TemporalTransformer(cfg, channels, attn_impl)
 
     def raw_params(self) -> dict:
         """Parameters in the JAX raw layout of ``fused_motion_module``."""
@@ -158,7 +166,7 @@ class TemporalModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
-        if kernels_enabled() and motion_gate(self.cfg, c, self.inner, t, h, w):
+        if self.use_kernels and kernels_enabled() and motion_gate(self.cfg, c, self.inner, t, h, w):
             p = self.raw_params()
             weights = self.kernel_weights() if x.device.type == "cuda" else None
             out = FusedMotionModuleFn.apply(x.reshape(b, t, h * w, c), self.cfg,

@@ -2,12 +2,15 @@
 backward (``csrc/flash_attention_bwd.cu``).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_attention.py``
-``_flash_kernel_native`` (``flash_attention_native``) and ``_flash_kernel``
-(``_flash_forward`` via ``spatial_flash_attention``); the backward kernel
-replaces ``_flash_kernel_native_bwd`` (``_native_bwd_pallas``).
-``flash_gate`` is the JAX dispatch rule of ``try_spatial_attention``:
-head_dim a multiple of 64 but not of 128, and at least 256 tokens.  The
-kernels take D = 64, the head width of every shipped encoder.
+``_flash_kernel_native`` (``flash_attention_native``), ``_flash_kernel``
+and ``_flash_kernel_fast`` (``_flash_forward`` via
+``spatial_flash_attention``) and ``_flash_kernel_single`` (odd head counts
+and D = 192); the backward kernel replaces ``_flash_kernel_native_bwd``
+(``_native_bwd_pallas``).  ``flash_gate`` is the JAX dispatch rule of
+``try_spatial_attention``: head_dim a multiple of 64 but not of 128, and
+at least 256 tokens.  The forward kernel takes D = 64 (every shipped
+encoder) and D = 192 (the rest of that gate's domain up to 256), any head
+count, exact or ``fast``: the ``:fast`` impl suffix's no-max softmax.
 ``bwd_gate`` is where the JAX package runs the Pallas backward (the native
 layout: D = 64, H even, at most 2048 padded keys); elsewhere its VJP is the
 dense einsum backward, and so is the port's.
@@ -16,7 +19,8 @@ dense einsum backward, and so is the port's.
 Kernel A (saving the per-row log-sum-exp), its backward the backward
 kernel; on CPU tensors both are the plain versions.  ``flash_attention``
 and ``flash_attention_bwd`` are the raw launches and keep no autograd
-history.
+history.  ``flash_attention.launches`` counts the exact variant's launches
+and ``flash_attention.fast_launches`` the fast variant's.
 
 Bound on the H100: tensor-core FLOPs (4·N²·D·H·B forward, 10·N²·D·H·B
 backward); see the source notes.
@@ -29,6 +33,10 @@ import ctypes
 import torch
 
 from video_depth_anything_torch.ops import cuda_build
+
+LOG2E = 1.4426950408889634
+HEAD_DIMS = (64, 192)  # the forward kernel's instantiations
+
 
 def flash_gate(shape) -> bool:
     """True where the JAX package sends ``(B, N, H, D)`` to a flash kernel."""
@@ -45,13 +53,20 @@ def bwd_gate(shape) -> bool:
     return flash_gate(shape) and d == 64 and h % 2 == 0 and -(-n // 128) * 128 <= 2048
 
 
-def flash_attention_plain(q, k, v, scale: float) -> torch.Tensor:
+def flash_attention_plain(q, k, v, scale: float, fast: bool = False) -> torch.Tensor:
     """Dense attention over ``(B, N, H, D)``: fp32 scores and softmax,
     probabilities cast to the input dtype, fp32 accumulate, output in the
-    input dtype (``ops/attention.py:_xla_attention`` in the JAX package)."""
+    input dtype (``ops/attention.py:_xla_attention`` in the JAX package).
+    ``fast`` is the no-max softmax of the ``:fast`` kernels,
+    p = exp2(s·log2 e) / Σ in fp32: the same quotient while the scaled
+    logits stay inside fp32's exp2 domain (about ±88)."""
     dtype = q.dtype
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    p = torch.softmax(s, dim=-1).to(dtype)
+    if fast:
+        e = torch.exp2(s * LOG2E)
+        p = (e / e.sum(dim=-1, keepdim=True)).to(dtype)
+    else:
+        p = torch.softmax(s, dim=-1).to(dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     return out.to(dtype)
 
@@ -85,7 +100,7 @@ def _kernel(name: str):
         ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
         if name == "fwd":
             fn = cuda_build.library("flash_attention").vda_flash_attention_fwd
-            fn.argtypes = [vp] * 4 + [i] * 3 + [ll] * 12 + [ctypes.c_float, vp, vp]
+            fn.argtypes = [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, vp, vp]
         else:
             fn = cuda_build.library("flash_attention_bwd").vda_flash_attention_bwd
             fn.argtypes = [vp] * 10 + [i] * 3 + [ll] * 9 + [ctypes.c_float, vp]
@@ -94,12 +109,12 @@ def _kernel(name: str):
     return _fns[name]
 
 
-def _check_inputs(what: str, *tensors) -> None:
+def _check_inputs(what: str, *tensors, head_dims=(64,)) -> None:
     q = tensors[0]
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError(f"{what} kernel takes bf16, got {[t.dtype for t in tensors]}")
-    if q.shape[3] != 64:
-        raise NotImplementedError(f"{what} kernel takes head_dim 64, got {q.shape[3]}")
+    if q.shape[3] not in head_dims:
+        raise NotImplementedError(f"{what} kernel takes head_dim {head_dims}, got {q.shape[3]}")
     for t in tensors:
         if t.shape != q.shape or t.device != q.device:
             raise ValueError(f"{what}: operands must share shape and device")
@@ -107,33 +122,46 @@ def _check_inputs(what: str, *tensors) -> None:
             raise ValueError(f"{what} needs 16-byte aligned rows with unit stride in D")
 
 
-def flash_attention(q, k, v, scale: float, with_lse: bool = False):
+def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = False):
     """Attention over ``(B, N, H, D)`` tensors, which may be strided views
-    of a fused qkv projection.  CPU tensors take the plain version; CUDA
-    tensors launch Kernel A or raise.  ``with_lse`` (CUDA only) also
-    returns the fp32 ``(B, H, N)`` log-sum-exp of the scaled scores in the
-    exp2 domain, which ``flash_attention_bwd`` takes."""
+    of a fused qkv projection; D = 64 or 192, any head count.  CPU tensors
+    take the plain version; CUDA tensors launch Kernel A or raise.
+    ``with_lse`` (CUDA only) also returns the fp32 ``(B, H, N)``
+    log-sum-exp of the scaled scores in the exp2 domain, which
+    ``flash_attention_bwd`` takes.
+
+    ``fast`` launches the no-max variant (the JAX ``:fast`` suffix): no
+    running max and no rescale.  Its result is the exact softmax's while
+    every scaled logit q·k·scale stays inside fp32's exp2 domain (about
+    ±88); beyond it the card's exp2 overflows to inf and the output turns
+    to nan, where the TPU's polynomial exp2 clamps.  Nothing checks or
+    switches variants."""
     cuda_build.no_history("flash_attention", q, k, v)
     if q.device.type == "cpu":
         if with_lse:
             raise ValueError("the log-sum-exp comes from the CUDA kernel only")
-        return flash_attention_plain(q, k, v, scale)
-    _check_inputs("flash_attention", q, k, v)
+        return flash_attention_plain(q, k, v, scale, fast=fast)
+    _check_inputs("flash_attention", q, k, v, head_dims=HEAD_DIMS)
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     err = _kernel("fwd")(
         cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
-        b, n, h,
+        b, n, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        float(scale), None if lse is None else cuda_build.ptr(lse), cuda_build.stream_of(q),
+        float(scale), int(fast), None if lse is None else cuda_build.ptr(lse),
+        cuda_build.stream_of(q),
     )
     cuda_build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    if fast:
+        flash_attention.fast_launches += 1
+    else:
+        flash_attention.launches += 1
     return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.fast_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
@@ -166,19 +194,22 @@ flash_attention_bwd.launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Differentiable Kernel A: ``apply(q, k, v, scale)`` on ``(B, N, H, D)``.
-    On the card the forward launches Kernel A and keeps its log-sum-exp;
-    the backward launches the backward kernel where ``bwd_gate`` holds and
-    runs ``flash_attention_bwd_plain`` elsewhere (as the JAX package's
-    blocked path does).  On the CPU both directions are the plain
+    """Differentiable Kernel A: ``apply(q, k, v, scale, fast)`` on
+    ``(B, N, H, D)``.  On the card the forward launches Kernel A (the fast
+    variant where ``fast``) and keeps its log-sum-exp; the backward
+    launches the backward kernel where ``bwd_gate`` holds and runs
+    ``flash_attention_bwd_plain`` elsewhere (as the JAX package's blocked
+    path does).  The fast forward's log-sum-exp is log2 of its row sum, so
+    the backward kernel recomputes the same normalised P from it, as the
+    TPU's fast backward does.  On the CPU both directions are the plain
     versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, fast=False):
         if q.device.type == "cpu":
-            out, lse = flash_attention_plain(q, k, v, scale), None
+            out, lse = flash_attention_plain(q, k, v, scale, fast=fast), None
         else:
-            out, lse = flash_attention(q, k, v, scale, with_lse=True)
+            out, lse = flash_attention(q, k, v, scale, with_lse=True, fast=fast)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out
@@ -190,4 +221,4 @@ class FlashAttentionFn(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, ctx.scale)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, g, ctx.scale)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None

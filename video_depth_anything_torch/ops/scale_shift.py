@@ -1,12 +1,14 @@
-"""Scale/shift alignment math for window stitching (host, numpy): the
-closed-form least-squares fit of ``pred·s + t ≈ target`` and the overlap
-cross-fade weights."""
+"""Scale/shift alignment math: the closed-form least-squares fit of
+``pred·s + t ≈ target`` on the host (numpy, the window stitch and the
+streaming transition phase) and on the device (torch, the aligned
+streaming steps), and the overlap cross-fade weights."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def compute_scale_and_shift(
@@ -35,6 +37,22 @@ def compute_scale_and_shift(
     s = (a_11 * b_0 - a_01 * b_1) / det
     t = (-a_01 * b_0 + a_00 * b_1) / det
     return float(s), float(t)
+
+
+def compute_scale_and_shift_torch(prediction: torch.Tensor, target: torch.Tensor,
+                                  mask: torch.Tensor | None = None):
+    """The same fit on the device (JAX ``compute_scale_and_shift_jax``):
+    fp32 moments, ``(1, 0)`` where the system is singular; returns 0-d
+    tensors ``(s, t)`` without a host round trip."""
+    pred, tgt = prediction.float(), target.float()
+    m = torch.ones_like(pred) if mask is None else mask.float()
+    a_00, a_01, a_11 = (m * pred * pred).sum(), (m * pred).sum(), m.sum()
+    b_0, b_1 = (m * pred * tgt).sum(), (m * tgt).sum()
+    det = a_00 * a_11 - a_01 * a_01
+    ok = det != 0
+    s = torch.where(ok, (a_11 * b_0 - a_01 * b_1) / det, torch.ones_like(det))
+    t = torch.where(ok, (-a_01 * b_0 + a_00 * b_1) / det, torch.zeros_like(det))
+    return s, t
 
 
 def interpolation_weights(n: int) -> np.ndarray:

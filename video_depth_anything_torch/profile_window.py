@@ -25,7 +25,10 @@ PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd", "temporal_attn_kernel", "motion
 
 
 def category(name: str) -> str:
-    """The port's kernels by name; the plain PyTorch rest by kind."""
+    """The port's kernels by name (Kernel A's fast instantiations apart);
+    the plain PyTorch rest by kind."""
+    if "flash_fwd_kernel" in name and ("true" in name or "(bool)1" in name):
+        return "flash_fwd_kernel (fast)"
     for k in PORT_KERNELS:
         if k in name:
             return k

@@ -1,11 +1,16 @@
-"""Video → depth on the card, sliding-window mode.
+"""Video → depth on the card, sliding-window or feature-cache streaming mode.
 
     python -m video_depth_anything_torch.run --input_video clip.mp4 \\
         --output_dir ./outputs --encoder vits --random_init
+    python -m video_depth_anything_torch.run --input_video clip.mp4 --random_init \\
+        --process_single_image [--align_each_new_frame] [--attn_impl auto:fast]
 
 Writes ``<name>_depth.mp4`` (and ``<name>_depth.npz`` with ``--save_npz``)
-and prints the frames/s and how often each CUDA kernel was launched.
-Runs on the card; ``--device cpu`` runs the plain PyTorch path.
+and prints the frames/s and how often each CUDA kernel was launched, the
+exact and the fast variant of Kernel A apart.  Runs on the card;
+``--device cpu`` runs the plain PyTorch path.  The flags are the JAX
+``run.py``'s for these modes; ``--original`` overrides the streaming flags
+(``normalize_args``), and ``--kv_cache`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +38,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target_fps", type=int, default=-1)
     p.add_argument("--fp32", action="store_true", help="fp32 end to end (CPU only for now)")
     p.add_argument("--skip_tmp_block", action="store_true", help="skip the third motion module")
+    p.add_argument("--original", action="store_true",
+                   help="reference-default sliding-window mode (overrides the streaming flags)")
+    p.add_argument("--process_single_image", action="store_true",
+                   help="feature-cache streaming: one frame per step")
+    p.add_argument("--inference_length", type=int, default=32)
+    p.add_argument("--keyframe_list", type=int, nargs="+", default=[20],
+                   help="streaming keyframe distances; lists with 0 are refused with "
+                        "--align_each_new_frame")
+    p.add_argument("--align_each_new_frame", action="store_true")
+    p.add_argument("--stream_chunk", type=int, default=8,
+                   help="steady streaming frames per batch (1: one at a time; clamped to "
+                        "inference_length + max(keyframes) - 3)")
+    p.add_argument("--ring_dtype", choices=["fp32", "fp16", "bf16"], default="fp32",
+                   help="storage dtype of the aligned mode's ring of emitted depths")
+    p.add_argument("--transfer_dtype", choices=["fp32", "fp16"], default="fp32",
+                   help="dtype of streamed depth maps on their way to the host")
+    p.add_argument("--kv_cache", action="store_true",
+                   help="KV-cache streaming (not ported yet: ROADMAP Queue 0)")
+    p.add_argument("--attn_impl", type=str, default="auto",
+                   help="auto|pallas|xla with an optional :fast suffix (auto:fast: Kernel A's "
+                        "no-max softmax, exact while attention logits stay inside fp32's exp2 "
+                        "domain, about +-88); xla turns every kernel of the attention and motion "
+                        "modules off; pallas is refused on the card")
     p.add_argument("--window_batch", type=int, default=None,
                    help="windows per model call (default 4 for vits/vitb, 1 for vitl)")
     p.add_argument("--host_upsample", action="store_true",
@@ -49,22 +77,38 @@ def kernel_launches() -> dict:
     from video_depth_anything_torch.ops.output_tail import output_tail
     from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
-    return {f.__name__: f.launches for f in (flash_attention, flash_attention_bwd,
-                                              temporal_attention, fused_motion_module,
-                                              output_tail)}
+    counts = {f.__name__: f.launches for f in (flash_attention, flash_attention_bwd,
+                                                temporal_attention, fused_motion_module,
+                                                output_tail)}
+    counts["flash_attention_fast"] = flash_attention.fast_launches
+    return counts
+
+
+def normalize_args(args):
+    """``--original`` runs the plain sliding-window mode of the reference,
+    without ``--skip_tmp_block`` (JAX ``run.py:149-163``)."""
+    if args.original:
+        args.process_single_image = False
+        args.skip_tmp_block = False
+    return args
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    args = normalize_args(build_parser().parse_args(argv))
+    if args.process_single_image and args.kv_cache:
+        raise NotImplementedError(
+            "--kv_cache (KV-cache streaming) is not ported yet: ROADMAP Queue 0, KV streaming")
     import torch
 
     from video_depth_anything_torch.inference.pipeline import VideoDepthPipeline
+    from video_depth_anything_torch.inference.streaming import StreamingDepthPipeline
     from video_depth_anything_torch.io.video import read_video_frames, save_video
     from video_depth_anything_torch.models.vda import VDAModel
 
     os.makedirs(args.output_dir, exist_ok=True)
     model = VDAModel(args.encoder, device=args.device,
-                     dtype=torch.float32 if args.fp32 else torch.bfloat16)
+                     dtype=torch.float32 if args.fp32 else torch.bfloat16,
+                     attn_impl=args.attn_impl)
     if args.random_init:
         model.init_params(seed=0)
     else:
@@ -77,9 +121,17 @@ def main(argv=None) -> int:
     print(f"decoded {len(frames)} frames @ {fps:.2f} fps, {frames.shape[2]}x{frames.shape[1]}")
     before = kernel_launches()
     t0 = time.time()
-    pipe = VideoDepthPipeline(model, input_size=args.input_size,
-                              window_batch=args.window_batch, host_upsample=args.host_upsample)
-    depths, fps = pipe.infer_video_depth(frames, fps, skip_tmp_block=args.skip_tmp_block)
+    if args.process_single_image:
+        pipe = StreamingDepthPipeline(
+            model, input_size=args.input_size, inference_length=args.inference_length,
+            keyframe_list=tuple(args.keyframe_list), align_each_new_frame=args.align_each_new_frame,
+            chunk_size=args.stream_chunk, ring_dtype=args.ring_dtype,
+            host_upsample=args.host_upsample, transfer_dtype=args.transfer_dtype)
+        depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block)
+    else:
+        pipe = VideoDepthPipeline(model, input_size=args.input_size,
+                                  window_batch=args.window_batch, host_upsample=args.host_upsample)
+        depths, fps = pipe.infer_video_depth(frames, fps, skip_tmp_block=args.skip_tmp_block)
     wall = time.time() - t0
 
     base = os.path.splitext(os.path.basename(args.input_video))[0]

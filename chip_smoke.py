@@ -11,12 +11,15 @@ Phases (each failure ends the run with a non-zero exit):
    A's backward, the training shapes, also from the fast forward's
    log-sum-exp; Kernel A's fast variant also at the streaming shapes, one
    frame and a chunk of 8; Kernel A at D = 192 and at 3 heads on synthetic
-   shapes), on inputs whose attention is peaked,
-   and show that wrong kernels (uniform attention, a dropped last key tile;
+   shapes), on inputs whose attention is peaked; Kernel A's probe kernels
+   (every spatial variant at the vitl and vits probe shapes, the seven
+   softmax-chain modes) on their scripts' inputs; the fused resize -> conv
+   at the vitl junction; and show that wrong kernels (uniform attention, a
+   dropped last key tile, for the no-mask probes a missing pad correction;
    for the backward, Delta = 0 and a dropped last query tile; for the
-   output tail, align_corners False taps and a conv3x3 without its
-   off-centre taps) would fail the same tolerance; time kernel, plain
-   version, and the library call where one exists.
+   output tail and the resize -> conv, align_corners False taps and a
+   conv3x3 without its off-centre taps) would fail the same tolerance;
+   time kernel, plain version, and the library call where one exists.
 3. window: one full-width, full-depth vits window and one vitl window
    (noised seeded weights) at 518x518 and 518x924, kernel path against the
    plain path on the card; frames/s of ``infer_window`` at the pipeline's
@@ -49,16 +52,23 @@ Phases (each failure ends the run with a non-zero exit):
    6 steps and a resume for 2 more; the losses must be finite, the steps
    continue, and Kernels A (forward and backward), B and C must all run.
    The main path of training: counts zeroed before, read after.
+8. probes: ``python -m video_depth_anything_torch.bench_spatial_variants``
+   and ``bench_softmax_chain`` (their ``main``, in-process) at full shapes
+   with their default lists, and ``ResizeConvFn`` forward and backward at
+   the vitl junction against autograd through the plain chain: the path of
+   the probe kernels and of the resize -> conv kernel (counts zeroed
+   before, read after).
 The last two lines are the kernels JSON object (launches summed over the
-main-path runs of phases cli, stream and train-cli; Kernel A's fast variant
-is its own entry) and the contract line ``{"ok": true, "device": {...}}``.
+main-path runs of phases cli, stream and train-cli, and for the probe
+kernels and the resize -> conv those of phase probes; Kernel A's fast
+variant is its own entry) and the contract line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -75,21 +85,6 @@ def log(*a):
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def max_err(a, b) -> float:
@@ -137,6 +132,18 @@ TAIL_TOL = 2.5 * 2.0**-8  # the output tail, relative to max|plain|: the JAX
 # package's bound for its fused tail against the XLA chain
 # (tests/test_output_stack.py:56).  Kernel and plain chain round at the same
 # points; they differ in fp32 summation order.
+RESIZE_CONV_TOL = 2.5 * 2.0**-8  # the fused resize -> conv, relative to
+# max|plain|: the JAX package's bound for its kernel against the XLA chain
+# (tests/test_resize_conv.py:49); the same rounding points, other fp32 sums.
+RESIZE_CONV_GRAD_TOL = 5e-2  # ResizeConvFn's gradients against autograd
+# through the plain chain, relative to each gradient's max: both run the
+# same plain backward, whose bilinear-resize backward adds bf16 gradients
+# with atomics in an order that changes from run to run; phase probes logs
+# how far two plain runs differ.
+CHAIN_TOL = 1e-2  # the softmax-chain probe, relative to max|plain| of its
+# unnormalised output: P is rounded to bf16 at the same point in both, the
+# exponentials differ in their last fp32 bits (and exact's online max in
+# its rescale order), which can move a bf16 rounding of P.
 
 
 def attention_inputs(shape, gen, device):
@@ -234,15 +241,106 @@ def tail_mutant_errors(x, w1, b1, w2, b2, out_h: int, out_w: int) -> dict:
             "centre_tap_only": rel_err(centre_only, want)}
 
 
+def probe_inputs(b: int, n: int, h: int, gen, device):
+    """bf16 ``(b, n, h * 64)`` q, k ~ N(0, 0.5²) and v ~ N(0, 1): the spatial
+    probe script's inputs (scripts/bench_spatial_variants.py:250-252)."""
+    import torch
+
+    return tuple((torch.randn(b, n, h * 64, generator=gen, device=device) * std).to(torch.bfloat16)
+                 for std in (0.5, 0.5, 1.0))
+
+
+def probe_mutant_errors(variant: str, q, k, v, scale, heads: int) -> dict:
+    """How far wrong spatial probe kernels miss the plain version of
+    ``variant`` on the same inputs, relative to max|plain|: uniform
+    attention, a dropped last (ragged) key tile, and for the no-mask
+    variants a missing pad correction (zero pad keys counted in l)."""
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops.attention_variants import parse_variant, spatial_kernel_plain
+
+    kind, arg = parse_variant(variant, q.shape[1])
+    plain = lambda k_, v_, kind=kind, arg=arg: spatial_kernel_plain(  # noqa: E731
+        kind, arg, q, k_, v_, scale, heads)
+    want = plain(k, v)
+    n = k.shape[1]
+    keep = (n - 1) // 64 * 64
+    if keep == 0:
+        raise ValueError(f"{n} keys leave no full key tile to keep")
+    uniform = v.float().mean(1, keepdim=True).expand(v.shape).to(v.dtype)
+    out = {"uniform": rel_err(uniform, want),
+           "drop_last_tile": rel_err(plain(k[:, :keep], v[:, :keep]), want)}
+    if kind == "chunk" or (kind == "ilv" and arg):
+        pad = -(-n // 128) * 128 - n
+        kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
+        out["no_pad_correction"] = rel_err(spatial_kernel_plain("ilv", False, q, kp, vp, scale,
+                                                                heads), want)
+    return out
+
+
+def chain_inputs(bh: int, gen, device, nq: int = 1376, nk: int = 1408):
+    """The chain probe script's inputs (scripts/bench_softmax_chain.py:
+    48-51): q, k ~ N(0, 0.35²) of width 64, v ~ N(0, 1) of width 128."""
+    import torch
+
+    return tuple((torch.randn(*shape, generator=gen, device=device) * std).to(torch.bfloat16)
+                 for shape, std in (((bh, nq, 64), 0.35), ((bh, nk, 64), 0.35),
+                                    ((bh, nk, 128), 1.0)))
+
+
+def chain_mutant_errors(mode: str, q, k, v) -> dict:
+    """How far two wrong chain kernels miss the plain version of ``mode``,
+    relative to max|plain|: uniform attention (the mean of v's first 64
+    columns over the keys) and a dropped last key tile."""
+    from video_depth_anything_torch.ops.attention_variants import softmax_chain_plain
+
+    want = softmax_chain_plain(mode, q, k, v)
+    d = q.shape[-1]
+    uniform = v[..., :d].float().mean(1, keepdim=True).expand(want.shape)
+    dropped = softmax_chain_plain(mode, q, k[:, :-64], v[:, :-64])
+    return {"uniform": rel_err(uniform, want), "drop_last_tile": rel_err(dropped, want)}
+
+
+def resize_conv_inputs(n: int, h: int, w: int, c: int, gen, device):
+    """x ~ N(0, 1) bf16 ``(n, h, w, c)``, w ~ N(0, 0.1²) ``(128, c, 3, 3)`` and
+    b ~ N(0, 0.1²): the JAX test's scales (tests/test_resize_conv.py:22-26)."""
+    import torch
+
+    r = lambda *s, std: torch.randn(*s, generator=gen, device=device) * std  # noqa: E731
+    return r(n, h, w, c, std=1.0).to(torch.bfloat16), r(128, c, 3, 3, std=0.1), r(128, std=0.1)
+
+
+def resize_conv_mutant_errors(x, w, b, out_h: int, out_w: int) -> dict:
+    """How far two wrong kernels miss the plain version, relative to
+    max|plain|: half-pixel (align_corners False) taps, and a conv3x3 that
+    keeps only its centre tap."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops.resize_conv import resize_conv_plain
+
+    want = resize_conv_plain(x, w, b, out_h, out_w)
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
+                      align_corners=False)
+    shifted = F.conv2d(y, w.to(x.dtype), padding=1).permute(0, 2, 3, 1) + b.to(x.dtype)
+    centre = torch.zeros_like(w)
+    centre[:, :, 1, 1] = w[:, :, 1, 1]
+    return {"align_corners_false": rel_err(shifted, want),
+            "centre_tap_only": rel_err(resize_conv_plain(x, centre, b, out_h, out_w), want)}
+
+
 def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
 
     from video_depth_anything_torch.config import MotionModuleConfig
+    from video_depth_anything_torch.ops import attention_variants as av
     from video_depth_anything_torch.ops import flash_attention as fa
     from video_depth_anything_torch.ops import motion_module as mm
     from video_depth_anything_torch.ops import output_tail as ot
+    from video_depth_anything_torch.ops import resize_conv as rc
     from video_depth_anything_torch.ops import temporal_attention as ta
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
 
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -382,7 +480,81 @@ def phase_kernels(dev):
                          tol=TAIL_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
         del x, got, want
+
+    # Kernel A's probe kernels (TPU row 10) at the probe script's shapes,
+    # vitl (16 heads) then vits (6), every variant the JAX domain admits at
+    # n = 1370 (chunk8 is outside it); the library call is SDPA, except for
+    # ceiling, which computes no softmax.
+    probe_kernel = {"ilv": "ilv_attention", "chunk": "chunk_attention", "sbf16": "sbf16_attention"}
+    for enc, h in (("vitl", 16), ("vits", 6)):
+        bt, n, d = 32, 1370, 64
+        scale = d**-0.5
+        q, k, v = probe_inputs(bt, n, h, g, dev)
+        qt, kt, vt = (t.view(bt, n, h, d).transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
+        b_ms, b_by = bound(4.0 * bt * h * n * n * d, 4.0 * bt * n * h * d * 2)
+        for variant in av.SPATIAL_VARIANTS:
+            try:
+                kind, _ = av.parse_variant(variant, n)
+            except ValueError:
+                continue
+            run = lambda: av.spatial_variant(variant, q, k, v, scale, n, h)  # noqa: E731
+            got = run()
+            want = av.spatial_variant_plain(variant, q, k, v, scale, n, h)
+            mutants = probe_mutant_errors(variant, q, k, v, scale, h)
+            ms = time_ms(run)
+            plain_ms = time_ms(lambda: av.spatial_variant_plain(variant, q, k, v, scale, n, h),
+                               iters=3, warmup=1)
+            rows.append(dict(kernel=probe_kernel[kind],
+                             shape=f"{enc} {variant} (B*T={bt}, N={n}, H={h}, D={d})",
+                             max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
+                             tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None if variant == "ceiling" else lib_ms))
+            del got, want
+        del q, k, v, qt, kt, vt
+
+    # The softmax-chain probe (TPU row 11) at its script's shapes, each of
+    # the seven modes; mutants on the first 64 batch-heads.  No single
+    # PyTorch call computes these unnormalised chains.
+    bh, nq, nk, d = 512, 1376, 1408, 64
+    qc, kc, vc = chain_inputs(bh, g, dev, nq, nk)
+    b_ms, b_by = bound(2.0 * 2 * bh * nq * nk * d, (2 * bh * nq * d + 2 * bh * nk * d) * 2)
+    for mode in av.CHAIN_MODES:
+        got = av.softmax_chain(mode, qc, kc, vc)
+        want = av.softmax_chain_plain(mode, qc, kc, vc)
+        mutants = chain_mutant_errors(mode, qc[:64], kc[:64], vc[:64])
+        ms = time_ms(lambda: av.softmax_chain(mode, qc, kc, vc))
+        plain_ms = time_ms(lambda: av.softmax_chain_plain(mode, qc, kc, vc), iters=3, warmup=1)
+        rows.append(dict(kernel="softmax_chain",
+                         shape=f"{mode} (BH={bh}, Nq={nq}, Nk={nk}, D={d}, Dv=128)",
+                         max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=CHAIN_TOL,
+                         mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None))
+        del got, want
+    del qc, kc, vc
+
+    # The fused resize -> conv (TPU row 9) at the vitl refinenet1 ->
+    # output_conv1 junction; the library yardstick is the chain
+    # F.interpolate + cuDNN's conv2d with its bias.
+    n, h, w, c, oh, ow = 32, 148, 148, 256, 296, 296
+    x, wc, bc = resize_conv_inputs(n, h, w, c, g, dev)
+    got = rc.resize_conv(x, wc, bc, oh, ow)
+    want = rc.resize_conv_plain(x, wc, bc, oh, ow)
+    mutants = resize_conv_mutant_errors(x, wc, bc, oh, ow)
+    ms = time_ms(lambda: rc.resize_conv(x, wc, bc, oh, ow))
+    plain_ms = time_ms(lambda: rc.resize_conv_plain(x, wc, bc, oh, ow), iters=5)
+    xn, wb, bb = x.permute(0, 3, 1, 2), wc.to(x.dtype), bc.to(x.dtype)
+    lib_ms = time_ms(lambda: F.conv2d(F.interpolate(xn, size=(oh, ow), mode="bilinear",
+                                                    align_corners=True), wb, bb, padding=1))
+    b_ms, b_by = bound(n * oh * ow * 2.0 * 9 * c * 128,
+                       x.numel() * 2 + n * oh * ow * 128 * 2 + (wc.numel() + 128) * 2)
+    rows.append(dict(kernel="resize_conv", shape=f"vitl junction ({n}x{h}x{w}x{c} -> {oh}x{ow}x128)",
+                     max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
+                     tol=RESIZE_CONV_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib_ms))
+    del x, got, want, xn
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     failed = False
     for r in rows:
         err = r["rel_err"]
@@ -412,12 +584,12 @@ def main() -> int:
         log("chip_smoke: no CUDA device")
         return 3
     sys.path.insert(0, REPO)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    from video_depth_anything_torch.ops import cuda_build
+    from video_depth_anything_torch.utils.device import card_line
+
+    smi = card_line()
     log(smi)
     dev = torch.device("cuda")
-    from video_depth_anything_torch.ops import cuda_build
 
     t_start = t0 = time.time()
     cuda_build.build_all()
@@ -441,6 +613,7 @@ def main() -> int:
     stream_launches = timed("stream", phase_stream, dev, smi)
     timed("train", phase_train_check, dev, smi)
     train_launches = timed("train-cli", phase_train_cli, smi)
+    probe_launches = timed("probes", phase_probes, dev, smi)
 
     info = {
         "flash_attention": ("flash_attention", "csrc/flash_attention.cu",
@@ -455,14 +628,28 @@ def main() -> int:
                           "video_depth_anything_tpu/ops/pallas_motion.py:107"),
         "output_tail": ("output_tail", "csrc/output_tail.cu",
                         "video_depth_anything_tpu/ops/pallas_output_stack.py:180"),
+        # the probe kernels and the fused resize -> conv: phase probes
+        "resize_conv": ("resize_conv", "csrc/resize_conv.cu",
+                        "video_depth_anything_tpu/ops/pallas_resize_conv.py:63"),
+        "ilv_attention": ("ilv_attention", "csrc/attention_variants.cu",
+                          "scripts/bench_spatial_variants.py:49"),
+        "chunk_attention": ("chunk_attention", "csrc/attention_variants.cu",
+                            "scripts/bench_spatial_variants.py:86"),
+        "sbf16_attention": ("sbf16_attention", "csrc/attention_variants.cu",
+                            "scripts/bench_spatial_variants.py:130"),
+        "softmax_chain": ("softmax_chain", "csrc/attention_variants.cu",
+                          "scripts/bench_softmax_chain.py:54"),
     }
     kernels = []
     for name, (wrapper, src, replaces) in info.items():
         first = next(r for r in rows if r["kernel"] == name)
+        if wrapper in probe_launches:
+            count = probe_launches[wrapper]
+        else:
+            count = launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper]
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
-            "replaces": replaces,
-            "launches": launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper],
+            "replaces": replaces, "launches": count,
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
         })
@@ -482,6 +669,15 @@ def launch_counts() -> dict:
     return kernel_launches()
 
 
+def probe_wrappers() -> tuple:
+    """The wrappers of the kernels that phase probes drives."""
+    from video_depth_anything_torch.ops import attention_variants as av
+    from video_depth_anything_torch.ops.resize_conv import resize_conv
+
+    return (av.ilv_attention, av.chunk_attention, av.sbf16_attention, av.softmax_chain,
+            resize_conv)
+
+
 def zero_counts() -> None:
     from video_depth_anything_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from video_depth_anything_torch.ops.motion_module import fused_motion_module
@@ -489,9 +685,79 @@ def zero_counts() -> None:
     from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
     for f in (flash_attention, flash_attention_bwd, temporal_attention, fused_motion_module,
-              output_tail):
+              output_tail) + probe_wrappers():
         f.launches = 0
     flash_attention.fast_launches = 0
+
+
+def phase_probes(dev, smi: str) -> dict:
+    """The probe kernels' and the fused resize -> conv's path:
+    ``bench_spatial_variants.main`` and ``bench_softmax_chain.main``
+    in-process at their full shapes with their default lists (the only
+    error rows allowed are the JAX domain's: chunk8 at n = 1370), then
+    ``ResizeConvFn`` forward and backward at the vitl junction against
+    autograd through ``resize_conv_plain``.  Counts zeroed before, read
+    after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from video_depth_anything_torch import bench_softmax_chain, bench_spatial_variants
+    from video_depth_anything_torch.ops import resize_conv as rc
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    zero_counts()
+    expected = {bench_spatial_variants: 2 * (2 + 8), bench_softmax_chain: 7 + 2}
+    for bench, n_rows in expected.items():
+        name = bench.__name__.rsplit(".", 1)[-1]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_main = bench.main([])
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"[probes] {name}: {line}")
+        rows = [json.loads(x) for x in lines[1:]]
+        errors = {r["variant"] for r in rows if "error" in r}
+        timed_ok = all(r.get("ms_per_call", r.get("ms", 0)) > 0 for r in rows if "error" not in r)
+        ok = (rc_main == 0 and lines[0] == smi and len(rows) == n_rows and timed_ok
+              and errors <= {"chunk8"})
+        if not ok:
+            raise SystemExit(f"{name} failed: rc {rc_main}, error rows {errors}")
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, h, w, c, oh, ow = 32, 148, 148, 256, 296, 296
+    x, wc, bc = (t.requires_grad_() for t in resize_conv_inputs(n, h, w, c, g, dev))
+    cot = torch.randn(n, oh, ow, 128, generator=g, device=dev).to(torch.bfloat16)
+
+    def kernel_path():
+        out = rc.ResizeConvFn.apply(x, wc, bc, oh, ow)
+        return (out, *torch.autograd.grad(out, (x, wc, bc), cot))
+
+    def plain_path():
+        out = rc.resize_conv_plain(x, wc, bc, oh, ow)
+        return (out, *torch.autograd.grad(out, (x, wc, bc), cot))
+
+    got = kernel_path()
+    counts = {f.__name__: f.launches for f in probe_wrappers()}
+    want, again = plain_path(), plain_path()
+    with torch.no_grad():
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        spread = [rel_err(a, b) for a, b in zip(again, want)]
+    ms, plain_ms = time_ms(kernel_path, iters=3, warmup=1), time_ms(plain_path, iters=3, warmup=1)
+    ok = (errs[0] <= RESIZE_CONV_TOL and all(e <= RESIZE_CONV_GRAD_TOL for e in errs[1:])
+          and counts["resize_conv"] > 0)
+    log(f"[probes] ResizeConvFn {n}x{h}x{w}x{c} -> {oh}x{ow}x128 forward and backward vs autograd "
+        f"through resize_conv_plain: rel err out/dx/dw/db " + "/".join(f"{e:.3e}" for e in errs)
+        + f" (tol {RESIZE_CONV_TOL} / {RESIZE_CONV_GRAD_TOL}); two plain runs differ by "
+        + "/".join(f"{e:.3e}" for e in spread) + f"; forward+backward {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms ({smi}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("ResizeConvFn disagrees with autograd through the plain chain")
+    del x, wc, bc, got, want, again
+    torch.cuda.empty_cache()
+    log(f"[probes] launches: {counts}")
+    return counts
 
 
 def noise_weights(module, seed: int) -> None:

@@ -7,9 +7,11 @@ import torch
 
 import chip_smoke
 from video_depth_anything_torch.config import MotionModuleConfig
+from video_depth_anything_torch.ops import attention_variants as av
 from video_depth_anything_torch.ops import flash_attention as fa
 from video_depth_anything_torch.ops import motion_module as mm
 from video_depth_anything_torch.ops import output_tail as ot
+from video_depth_anything_torch.ops import resize_conv as rc
 from video_depth_anything_torch.ops import temporal_attention as ta
 
 pytestmark = pytest.mark.cuda
@@ -184,3 +186,75 @@ def test_output_tail_kernel(dev, n, h, w, oh, ow):
     assert got.shape == (n, oh, ow, 1)
     assert chip_smoke.rel_err(got, ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow)) <= \
         chip_smoke.TAIL_TOL
+
+
+@pytest.mark.parametrize("n,h", [(100, 2), (200, 6), (1370, 2)])  # ragged query and key tiles
+@pytest.mark.parametrize("variant", ["ilv", "nomask", "chunk1", "chunk2", "chunk4", "sbf16",
+                                     "sbf16:fast", "ceiling"])
+def test_spatial_probe_kernels(dev, variant, n, h):
+    """Each spatial probe kernel against its plain version on the probe
+    script's inputs, with chip_smoke.py's tolerance and mutants; variants
+    outside the JAX domain raise before any launch."""
+    q, k, v = chip_smoke.probe_inputs(2, n, h, torch.Generator(device=dev).manual_seed(n + h), dev)
+    counters = (av.ilv_attention, av.chunk_attention, av.sbf16_attention)
+    before = sum(f.launches for f in counters)
+    try:
+        av.parse_variant(variant, n)
+    except ValueError:
+        with pytest.raises(ValueError):
+            av.spatial_variant(variant, q, k, v, 0.125, n, h)
+        assert sum(f.launches for f in counters) == before
+        return
+    got = av.spatial_variant(variant, q, k, v, 0.125, n, h)
+    assert sum(f.launches for f in counters) == before + 1
+    want = av.spatial_variant_plain(variant, q, k, v, 0.125, n, h)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
+    assert min(chip_smoke.probe_mutant_errors(variant, q, k, v, 0.125, h).values()) > \
+        chip_smoke.ATTN_TOL
+
+
+@pytest.mark.parametrize("nq,nk", [(100, 256), (1376, 1408)])
+@pytest.mark.parametrize("mode", av.CHAIN_MODES)
+def test_softmax_chain_kernel(dev, mode, nq, nk):
+    q, k, v = chip_smoke.chain_inputs(4, torch.Generator(device=dev).manual_seed(nq), dev, nq, nk)
+    before = av.softmax_chain.launches
+    got = av.softmax_chain(mode, q, k, v)
+    assert av.softmax_chain.launches == before + 1
+    assert chip_smoke.rel_err(got, av.softmax_chain_plain(mode, q, k, v)) <= chip_smoke.CHAIN_TOL
+    assert min(chip_smoke.chain_mutant_errors(mode, q, k, v).values()) > chip_smoke.CHAIN_TOL
+
+
+@pytest.mark.parametrize("n,h,w,c,oh,ow", [
+    (1, 8, 12, 128, 15, 23),      # one frame, ragged tiles in both directions
+    (2, 6, 10, 256, 12, 20),      # two channel chunks
+    (3, 21, 37, 384, 42, 70),     # three chunks, several tiles
+])
+def test_resize_conv_kernel(dev, n, h, w, c, oh, ow):
+    x, wc, bc = chip_smoke.resize_conv_inputs(n, h, w, c, torch.Generator(device=dev).manual_seed(c),
+                                              dev)
+    before = rc.resize_conv.launches
+    got = rc.resize_conv(x, wc, bc, oh, ow)
+    assert rc.resize_conv.launches == before + 1
+    assert got.shape == (n, oh, ow, 128)
+    want = rc.resize_conv_plain(x, wc, bc, oh, ow)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.RESIZE_CONV_TOL
+    assert min(chip_smoke.resize_conv_mutant_errors(x, wc, bc, oh, ow).values()) > \
+        chip_smoke.RESIZE_CONV_TOL
+
+
+def test_resize_conv_fn_gradients(dev):
+    """ResizeConvFn: the kernel forward and the plain chain's gradients,
+    against autograd through resize_conv_plain."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x, wc, bc = (t.requires_grad_() for t in chip_smoke.resize_conv_inputs(2, 8, 8, 256, g, dev))
+    cot = torch.randn(2, 16, 16, 128, generator=g, device=dev).to(torch.bfloat16)
+    before = rc.resize_conv.launches
+    out = rc.ResizeConvFn.apply(x, wc, bc, 16, 16)
+    got = (out, *torch.autograd.grad(out, (x, wc, bc), cot))
+    assert rc.resize_conv.launches == before + 1
+    ref = rc.resize_conv_plain(x, wc, bc, 16, 16)
+    want = (ref, *torch.autograd.grad(ref, (x, wc, bc), cot))
+    with torch.no_grad():
+        assert chip_smoke.rel_err(got[0], want[0]) <= chip_smoke.RESIZE_CONV_TOL
+        for a, b in zip(got[1:], want[1:]):
+            assert chip_smoke.rel_err(a, b) <= chip_smoke.RESIZE_CONV_GRAD_TOL

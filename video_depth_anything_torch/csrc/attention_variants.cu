@@ -1,0 +1,553 @@
+// Kernel A's probe kernels: the TPU probe scripts' kernels on Hopper.
+//
+// Replaces scripts/bench_spatial_variants.py:_kernel_ilv (variants ilv,
+// nomask), _kernel_chunk (chunk<k>) and _kernel_sbf16 (sbf16, sbf16:fast,
+// ceiling), launched by run_variant, and scripts/bench_softmax_chain.py
+// make_kernel's kern (seven modes).  The numerics are the TPU kernels':
+//   * spatial variants, on the head-interleaved (B, N, H*64) layout: q is
+//     prescaled by scale*log2(e) in fp32 and rounded to bf16 (in the q
+//     load here, in the wrapper there); keys are padded with zeros to a
+//     multiple of 128 (here: rows >= n load as zeros and the key loop runs
+//     to n_pad), so a pad key scores exactly 0; fp32 scores; P rounded to
+//     bf16 before P V; fp32 accumulate; out = acc / l.
+//   * exp2 is _exp2_poly (pallas_attention.py:54-74): the exponent built
+//     in the int32 exponent field, a degree-4 polynomial of the fraction,
+//     on the FMA units.  The chain modes sexp and pexp are the Schraudolph
+//     and cubic bit tricks, also on the FMA units; exp, exact, bf16s and
+//     bf16x use the hardware exponential (MUFU ex2).  Which of these the
+//     card pays for is the question the probes ask.
+//
+// Bound on the H100: tensor-core FLOPs.  The spatial variants do
+// 4 * n^2 * 64 * H * B FLOP of valid work (vitl 32 x 1370 x 16 heads:
+// 0.2487 ms at 989 TFLOP/s; vits 6 heads: 0.0933) against ~0.1 GB moved;
+// the chain probe 2 * 2 * 1376 * 1408 * 64 * 512 FLOP (0.257 ms).  The
+// design is Kernel A's skeleton (flash_attention.cu): 64 query rows per
+// CTA, 16 per warp, 64-key tiles in shared memory, QK^T and P V on
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate), S and P in registers.
+// wgmma, TMA and warp specialisation are later work.
+//
+//   ilv_kernel<NOMASK>   two heads per CTA, as the TPU grid (b, H/2) pairs
+//                        them.  Per key tile, in program order: QK^T of
+//                        head 0, QK^T of head 1, head 0's chain, P V of
+//                        head 0, head 1's chain, P V of head 1 -- the
+//                        TPU's stagger, which leaves independent mma and
+//                        FMA work side by side for the warp scheduler.  No
+//                        row max, so no rescale.  NOMASK drops the key
+//                        mask: a zero pad key gives p = exp2_poly(0) and
+//                        zero V, and l is corrected by -(n_pad - n).
+//   chunk_kernel         no mask, the pad correction, and a 3-stage
+//                        software pipeline with double-buffered scores
+//                        and P: at step i, QK(i), then the chain of step
+//                        i-1, then P V of step i-2 (bench_spatial_variants
+//                        .py:120-127).  A CTA owns nc row-tiles of 64
+//                        queries of one head pair: 2 * nc streams (head,
+//                        row-tile) in the TPU's order, each over all key
+//                        tiles; the pipeline runs over the flat sequence
+//                        of (stream, key tile) steps and crosses stream
+//                        boundaries.  nc is a launch argument (the TPU
+//                        kernel's static chunk count); the wrapper checks
+//                        the script's domain.
+//   sbf16_kernel<FAST, CEILING>  one head per CTA.  Scores are rounded to
+//                        bf16 after the fp32 mma and masked in bf16.
+//                        Exact mode subtracts the GLOBAL row max in bf16
+//                        before the exponential: s - m is rounded to bf16,
+//                        so an online rescale would not compute the same
+//                        function, and a first pass over the key tiles
+//                        takes the max (QK^T twice).  CEILING is p = s
+//                        (no mask, no softmax) and l = n_pad.
+//   chain_kernel<MODE>   kern's seven chains on (BH, N, 64) with no mask
+//                        (Nk a multiple of 64).  exact keeps an online max
+//                        with rescale (fp32 exp: the difference from the
+//                        global max is fp32 rounding, then bf16 rounding of
+//                        P); bf16x needs the global max for the reason
+//                        given under sbf16 and takes a max pass.  The
+//                        output is the unnormalised (P V)[:, :64], so the
+//                        kernel reads only V's first 64 columns.
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int D = 64;      // the head width of every probe
+constexpr int BM = 64;     // query rows per CTA (16 per warp)
+constexpr int BN = 64;     // keys per tile
+constexpr int LDS = kTileLds;
+constexpr int TILE = BN * LDS;  // one K or V tile in shared memory (elements)
+
+__device__ __forceinline__ float exp2_poly(float x) {
+  x = fmaxf(x, -200.f);  // keep the int conversion in range
+  const float xi = floorf(x);
+  const float xf = x - xi;
+  const int e = min(max(__float2int_rz(xi) + 127, 0), 254);
+  const float pf =
+      fmaf(xf, fmaf(xf, fmaf(xf, fmaf(xf, 0.0135115307f, 0.051989575f), 0.241508857f),
+                    0.69297426f),
+           1.00000526f);
+  return __int_as_float(e << 23) * pf;
+}
+
+// The warp's 16 query rows (row0..) of one head as m16n8k16 A fragments,
+// times qscale and rounded to bf16 (1.0 keeps q as it is); rows >= n zero.
+__device__ __forceinline__ void load_q_frags(uint32_t qf[4][4], const bf16* q, long long stride,
+                                             int row0, int n, float qscale, int lane) {
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // a0 (g, 2c), a1 (g+8, 2c), a2 (g, 8+2c), a3 (g+8, 8+2c)
+      const int row = row0 + g + (r & 1) * 8, col = kk * 16 + (r >> 1) * 8 + c2;
+      float2 f = make_float2(0.f, 0.f);
+      if (row < n)
+        f = __bfloat1622float2(*reinterpret_cast<const bf162*>(q + (long long)row * stride + col));
+      qf[kk][r] = pack_bf16x2(f.x * qscale, f.y * qscale);
+    }
+}
+
+// s = Q K^T for the warp's 16 rows against one 64-key tile in shared memory.
+__device__ __forceinline__ void qk_tile(float s[8][4], const uint32_t qf[4][4], const bf16* sK,
+                                        int lane) {
+  const int mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b0, b1, b2, b3;
+      ldmatrix_x4(b0, b1, b2, b3, &sK[(np * 16 + r8 + (mi >> 1) * 8) * LDS + kk * 16 + (mi & 1) * 8]);
+      mma_bf16_16816(s[2 * np], qf[kk], b0, b1);
+      mma_bf16_16816(s[2 * np + 1], qf[kk], b2, b3);
+    }
+}
+
+// P (fp32, accumulator layout) rounded to bf16 A fragments.
+__device__ __forceinline__ void pack_p(uint32_t p[4][4], const float s[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    p[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+    p[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+    p[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    p[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// acc += P V for one 64-key tile of V (64 columns) in shared memory.
+__device__ __forceinline__ void pv_tile(float acc[8][4], const uint32_t p[4][4], const bf16* sV,
+                                        int lane) {
+  const int mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {
+      uint32_t b0, b1, b2, b3;
+      ldmatrix_x4_trans(b0, b1, b2, b3,
+                        &sV[(kk * 16 + r8 + (mi & 1) * 8) * LDS + (dp * 2 + (mi >> 1)) * 8]);
+      mma_bf16_16816(acc[2 * dp], p[kk], b0, b1);
+      mma_bf16_16816(acc[2 * dp + 1], p[kk], b2, b3);
+    }
+}
+
+__device__ __forceinline__ void zero_acc(float acc[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// out rows (row0 + g, row0 + g + 8) = acc / l[row half], rounded to bf16;
+// rows >= n are not stored.  l is the lane's row sums, already reduced.
+__device__ __forceinline__ void store_rows(bf16* o, long long stride, int row0, int n,
+                                           const float acc[8][4], const float l[2], int lane) {
+  const int r0 = row0 + (lane >> 2);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int col = t * 8 + (lane & 3) * 2;
+    if (r0 < n)
+      *reinterpret_cast<uint32_t*>(o + (long long)r0 * stride + col) =
+          pack_bf16x2(acc[t][0] / l[0], acc[t][1] / l[0]);
+    if (r0 + 8 < n)
+      *reinterpret_cast<uint32_t*>(o + (long long)(r0 + 8) * stride + col) =
+          pack_bf16x2(acc[t][2] / l[1], acc[t][3] / l[1]);
+  }
+}
+
+// The fast chain of ilv and chunk on a score tile (keys k0..): mask (unless
+// NOMASK) with -1e30, p = exp2_poly(s), row sums into l; s becomes p.
+template <bool NOMASK>
+__device__ __forceinline__ void poly_chain(float s[8][4], float l[2], int k0, int n, int lane) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[t][e];
+      if constexpr (!NOMASK) {
+        if (k0 + t * 8 + (lane & 3) * 2 + (e & 1) >= n) x = -1e30f;
+      }
+      const float p = exp2_poly(x);
+      s[t][e] = p;
+      l[e >> 1] += p;
+    }
+}
+
+// ---------------------------------------------------------------- ilv ----
+template <bool NOMASK>
+__global__ void __launch_bounds__(128) ilv_kernel(const bf16* __restrict__ q,
+                                                  const bf16* __restrict__ k,
+                                                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                                                  int n, int heads, float qscale) {
+  __shared__ __align__(16) bf16 smem[4 * TILE];  // K0, K1, V0, V1: 36.9 KB
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long hd = (long long)heads * D;
+  const long long base = (long long)blockIdx.z * n * hd + (long long)blockIdx.y * 2 * D;
+  const int row0 = blockIdx.x * BM + warp * 16;
+  const int n_pad = (n + 127) / 128 * 128;
+
+  uint32_t qf[2][4][4];
+  load_q_frags(qf[0], q + base, hd, row0, n, qscale, lane);
+  load_q_frags(qf[1], q + base + D, hd, row0, n, qscale, lane);
+  float acc[2][8][4], l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  zero_acc(acc[0]);
+  zero_acc(acc[1]);
+
+  for (int k0 = 0; k0 < n_pad; k0 += BN) {
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      load_tile64(smem + h * TILE, k + base + h * D, hd, k0, n, tid);
+      load_tile64(smem + (2 + h) * TILE, v + base + h * D, hd, k0, n, tid);
+    }
+    __syncthreads();
+    float s0[8][4], s1[8][4];
+    uint32_t p[4][4];
+    qk_tile(s0, qf[0], smem, lane);
+    qk_tile(s1, qf[1], smem + TILE, lane);  // independent of head 0's chain
+    poly_chain<NOMASK>(s0, l[0], k0, n, lane);
+    pack_p(p, s0);
+    pv_tile(acc[0], p, smem + 2 * TILE, lane);  // independent of head 1's chain
+    poly_chain<NOMASK>(s1, l[1], k0, n, lane);
+    pack_p(p, s1);
+    pv_tile(acc[1], p, smem + 3 * TILE, lane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[h][rr] = quad_sum(l[h][rr]);
+      if constexpr (NOMASK) l[h][rr] -= float(n_pad - n);
+    }
+    store_rows(o + base + h * D, hd, row0, n, acc[h], l[h], lane);
+  }
+}
+
+// -------------------------------------------------------------- chunk ----
+__global__ void __launch_bounds__(128) chunk_kernel(const bf16* __restrict__ q,
+                                                    const bf16* __restrict__ k,
+                                                    const bf16* __restrict__ v,
+                                                    bf16* __restrict__ o, int n, int heads,
+                                                    float qscale, int nc) {
+  // K of the current step and a ring of three V tiles (steps i, i-1, i-2):
+  // 36.9 KB.
+  __shared__ __align__(16) bf16 smem[4 * TILE];
+  bf16* sK = smem;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long hd = (long long)heads * D;
+  const long long base = (long long)blockIdx.z * n * hd + (long long)blockIdx.y * 2 * D;
+  const int n_pad = (n + 127) / 128 * 128;
+  const int kt = n_pad / BN;  // key tiles per stream: even, >= 2
+  const int tile0 = blockIdx.x * nc;
+  const int nct = min(nc, (n + BM - 1) / BM - tile0);  // this CTA's row tiles with real rows
+  const int steps = 2 * nct * kt;
+
+  uint32_t qf[4][4];
+  float S[2][8][4], acc[8][4];
+  uint32_t P[2][4][4];
+  float l_cur[2] = {0.f, 0.f}, l_fin[2] = {0.f, 0.f};
+  zero_acc(acc);
+
+  // step i -> stream i / kt = h * nct + c (head-major, as the TPU's
+  // stream = head * nc + chunk), key tile i % kt
+  auto step = [&](int i, auto par_c) {
+    constexpr int PAR = decltype(par_c)::value;
+    __syncthreads();  // QK(i-1) and P V(i-3) are done with their tiles
+    if (i < steps) {
+      const int st = i / kt, h = st / nct;
+      load_tile64(sK, k + base + h * D, hd, (i % kt) * BN, n, tid);
+      load_tile64(smem + (1 + i % 3) * TILE, v + base + h * D, hd, (i % kt) * BN, n, tid);
+    }
+    __syncthreads();
+    if (i < steps) {  // stage 1: QK(i)
+      const int st = i / kt;
+      if (i % kt == 0)
+        load_q_frags(qf, q + base + (st / nct) * D, hd, (tile0 + st % nct) * BM + warp * 16, n,
+                     qscale, lane);
+      qk_tile(S[PAR], qf, sK, lane);
+    }
+    if (i >= 1 && i <= steps) {  // stage 2: the chain of step i-1
+      poly_chain<true>(S[PAR ^ 1], l_cur, 0, n, lane);
+      pack_p(P[PAR ^ 1], S[PAR ^ 1]);
+      if ((i - 1) % kt == kt - 1) {
+        l_fin[0] = l_cur[0];
+        l_fin[1] = l_cur[1];
+        l_cur[0] = l_cur[1] = 0.f;
+      }
+    }
+    if (i >= 2) {  // stage 3: P V of step i-2, and its stream's output
+      const int j = i - 2;
+      pv_tile(acc, P[PAR], smem + (1 + j % 3) * TILE, lane);
+      if (j % kt == kt - 1) {
+        const int st = j / kt;
+        float l[2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) l[rr] = quad_sum(l_fin[rr]) - float(n_pad - n);
+        store_rows(o + base + (st / nct) * D, hd, (tile0 + st % nct) * BM + warp * 16, n, acc, l,
+                   lane);
+        zero_acc(acc);
+      }
+    }
+  };
+  // steps is even, so pairs of steps keep the buffer parity compile-time
+  for (int i = 0; i < steps + 2; i += 2) {
+    step(i, std::integral_constant<int, 0>());
+    step(i + 1, std::integral_constant<int, 1>());
+  }
+}
+
+// -------------------------------------------------------------- sbf16 ----
+template <bool FAST, bool CEILING>
+__global__ void __launch_bounds__(128) sbf16_kernel(const bf16* __restrict__ q,
+                                                    const bf16* __restrict__ k,
+                                                    const bf16* __restrict__ v,
+                                                    bf16* __restrict__ o, int n, int heads,
+                                                    float qscale) {
+  __shared__ __align__(16) bf16 smem[2 * TILE];
+  bf16 *sK = smem, *sV = smem + TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long hd = (long long)heads * D;
+  const long long base = (long long)blockIdx.z * n * hd + (long long)blockIdx.y * D;
+  const int row0 = blockIdx.x * BM + warp * 16;
+  const int n_pad = (n + 127) / 128 * 128;
+  const float neg = bf16_round(-1e30f);
+
+  uint32_t qf[4][4];
+  load_q_frags(qf, q + base, hd, row0, n, qscale, lane);
+  float s[8][4], acc[8][4], l[2] = {0.f, 0.f}, m[2] = {0.f, 0.f};
+  uint32_t p[4][4];
+  zero_acc(acc);
+
+  if constexpr (!FAST && !CEILING) {  // the global row max of the bf16 scores
+    m[0] = m[1] = -INFINITY;
+    for (int k0 = 0; k0 < n_pad; k0 += BN) {
+      __syncthreads();
+      load_tile64(sK, k + base, hd, k0, n, tid);
+      __syncthreads();
+      qk_tile(s, qf, sK, lane);
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = k0 + t * 8 + (lane & 3) * 2 + (e & 1) < n;
+          m[e >> 1] = fmaxf(m[e >> 1], valid ? bf16_round(s[t][e]) : neg);
+        }
+    }
+    m[0] = quad_max(m[0]);
+    m[1] = quad_max(m[1]);
+  }
+  for (int k0 = 0; k0 < n_pad; k0 += BN) {
+    __syncthreads();
+    load_tile64(sK, k + base, hd, k0, n, tid);
+    load_tile64(sV, v + base, hd, k0, n, tid);
+    __syncthreads();
+    qk_tile(s, qf, sK, lane);
+    if constexpr (!CEILING) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = k0 + t * 8 + (lane & 3) * 2 + (e & 1) < n;
+          float x = valid ? bf16_round(s[t][e]) : neg;
+          if constexpr (!FAST) x = bf16_round(x - m[e >> 1]);
+          const float pe = exp2_poly(x);
+          s[t][e] = pe;
+          l[e >> 1] += pe;
+        }
+    }
+    pack_p(p, s);  // CEILING: p = s, rounded to bf16
+    pv_tile(acc, p, sV, lane);
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) l[rr] = CEILING ? float(n_pad) : quad_sum(l[rr]);
+  store_rows(o + base, hd, row0, n, acc, l, lane);
+}
+
+// -------------------------------------------------------------- chain ----
+enum Mode { GEMMS, EXP, EXACT, SEXP, PEXP, BF16S, BF16X };
+
+template <int MODE>
+__global__ void __launch_bounds__(128) chain_kernel(const bf16* __restrict__ q,
+                                                    const bf16* __restrict__ k,
+                                                    const bf16* __restrict__ v,
+                                                    bf16* __restrict__ o, int nq, int nk,
+                                                    int dv) {
+  __shared__ __align__(16) bf16 smem[2 * TILE];
+  bf16 *sK = smem, *sV = smem + TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long bh = blockIdx.y;
+  const bf16* qb = q + bh * nq * D;
+  const bf16* kb = k + bh * nk * D;
+  const bf16* vb = v + bh * nk * dv;
+  const int row0 = blockIdx.x * BM + warp * 16;
+
+  uint32_t qf[4][4];
+  load_q_frags(qf, qb, D, row0, nq, 1.f, lane);
+  float s[8][4], acc[8][4];
+  float m[2] = {MODE == EXACT ? -INFINITY : 0.f, MODE == EXACT ? -INFINITY : 0.f};
+  uint32_t p[4][4];
+  zero_acc(acc);
+
+  if constexpr (MODE == BF16X) {  // the global row max of the bf16 scores
+    m[0] = m[1] = -INFINITY;
+    for (int k0 = 0; k0 < nk; k0 += BN) {
+      __syncthreads();
+      load_tile64(sK, kb, D, k0, nk, tid);
+      __syncthreads();
+      qk_tile(s, qf, sK, lane);
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], bf16_round(s[t][e]));
+    }
+    m[0] = quad_max(m[0]);
+    m[1] = quad_max(m[1]);
+  }
+  for (int k0 = 0; k0 < nk; k0 += BN) {
+    __syncthreads();
+    load_tile64(sK, kb, D, k0, nk, tid);
+    load_tile64(sV, vb, dv, k0, nk, tid);  // V's first 64 columns only
+    __syncthreads();
+    qk_tile(s, qf, sK, lane);
+    if constexpr (MODE == EXACT) {  // online max: rescale acc to the new max
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = m[rr];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) mx = fmaxf(mx, fmaxf(s[t][2 * rr], s[t][2 * rr + 1]));
+        mx = quad_max(mx);
+        const float alpha = __expf(m[rr] - mx);
+        m[rr] = mx;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          acc[t][2 * rr] *= alpha;
+          acc[t][2 * rr + 1] *= alpha;
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[t][e];
+        float pe;
+        if constexpr (MODE == GEMMS) {
+          pe = x;
+        } else if constexpr (MODE == EXP) {
+          pe = exp2f(x);
+        } else if constexpr (MODE == EXACT) {
+          pe = __expf(x - m[e >> 1]);
+        } else if constexpr (MODE == SEXP) {
+          pe = __int_as_float(__float2int_rz(fmaf(x, 8388608.f, 1065353216.f)));
+        } else if constexpr (MODE == PEXP) {
+          const float xi = floorf(x), xf = x - xi;
+          const float sc = __int_as_float(int(unsigned(__float2int_rz(xi) + 127) << 23));
+          pe = sc * fmaf(xf, fmaf(xf, fmaf(xf, 0.0779731f, 0.2288332f), 0.6951937f), 1.f);
+        } else if constexpr (MODE == BF16S) {
+          pe = bf16_round(exp2f(bf16_round(x)));
+        } else {  // BF16X
+          pe = bf16_round(exp2f(bf16_round(bf16_round(x) - m[e >> 1])));
+        }
+        s[t][e] = pe;
+      }
+    pack_p(p, s);
+    pv_tile(acc, p, sV, lane);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows(o + bh * nq * D, D, row0, nq, acc, one, lane);
+}
+
+template <typename K, typename... A>
+int launch(K kernel, dim3 grid, cudaStream_t st, A... args) {
+  kernel<<<grid, 128, 0, st>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Spatial variants: q, k, v, o contiguous (B, n, heads * 64) bf16, heads
+// even; qscale = scale * log2(e).  ilv: flag nomask; chunk: nc (>= 1);
+// sbf16: flags fast, ceiling.
+extern "C" int vda_ilv(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                       int heads, float qscale, int nomask, int, void* stream) {
+  const dim3 grid((n + BM - 1) / BM, heads / 2, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
+  return nomask ? launch(ilv_kernel<true>, grid, st, qb, kb, vb, ob, n, heads, qscale)
+                : launch(ilv_kernel<false>, grid, st, qb, kb, vb, ob, n, heads, qscale);
+}
+
+extern "C" int vda_chunk(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                         int heads, float qscale, int nc, int, void* stream) {
+  if (nc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (n + BM - 1) / BM;
+  const dim3 grid((tiles + nc - 1) / nc, heads / 2, batch);
+  return launch(chunk_kernel, grid, static_cast<cudaStream_t>(stream),
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<bf16*>(o), n, heads, qscale, nc);
+}
+
+extern "C" int vda_sbf16(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                         int heads, float qscale, int fast, int ceiling, void* stream) {
+  const dim3 grid((n + BM - 1) / BM, heads, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
+  if (ceiling) return launch(sbf16_kernel<false, true>, grid, st, qb, kb, vb, ob, n, heads, qscale);
+  return fast ? launch(sbf16_kernel<true, false>, grid, st, qb, kb, vb, ob, n, heads, qscale)
+              : launch(sbf16_kernel<false, false>, grid, st, qb, kb, vb, ob, n, heads, qscale);
+}
+
+// Chain probe: q (bh, nq, 64), k (bh, nk, 64), v (bh, nk, dv) contiguous
+// bf16, nk a multiple of 64, dv >= 64; o (bh, nq, 64).  mode indexes
+// (gemms, exp, exact, sexp, pexp, bf16s, bf16x).
+extern "C" int vda_chain(const void* q, const void* k, const void* v, void* o, int bh, int nq,
+                         int nk, int dv, int mode, void* stream) {
+  const dim3 grid((nq + BM - 1) / BM, bh);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
+  switch (mode) {
+    case GEMMS: return launch(chain_kernel<GEMMS>, grid, st, qb, kb, vb, ob, nq, nk, dv);
+    case EXP: return launch(chain_kernel<EXP>, grid, st, qb, kb, vb, ob, nq, nk, dv);
+    case EXACT: return launch(chain_kernel<EXACT>, grid, st, qb, kb, vb, ob, nq, nk, dv);
+    case SEXP: return launch(chain_kernel<SEXP>, grid, st, qb, kb, vb, ob, nq, nk, dv);
+    case PEXP: return launch(chain_kernel<PEXP>, grid, st, qb, kb, vb, ob, nq, nk, dv);
+    case BF16S: return launch(chain_kernel<BF16S>, grid, st, qb, kb, vb, ob, nq, nk, dv);
+    case BF16X: return launch(chain_kernel<BF16X>, grid, st, qb, kb, vb, ob, nq, nk, dv);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention", "motion_module",
-           "output_tail")
+           "output_tail", "resize_conv", "attention_variants")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -110,7 +110,7 @@ def no_history(what: str, *tensors) -> None:
         raise RuntimeError(
             f"{what} keeps no autograd history and an input requires a gradient; call it "
             "through its autograd Function (FlashAttentionFn, TemporalAttentionFn, "
-            "FusedMotionModuleFn, OutputTailFn)")
+            "FusedMotionModuleFn, OutputTailFn, ResizeConvFn)")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -1,12 +1,15 @@
-"""Device selection and device→host transfers.
+"""Device selection, device→host transfers and kernel timing.
 
 The port runs on the card unless the caller asks for the CPU, and never
 drops to the CPU on its own.  ``transfer_cast`` and ``start_host_transfer``
 serve the streaming pipeline's one-step-lag emit: a depth map's copy to the
 host starts as soon as it is enqueued and overlaps the next step.
+``card_line`` and ``event_ms`` serve the bench modules and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
+
+import subprocess
 
 import numpy as np
 import torch
@@ -55,3 +58,25 @@ def start_host_transfer(x: torch.Tensor) -> HostTransfer:
     """Start copying ``x`` into pinned host memory on the current stream,
     without blocking the host."""
     return HostTransfer(x)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Milliseconds per call of ``fn`` on the card: CUDA events around
+    ``iters`` calls after ``warmup`` calls, synchronised."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

@@ -142,7 +142,8 @@ def test_flash_attention_fn_gradients(dev, n):
         assert chip_smoke.rel_err(got[..., sl], want[..., sl]) <= chip_smoke.BWD_TOL
 
 
-@pytest.mark.parametrize("c,t", [(64, 32), (192, 32), (192, 8)])
+@pytest.mark.parametrize("c,t", [(64, 32), (192, 32), (192, 8),
+                                 (128, 32), (128, 8)])  # d = 16: vitb m2/m3
 def test_temporal_attention_kernel(dev, c, t):
     g = torch.Generator(device=dev).manual_seed(c + t)
     q, k, v = (x.contiguous() for x in
@@ -153,7 +154,9 @@ def test_temporal_attention_kernel(dev, c, t):
 
 
 @pytest.mark.parametrize("c,t,s", [(64, 32, 70), (192, 32, 33), (64, 8, 50), (192, 16, 20),
-                                   (256, 32, 37), (256, 8, 21)])
+                                   (256, 32, 37), (256, 8, 21),
+                                   (128, 32, 37), (128, 8, 50),    # vitb m2/m3, 4 or 16 locations
+                                   (384, 32, 9), (384, 16, 5)])    # vitb m0 on 16:9, R = 32
 def test_motion_module_kernel(dev, c, t, s):
     g = torch.Generator().manual_seed(c)
     n = lambda *sh, std: (torch.randn(*sh, generator=g) * std).to(dev)  # noqa: E731

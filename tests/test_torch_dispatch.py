@@ -1,4 +1,4 @@
-"""Which module takes which kernel on the vits and vitl main paths, at
+"""Which module takes which kernel on the vits, vitb and vitl main paths, at
 518×518 and 518×924, in the port and in the JAX package.
 
 The JAX side runs the JAX package's own gate functions with the kernels
@@ -121,7 +121,12 @@ def jax_plan(encoder, h, w, monkeypatch):
                             m3="motion_module", tail="output_tail")),
     ("vitl", 518, 924, dict(vit="flash_attention", m0="plain", m1="plain",
                             m2="motion_module", m3="motion_module", tail="plain")),
-], ids=["518-518-expected0", "518-924-expected1", "vitl-518-518", "vitl-518-924"])
+    ("vitb", 518, 518, dict(vit="flash_attention", m0="plain", m1="plain",
+                            m2="temporal_attention", m3="motion_module", tail="plain")),
+    ("vitb", 518, 924, dict(vit="flash_attention", m0="motion_module", m1="plain",
+                            m2="motion_module", m3="motion_module", tail="plain")),
+], ids=["518-518-expected0", "518-924-expected1", "vitl-518-518", "vitl-518-924",
+        "vitb-518-518", "vitb-518-924"])
 def test_dispatch_plan_matches_jax_gates(encoder, h, w, expected, monkeypatch):
     assert jax_plan(encoder, h, w, monkeypatch) == expected
     assert port_plan(encoder, h, w) == expected

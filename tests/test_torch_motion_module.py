@@ -1,8 +1,9 @@
 """Kernel C's plain version and the port's TemporalModule against the JAX
 motion module (``motion_module_reference`` and ``TemporalModule``) at the
-vits widths C = 64 and C = 192 and the vitl width C = 256 (Kernel C's
-plain version), plus the host-side pieces of the kernel
-(GroupNorm fold, weight fragment order)."""
+vits widths C = 64 and C = 192, the vitb widths C = 128 and 384 and the
+vitl width C = 256 (Kernel C's plain version), the module with RoPE
+positions, plus the host-side pieces of the kernel (GroupNorm fold, weight
+fragment order)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +25,8 @@ from video_depth_anything_tpu.ops.pallas_motion import motion_module_reference
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _jax_module(c, t, h, w, seed):
-    mod = JModule(JCfg(), c, "xla")
+def _jax_module(c, t, h, w, seed, pe="ape"):
+    mod = JModule(JCfg(pos_embedding_type=pe), c, "xla")
     x5 = jnp.zeros((1, t, h, w, c), jnp.float32)
     return mod, noised_params(jax_param_shapes(mod, x5), seed)
 
@@ -49,7 +50,8 @@ def _raw(params, n=2):
     )
 
 
-@pytest.mark.parametrize("c,t,s", [(64, 8, 16), (192, 32, 9), (256, 8, 9)])
+@pytest.mark.parametrize("c,t,s", [(64, 8, 16), (192, 32, 9), (256, 8, 9),
+                                   (128, 16, 12), (384, 32, 5)])  # vitb m2/m3, m0
 def test_plain_matches_motion_module_reference(c, t, s):
     _, params = _jax_module(c, t, 1, s, seed=c)
     raw = _raw(params)
@@ -62,21 +64,24 @@ def test_plain_matches_motion_module_reference(c, t, s):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("c,t,h,w", [
-    (64, 8, 3, 5),      # unfused path (h·w < 2048)
-    (192, 32, 2, 3),    # unfused path, d = 24 attention gate
-    (64, 8, 46, 46),    # h·w ≥ 2048: the fused gate (plain version on the CPU)
-])
-def test_module_matches_jax_module(c, t, h, w):
-    jmod, params = _jax_module(c, t, h, w, seed=c + h)
+@pytest.mark.parametrize("c,t,h,w,pe", [
+    (64, 8, 3, 5, "ape"),      # unfused path (h·w < 2048)
+    (192, 32, 2, 3, "ape"),    # unfused path, d = 24 attention gate
+    (64, 8, 46, 46, "ape"),    # h·w ≥ 2048: the fused gate (plain version on the CPU)
+    (64, 8, 3, 5, "rope"),     # RoPE: q and k rotated after the projections
+    (64, 8, 46, 46, "rope"),   # the fused gate refuses RoPE: the module path
+], ids=["64-8-3-5", "192-32-2-3", "64-8-46-46", "64-8-3-5-rope", "64-8-46-46-rope"])
+def test_module_matches_jax_module(c, t, h, w, pe):
+    jmod, params = _jax_module(c, t, h, w, seed=c + h, pe=pe)
     x = np.random.RandomState(2).randn(1, t, h, w, c).astype(np.float32)
     want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
-    tmod = TModule(TCfg(), c)
+    tcfg = TCfg(pos_embedding_type=pe)
+    tmod = TModule(tcfg, c)
     tmod.load_state_dict({k: torch.from_numpy(v) for k, v in
-                          motion_module_state(params, TCfg()).items()}, strict=True)
+                          motion_module_state(params, tcfg).items()}, strict=True)
     with torch.no_grad():
         got = tmod(torch.from_numpy(x)).numpy()
-    assert t_motion.motion_gate(TCfg(), c, c, t, h, w) is (h * w >= 2048)
+    assert t_motion.motion_gate(tcfg, c, c, t, h, w) is (h * w >= 2048 and pe == "ape")
     np.testing.assert_allclose(got, want, **TOL)
 
 
@@ -130,3 +135,26 @@ def test_kernel_weights_built_once_until_a_parameter_changes():
     assert rebuilt is not first
     torch.testing.assert_close(
         rebuilt["w_in"], t_motion._frag(tmod.raw_params()["w_in"]), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c", [64, 128, 384])  # vits m3, vitb m2/m3, vitb m0
+def test_smoke_check_separates_right_from_wrong(c):
+    """chip_smoke.py's check of Kernel C on its inputs (bf16, 32 frames):
+    the JAX reference, a right implementation with its own bf16 rounding
+    points, is within the tolerance of the plain version relative to the
+    module's own contribution; uniform frame attention and a module without
+    APE are not."""
+    import chip_smoke
+
+    t, s = 32, 6
+    p = chip_smoke.motion_params(c, seed=c, device="cpu")
+    x = torch.randn(1, t, s, c, generator=torch.Generator().manual_seed(c)).to(torch.bfloat16)
+    want = t_motion.motion_module_plain(x, p, TCfg(), 8)
+    ref = motion_module_reference(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16),
+        {k: jnp.asarray(v.numpy()) for k, v in p.items()}, JCfg(), 8)
+    got = torch.from_numpy(np.asarray(ref, np.float32))
+    base = float((want.float() - x.float()).abs().max())
+    assert chip_smoke.max_err(got, want) / base <= chip_smoke.MOTION_TOL
+    mutants = chip_smoke.motion_mutant_errors(x, p, TCfg(), 8)
+    assert min(mutants.values()) > chip_smoke.MOTION_TOL, mutants

@@ -24,6 +24,17 @@ def test_bilinear_resize_matches_jax(src, dst):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_bilinear_resize_in_chunks_matches_jax(monkeypatch):
+    """A batch whose output passes the element limit is resized in chunks
+    of frames (the limit cut here to 2.5 frames' worth), to the same
+    values."""
+    x = np.random.RandomState(4).randn(7, 5, 6, 3).astype(np.float32)
+    monkeypatch.setattr(t_resize, "_MAX_ELEMENTS", 5 * 9 * 8 * 3 // 2)
+    got = t_resize.bilinear_resize(torch.from_numpy(x), 9, 8)
+    want = np.asarray(j_resize.bilinear_resize(jnp.asarray(x), 9, 8))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("out_hw", [(5, 5), (4, 7), (37, 66)])
 def test_bicubic_pos_embed_resize_matches_jax(out_hw):
     grid = 37

@@ -57,6 +57,16 @@ def test_plain_matches_xla_output_tail(shape, out_hw, dtype):
         np.testing.assert_allclose(got / scale, want / scale, atol=2.5 * BF16_ULP)
 
 
+def test_plain_in_chunks_matches_xla_output_tail(monkeypatch):
+    """Frames whose resized maps pass the element limit (cut here to two
+    frames' worth) run in chunks of frames, to the same values."""
+    x, w1, b1, w2, b2 = _case((5, 8, 12, 128), seed=5)
+    monkeypatch.setattr(t_tail.resize, "_MAX_ELEMENTS", 2 * 14 * 21 * 128)
+    got = t_tail.output_tail_plain(*map(torch.from_numpy, (x, w1, b1, w2, b2)), 14, 21)
+    np.testing.assert_allclose(got.numpy(), _jax_tail(x, w1, b1, w2, b2, (14, 21), "float32"),
+                               **FP32_TOL)
+
+
 def test_wrapper_on_cpu_tensors_is_the_plain_version():
     args = [torch.from_numpy(a) for a in _case((1, 8, 12, 128), seed=1)]
     args[0] = args[0].to(torch.bfloat16)

@@ -10,7 +10,7 @@ compiles; the fit-chain modes with the host fit read the JAX
 import numpy as np
 import pytest
 
-from tests.torch_port_helpers import model_pair
+from tests.torch_port_helpers import model_pair, one_torch_thread  # noqa: F401
 from video_depth_anything_torch.inference import streaming as t_stream
 from video_depth_anything_tpu.inference import streaming as j_stream
 
@@ -29,7 +29,7 @@ MODES = {
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(one_torch_thread):
     jm, tm = model_pair("vits", depth=2, seed=3)
     frames = (np.random.RandomState(0).rand(26, 36, 44, 3) * 255).astype(np.uint8)
     mp = pytest.MonkeyPatch()

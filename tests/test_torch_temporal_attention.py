@@ -1,5 +1,6 @@
 """Kernel B's plain version against the JAX temporal kernel (Pallas
-interpret mode on the CPU) at the vits head widths, and its gate."""
+interpret mode on the CPU) at the vits and vitb head widths, and its
+gate."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,8 @@ from video_depth_anything_tpu.ops.pallas_temporal import temporal_attention_wind
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("c,s", [(64, 20), (192, 13)])  # d = 8 (vits m2/m3), 24 (m0)
+# d = 8 (vits m2/m3), 24 (m0), 16 (vitb m2/m3)
+@pytest.mark.parametrize("c,s", [(64, 20), (192, 13), (128, 17)])
 def test_plain_matches_pallas_kernel(c, s):
     heads, t = 8, 32
     rng = np.random.RandomState(c)
@@ -40,12 +42,14 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     ((1, 32, 1369, 64), True),    # vits m2 at 518²: d = 8
     ((1, 32, 361, 384), False),   # vits m1: d = 48 stays on the plain path
     ((1, 4, 1369, 64), False),    # fewer than 8 frames
+    ((1, 32, 1369, 128), True),   # vitb m2 at 518²: d = 16
+    ((1, 32, 1369, 384), False),  # vitb m0 at 518²: d = 48 stays on the plain path
 ])
 def test_temporal_gate(shape, expected):
     assert t_temporal.temporal_gate(shape, 8) is expected
 
 
-@pytest.mark.parametrize("c", [64, 192])  # d = 8 (vits m2), 24 (m0)
+@pytest.mark.parametrize("c", [64, 192, 128])  # d = 8 (vits m2), 24 (m0), 16 (vitb m2)
 def test_smoke_check_separates_right_from_wrong(c):
     """chip_smoke.py's check of Kernel B on its inputs: the JAX Pallas
     kernel, a right implementation with its own bf16 rounding points, is

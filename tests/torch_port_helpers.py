@@ -9,6 +9,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from video_depth_anything_torch import config as tcfg
@@ -71,3 +72,15 @@ def model_pair(encoder: str = "vits", depth: int = 4, seed: int = 0):
     tm = TorchVDA(cfg=tc, device="cpu", dtype=torch.float32)
     tm.load_state_dict(from_jax_params(jm.params, jc), strict=True)
     return jm, tm
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's tests.  The streaming pipelines
+    run many tiny CPU ops; with several test workers on the machine,
+    torch's default of one thread per core oversubscribes the cores and
+    makes each op tens of times slower."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)

@@ -19,7 +19,8 @@
 //   from shared memory by ldmatrix; B (the weights, <= 1.6 MB at C = 192)
 //   streams through L2 in a host-prepared fragment order, so each lane
 //   fetches its B fragments for two k-steps with one coalesced 16-byte
-//   load.  Each warp computes 32x32 output units.
+//   load.  Each warp computes 32x32 output units.  At C = 384 the weights
+//   are 22 * C^2 bf16 = 6.5 MB, still inside the 50 MB L2.
 // - The 2*4*C-wide GEGLU intermediate never exists in full: the FF runs in
 //   four column chunks of width C, accumulating the second product in an
 //   fp32 buffer that reuses the (dead) q/k space.
@@ -237,6 +238,9 @@ template <int C, int R>
 __global__ void __launch_bounds__(NTHREADS) motion_module_kernel(const Params p) {
   constexpr int LD = C + 8;
   constexpr int FF = 4 * C;
+  static_assert(R % 32 == 0 && C % 64 == 0, "32-row GEMM units, 64-wide LayerNorm steps");
+  static_assert(R * C * 4 <= 2 * R * LD * 2, "the FF accumulator must fit over q and k");
+  static_assert(5 * R * LD * 2 <= 232448, "shared memory over the opt-in limit");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sY = reinterpret_cast<bf16*>(smem_raw);
   bf16* sH = sY + R * LD;
@@ -387,13 +391,21 @@ extern "C" int vda_motion_module(
   p.scale = scale;
   p.ln_eps = ln_eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // The vits widths (m0: 192; m1-m3 at the gate's sizes: 64) and vitl's
-  // m2/m3 width (256: 5 * 64 * 264 * 2 = 165 KB of shared memory; the fp32
-  // FF accumulator, 64 KB, fits over the q/k buffers, 66 KB).
+  // The widths the gate sends here: vits (m0: 192; m1-m3 at the gate's
+  // sizes: 64), vitb (m2/m3: 128; m0 on 16:9 frames: 384) and vitl's m2/m3
+  // (256).  Shared memory is 5 * R * (C + 8) * 2 bytes, and the fp32 FF
+  // accumulator (R * C * 4) must fit over the q/k buffers (2 * R * (C + 8)
+  // * 2): C = 128 at R = 128 takes 174,080 B (accumulator 64 KB over 68
+  // KB); C = 256 at R = 64 165 KB (64 KB over 66 KB); C = 384 at R = 64
+  // would take 250,880 B, over the 232,448 B a block may opt into, so it
+  // runs R = 32 (one location of 32 frames, 125,440 B; 48 KB over 49 KB):
+  // each GEMM then has 12 32x32 units for the 8 warps.
   switch (C) {
     case 64: return launch<64, 128>(p, st);
+    case 128: return launch<128, 128>(p, st);
     case 192: return launch<192, 64>(p, st);
     case 256: return launch<256, 64>(p, st);
+    case 384: return launch<384, 32>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,7 +6,7 @@
 // softmax over T <= 32 frames, probabilities rounded to bf16, sum_t' p . v_t'
 // accumulated in fp32, bf16 out -- the numerics of the JAX einsum path.
 //
-// Bound on the H100: memory.  At d = 8 or 24 there is no tensor-core shape
+// Bound on the H100: memory.  At d = 8, 16 or 24 there is no tensor-core shape
 // worth using and the arithmetic is ~2*T*d FLOP per loaded element; at vits
 // m0 (one window) the call moves ~67 MB, ~20 us at 3.35 TB/s.  Design: one
 // CTA per (batch, location) loads the location's T x C rows of q, k and v
@@ -123,13 +123,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T, i
 
 // q, k, v, o: contiguous (B, T, S, C) bf16, C = heads * head_dim, T <= 32.
 // Returns cudaErrorInvalidValue for a head_dim without an instantiation:
-// the vits head dims that the gate sends here (m2: 8, m0: 24).
+// the head dims that the gate sends here on the shipped encoders (vits m2:
+// 8, m0: 24; vitb m2 at 518^2 and the KV warm-up's m2/m3: 16, 8 heads of
+// 16 at C = 128, 256 threads and 3 * 32 * 128 * 2 = 24.6 KB of shared
+// memory per CTA).
 extern "C" int vda_temporal_attention(const void* q, const void* k, const void* v, void* o,
                                       int B, int T, int S, int C, int heads, float scale,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C / heads) {
     case 8: return launch<8>(q, k, v, o, B, T, S, C, heads, scale, st);
+    case 16: return launch<16>(q, k, v, o, B, T, S, C, heads, scale, st);
     case 24: return launch<24>(q, k, v, o, B, T, S, C, heads, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,8 +13,9 @@ kernel runs it.  With ``cfg.remat_motion`` each motion module runs under
 ``attn_impl`` goes to the motion modules (the tail gate does not read it,
 as in JAX).  Besides the batch-window forward, the feature-cache streaming
 methods are ported (``streaming_forward``, ``streaming_head_step``,
-``streaming_chunk_forward``, ``dpt.py:412-543`` there); the KV-streaming
-ones wait for the KV-streaming slice.
+``streaming_chunk_forward``, ``dpt.py:412-543`` there) and the KV-streaming
+ones (``window_forward_collect_kv``, ``streaming_kv_forward``,
+``streaming_kv_head_step``, ``dpt.py:142-155,305-395`` there).
 """
 
 from __future__ import annotations
@@ -112,6 +113,19 @@ class DPTHeadTemporal(nn.Module):
             y = module(x5)
         return y.reshape(x.shape)
 
+    @staticmethod
+    def _temporal_collect(module, x: torch.Tensor, batch: int):
+        """``_temporal`` through ``module.collect``: also the module's
+        position-free KV caches."""
+        y, caches = module.collect(x.reshape((batch, x.shape[0] // batch) + x.shape[1:]))
+        return y.reshape(x.shape), caches
+
+    @staticmethod
+    def _temporal_kv(module, x_new: torch.Tensor, caches, pin_anchor: bool):
+        """``(Q, h, w, C)`` query-frame maps through ``module.kv_step``."""
+        y, caches = module.kv_step(x_new[None], caches, pin_anchor)
+        return y[0], caches
+
     def _output_head(self, path1: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
         sc = self.scratch
         out = sc.output_conv1(path1)
@@ -205,3 +219,59 @@ class DPTHeadTemporal(nn.Module):
         path2 = sc.refinenet2(path3, r2, out_hw=tuple(r1.shape[-3:-1]))
         path1 = sc.refinenet1(path2, r1)
         return self._output_head(path1, ph, pw)
+
+    # -- KV-cache streaming ---------------------------------------------------------
+
+    def window_forward_collect_kv(self, features, batch: int, ph: int, pw: int,
+                                  skip_tmp_block: bool = False):
+        """The window forward that also captures every motion module's KV
+        caches (the KV mode's warm-up): ``(depth, (kv0, kv1, kv2, kv3))``,
+        ``kv2 = ()`` with ``skip_tmp_block``."""
+        sc, mm = self.scratch, self.motion_modules
+        l1, l2, l3, l4 = self.level_features(features, ph, pw)
+        l3, kv0 = self._temporal_collect(mm[0], l3, batch)
+        l4, kv1 = self._temporal_collect(mm[1], l4, batch)
+        r1, r2 = sc.layer1_rn(l1), sc.layer2_rn(l2)
+        r3, r4 = sc.layer3_rn(l3), sc.layer4_rn(l4)
+        path4 = sc.refinenet4(r4, out_hw=tuple(r3.shape[-3:-1]))
+        kv2 = ()
+        if not skip_tmp_block:
+            path4, kv2 = self._temporal_collect(mm[2], path4, batch)
+        path3 = sc.refinenet3(path4, r3, out_hw=tuple(r2.shape[-3:-1]))
+        path3, kv3 = self._temporal_collect(mm[3], path3, batch)
+        path2 = sc.refinenet2(path3, r2, out_hw=tuple(r1.shape[-3:-1]))
+        path1 = sc.refinenet1(path2, r1)
+        return self._output_head(path1, ph, pw), (kv0, kv1, kv2, kv3)
+
+    def streaming_kv_forward(self, new_features, kv_caches, ph: int, pw: int,
+                             skip_tmp_block: bool = False, anchor_levels=None):
+        """One KV step from the newest frame's encoder taps: ``(depth (Q,
+        14ph, 14pw, 1), caches)``.  With ``anchor_levels`` (the first
+        frame's 4 level maps) the anchor is predicted again before the
+        newest frame, at window slot 0, and its cache slot stays pinned."""
+        levels = self.level_features(new_features, ph, pw)
+        return self.streaming_kv_head_step(levels, kv_caches, ph, pw, skip_tmp_block,
+                                           anchor_levels)
+
+    def streaming_kv_head_step(self, levels, kv_caches, ph: int, pw: int,
+                               skip_tmp_block: bool = False, anchor_levels=None):
+        """The post-encoder half of ``streaming_kv_forward``, from the
+        frame's level features (each ``(1, h_l, w_l, C_l)``)."""
+        sc, mm = self.scratch, self.motion_modules
+        kv0, kv1, kv2, kv3 = kv_caches
+        pin = anchor_levels is not None
+        if pin:
+            levels = tuple(torch.cat([a, n]) for a, n in zip(anchor_levels, levels))
+        n1, n2, n3, n4 = levels
+        l3, kv0 = self._temporal_kv(mm[0], n3, kv0, pin)
+        l4, kv1 = self._temporal_kv(mm[1], n4, kv1, pin)
+        r1, r2 = sc.layer1_rn(n1), sc.layer2_rn(n2)
+        r3, r4 = sc.layer3_rn(l3), sc.layer4_rn(l4)
+        path4 = sc.refinenet4(r4, out_hw=tuple(r3.shape[-3:-1]))
+        if not skip_tmp_block:
+            path4, kv2 = self._temporal_kv(mm[2], path4, kv2, pin)
+        path3 = sc.refinenet3(path4, r3, out_hw=tuple(r2.shape[-3:-1]))
+        path3, kv3 = self._temporal_kv(mm[3], path3, kv3, pin)
+        path2 = sc.refinenet2(path3, r2, out_hw=tuple(r1.shape[-3:-1]))
+        path1 = sc.refinenet1(path2, r1)
+        return self._output_head(path1, ph, pw), (kv0, kv1, kv2, kv3)

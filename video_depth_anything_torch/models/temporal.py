@@ -1,25 +1,41 @@
 """Temporal ("motion") modules (the JAX package's ``models/temporal.py``).
 
-GroupNorm(32) → proj_in → [2 × (LN → +APE → attention over the frame axis
-per location → residual), LN → GEGLU FF → residual] → proj_out → + input,
-on ``(B, T, H, W, C)`` maps.  Parameter names are the reference torch keys
-(``temporal_transformer.transformer_blocks.0.attention_blocks.0.to_q``, …).
+GroupNorm(32) → proj_in → [2 × (LN → positions → attention over the frame
+axis per location → residual), LN → GEGLU FF → residual] → proj_out →
++ input, on ``(B, T, H, W, C)`` maps.  Positions follow
+``cfg.pos_embedding_type`` as JAX ``_pos``/``_qkv`` do: ``"ape"`` adds the
+sinusoidal table before the projections, ``"rope"`` rotates q and k after
+them (fp32, cast back); any other type raises.  Parameter names are the
+reference torch keys
+(``temporal_transformer.transformer_blocks.0.attention_blocks.0.to_q``, …);
+a RoPE module keeps the ``pos_encoder.pe`` buffer, which the JAX export
+writes for every module.
 
 Dispatch follows the JAX package: a module that the JAX gate sends to the
 fused Pallas module goes to Kernel C (``ops/motion_module.py``); otherwise
-each attention whose shape the JAX gate sends to the Pallas temporal core
-goes to Kernel B (``ops/temporal_attention.py``), and the rest is plain
-PyTorch.  Kernels are called through their autograd Functions, so the
-module trains on either path.  ``attn_impl`` is the JAX switch: its base
-``xla`` (the part before ``:``, so ``:fast`` never reaches these kernels)
-turns both Kernel B and Kernel C off, as ``temporal.py:125-126`` and
-``:408-409`` there.  The window forward serves the sliding window and the
-feature-cache streaming steps; the KV-streaming methods (``collect``,
-``kv_step``) wait for the KV-streaming slice.
+each attention whose q and k have one shape and whose shape the JAX gate
+sends to the Pallas temporal core goes to Kernel B
+(``ops/temporal_attention.py``), and the rest is plain PyTorch.  Kernels
+are called through their autograd Functions, so the module trains on
+either path.  ``attn_impl`` is the JAX switch: its base ``xla`` (the part
+before ``:``, so ``:fast`` never reaches these kernels) turns both Kernel B
+and Kernel C off, as ``temporal.py:125-126`` and ``:408-409`` there.
+
+Besides the window forward (sliding window and feature-cache streaming),
+the KV-streaming methods are ported (``collect``, ``kv_step``;
+``temporal.py:155-260,309-333,460-492`` there).  The caches hold
+position-free projections ``to_k(x)``, ``to_v(x)``, oldest → newest; the
+positions of the current window are applied at attend time, as projected
+sums ``to_k(x) + to_k(pe)`` where JAX forms them so.  ``collect`` never
+takes Kernel C (its attentions still reach Kernel B), and a ``kv_step``,
+whose q has fewer frames than k, takes the plain attention.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -40,37 +56,135 @@ from video_depth_anything_torch.ops.temporal_attention import (
 )
 
 
+POS_EMBEDDING_TYPES = ("ape", "rope")
+
+
+def rope_tables(max_len: int, dim: int, theta: float = 10000.0):
+    """cos/sin tables of the reference's RoPE variant, ``(max_len, dim/2)``
+    fp32 each (JAX ``rope_tables``)."""
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64)[: dim // 2] / dim))
+    angles = np.outer(np.arange(max_len, dtype=np.float64), freqs)
+    return np.cos(angles).astype(np.float32), np.sin(angles).astype(np.float32)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the pairs ``(x0, x1)`` of the last axis to ``(x0·cos − x1·sin,
+    x0·sin + x1·cos)`` in fp32, back in x's dtype; ``x (B, T, S, C)``,
+    tables ``(T, 1, C/2)`` (``table_rows``; JAX ``_apply_rope``)."""
+    xf = x.float()
+    x0, x1 = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def table_rows(table: torch.Tensor, t: int, nq: Optional[int] = None) -> torch.Tensor:
+    """Rows of a ``(max_len, ...)`` position table as ``(n, 1, ...)``, to
+    broadcast over ``(B, n, S, ...)``: the first ``t`` (a window of t
+    frames) or, with ``nq``, those of a KV step's ``nq`` query frames in a
+    window of ``t``: slots 0..nq−2 and the last slot, ``min(t, max_len) −
+    1``.  Sliced, not indexed: an index list would be copied to the device
+    and wait for the stream at every step."""
+    if nq is None:
+        return table[:t, None]
+    last = min(t, table.shape[0]) - 1
+    return torch.cat([table[: nq - 1], table[last:last + 1]])[:, None]
+
+
 class PositionalEncoding(nn.Module):
     def __init__(self, dim: int, max_len: int):
         super().__init__()
         self.register_buffer("pe", torch.from_numpy(sinusoidal_position_table(max_len, dim))[None])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, T, S, C)`` + the table's first T rows (in x's dtype)."""
-        return x + self.pe[0, : x.shape[1], None, :].to(x.dtype)
-
 
 class TemporalSelfAttention(nn.Module):
     def __init__(self, cfg: MotionModuleConfig, dim: int, attn_impl: str = "auto"):
         super().__init__()
+        if cfg.pos_embedding_type not in POS_EMBEDDING_TYPES:
+            raise ValueError(f"pos_embedding_type must be one of {POS_EMBEDDING_TYPES}, "
+                             f"got {cfg.pos_embedding_type!r}")
         self.cfg = cfg
+        self.rope = cfg.pos_embedding_type == "rope"
         self.use_kernels = attn_impl.partition(":")[0] != "xla"
         self.to_q = Linear(dim, dim, bias=False)
         self.to_k = Linear(dim, dim, bias=False)
         self.to_v = Linear(dim, dim, bias=False)
         self.to_out = nn.ModuleList([Linear(dim, dim), nn.Identity()])
         self.pos_encoder = PositionalEncoding(dim, cfg.temporal_max_len)
+        if self.rope:
+            cos, sin = rope_tables(cfg.temporal_max_len, dim)
+            self.register_buffer("rope_cos", torch.from_numpy(cos), persistent=False)
+            self.register_buffer("rope_sin", torch.from_numpy(sin), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _ape(self, dtype, t: int, nq: Optional[int] = None) -> torch.Tensor:
+        """APE rows (``table_rows``) in ``dtype``."""
+        return table_rows(self.pos_encoder.pe[0], t, nq).to(dtype)
+
+    def _rotate(self, x: torch.Tensor, t: int, nq: Optional[int] = None) -> torch.Tensor:
+        """RoPE at the rows ``table_rows`` picks, one per frame of x."""
+        return apply_rope(x, table_rows(self.rope_cos, t, nq), table_rows(self.rope_sin, t, nq))
+
+    def _attend(self, q, k, v) -> torch.Tensor:
+        """Attention over the frame axis and the out projection; Kernel B
+        only where q and k have one shape (JAX ``_attend``, ``:126``)."""
         heads = self.cfg.num_heads
-        x = self.pos_encoder(x)
-        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         scale = (q.shape[-1] // heads) ** -0.5
-        if self.use_kernels and kernels_enabled() and temporal_gate(q.shape, heads):
+        if (self.use_kernels and kernels_enabled() and q.shape == k.shape
+                and temporal_gate(q.shape, heads)):
             out = TemporalAttentionFn.apply(q, k, v, heads, scale)
         else:
             out = temporal_attention_plain(q, k, v, heads, scale)
         return self.to_out[0](out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = x.shape[1]
+        if not self.rope:
+            x = x + self._ape(x.dtype, t)
+        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        if self.rope:
+            q, k = self._rotate(q, t), self._rotate(k, t)
+        return self._attend(q, k, v)
+
+    # -- KV-cache streaming -------------------------------------------------------
+
+    def call_collect(self, x: torch.Tensor):
+        """Full-window attention that also returns the position-free
+        ``to_k(x)``, ``to_v(x)`` ``(B, T, S, C)`` that seed the caches."""
+        t = x.shape[1]
+        k_free, v_free = self.to_k(x), self.to_v(x)
+        if self.rope:
+            q = self._rotate(self.to_q(x), t)
+            k, v = self._rotate(k_free, t), v_free
+        else:
+            pe = self._ape(x.dtype, t)
+            q = self.to_q(x + pe)
+            k, v = k_free + self.to_k(pe), v_free + self.to_v(pe)
+        return self._attend(q, k, v), k_free, v_free
+
+    def kv_step(self, x_new: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                pin_anchor: bool = False):
+        """Query frames ``x_new (B, Q, S, C)`` (the last one the newest
+        frame, the only one whose K/V enter the cache) against the caches
+        ``(B, T−1, S, C)``: query ``q < Q−1`` takes window slot ``q``, the
+        newest frame the last slot; all attend over cache ∪ newest.
+        Eviction drops the oldest entry, or with ``pin_anchor`` slot 1, so
+        that slot 0 keeps the first frame.  Returns ``(out (B, Q, S, C),
+        k_cache', v_cache')``."""
+        nq = x_new.shape[1]
+        t = k_cache.shape[1] + 1
+        k_all = torch.cat([k_cache, self.to_k(x_new[:, -1:])], dim=1)
+        v_all = torch.cat([v_cache, self.to_v(x_new[:, -1:])], dim=1)
+        if self.rope:
+            q = self._rotate(self.to_q(x_new), t, nq)
+            k_att, v_att = self._rotate(k_all, t), v_all
+        else:
+            pe = self._ape(x_new.dtype, t)
+            q = self.to_q(x_new + self._ape(x_new.dtype, t, nq))
+            k_att, v_att = k_all + self.to_k(pe), v_all + self.to_v(pe)
+        out = self._attend(q, k_att, v_att)
+        if pin_anchor:
+            return (out, torch.cat([k_all[:, :1], k_all[:, 2:]], dim=1),
+                    torch.cat([v_all[:, :1], v_all[:, 2:]], dim=1))
+        return out, k_all[:, 1:], v_all[:, 1:]
 
 
 class GEGLU(nn.Module):
@@ -106,6 +220,24 @@ class TemporalTransformerBlock(nn.Module):
         for norm, attn in zip(self.norms, self.attention_blocks):
             x = x + attn(norm(x))
         return x + self.ff(self.ff_norm(x))
+
+    def collect(self, x):
+        """Full-window forward and ``((k, v), ...)`` per attention block."""
+        caches = []
+        for norm, attn in zip(self.norms, self.attention_blocks):
+            out, k, v = attn.call_collect(norm(x))
+            x = x + out
+            caches.append((k, v))
+        return x + self.ff(self.ff_norm(x)), tuple(caches)
+
+    def kv_step(self, x_new, caches, pin_anchor: bool = False):
+        """The query frames' step; LayerNorm and FF run on them alone."""
+        new_caches = []
+        for norm, attn, (k, v) in zip(self.norms, self.attention_blocks, caches):
+            out, k, v = attn.kv_step(norm(x_new), k, v, pin_anchor)
+            x_new = x_new + out
+            new_caches.append((k, v))
+        return x_new + self.ff(self.ff_norm(x_new)), tuple(new_caches)
 
 
 class TemporalTransformer(nn.Module):
@@ -177,3 +309,29 @@ class TemporalModule(nn.Module):
         for blk in tt.transformer_blocks:
             y = blk(y)
         return tt.proj_out(y.reshape(b, t, h, w, self.inner)) + x
+
+    def collect(self, x: torch.Tensor):
+        """Full-window forward without Kernel C, and the KV caches: per
+        transformer block, per attention block, ``(k, v)`` each
+        ``(B, T, H·W, inner)``."""
+        b, t, h, w, _ = x.shape
+        tt = self.temporal_transformer
+        y = tt.proj_in(tt.norm(x)).reshape(b, t, h * w, self.inner)
+        caches = []
+        for blk in tt.transformer_blocks:
+            y, c = blk.collect(y)
+            caches.append(c)
+        return tt.proj_out(y.reshape(b, t, h, w, self.inner)) + x, tuple(caches)
+
+    def kv_step(self, x_new: torch.Tensor, caches, pin_anchor: bool = False):
+        """Query frames ``(B, Q, H, W, C)`` against the module's caches (the
+        last query the newest frame); GroupNorm, projections and FF are per
+        frame, so only the query frames are computed."""
+        b, q, h, w, _ = x_new.shape
+        tt = self.temporal_transformer
+        y = tt.proj_in(tt.norm(x_new)).reshape(b, q, h * w, self.inner)
+        new_caches = []
+        for blk, c in zip(tt.transformer_blocks, caches):
+            y, c = blk.kv_step(y, c, pin_anchor)
+            new_caches.append(c)
+        return tt.proj_out(y.reshape(b, q, h, w, self.inner)) + x_new, tuple(new_caches)

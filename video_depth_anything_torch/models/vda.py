@@ -8,7 +8,9 @@ a released ``.pth`` loads with ``load_state_dict(strict=True)``.  Besides
 the window forward it has the feature-cache streaming methods of the JAX
 module (``encode_level_features``, ``streaming_step``,
 ``streaming_head_step``, ``streaming_chunk_step``; ``vda.py:67-149``
-there), which ``inference/streaming.py`` drives.
+there), which ``inference/streaming.py`` drives, and the KV-streaming ones
+(``streaming_kv_start``, ``streaming_kv_step``, ``streaming_kv_head_step``;
+``vda.py:153-215`` there), which ``inference/kv_streaming.py`` drives.
 """
 
 from __future__ import annotations
@@ -96,6 +98,40 @@ class VideoDepthAnything(nn.Module):
         depth = self.head.streaming_chunk_forward(n1, n2, w3, w4, ph, pw, skip_tmp_block)
         return bilinear_resize(depth.to(x.dtype), h, w)[..., 0], (n1, n2, n3, n4)
 
+    # -- KV-cache streaming -------------------------------------------------------
+
+    def streaming_kv_start(self, x: torch.Tensor, skip_tmp_block: bool = False):
+        """Warm-up: one window ``(1, T, H, W, 3)`` → (depth ``(1, T, H,
+        W)``, the motion modules' KV caches over all T frames)."""
+        b, t, h, w, _ = x.shape
+        ph, pw = self._check_hw(h, w)
+        feats = self.pretrained(x.reshape(b * t, h, w, 3), self.cfg.intermediate_layer_idx)
+        depth, caches = self.head.window_forward_collect_kv(feats, b, ph, pw, skip_tmp_block)
+        return bilinear_resize(depth.to(x.dtype), h, w).reshape(b, t, h, w), caches
+
+    def streaming_kv_step(self, x: torch.Tensor, kv_caches, skip_tmp_block: bool = False,
+                          anchor_levels=None):
+        """The newest frame ``(1, H, W, 3)`` and the caches → (depth ``(Q,
+        H, W)``, the shifted caches); with ``anchor_levels`` row 0 is the
+        anchor's new prediction and row 1 the newest frame's."""
+        _, h, w, _ = x.shape
+        ph, pw = self._check_hw(h, w)
+        feats = self.pretrained(x, self.cfg.intermediate_layer_idx)
+        depth, caches = self.head.streaming_kv_forward(feats, kv_caches, ph, pw, skip_tmp_block,
+                                                       anchor_levels)
+        return bilinear_resize(depth.to(x.dtype), h, w)[..., 0], caches
+
+    def streaming_kv_head_step(self, levels, kv_caches, skip_tmp_block: bool = False,
+                               anchor_levels=None):
+        """The post-encoder half of ``streaming_kv_step``, from the frame's
+        level features (each ``(1, h_l, w_l, C_l)``): the chunked KV steps
+        batch the encoder over K frames and run this K times."""
+        l1 = levels[0]
+        ph, pw = l1.shape[1] // 4, l1.shape[2] // 4
+        depth, caches = self.head.streaming_kv_head_step(levels, kv_caches, ph, pw,
+                                                         skip_tmp_block, anchor_levels)
+        return bilinear_resize(depth.to(l1.dtype), ph * 14, pw * 14)[..., 0], caches
+
 
 def init_parameters(module: nn.Module, seed: int = 0) -> None:
     """Seeded random init in the JAX package's spirit: LeCun-normal
@@ -132,12 +168,11 @@ class VDAModel:
         parse_attn_impl(attn_impl, self.device.type)
         if self.device.type == "cuda" and dtype != torch.bfloat16:
             raise NotImplementedError("fp32 inference on the card is not yet ported")
-        if self.device.type == "cuda" and self.cfg.encoder not in ("vits", "vitl"):
-            # vitb reaches Kernel C at C = 128 and 384 and Kernel B at d = 16,
-            # which come with its own slice; the CPU runs it plain.
+        if self.device.type == "cuda" and self.cfg.encoder == "vitg":
+            # no released video checkpoint and no slice of its own; the CPU
+            # runs it plain.
             raise NotImplementedError(
-                f"encoder {self.cfg.encoder!r} on the card is not yet ported (vits and vitl "
-                "only; vitb needs Kernel C at C = 128 and 384 and Kernel B at d = 16)")
+                "encoder 'vitg' on the card is not ported (vits, vitb and vitl are)")
         self.dtype = dtype
         self.attn_impl = attn_impl
         self.module = VideoDepthAnything(self.cfg, attn_impl).to(self.device).eval()

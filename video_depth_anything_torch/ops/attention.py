@@ -39,7 +39,7 @@ def parse_attn_impl(impl: str, device_type: str) -> Tuple[str, bool]:
     if base == "pallas" and device_type == "cuda":
         raise NotImplementedError(
             "attn_impl 'pallas' is not ported to the card: it also forces the temporal kernel "
-            "at head_dim 32/48/128, which Kernel B lacks (ROADMAP Queue 0); use 'auto'")
+            "at head_dim 32/48/128, which Kernel B lacks (ROADMAP Queue 1 item 4); use 'auto'")
     return base, variant == "fast"
 
 

@@ -195,10 +195,10 @@ def _kernel():
     return _fn
 
 
-# The instantiations of csrc/motion_module.cu: the vits widths (m0 192,
-# m1-m3 64) and vitl's m2/m3 width (256).  Other widths come with the
-# slices whose path runs them.
-_SUPPORTED_C = (64, 192, 256)
+# The instantiations of csrc/motion_module.cu: the widths the gate sends
+# here on vits (m0 192, m1-m3 64), vitb (m2/m3 128, m0 on 16:9 frames 384)
+# and vitl (m2/m3 256).
+_SUPPORTED_C = (64, 128, 192, 256, 384)
 # Kernel operands after x, gna and gnb, in the C entry point's order.
 _OPERANDS = ("pe", "w_in", "b_in", "ln_scale", "ln_bias", "wq", "wk", "wv", "wo", "bo",
              "w1", "b1", "w2", "b2", "w_out", "b_out")

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_depth_anything_torch.ops import cuda_build
+from video_depth_anything_torch.ops import cuda_build, resize
 from video_depth_anything_torch.ops.dispatch import recompute_vjp
 from video_depth_anything_torch.ops.motion_module import _frag
 from video_depth_anything_torch.ops.resize import _linear_taps, bilinear_resize
@@ -123,7 +123,11 @@ def output_tail_gate(cfg, shape, dtype, out_h: int, out_w: int) -> bool:
 def output_tail_plain(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
     """``(N, H, W, C)`` → ``(N, out_h, out_w, 1)``: ``F.interpolate``
     (align_corners, fp32 arithmetic, one rounding to x's dtype), then
-    ``F.conv2d`` twice with ReLUs, in x's dtype."""
+    ``F.conv2d`` twice with ReLUs, in x's dtype; in chunks of frames whose
+    resized map stays within ``resize._MAX_ELEMENTS``."""
+    n = max(1, resize._MAX_ELEMENTS // (out_h * out_w * x.shape[-1]))
+    if x.shape[0] > n:
+        return torch.cat([output_tail_plain(c, w1, b1, w2, b2, out_h, out_w) for c in x.split(n)])
     dt = x.dtype
     y = bilinear_resize(x, out_h, out_w).permute(0, 3, 1, 2)
     y = torch.relu(F.conv2d(y, w1.to(dt), b1.to(dt), padding=1))

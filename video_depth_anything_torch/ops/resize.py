@@ -44,11 +44,24 @@ def _cubic_weight_matrix(in_size: int, out_size: int, scale: float) -> np.ndarra
     return w.astype(np.float32)
 
 
+# F.interpolate's channels-last CUDA kernel takes outputs of fewer than
+# 2^31 elements (32-bit indexing): vitb's window batch of 4 resizes 128
+# frames of 296x528x128 in refinenet1 at 518x924 (2.6e9) and of 518x518x64
+# in the output head at 518x518 (2.2e9).
+_MAX_ELEMENTS = 2**31 - 1
+
+
 def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear ``align_corners=True`` resize of ``(N, H, W, C)``."""
+    """Bilinear ``align_corners=True`` resize of ``(N, H, W, C)``; a batch
+    whose output would pass ``_MAX_ELEMENTS`` is resized in chunks of
+    frames."""
     h, w = x.shape[-3], x.shape[-2]
     if (h, w) == (out_h, out_w):
         return x
+    per_frame = out_h * out_w * x.shape[-1]
+    if x.shape[0] > 1 and x.shape[0] * per_frame > _MAX_ELEMENTS:
+        n = max(1, _MAX_ELEMENTS // per_frame)
+        return torch.cat([bilinear_resize(c, out_h, out_w) for c in x.split(n)])
     y = F.interpolate(
         x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
         align_corners=True,

@@ -5,7 +5,9 @@ Replaces ``video_depth_anything_tpu/ops/pallas_temporal.py``
 the JAX ``auto`` dispatch rule of ``try_temporal_attention``
 (``pallas_temporal.py:288-307``): the lane-packing constraints of the TPU
 kernel and head_dim ≤ 24.  On vits at 518² that is m0 (C = 192, d = 24)
-and m2 (C = 64, d = 8).
+and m2 (C = 64, d = 8); on vitb at 518² m2 (C = 128, d = 16).  The
+KV-streaming warm-up (no fused module) also sends vits m0/m2/m3 and vitb
+m2/m3 here at both frame sizes.
 
 ``TemporalAttentionFn`` is the differentiable entry: Kernel B forward (the
 plain version on CPU tensors) and ``temporal_attention_bwd_plain``, the
@@ -82,9 +84,10 @@ def temporal_attention_bwd_plain(q, k, v, g, heads: int, scale: float):
 
 
 _fn = None
-# The instantiations of csrc/temporal_attention.cu: the vits head dims
-# (m2: 8, m0: 24).  Others come with the slices whose path runs them.
-_SUPPORTED_D = (8, 24)
+# The instantiations of csrc/temporal_attention.cu: the head dims that the
+# gate sends here on vits (m2: 8, m0: 24) and vitb (m2, m3: 16).  The
+# --attn_impl pallas widths (32, 48, 128) come with that slice.
+_SUPPORTED_D = (8, 16, 24)
 
 
 def _kernel():

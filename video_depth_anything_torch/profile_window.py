@@ -1,10 +1,11 @@
 """Where a window's time goes on the card.
 
-    python -m video_depth_anything_torch.profile_window [--encoder vitl] [--height 518 --width 518]
+    python -m video_depth_anything_torch.profile_window [--encoder vitb|vitl] \\
+        [--height 518 --width 518]
 
 Runs ``VDAModel.infer_window`` for ``--encoder`` (vits by default; noised
 seeded weights, full width and depth) on ``window_batch`` windows of 32
-frames (the pipeline's default: 4 for vits, 1 for vitl) under
+frames (the pipeline's default: 4 for vits and vitb, 1 for vitl) under
 ``torch.profiler``, then prints: the wall time per call, the device busy
 share (sum of kernel times over the wall time of the profiled calls), the
 top kernels by device time, and the device time grouped by the port's
@@ -74,11 +75,11 @@ def report(prof, iters: int, wall: float, top: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--encoder", type=str, default="vits", choices=["vits", "vitl"])
+    ap.add_argument("--encoder", type=str, default="vits", choices=["vits", "vitb", "vitl"])
     ap.add_argument("--height", type=int, default=518)
     ap.add_argument("--width", type=int, default=518)
     ap.add_argument("--window_batch", type=int, default=None,
-                    help="windows per call (default: the pipeline's, 4 for vits, 1 for vitl)")
+                    help="windows per call (default: the pipeline's, 4 for vits/vitb, 1 for vitl)")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", type=str, default=None, help="chrome trace output path")

@@ -1,16 +1,22 @@
-"""Video → depth on the card, sliding-window or feature-cache streaming mode.
+"""Video → depth on the card: sliding-window, feature-cache streaming or
+KV-cache streaming mode.
 
     python -m video_depth_anything_torch.run --input_video clip.mp4 \\
         --output_dir ./outputs --encoder vits --random_init
     python -m video_depth_anything_torch.run --input_video clip.mp4 --random_init \\
         --process_single_image [--align_each_new_frame] [--attn_impl auto:fast]
+    python -m video_depth_anything_torch.run --input_video clip.mp4 --random_init \\
+        --process_single_image --kv_cache [--align_each_new_frame] [--stream_chunk 8]
 
 Writes ``<name>_depth.mp4`` (and ``<name>_depth.npz`` with ``--save_npz``)
 and prints the frames/s and how often each CUDA kernel was launched, the
 exact and the fast variant of Kernel A apart.  Runs on the card;
 ``--device cpu`` runs the plain PyTorch path.  The flags are the JAX
 ``run.py``'s for these modes; ``--original`` overrides the streaming flags
-(``normalize_args``), and ``--kv_cache`` is not ported yet.
+(``normalize_args``).  ``--kv_cache`` takes ``--inference_length``,
+``--align_each_new_frame``, ``--stream_chunk``, ``--host_upsample`` and
+``--transfer_dtype``, as the JAX ``run.py:297-305`` does, and ignores
+``--keyframe_list`` and ``--ring_dtype``.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_video", type=str, required=True)
     p.add_argument("--output_dir", type=str, default="./outputs")
     p.add_argument("--encoder", type=str, default="vits", choices=["vits", "vitb", "vitl"],
-                   help="vits and vitl on the card; vitb on the CPU only for now")
+                   help="vits, vitb and vitl run on the card and on the CPU")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="torch .pth; default ./checkpoints/video_depth_anything_<encoder>.pth")
     p.add_argument("--random_init", action="store_true", help="seeded random weights")
@@ -55,7 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--transfer_dtype", choices=["fp32", "fp16"], default="fp32",
                    help="dtype of streamed depth maps on their way to the host")
     p.add_argument("--kv_cache", action="store_true",
-                   help="KV-cache streaming (not ported yet: ROADMAP Queue 0)")
+                   help="with --process_single_image: KV-cache streaming, O(1) work per frame "
+                        "(each motion module attends the new frame over its K/V caches); "
+                        "--keyframe_list is ignored (the first frame is the one pinned "
+                        "reference with --align_each_new_frame)")
     p.add_argument("--attn_impl", type=str, default="auto",
                    help="auto|pallas|xla with an optional :fast suffix (auto:fast: Kernel A's "
                         "no-max softmax, exact while attention logits stay inside fp32's exp2 "
@@ -95,11 +104,9 @@ def normalize_args(args):
 
 def main(argv=None) -> int:
     args = normalize_args(build_parser().parse_args(argv))
-    if args.process_single_image and args.kv_cache:
-        raise NotImplementedError(
-            "--kv_cache (KV-cache streaming) is not ported yet: ROADMAP Queue 0, KV streaming")
     import torch
 
+    from video_depth_anything_torch.inference.kv_streaming import KVStreamingPipeline
     from video_depth_anything_torch.inference.pipeline import VideoDepthPipeline
     from video_depth_anything_torch.inference.streaming import StreamingDepthPipeline
     from video_depth_anything_torch.io.video import read_video_frames, save_video
@@ -121,7 +128,13 @@ def main(argv=None) -> int:
     print(f"decoded {len(frames)} frames @ {fps:.2f} fps, {frames.shape[2]}x{frames.shape[1]}")
     before = kernel_launches()
     t0 = time.time()
-    if args.process_single_image:
+    if args.process_single_image and args.kv_cache:
+        pipe = KVStreamingPipeline(
+            model, input_size=args.input_size, inference_length=args.inference_length,
+            align_each_new_frame=args.align_each_new_frame, stream_chunk=args.stream_chunk,
+            host_upsample=args.host_upsample, transfer_dtype=args.transfer_dtype)
+        depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block)
+    elif args.process_single_image:
         pipe = StreamingDepthPipeline(
             model, input_size=args.input_size, inference_length=args.inference_length,
             keyframe_list=tuple(args.keyframe_list), align_each_new_frame=args.align_each_new_frame,

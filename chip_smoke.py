@@ -11,16 +11,20 @@ Phases (each failure ends the run with a non-zero exit):
    Kernel A's backward, the training shapes, also from the fast forward's
    log-sum-exp; Kernel A's fast variant also at the streaming shapes, one
    frame and a chunk of 8; Kernel A at D = 192 and at 3 heads on synthetic
-   shapes), on inputs whose attention is peaked; Kernel A's probe kernels
-   (every spatial variant at the vitl and vits probe shapes, the seven
-   softmax-chain modes) on their scripts' inputs; the fused resize -> conv
-   at the vitl junction; and show that wrong kernels (uniform attention, a
-   dropped last key tile, for the no-mask probes a missing pad correction;
-   for Kernel C, uniform frame attention and no APE rows; for the
-   backward, Delta = 0 and a dropped last query tile; for the
+   shapes), on inputs whose attention is peaked, and Kernel A also on flat
+   ones (q scaled by FLAT_Q); Kernel A's probe kernels (every spatial
+   variant at the vitl and vits probe shapes, the seven softmax-chain
+   modes) on their scripts' inputs; the fused resize -> conv at the vitl
+   junction; and show that wrong kernels (uniform attention, a dropped
+   last key tile -- 128 keys for Kernel A at D = 64 --, for Kernel A on
+   the flat inputs the zero-filled pad keys of the ragged last tile
+   counted in the softmax, for the no-mask probes a missing pad
+   correction; for Kernel C, uniform frame attention and no APE rows; for
+   the backward, Delta = 0 and a dropped last 64-query tile; for the
    output tail and the resize -> conv, align_corners False taps and a
    conv3x3 without its off-centre taps) would fail the same tolerance;
-   time kernel, plain version, and the library call where one exists.
+   time kernel, plain version, and the library call where one exists,
+   with ms / library ms, and the backward's three launches apart.
 3. window: one full-width, full-depth vits, vitb and vitl window (noised
    seeded weights) at 518x518 and 518x924, kernel path against the plain
    path on the card, with each window's launch plan (vitb's with exact
@@ -168,6 +172,31 @@ def attention_inputs(shape, gen, device):
 
 def rel_err(got, want) -> float:
     return max_err(got, want) / float(want.float().abs().max())
+
+
+FLAT_Q = 0.2  # Kernel A's second check scales q down: q.k.d^-0.5 then has a
+# std of ~0.5, every softmax row is near-uniform, and the zero-filled pad
+# keys of a ragged last tile would take a share of each row's sum (22 of
+# 384 keys at N = 362, 38 of 1408 at 1370, 117 of 2560 at 2443) that the
+# peaked inputs' large row sums hide.
+
+
+def flat_inputs(q):
+    """``q`` scaled by FLAT_Q, in its dtype."""
+    return (q.float() * FLAT_Q).to(q.dtype)
+
+
+def zero_pad_error(plain, q, k, v, scale, tile: int) -> float:
+    """How far a kernel that counts the zero-filled pad keys of its ragged
+    last ``tile``-key tile in the softmax (TMA fills them; a zero key
+    scores 0, not -inf) misses the plain version, relative to max|plain|:
+    the plain version over k and v padded with zero rows to a multiple of
+    ``tile`` keys, on ``(B, N, H, D)`` inputs."""
+    import torch.nn.functional as F
+
+    pad = -(-k.shape[1] // tile) * tile - k.shape[1]
+    kp, vp = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    return rel_err(plain(q, kp, vp, scale), plain(q, k, v, scale))
 
 
 def mutant_errors(plain, q, k, v, scale, axis: int, tile: int) -> dict:
@@ -403,20 +432,25 @@ def phase_kernels(dev):
         qkv = attention_inputs((bt, n, h * d), g, dev)
         q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
         scale = d**-0.5
+        tile = 128 if d == 64 else 64  # the key tile of the Hopper kernel, of D = 192's
         plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
         got = fa.flash_attention(q, k, v, scale, fast=fast)
         want = plain(q, k, v, scale)
-        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=64)
+        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=tile)
+        qf = flat_inputs(q)  # the second check: near-uniform rows
+        flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
+        mutants["unmasked_zero_pad"] = zero_pad_error(plain, qf, k, v, scale, tile)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast))
         plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
         b_ms, b_by = bound(4.0 * bt * h * n * n * d, 4.0 * bt * n * h * d * 2)
         rows.append(dict(kernel=kernel, shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
-                         max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=ATTN_TOL,
-                         mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms))
-        del qkv, q, k, v, got, want, qt, kt, vt
+                         max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
+                         tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms,
+                         extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e})"))
+        del qkv, q, k, v, qf, got, want, qt, kt, vt
 
     # Kernel A's backward at the training shapes: a 518² window of 32
     # frames and the CLI's default clip (8 frames at 266², 362 tokens) for
@@ -434,6 +468,7 @@ def phase_kernels(dev):
         want = fa.flash_attention_bwd_plain(q, k, v, o, g_, scale)
         mutants = bwd_mutant_errors(q, k, v, o, g_, scale)
         ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g_, scale))
+        split = fa.flash_attention_bwd_split(q, k, v, o, lse, g_, scale)
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, g_, scale), iters=3,
                            warmup=1)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -446,7 +481,8 @@ def phase_kernels(dev):
                          shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
                          max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
                          rel_err=bwd_rel_err(got, want), tol=BWD_TOL, mutants=mutants, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         extra=" split_ms " + " ".join(f"{k}={v:.4f}" for k, v in split.items())))
         del q, k, v, o, lse, g_, got, want, qt, kt, vt, out, gt
 
     for label, c in (("m0 518x518", 192), ("m2 518x518", 64), ("vitb m2 518x518", 128)):
@@ -602,13 +638,15 @@ def phase_kernels(dev):
         mutants = r.get("mutants", {})
         ok = err <= r["tol"] and all(m > r["tol"] for m in mutants.values())
         failed |= not ok
-        extra = "".join(f" mutant {k} rel_err={v:.3e}" for k, v in mutants.items())
+        extra = r.get("extra", "") + "".join(f" mutant {k} rel_err={v:.3e}"
+                                             for k, v in mutants.items())
         if "gn_fold_ms" in r:
             extra += f" gn_fold_ms={r['gn_fold_ms']:.4f}"
+        ratio = "" if r["library_ms"] is None else f" ms/library_ms={r['ms'] / r['library_ms']:.3f}"
         log(f"[kernels] {r['kernel']:<20} {r['shape']:<62} rel_err={err:.3e} (tol {r['tol']}) "
             f"max_abs_err={r['max_abs_err']:.3e}{extra} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"library_ms={r['library_ms']} {'OK' if ok else 'FAIL'}")
+            f"library_ms={r['library_ms']}{ratio} {'OK' if ok else 'FAIL'}")
     if failed:
         raise SystemExit("a kernel disagrees with its plain version, or the check cannot "
                          "tell a wrong kernel from a right one")

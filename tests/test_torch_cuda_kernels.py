@@ -29,9 +29,11 @@ def _randn(dev, *shape, seed=0, scale=1.0):
     return (torch.randn(*shape, device=dev, generator=g) * scale).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("n", [257, 1370, 2443])  # ragged last query and key tiles
+@pytest.mark.parametrize("n", [257, 362, 1370, 2443])  # ragged last query and key tiles
 def test_flash_attention_kernel(dev, n):
-    # chip_smoke.py's peaked inputs and tolerance (relative to max|plain|)
+    """chip_smoke.py's peaked inputs and tolerance (relative to max|plain|),
+    and its flat inputs, where the zero-filled pad keys of the ragged last
+    128-key tile would show if the kernel counted them."""
     b, h, d = 2, 6, 64
     g = torch.Generator(device=dev).manual_seed(n)
     qkv = chip_smoke.attention_inputs((b, n, h * d), g, dev)
@@ -40,6 +42,11 @@ def test_flash_attention_kernel(dev, n):
     got = fa.flash_attention(q, k, v, d**-0.5)
     assert fa.flash_attention.launches == before + 1
     assert chip_smoke.rel_err(got, fa.flash_attention_plain(q, k, v, d**-0.5)) <= chip_smoke.ATTN_TOL
+    qf = chip_smoke.flat_inputs(q)
+    want = fa.flash_attention_plain(qf, k, v, d**-0.5)
+    assert chip_smoke.rel_err(fa.flash_attention(qf, k, v, d**-0.5), want) <= chip_smoke.ATTN_TOL
+    assert chip_smoke.zero_pad_error(fa.flash_attention_plain, qf, k, v, d**-0.5, 128) > \
+        chip_smoke.ATTN_TOL
 
 
 @pytest.mark.parametrize("n", [1370, 2443])  # vitl's 16 heads at 518² and 518×924
@@ -54,16 +61,20 @@ def test_flash_attention_kernel_sixteen_heads(dev, n):
 
 @pytest.mark.parametrize("n,h,d,fast", [
     (257, 6, 64, True), (1370, 6, 64, True), (2443, 6, 64, True),   # the no-max variant
-    (300, 3, 64, False), (1370, 3, 64, True),                       # odd head counts
+    (2443, 6, 64, "frame"),                                         # one streamed frame
+    (300, 3, 64, False), (1370, 3, 64, True), (2443, 3, 64, False),  # odd head counts
     (257, 2, 192, False), (1370, 2, 192, False), (2443, 1, 192, True),  # D = 192
 ])
 def test_flash_attention_variants(dev, n, h, d, fast):
-    """Kernel A's fast variant, odd head counts and D = 192 against their
-    plain versions, with chip_smoke.py's inputs and tolerance; each variant
+    """Kernel A's fast variant (also on one streamed frame, B = 1), odd
+    head counts and D = 192 (the mma.sync tiling) against their plain
+    versions, with chip_smoke.py's inputs and tolerance; each variant
     counts on its own launch counter."""
     g = torch.Generator(device=dev).manual_seed(n + h + d)
-    qkv = chip_smoke.attention_inputs((2, n, h * d), g, dev)
-    q, k, v = (t.view(2, n, h, d) for t in qkv.split(h * d, dim=-1))
+    b = 1 if fast == "frame" else 2
+    fast = bool(fast)
+    qkv = chip_smoke.attention_inputs((b, n, h * d), g, dev)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
     before = (fa.flash_attention.launches, fa.flash_attention.fast_launches)
     got = fa.flash_attention(q, k, v, d**-0.5, fast=fast)
     assert (fa.flash_attention.launches, fa.flash_attention.fast_launches) == \
@@ -140,6 +151,36 @@ def test_flash_attention_fn_gradients(dev, n):
     for part in range(3):
         sl = slice(part * h * d, (part + 1) * h * d)
         assert chip_smoke.rel_err(got[..., sl], want[..., sl]) <= chip_smoke.BWD_TOL
+
+
+def test_flash_attention_from_a_fresh_thread(dev):
+    """Kernel A's forward and backward launched from a thread that has done
+    no CUDA work before, as autograd's backward thread may not have: the
+    tensor-map encoder (cuTensorMapEncodeTiled) needs the context that the
+    launchers make current first."""
+    import threading
+
+    b, n, h, d = 2, 362, 6, 64
+    q, k, v, o, lse, go = chip_smoke.bwd_inputs(b, n, h, torch.Generator(device=dev).manual_seed(4),
+                                                dev)
+    out = {}
+
+    def run():
+        try:
+            out["fwd"] = fa.flash_attention(q, k, v, d**-0.5)
+            out["bwd"] = fa.flash_attention_bwd(q, k, v, o, lse, go, d**-0.5)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            out["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert "error" not in out, out.get("error")
+    assert chip_smoke.rel_err(out["fwd"], fa.flash_attention_plain(q, k, v, d**-0.5)) <= \
+        chip_smoke.ATTN_TOL
+    assert chip_smoke.bwd_rel_err(out["bwd"], fa.flash_attention_bwd_plain(q, k, v, o, go, d**-0.5)) \
+        <= chip_smoke.BWD_TOL
 
 
 @pytest.mark.parametrize("c,t", [(64, 32), (192, 32), (192, 8),

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use, one ``nvcc`` process per source, all started together.
 Libraries land in ``video_depth_anything_torch/_build/`` (git-ignored),
-named by a hash of the source, the headers and the flags, so a stale
-library is never loaded.  A failed build raises with the compiler's output;
+named by a hash of the source, the headers it includes and the flags, so a
+stale library is never loaded and a header change rebuilds only its
+includers.  A failed build raises with the compiler's output;
 nothing falls back to another path.
 
 Every C entry point launches on the stream it is given and returns
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,9 +51,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _sources_of(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another of them."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [CSRC / m for m in re.findall(r'^#include "([^"]+)"', f.read_text(), re.M)]
+    return sorted(seen)
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in _sources_of(name):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -118,6 +133,10 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(t) -> ctypes.c_void_p:
+    """The current stream of ``t``'s card, as the raw handle the C entry
+    points take: read without building a ``torch.cuda.Stream`` (as
+    PyTorch's own Triton launcher reads it), which would cost a small
+    kernel's launch several microseconds of host time."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))

@@ -102,24 +102,57 @@ def _kernel(name: str):
             fn = cuda_build.library("flash_attention").vda_flash_attention_fwd
             fn.argtypes = [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, vp, vp]
         else:
-            fn = cuda_build.library("flash_attention_bwd").vda_flash_attention_bwd
+            fn = getattr(cuda_build.library("flash_attention_bwd"), f"vda_flash_attention_{name}")
             fn.argtypes = [vp] * 10 + [i] * 3 + [ll] * 9 + [ctypes.c_float, vp]
+            if name == "bwd_split":
+                fn.argtypes += [i, ctypes.POINTER(ctypes.c_float)]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
 
 
-def _check_inputs(what: str, *tensors, head_dims=(64,)) -> None:
-    q = tensors[0]
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"{what} kernel takes bf16, got {[t.dtype for t in tensors]}")
-    if q.shape[3] not in head_dims:
-        raise NotImplementedError(f"{what} kernel takes head_dim {head_dims}, got {q.shape[3]}")
+def tma_geometry(t) -> tuple:
+    """``(dims, byte_strides)`` of a bf16 ``(B, N, H, D)`` view as the
+    kernels' TMA maps describe it: dims innermost first ``(D, H, N, B)``,
+    the byte strides of H, N and B (a dimension of size 1 takes the dense
+    stride, its own being never used).  Raises ``ValueError`` on what a
+    tensor map cannot describe: D not unit-stride, a base not 16-byte
+    aligned, a stride not a multiple of 16 bytes."""
+    if t.dim() != 4:
+        raise ValueError(f"expected a (B, N, H, D) view, got shape {tuple(t.shape)}")
+    b, n, h, d = t.shape
+    sb, sn, sh, sd = t.stride()
+    item = t.element_size()
+    if sd != 1 and d > 1:
+        raise ValueError(f"TMA needs unit stride in D, got stride {sd}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base, got address {t.data_ptr():#x}")
+    strides, dense = [], d * item
+    for size, stride in ((h, sh), (n, sn), (b, sb)):
+        nbytes = stride * item if size > 1 else dense
+        if nbytes % 16:
+            raise ValueError(f"TMA needs strides that are multiples of 16 bytes, got "
+                             f"{nbytes} bytes in shape {tuple(t.shape)}")
+        strides.append(nbytes)
+        dense = nbytes * size
+    return (d, h, n, b), tuple(strides)
+
+
+def _check_inputs(what: str, *tensors, head_dims=(64,)) -> list:
+    """Raise on what the kernels do not take; return each tensor's
+    ``(B, N, H)`` element strides from ``tma_geometry``, flat."""
+    shape, device = tensors[0].shape, tensors[0].device
+    if shape[3] not in head_dims:
+        raise NotImplementedError(f"{what} kernel takes head_dim {head_dims}, got {shape[3]}")
+    strides = []
     for t in tensors:
-        if t.shape != q.shape or t.device != q.device:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what} kernel takes bf16, got {[t.dtype for t in tensors]}")
+        if t.shape != shape or t.device != device:
             raise ValueError(f"{what}: operands must share shape and device")
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{what} needs 16-byte aligned rows with unit stride in D")
+        sh, sn, sb = tma_geometry(t)[1]
+        strides += (sb // 2, sn // 2, sh // 2)
+    return strides
 
 
 def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = False):
@@ -141,14 +174,13 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = 
         if with_lse:
             raise ValueError("the log-sum-exp comes from the CUDA kernel only")
         return flash_attention_plain(q, k, v, scale, fast=fast)
-    _check_inputs("flash_attention", q, k, v, head_dims=HEAD_DIMS)
+    strides = _check_inputs("flash_attention", q, k, v, head_dims=HEAD_DIMS)
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     err = _kernel("fwd")(
         cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
-        b, n, h, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        b, n, h, d, *strides, n * h * d, h * d, d,
         float(scale), int(fast), None if lse is None else cuda_build.ptr(lse),
         cuda_build.stream_of(q),
     )
@@ -164,33 +196,52 @@ flash_attention.launches = 0
 flash_attention.fast_launches = 0
 
 
-def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
-    """``(dq, dk, dv)`` from the backward kernel, given Kernel A's output
-    ``o`` and ``lse`` (``flash_attention(..., with_lse=True)``) and the
-    cotangent ``g``; CUDA tensors only.  q, k, v may be strided views;
-    the gradients come back contiguous ``(B, N, H, D)``."""
+def _bwd_args(q, k, v, o, lse, g, scale: float):
+    """The backward's C arguments, after its input checks, and the
+    ``(dq, dk, dv)`` they write."""
     cuda_build.no_history("flash_attention_bwd", q, k, v, o, g)
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd is the CUDA kernel; the CPU takes "
                          "flash_attention_bwd_plain")
     o, g = o.contiguous(), g.contiguous()
-    _check_inputs("flash_attention_bwd", q, k, v, o, g)
+    strides = _check_inputs("flash_attention_bwd", q, k, v, o, g)[:9]
     b, n, h, d = q.shape
     if lse is None or lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd takes Kernel A's fp32 (B, H, N) log-sum-exp")
-    delta = torch.empty_like(lse)
-    dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    err = _kernel("bwd")(
-        *(cuda_build.ptr(t) for t in (q, k, v, o, g, lse, delta, dq, dk, dv)),
-        b, n, h, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), cuda_build.stream_of(q),
-    )
-    cuda_build.check(err, "flash_attention_bwd")
+    # the pre-pass's padded lse and Δ (csrc/flash_attention_bwd.cu)
+    aux = torch.empty((2, b * h, -(-n // 128) * 128), dtype=torch.float32, device=q.device)
+    # one allocation for dq, dk and dv
+    grads = torch.empty((3, b, n, h, d), dtype=q.dtype, device=q.device).unbind(0)
+    args = (*(cuda_build.ptr(t) for t in (q, k, v, o, g, lse, aux, *grads)),
+            b, n, h, *strides, float(scale), cuda_build.stream_of(q))
+    return args, grads
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
+    """``(dq, dk, dv)`` from the backward kernel, given Kernel A's output
+    ``o`` and ``lse`` (``flash_attention(..., with_lse=True)``) and the
+    cotangent ``g``; CUDA tensors only.  q, k, v may be strided views;
+    the gradients come back contiguous ``(B, N, H, D)``."""
+    args, grads = _bwd_args(q, k, v, o, lse, g, scale)
+    cuda_build.check(_kernel("bwd")(*args), "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 flash_attention_bwd.launches = 0
+BWD_LAUNCHES = ("delta", "dkdv", "dq")
+
+
+def flash_attention_bwd_split(q, k, v, o, lse, g, scale: float, iters: int = 20) -> dict:
+    """Mean ms of each of the backward's three launches (the pre-pass
+    that forms Δ, the dK/dV kernel, the dQ kernel) over ``iters``
+    backwards after as many untimed ones, from CUDA events around each
+    launch; not counted as launches."""
+    args, _ = _bwd_args(q, k, v, o, lse, g, scale)
+    ms = (ctypes.c_float * 3)()
+    for _ in range(2):
+        cuda_build.check(_kernel("bwd_split")(*args, iters, ms), "flash_attention_bwd")
+    return dict(zip(BWD_LAUNCHES, ms))
 
 
 class FlashAttentionFn(torch.autograd.Function):

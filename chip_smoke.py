@@ -19,12 +19,16 @@ Phases (each failure ends the run with a non-zero exit):
    last key tile -- 128 keys for Kernel A at D = 64 --, for Kernel A on
    the flat inputs the zero-filled pad keys of the ragged last tile
    counted in the softmax, for the no-mask probes a missing pad
-   correction; for Kernel C, uniform frame attention and no APE rows; for
-   the backward, Delta = 0 and a dropped last 64-query tile; for the
-   output tail and the resize -> conv, align_corners False taps and a
-   conv3x3 without its off-centre taps) would fail the same tolerance;
-   time kernel, plain version, and the library call where one exists,
-   with ms / library ms, and the backward's three launches apart.
+   correction; for Kernel C, uniform frame attention, no APE rows, k
+   projected with q's weights and the last quarter of the feed-forward
+   dropped; for the backward, Delta = 0 and a dropped last 64-query tile;
+   for the output tail and the resize -> conv, align_corners False taps and
+   a conv3x3 without its off-centre taps, for the tail also every tap's dx
+   off by one) would fail the same tolerance; time kernel, plain version,
+   and the library call where one exists, with ms / library ms, the
+   backward's three launches apart, Kernel C's and the tail's stages apart
+   (``split_ms``), and the PR 1-6 designs' ms beside Kernel C's and the
+   tail's (``parent_ms``).
 3. window: one full-width, full-depth vits, vitb and vitl window (noised
    seeded weights) at 518x518 and 518x924, kernel path against the plain
    path on the card, with each window's launch plan (vitb's with exact
@@ -106,6 +110,19 @@ def max_err(a, b) -> float:
 
 
 # -- phase 2: each kernel against its plain version ---------------------------
+
+# The PR 1-6 designs of Kernel C and the tail at phase kernels' shapes (ms,
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6 rows 7-8: chip_smoke.py in
+# PR 4's run 3 and PR 6's run 4), printed beside the current kernels' ms.
+PARENT_MS = {
+    ("motion_module", "m3 518x518"): 0.6341, ("motion_module", "m0 518x924"): 1.3235,
+    ("motion_module", "m2 518x924"): 0.3010, ("motion_module", "m3 518x924"): 1.0770,
+    ("motion_module", "vitl m3 518x518"): 3.6506, ("motion_module", "vitl m2 518x924"): 1.7554,
+    ("motion_module", "vitl m3 518x924"): 6.4841, ("motion_module", "vitb m3 518x518"): 1.5558,
+    ("motion_module", "vitb m0 518x924"): 3.7050,
+    ("output_tail", "vitl 518x518"): 3.2812, ("output_tail", "vitl 518x924"): 5.6299,
+}
+
 
 def motion_params(c: int, seed: int, device):
     """Raw motion-module parameters (JAX layout) with seeded noise."""
@@ -213,10 +230,12 @@ def mutant_errors(plain, q, k, v, scale, axis: int, tile: int) -> dict:
 
 
 def motion_mutant_errors(x, p: dict, cfg, heads: int) -> dict:
-    """How far two wrong motion modules miss the plain version on the same
+    """How far four wrong motion modules miss the plain version on the same
     inputs, relative to max|plain - x| (Kernel C's tolerance base): one
-    whose frame attention is uniform (the mean of v over the frames), and
-    one that adds no APE rows."""
+    whose frame attention is uniform (the mean of v over the frames), one
+    that adds no APE rows, one that projects k with q's weights (a ring
+    block read for the wrong product), and one that drops the last quarter
+    of the feed-forward's hidden units (a short feed-forward loop)."""
     from unittest import mock
 
     import numpy as np
@@ -236,8 +255,14 @@ def motion_mutant_errors(x, p: dict, cfg, heads: int) -> dict:
         got_uniform = mm.motion_module_plain(x, p, cfg, heads)
     with mock.patch.object(mm, "sinusoidal_position_table", no_table):
         got_no_ape = mm.motion_module_plain(x, p, cfg, heads)
+    got_k_from_q = mm.motion_module_plain(x, {**p, "wk": p["wq"]}, cfg, heads)
+    w2 = p["w2"].clone()
+    w2[-x.shape[-1]:] = 0  # the last C of the 4C hidden units contribute nothing
+    got_short_ff = mm.motion_module_plain(x, {**p, "w2": w2}, cfg, heads)
     return {"uniform": max_err(got_uniform, want) / base,
-            "no_ape": max_err(got_no_ape, want) / base}
+            "no_ape": max_err(got_no_ape, want) / base,
+            "k_from_q_weights": max_err(got_k_from_q, want) / base,
+            "last_ff_chunk_dropped": max_err(got_short_ff, want) / base}
 
 
 def bwd_rel_err(got, want) -> float:
@@ -287,13 +312,16 @@ def tail_inputs(n: int, h: int, w: int, gen, device):
 
 
 def tail_mutant_errors(x, w1, b1, w2, b2, out_h: int, out_w: int) -> dict:
-    """How far two wrong tails miss the plain version on the same inputs,
-    relative to max|plain|: align_corners=False taps, and a conv3x3 that
-    keeps only its centre tap."""
+    """How far three wrong tails miss the plain version on the same inputs,
+    relative to max|plain|: align_corners=False taps, a conv3x3 that keeps
+    only its centre tap, and one whose every tap reads one pixel further
+    right (a tap's dx off by one: the conv's output shifted left by a
+    column, zeros past the right edge)."""
     import torch
     import torch.nn.functional as F
 
     from video_depth_anything_torch.ops.output_tail import output_tail_plain
+    from video_depth_anything_torch.ops.resize import bilinear_resize
 
     want = output_tail_plain(x, w1, b1, w2, b2, out_h, out_w)
     dt = x.dtype
@@ -304,8 +332,12 @@ def tail_mutant_errors(x, w1, b1, w2, b2, out_h: int, out_w: int) -> dict:
     centre = torch.zeros_like(w1)
     centre[:, :, 1, 1] = w1[:, :, 1, 1]
     centre_only = output_tail_plain(x, centre, b1, w2, b2, out_h, out_w)
+    y = F.pad(bilinear_resize(x, out_h, out_w).permute(0, 3, 1, 2), (0, 1))
+    y = torch.relu(F.conv2d(y, w1.to(dt), b1.to(dt), padding=1)[..., 1:])
+    dx_shifted = torch.relu(F.conv2d(y, w2.to(dt), b2.to(dt))).permute(0, 2, 3, 1)
     return {"align_corners_false": rel_err(shifted, want),
-            "centre_tap_only": rel_err(centre_only, want)}
+            "centre_tap_only": rel_err(centre_only, want),
+            "tap_dx_shifted": rel_err(dx_shifted, want)}
 
 
 def probe_inputs(b: int, n: int, h: int, gen, device):
@@ -507,8 +539,11 @@ def phase_kernels(dev):
 
     # Kernel C: ``ms`` times the launch alone on weights prepared once
     # (``kernel_weights``, as TemporalModule caches them) and a GroupNorm
-    # fold done before; the fold is timed on its own.
+    # fold done before; the fold is timed on its own.  The first shape of
+    # each width in mm.SPLIT_C also prints the split by stage; every row
+    # prints the PR 1-6 kernel's ms (PARENT_MS) beside its own.
     cfg = MotionModuleConfig()
+    split_done = set()
     for label, c, s in (("m3 518x518", 64, 5476), ("m0 518x924", 192, 2442),
                         ("m2 518x924", 64, 2442), ("m3 518x924", 64, 9768),
                         ("vitl m3 518x518", 256, 5476), ("vitl m2 518x924", 256, 2442),
@@ -525,6 +560,11 @@ def phase_kernels(dev):
         rel = err / float((want.float() - x.float()).abs().max())
         mutants = motion_mutant_errors(x, p, cfg, 8)
         ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, 8))
+        extra = ""
+        if c in mm.SPLIT_C and c not in split_done:
+            split_done.add(c)
+            split = mm.motion_module_split(x, gna, gnb, w, cfg, 8)
+            extra = " split_ms " + " ".join(f"{k}={v:.4f}" for k, v in split.items())
         fold_ms = time_ms(lambda: mm.gn_fold(x, w, cfg))
         plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, 8), iters=5)
         tokens = b * t * s
@@ -533,8 +573,9 @@ def phase_kernels(dev):
         b_ms, b_by = bound(flops, nbytes)
         rows.append(dict(kernel="motion_module", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
                          max_abs_err=err, rel_err=rel, tol=MOTION_TOL, mutants=mutants, ms=ms,
-                         gn_fold_ms=fold_ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         gn_fold_ms=fold_ms, parent_ms=PARENT_MS[("motion_module", label)],
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         extra=extra))
 
     # The output tail at vitl's map sizes; 518x924 is beyond the JAX gate's
     # VMEM term, so only this phase runs the kernel there.  ``plain_ms`` is
@@ -547,6 +588,7 @@ def phase_kernels(dev):
         want = ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow)
         mutants = tail_mutant_errors(x, w1, b1, w2, b2, oh, ow)
         ms = time_ms(lambda: ot.output_tail(x, w1, b1, w2, b2, oh, ow))
+        split = ot.output_tail_split(x, w1, b1, w2, b2, oh, ow)
         plain_ms = time_ms(lambda: ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow), iters=5)
         c = x.shape[-1]
         flops = n * oh * ow * (2.0 * 9 * c * 32 + 2.0 * 32)
@@ -555,7 +597,9 @@ def phase_kernels(dev):
         rows.append(dict(kernel="output_tail", shape=f"{label} ({n}x{h}x{w}x{c} -> {oh}x{ow})",
                          max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
                          tol=TAIL_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         parent_ms=PARENT_MS[("output_tail", label)],
+                         extra=" split_ms " + " ".join(f"{k}={v:.4f}" for k, v in split.items())))
         del x, got, want
 
     # Kernel A's probe kernels (TPU row 10) at the probe script's shapes,
@@ -642,6 +686,8 @@ def phase_kernels(dev):
                                              for k, v in mutants.items())
         if "gn_fold_ms" in r:
             extra += f" gn_fold_ms={r['gn_fold_ms']:.4f}"
+        if "parent_ms" in r:
+            extra += f" parent_ms={r['parent_ms']:.4f}"
         ratio = "" if r["library_ms"] is None else f" ms/library_ms={r['ms'] / r['library_ms']:.3f}"
         log(f"[kernels] {r['kernel']:<20} {r['shape']:<62} rel_err={err:.3e} (tol {r['tol']}) "
             f"max_abs_err={r['max_abs_err']:.3e}{extra} ms={r['ms']:.4f} "

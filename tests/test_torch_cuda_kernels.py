@@ -197,7 +197,10 @@ def test_temporal_attention_kernel(dev, c, t):
 @pytest.mark.parametrize("c,t,s", [(64, 32, 70), (192, 32, 33), (64, 8, 50), (192, 16, 20),
                                    (256, 32, 37), (256, 8, 21),
                                    (128, 32, 37), (128, 8, 50),    # vitb m2/m3, 4 or 16 locations
-                                   (384, 32, 9), (384, 16, 5)])    # vitb m0 on 16:9, R = 32
+                                   (384, 32, 9), (384, 16, 5),     # vitb m0 on 16:9
+                                   # every width at every T, S leaving a ragged last CTA
+                                   (64, 16, 13), (128, 16, 11), (192, 8, 13), (256, 16, 7),
+                                   (384, 8, 11)])
 def test_motion_module_kernel(dev, c, t, s):
     g = torch.Generator().manual_seed(c)
     n = lambda *sh, std: (torch.randn(*sh, generator=g) * std).to(dev)  # noqa: E731
@@ -209,7 +212,9 @@ def test_motion_module_kernel(dev, c, t, s):
              w_out=n(c, c, std=c**-0.5), b_out=n(c, std=0.1))
     x = _randn(dev, 2, t, s, c, seed=1)
     cfg = MotionModuleConfig()
+    before = mm.fused_motion_module.launches
     got = mm.fused_motion_module(x, p, cfg, 8).float()
+    assert mm.fused_motion_module.launches == before + 1
     want = mm.motion_module_plain(x, p, cfg, 8).float()
     # chip_smoke.py's tolerance, relative to the module's own contribution
     module_part = float((want - x.float()).abs().max())
@@ -220,6 +225,7 @@ def test_motion_module_kernel(dev, c, t, s):
     (1, 8, 12, 14, 21),      # one frame, one ragged tile in each direction
     (3, 24, 40, 42, 70),     # several frames and tiles, out_w not a multiple of 32
     (2, 37, 21, 65, 37),     # odd sizes, out_h not a multiple of 8
+    (2, 296, 296, 518, 518),  # vitl 518x518's map, more tiles than SMs
 ])
 def test_output_tail_kernel(dev, n, h, w, oh, ow):
     x, w1, b1, w2, b2 = chip_smoke.tail_inputs(n, h, w, torch.Generator(device=dev).manual_seed(n),
@@ -302,3 +308,27 @@ def test_resize_conv_fn_gradients(dev):
         assert chip_smoke.rel_err(got[0], want[0]) <= chip_smoke.RESIZE_CONV_TOL
         for a, b in zip(got[1:], want[1:]):
             assert chip_smoke.rel_err(a, b) <= chip_smoke.RESIZE_CONV_GRAD_TOL
+
+
+@pytest.mark.parametrize("c", mm.SPLIT_C)
+def test_motion_module_split(dev, c):
+    """The split's stops run and the stages sum to the whole kernel."""
+    p = chip_smoke.motion_params(c, seed=c, device=dev)
+    cfg = MotionModuleConfig()
+    w = mm.kernel_weights(p, cfg)
+    x = _randn(dev, 1, 32, 300, c, seed=2)
+    gna, gnb = mm.gn_fold(x, w, cfg)
+    before = mm.fused_motion_module.launches
+    split = mm.motion_module_split(x, gna, gnb, w, cfg, 8, iters=3)
+    assert mm.fused_motion_module.launches == before
+    assert set(split) == set(mm.SPLIT_STAGES) | {"whole"}
+    assert abs(sum(split[k] for k in mm.SPLIT_STAGES) - split["whole"]) < 1e-3
+
+
+def test_output_tail_split_and_refusal(dev):
+    x, w1, b1, w2, b2 = chip_smoke.tail_inputs(2, 37, 21, torch.Generator(device=dev).manual_seed(0),
+                                               dev)
+    split = ot.output_tail_split(x, w1, b1, w2, b2, 65, 37, iters=3)
+    assert set(split) == set(ot.SPLIT_STAGES) | {"whole"} and split["whole"] > 0
+    with pytest.raises(NotImplementedError, match="source pixels"):
+        ot.output_tail(x, w1, b1, w2, b2, 20, 12)  # a downscale: taps spread over the patch

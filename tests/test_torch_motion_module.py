@@ -3,7 +3,7 @@ motion module (``motion_module_reference`` and ``TemporalModule``) at the
 vits widths C = 64 and C = 192, the vitb widths C = 128 and 384 and the
 vitl width C = 256 (Kernel C's plain version), the module with RoPE
 positions, plus the host-side pieces of the kernel (GroupNorm fold, weight
-fragment order)."""
+tile layout)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -101,22 +101,22 @@ def test_gn_fold_equals_group_norm():
 
 
 def test_weight_fragment_order():
-    """Lane (g, c) of n-tile nt, k-block kb holds W[n = 8nt + g,
-    k = 32kb + 16ks + 8j + 2c + e] at position 4ks + 2j + e: the B
-    fragments (b0: j = 0, b1: j = 1) of mma.m16n8k16 for k-steps ks = 0, 1."""
-    k_dim, n_dim = 64, 16
+    """``sw128_tiles`` (the wgmma B operand of Kernel C's ring, which
+    replaced the mma.sync fragment order): tile (kp, nb) at row n holds
+    W[k = 64kp + 8J + e, n = 64nb + n] in logical 16-byte chunk J, stored
+    at chunk J ^ (n % 8), k panel major and n block inner."""
+    k_dim, n_dim = 128, 192
     w_kn = torch.arange(k_dim * n_dim, dtype=torch.float32).reshape(k_dim, n_dim) % 251
-    frag = t_motion._frag(w_kn).reshape(n_dim // 8, k_dim // 32, 32, 8)
-    w_nk = w_kn.t().to(torch.bfloat16)
-    for nt in range(n_dim // 8):
-        for kb in range(k_dim // 32):
-            for lane in range(32):
-                g, c = lane // 4, lane % 4
-                for ks in range(2):
-                    for j in range(2):
-                        for e in range(2):
-                            want = w_nk[8 * nt + g, 32 * kb + 16 * ks + 8 * j + 2 * c + e]
-                            assert frag[nt, kb, lane, 4 * ks + 2 * j + e] == want
+    tiles = t_motion.sw128_tiles(w_kn)
+    assert tiles.shape == (k_dim // 64 * n_dim // 64, 64, 64)
+    for kp in range(k_dim // 64):
+        for nb in range(n_dim // 64):
+            tile = tiles[kp * (n_dim // 64) + nb]
+            for n in range(64):
+                for chunk in range(8):
+                    got = tile[n, 8 * (chunk ^ (n % 8)):8 * (chunk ^ (n % 8)) + 8]
+                    want = w_kn[64 * kp + 8 * chunk:64 * kp + 8 * chunk + 8, 64 * nb + n]
+                    assert got.float().tolist() == want.tolist()
 
 
 def test_kernel_weights_built_once_until_a_parameter_changes():
@@ -134,7 +134,7 @@ def test_kernel_weights_built_once_until_a_parameter_changes():
     rebuilt = tmod.kernel_weights()
     assert rebuilt is not first
     torch.testing.assert_close(
-        rebuilt["w_in"], t_motion._frag(tmod.raw_params()["w_in"]), rtol=0, atol=0)
+        rebuilt["w"], t_motion.weight_blocks(tmod.raw_params()), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("c", [64, 128, 384])  # vits m3, vitb m2/m3, vitb m0

@@ -85,4 +85,4 @@ def test_update_rebuilds_kernel_c_weights():
     opt.update(params, {n: torch.ones_like(p) for n, p in params.items()}, state)
     rebuilt = mod.kernel_weights()
     assert rebuilt is not first and mod.kernel_weights() is rebuilt
-    assert not torch.equal(rebuilt["w_in"], first["w_in"])
+    assert not torch.equal(rebuilt["w"], first["w"])

@@ -11,7 +11,6 @@ import torch
 import chip_smoke
 from video_depth_anything_torch.config import get_model_config
 from video_depth_anything_torch.ops import output_tail as t_tail
-from video_depth_anything_torch.ops.motion_module import _frag
 from video_depth_anything_tpu.ops import pallas_output_stack as j_tail
 
 # C = 128 (vitl's head width); the second case is the head's 8:14 ratio.
@@ -132,21 +131,20 @@ def test_tap_tables_are_the_jax_ones(in_size, out_size):
 
 
 def test_conv_weight_fragments_follow_the_kernels_addressing():
-    """csrc/output_tail.cu reads w1's B fragment for n-tile t, tap
-    (dy, dx), channel block kb at ((t·KBT + tap·C/32 + kb)·256 + lane·8);
-    position 4ks + 2j + e of lane (g, c) must hold
-    w1[8t + g, 32kb + 16ks + 8j + 2c + e, dy, dx]."""
+    """csrc/output_tail.cu reads w1's B operand for k16 step q = tap·C/16 +
+    kk from tile q // 4 at 32-byte step q % 4 (``conv_weight_tiles``): row
+    n of tile T, logical 16-byte chunk J (stored at J ^ (n % 8)) must hold
+    w1[n, c, dy, dx] for K index 64T + 8J + e = (3dy + dx)·C + c."""
     c = 64
     w1 = torch.arange(32 * c * 9, dtype=torch.float32).reshape(32, c, 3, 3) % 251
-    frag = _frag(w1.permute(2, 3, 1, 0).reshape(9 * c, 32)).reshape(-1)
-    kbt = 9 * c // 32
-    for t in range(4):
-        for tap in range(9):
-            for kb in range(c // 32):
-                base = (t * kbt + tap * (c // 32) + kb) * 256
-                for lane in range(32):
-                    g, cc = lane // 4, lane % 4
-                    got = frag[base + lane * 8: base + lane * 8 + 8]
-                    want = [w1[8 * t + g, 32 * kb + 16 * ks + 8 * j + 2 * cc + e, tap // 3, tap % 3]
-                            for ks in range(2) for j in range(2) for e in range(2)]
-                    assert got.float().tolist() == want
+    tiles = t_tail.conv_weight_tiles(w1)
+    assert tiles.shape == (9 * c // 64, 32, 64)
+    for t in range(9 * c // 64):
+        for n in range(32):
+            for chunk in range(8):
+                got = tiles[t, n, 8 * (chunk ^ (n % 8)):8 * (chunk ^ (n % 8)) + 8]
+                want = []
+                for e in range(8):
+                    k = 64 * t + 8 * chunk + e
+                    want.append(float(w1[n, k % c, k // (3 * c), k // c % 3]))
+                assert got.float().tolist() == want

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) primitives of Kernel A's forward and backward: mbarrier,
+// Hopper (sm_90a) primitives of the port's Hopper kernels: mbarrier,
 // TMA tensor and bulk loads, wgmma with its fences and shared-memory
-// descriptors for the 128-byte swizzle, setmaxnreg, and the host-side
-// tensor-map encoder.  Included by flash_attention.cu and
-// flash_attention_bwd.cu only: every other kernel includes common.cuh
-// alone.
+// descriptors for the 128-byte swizzle, setmaxnreg, named barriers, and
+// the host-side tensor-map encoder.  Included by the Hopper kernels
+// (flash_attention.cu, flash_attention_bwd.cu, motion_module.cuh,
+// output_tail.cu); the others include common.cuh alone.
 //
 // Layouts.  A TMA box of R rows x 64 bf16 (128 B per row) lands in shared
 // memory as R rows of 128 B, each row's eight 16-byte chunks XOR-swizzled
@@ -203,6 +203,36 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B^T: A from registers (the m16n8k16 A fragment
+// of each warp's 16 rows), B[32 x 16] K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Generic-proxy shared-memory writes made visible to later wgmma reads
+// (each writing thread, before the barrier that hands the data over).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- named barriers (0 is __syncthreads); n threads, a multiple of 32 ----
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // The hardware exp2 (MUFU.EX2; flushes denormal results to zero).

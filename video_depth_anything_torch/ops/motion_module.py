@@ -173,26 +173,75 @@ def motion_module_plain(x: torch.Tensor, p: Dict, cfg: MotionModuleConfig, heads
 
 
 def _frag(w_in_out: torch.Tensor) -> torch.Tensor:
-    """``(K, N)`` JAX-layout weight → bf16 fragment order of the kernel:
-    per 8-column n-tile and 32-row k-block, 32 lanes × 8 values holding the
-    two k-steps' B fragments of mma.m16n8k16 (see csrc/motion_module.cu)."""
+    """``(K, N)`` JAX-layout weight → bf16 fragment order of the
+    ``mma.sync`` kernels that read B from L2 (``csrc/resize_conv.cu``): per
+    8-column n-tile and 32-row k-block, 32 lanes × 8 values holding the two
+    k-steps' B fragments of mma.m16n8k16."""
     w = w_in_out.t().to(torch.bfloat16)
     n, k = w.shape
     return w.reshape(n // 8, 8, k // 32, 2, 2, 4, 2).permute(0, 2, 1, 5, 3, 4, 6).contiguous()
 
 
-_fn = None
+def sw128_tiles(w_in_out: torch.Tensor, rows: int = 64) -> torch.Tensor:
+    """``(K, N)`` JAX-layout weight → bf16 ``(K/64 · N/rows, rows, 64)``: the
+    wgmma B tiles of ``y = x @ w``, k panel major and n block inner, each
+    ``rows`` output columns × 64 inputs (K-major, 128 bytes per row) in the
+    128-byte swizzle that a TMA box with ``CU_TENSOR_MAP_SWIZZLE_128B``
+    lands in shared memory: row n's 16-byte chunk j sits at chunk
+    ``j ^ (n % 8)``.  A bulk copy of a tile is then a wgmma operand as it
+    is (``csrc/motion_module.cuh``, ``csrc/output_tail.cu``)."""
+    k, n = w_in_out.shape
+    w = w_in_out.t().to(torch.bfloat16).reshape(n // rows, rows, k // 64, 8, 8)
+    w = w.permute(2, 0, 1, 3, 4)  # (kp, nb, row, chunk, 8)
+    j = torch.arange(8)
+    src = j[None, :] ^ (torch.arange(rows) % 8)[:, None]  # chunk stored at j holds src[row, j]
+    w = w[:, :, torch.arange(rows)[:, None], src.to(w.device)]
+    return w.reshape(-1, rows, 64).contiguous()
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.library("motion_module").vda_motion_module
+def nsplit(c: int) -> int:
+    """Kernel C's warpgroups per 64-row block (``csrc/motion_module.cuh``
+    Plan), which take its 64-wide output blocks round robin: three at C =
+    192 and 384, two at 256, one at 64 and 128."""
+    return {192: 3, 256: 2, 384: 3}.get(c, 1)
+
+
+def weight_blocks(p: Dict) -> torch.Tensor:
+    """Kernel C's weights as the one bf16 sequence of 64 × 64 tiles
+    (``sw128_tiles``) that its producer warp streams, in the order the CTA
+    consumes them: proj_in; per attention block q, k, v, out; per
+    feed-forward step f the h columns of hidden chunks ``f·ns + cs`` (cs <
+    ns = ``nsplit(C)``), then their gate columns, then the rows of w2 for
+    those chunks; proj_out."""
+    c = p["w_in"].shape[0]
+    ns = nsplit(c)
+    w1 = p["w1"]
+    gemms = [p["w_in"]]
+    for i in range(p["wq"].shape[0]):
+        gemms += [p["wq"][i], p["wk"][i], p["wv"][i], p["wo"][i]]
+    for f in range(4 * c // (64 * ns)):
+        j0 = f * ns * 64
+        gemms += [w1[:, j0:j0 + ns * 64], w1[:, 4 * c + j0:4 * c + j0 + ns * 64],
+                  p["w2"][j0:j0 + ns * 64]]
+    gemms.append(p["w_out"])
+    return torch.cat([sw128_tiles(g).reshape(-1) for g in gemms])
+
+
+_fns = {}
+
+
+def _kernel(name: str = "motion_module"):
+    """``vda_<name>`` of ``csrc/<name>.cu``: the launch (``motion_module``)
+    or the split (``motion_module_split``)."""
+    if name not in _fns:
+        fn = getattr(cuda_build.library(name), f"vda_{name}")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 20 + [i, i, i, i, f, f, vp]
+        fn.argtypes = [vp] * 13 + [i, i, i, i, f, f, vp]
+        if name == "motion_module_split":
+            fn.argtypes += [i, vp]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 # The instantiations of csrc/motion_module.cu: the widths the gate sends
@@ -200,23 +249,21 @@ def _kernel():
 # and vitl (m2/m3 256).
 _SUPPORTED_C = (64, 128, 192, 256, 384)
 # Kernel operands after x, gna and gnb, in the C entry point's order.
-_OPERANDS = ("pe", "w_in", "b_in", "ln_scale", "ln_bias", "wq", "wk", "wv", "wo", "bo",
-             "w1", "b1", "w2", "b2", "w_out", "b_out")
+_OPERANDS = ("pe", "w", "b_in", "ln_scale", "ln_bias", "bo", "b1", "b2", "b_out")
 
 
 def kernel_weights(p: Dict, cfg: MotionModuleConfig) -> Dict[str, torch.Tensor]:
-    """Kernel C's operands that depend only on the parameters: bf16 weights
-    in fragment order, fp32 biases and norm parameters, the bf16 APE table
+    """Kernel C's operands that depend only on the parameters: the bf16
+    weight tiles in the order the kernel streams them (``weight_blocks``,
+    under ``"w"``), fp32 biases and norm parameters, the bf16 APE table
     (``temporal_max_len`` rows), on the parameters' device.  A caller that
     runs the module more than once builds this once (``TemporalModule``
     caches it)."""
     c = p["w_in"].shape[0]
     f32 = lambda v: v.to(torch.float32).contiguous()  # noqa: E731
-    stack = lambda name: torch.stack([_frag(w) for w in p[name]]).contiguous()  # noqa: E731
     w = {k: f32(p[k]) for k in ("gn_scale", "gn_bias", "b_in", "ln_scale", "ln_bias", "bo",
                                 "b1", "b2", "b_out")}
-    w.update({k: _frag(p[k]) for k in ("w_in", "w1", "w2", "w_out")})
-    w.update({k: stack(k) for k in ("wq", "wk", "wv", "wo")})
+    w["w"] = weight_blocks(p)
     w["pe"] = torch.from_numpy(sinusoidal_position_table(cfg.temporal_max_len, c)).to(
         p["w_in"].device, torch.bfloat16)
     return w
@@ -236,10 +283,7 @@ def fused_motion_module(x: torch.Tensor, p: Optional[Dict], cfg: MotionModuleCon
     return motion_module_launch(x, gna, gnb, w, cfg, heads)
 
 
-def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
-                         w: Dict[str, torch.Tensor], cfg: MotionModuleConfig, heads: int):
-    """Kernel C's launch alone, given the folded GroupNorm (``gn_fold``) and
-    ``kernel_weights``; counts on ``fused_motion_module.launches``."""
+def _launch_args(x, gna, gnb, w, cfg, heads):
     b, t, s, c = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"motion_module kernel takes bf16, got {x.dtype}")
@@ -249,6 +293,8 @@ def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
             f"the APE table; got heads={heads}, C={c}, T={t}")
     if cfg.num_attention_blocks != 2 or cfg.num_transformer_blocks != 1:
         raise NotImplementedError("motion_module kernel takes one block of two attentions")
+    if w["w"].numel() != 22 * c * c:
+        raise ValueError(f"motion_module weights are not kernel_weights of a C = {c} module")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("motion_module needs a 16-byte aligned input")
@@ -257,12 +303,36 @@ def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
     if any(a.device != x.device for a in args):
         raise ValueError("motion_module operands must share x's device")
     out = torch.empty_like(x)
-    err = _kernel()(
-        *(cuda_build.ptr(a) for a in args), cuda_build.ptr(out), b, t, s, c,
-        float((c // heads) ** -0.5), float(cfg.layer_norm_eps), cuda_build.stream_of(x),
-    )
-    cuda_build.check(err, "motion_module")
+    return out, x, (*(cuda_build.ptr(a) for a in args), cuda_build.ptr(out), b, t, s, c,
+                 float((c // heads) ** -0.5), float(cfg.layer_norm_eps), cuda_build.stream_of(x))
+
+
+def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
+                         w: Dict[str, torch.Tensor], cfg: MotionModuleConfig, heads: int):
+    """Kernel C's launch alone, given the folded GroupNorm (``gn_fold``) and
+    ``kernel_weights``; counts on ``fused_motion_module.launches``."""
+    out, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)  # _x: alive until enqueued
+    cuda_build.check(_kernel()(*args), "motion_module")
     fused_motion_module.launches += 1
+    return out
+
+
+SPLIT_STAGES = ("gn_apply", "proj_in", "attn1_qkv", "attn1_attention", "attn1_out", "attn2",
+                "ff", "proj_out")
+SPLIT_C = (64, 128, 256, 384)  # the widths csrc/motion_module_split.cu instantiates
+
+
+def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
+    """Kernel C's time by stage (``csrc/motion_module_split.cu``): from CUDA
+    events around ``iters`` launches of instantiations that stop after each
+    stage of ``SPLIT_STAGES`` (each writes its current activation rows
+    out), the mean ms of each stage as the difference of successive stops,
+    plus ``whole``.  C in ``SPLIT_C``; not counted as launches."""
+    _, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)
+    ms = (ctypes.c_float * 8)()
+    cuda_build.check(_kernel("motion_module_split")(*args, iters, ms), "motion_module_split")
+    out = {name: ms[k] - (ms[k - 1] if k else 0.0) for k, name in enumerate(SPLIT_STAGES)}
+    out["whole"] = ms[7]
     return out
 
 

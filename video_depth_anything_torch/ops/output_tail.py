@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -39,7 +40,7 @@ import torch.nn.functional as F
 
 from video_depth_anything_torch.ops import cuda_build, resize
 from video_depth_anything_torch.ops.dispatch import recompute_vjp
-from video_depth_anything_torch.ops.motion_module import _frag
+from video_depth_anything_torch.ops.motion_module import sw128_tiles
 from video_depth_anything_torch.ops.resize import _linear_taps, bilinear_resize
 
 _MID = 32  # output_conv2's hidden width, fixed by the architecture
@@ -135,22 +136,46 @@ def output_tail_plain(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor
     return y.permute(0, 2, 3, 1)
 
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.library("output_tail").vda_output_tail
+def _kernel(name: str = "output_tail"):
+    """``vda_<name>`` of ``csrc/output_tail.cu``: the launch, or the split."""
+    if name not in _fns:
+        fn = getattr(cuda_build.library("output_tail"), f"vda_{name}")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [i] * 6 + [vp]
+        fn.argtypes = [vp] * 6 + [i] * 6 + [vp]
+        if name == "output_tail_split":
+            fn.argtypes += [i, vp]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 # The instantiation of csrc/output_tail.cu: vitl's head width.
 _SUPPORTED_C = (128,)
+# csrc/output_tail.cu's output tile (rows, columns) and the source patch
+# (rows, columns) its taps must stay within.
+_TILE = (8, 16)
+_PATCH = (8, 12)
+
+
+@functools.lru_cache(maxsize=64)
+def _patch_span(in_size: int, out_size: int, tile: int) -> int:
+    """The most source pixels the taps of one ``tile``-wide run of output
+    pixels and its two halo pixels reach along one axis."""
+    lo, hi, _, _ = _linear_taps(in_size, out_size)
+    t0 = np.arange(0, out_size, tile)
+    first = lo[np.maximum(t0 - 1, 0)]
+    last = hi[np.minimum(t0 + tile, out_size - 1)]
+    return int((last - first).max()) + 1
+
+
+def conv_weight_tiles(w1: torch.Tensor) -> torch.Tensor:
+    """``w1 (32, C, 3, 3)`` → the kernel's wgmma B tiles: K = 9·C in (dy,
+    dx, c) order, ``sw128_tiles`` of 32 output channels × 64 inputs."""
+    c = w1.shape[1]
+    return sw128_tiles(w1.permute(2, 3, 1, 0).reshape(9 * c, _MID), rows=_MID)
 
 
 @functools.lru_cache(maxsize=16)
@@ -163,12 +188,50 @@ def _taps(in_size: int, out_size: int, device: torch.device):
     return idx, wts
 
 
-def output_tail(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
-    """``(N, H, W, C)`` → ``(N, out_h, out_w, 1)`` depth.  CPU tensors take
-    the plain version; CUDA tensors launch the tail kernel or raise."""
-    cuda_build.no_history("output_tail", x, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return output_tail_plain(x, w1, b1, w2, b2, out_h, out_w)
+@functools.lru_cache(maxsize=16)
+def _tile_taps(in_size: int, out_size: int, tile: int, device: torch.device) -> torch.Tensor:
+    """The kernel's tap table of one axis: int32 ``(tiles, tile + 3, 4)``,
+    per tile the source patch origin (the low tap of its first halo pixel)
+    in entry 0, then each halo pixel's ``(lo, hi, w_lo, w_hi)`` from
+    ``_taps``, taps relative to the origin, the weights' fp32 bits; ``(-1,
+    -1, 0, 0)`` past the map's edge."""
+    idx, wts = (t.numpy() for t in _taps(in_size, out_size, torch.device("cpu")))
+    lo, hi = idx[:out_size], idx[out_size:]
+    wbits = wts.view(np.int32)
+    tiles = -(-out_size // tile)
+    tab = np.zeros((tiles, tile + 3, 4), np.int32)
+    for t in range(tiles):
+        org = lo[max(t * tile - 1, 0)]
+        tab[t, 0, 0] = org
+        for r in range(tile + 2):
+            o = t * tile - 1 + r
+            tab[t, 1 + r] = ((lo[o] - org, hi[o] - org, wbits[o], wbits[out_size + o])
+                             if 0 <= o < out_size else (-1, -1, 0, 0))
+    return torch.from_numpy(tab).to(device)
+
+
+_prepared_last: list = []  # [(weakrefs of w1, b1, w2, b2), their versions, operands]
+
+
+def _prepared(w1, b1, w2, b2):
+    """The kernel's weight operands: ``conv_weight_tiles(w1)`` and the fp32
+    ``[b1, w2, b2]`` of bf16 values, built once for the same weight
+    tensors and rebuilt when one is written in place (its version moves),
+    as ``TemporalModule`` keeps Kernel C's.  Weak references tell the same
+    tensors from new ones at a reused address."""
+    ts = (w1, b1, w2, b2)
+    versions = tuple(t._version for t in ts)
+    if _prepared_last:
+        refs, vers, ops = _prepared_last[0]
+        if vers == versions and all(r() is t for r, t in zip(refs, ts)):
+            return ops
+    epi = torch.cat([b1.reshape(-1), w2.reshape(-1), b2.reshape(-1)]).to(torch.bfloat16).float()
+    ops = (conv_weight_tiles(w1.detach()), epi.detach())
+    _prepared_last[:] = [(tuple(weakref.ref(t) for t in ts), versions, ops)]
+    return ops
+
+
+def _launch_args(x, w1, b1, w2, b2, out_h: int, out_w: int):
     n, h, w, c = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"output_tail kernel takes bf16, got {x.dtype}")
@@ -179,20 +242,48 @@ def output_tail(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
         raise ValueError("output_tail takes w1 (32, C, 3, 3), b1 (32,), w2 (1, 32, 1, 1), b2 (1,)")
     if any(t.device != x.device for t in (w1, b1, w2, b2)):
         raise ValueError("output_tail operands must share x's device")
+    if _patch_span(h, out_h, _TILE[0]) > _PATCH[0] or _patch_span(w, out_w, _TILE[1]) > _PATCH[1]:
+        raise NotImplementedError(
+            f"output_tail kernel: the taps of one {_TILE[0]}x{_TILE[1]} tile must stay within "
+            f"{_PATCH[0]}x{_PATCH[1]} source pixels; {h}x{w} -> {out_h}x{out_w} spreads wider")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("output_tail needs a 16-byte aligned input")
-    wf = _frag(w1.permute(2, 3, 1, 0).reshape(9 * c, _MID))
-    epi = torch.cat([b1.reshape(-1), w2.reshape(-1), b2.reshape(-1)]).to(torch.bfloat16).float()
-    yi, yw = _taps(h, out_h, x.device)
-    xi, xw = _taps(w, out_w, x.device)
+    wf, epi = _prepared(w1, b1, w2, b2)
+    ytab = _tile_taps(h, out_h, _TILE[0], x.device)
+    xtab = _tile_taps(w, out_w, _TILE[1], x.device)
     out = torch.empty((n, out_h, out_w, 1), dtype=x.dtype, device=x.device)
-    err = _kernel()(
-        *(cuda_build.ptr(t) for t in (x, yi, yw, xi, xw, wf, epi, out)),
-        n, h, w, c, out_h, out_w, cuda_build.stream_of(x),
-    )
-    cuda_build.check(err, "output_tail")
+    keep = (x, wf, epi)  # alive until the launch is enqueued
+    return out, keep, (*(cuda_build.ptr(t) for t in (x, ytab, xtab, wf, epi, out)),
+                       n, h, w, c, out_h, out_w, cuda_build.stream_of(x))
+
+
+def output_tail(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
+    """``(N, H, W, C)`` → ``(N, out_h, out_w, 1)`` depth.  CPU tensors take
+    the plain version; CUDA tensors launch the tail kernel or raise."""
+    cuda_build.no_history("output_tail", x, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return output_tail_plain(x, w1, b1, w2, b2, out_h, out_w)
+    out, _keep, args = _launch_args(x, w1, b1, w2, b2, out_h, out_w)
+    cuda_build.check(_kernel()(*args), "output_tail")
     output_tail.launches += 1
+    return out
+
+
+SPLIT_STAGES = ("resize", "conv", "epilogue")
+
+
+def output_tail_split(x, w1, b1, w2, b2, out_h: int, out_w: int, iters: int = 20) -> dict:
+    """The tail kernel's time by stage: CUDA events around ``iters``
+    launches of instantiations that stop after the resize and after the
+    conv GEMM, and of the whole kernel; each stage's mean ms is the
+    difference of successive stops, plus ``whole``.  Not counted as
+    launches."""
+    _, _keep, args = _launch_args(x.contiguous(), w1, b1, w2, b2, out_h, out_w)
+    ms = (ctypes.c_float * 3)()
+    cuda_build.check(_kernel("output_tail_split")(*args, iters, ms), "output_tail_split")
+    out = {name: ms[k] - (ms[k - 1] if k else 0.0) for k, name in enumerate(SPLIT_STAGES)}
+    out["whole"] = ms[2]
     return out
 
 

@@ -21,14 +21,15 @@ import time
 from collections import defaultdict
 
 
-PORT_KERNELS = ("flash_fwd", "flash_bwd", "temporal_attn_kernel", "motion_module_kernel",
-                "output_tail_kernel")
+PORT_KERNELS = ("flash_fwd", "flash_bwd", "temporal_attn_kernel", "motion_hopper",
+                "output_tail_hopper")
 
 
 def category(name: str) -> str:
     """The port's kernels by name (Kernel A's forward is ``flash_fwd_hopper``
     at D = 64 and ``flash_fwd_kernel`` at D = 192, its fast instantiations
-    apart); the plain PyTorch rest by kind."""
+    apart; Kernel C is ``mm::motion_hopper``, the tail
+    ``output_tail_hopper``); the plain PyTorch rest by kind."""
     if "flash_fwd" in name and ("true" in name or "(bool)1" in name):
         return "flash_fwd (fast)"
     for k in PORT_KERNELS:

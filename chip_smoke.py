@@ -11,15 +11,20 @@ Phases (each failure ends the run with a non-zero exit):
    Kernel A's backward, the training shapes, also from the fast forward's
    log-sum-exp; Kernel A's fast variant also at the streaming shapes, one
    frame and a chunk of 8; Kernel A at D = 192 and at 3 heads on synthetic
-   shapes), on inputs whose attention is peaked, and Kernel A also on flat
-   ones (q scaled by FLAT_Q); Kernel A's probe kernels (every spatial
+   shapes; Kernel B at every head width of its domain, d = 8 to 128, and
+   at T = 17 on a ragged S), on inputs whose attention is peaked, and
+   Kernel A also on flat ones (q scaled by FLAT_Q); Kernel A's probe
+   kernels (every spatial
    variant at the vitl and vits probe shapes, the seven softmax-chain
    modes) on their scripts' inputs; the fused resize -> conv at the vitl
    junction; and show that wrong kernels (uniform attention, a dropped
    last key tile -- 128 keys for Kernel A at D = 64 --, for Kernel A on
    the flat inputs the zero-filled pad keys of the ragged last tile
    counted in the softmax, for the no-mask probes a missing pad
-   correction; for Kernel C, uniform frame attention, no APE rows, k
+   correction; for Kernel B also the last location tile never stored, at
+   the window batch of 4 every batch given batch 0's output, and, at
+   T = 17, the zero key rows of its 32-frame tile unmasked; for Kernel
+   C, uniform frame attention, no APE rows, k
    projected with q's weights and the last quarter of the feed-forward
    dropped; for the backward, Delta = 0 and a dropped last 64-query tile;
    for the output tail and the resize -> conv, align_corners False taps and
@@ -28,7 +33,9 @@ Phases (each failure ends the run with a non-zero exit):
    and the library call where one exists, with ms / library ms, the
    backward's three launches apart, Kernel C's and the tail's stages apart
    (``split_ms``), and the PR 1-6 designs' ms beside Kernel C's and the
-   tail's (``parent_ms``).
+   tail's, the one-frame-per-lane design's beside Kernel B's (``parent_ms``); Kernel
+   B's times are device times over inputs rotated past the L2 (its launch
+   path outlasts it on the host).
 3. window: one full-width, full-depth vits, vitb and vitl window (noised
    seeded weights) at 518x518 and 518x924, kernel path against the plain
    path on the card, with each window's launch plan (vitb's with exact
@@ -36,20 +43,23 @@ Phases (each failure ends the run with a non-zero exit):
    ``infer_window`` at the pipeline's window batch (4 windows per call
    for vits and vitb, 1 for vitl) and the plain reference's peak device
    memory; the vits 518x924 window again under ``--attn_impl auto:fast``
-   (Kernel A's fast variant only).
+   (Kernel A's fast variant only), and the vits and vitl 518x518 windows
+   under ``--attn_impl pallas`` (Kernel B also at d = 48, and at d = 32
+   and 128 on vitl, with exact launch counts by width), timed beside
+   ``auto``.
 4. cli: ``python -m video_depth_anything_torch.run --random_init`` (called
    in-process through ``run.main``) on synthetic 480x480 and 854x480 mp4s
-   of 76 frames with vits, and on the 480x480 one with vitl and vitb; the
-   depth must be finite and of the clip's shape and every kernel's launch
-   count must move.  This is the main path: the counts are zeroed just
-   before and read just after.
+   of 76 frames with vits, and on the 480x480 one with vitl and vitb, and
+   with vitl under ``--attn_impl pallas``; the depth must be finite and of
+   the clip's shape and every kernel's launch count must move.  This is
+   the main path: the counts are zeroed just before and read just after.
 5. stream: feature-cache streaming (``--process_single_image``).  The
    pipeline's kernel path against its plain path on a 76-frame 854x480
    clip (31 warm-up frames, 21 transition steps, 3 steady chunks of 8),
    plain mode under auto:fast and aligned mode; the CLI in streaming mode
    on 76-frame clips, vits 854x480 under auto:fast, vits and vitl on
-   480x480, with their launch plans (the main path of streaming: counts
-   zeroed before each run, read after).  KV-cache streaming
+   480x480, vits on 480x480 under pallas, with their launch plans (the
+   main path of streaming: counts zeroed before each run, read after).  KV-cache streaming
    (``--kv_cache``): ``KVStreamingPipeline``'s kernel path against its
    plain path on 76-frame clips (vits 854x480, vitb 480x480, whose warm-up
    runs Kernel B at d = 16; plain and aligned mode, chunk 8) and the CLI
@@ -121,6 +131,13 @@ PARENT_MS = {
     ("motion_module", "vitl m3 518x924"): 6.4841, ("motion_module", "vitb m3 518x518"): 1.5558,
     ("motion_module", "vitb m0 518x924"): 3.7050,
     ("output_tail", "vitl 518x518"): 3.2812, ("output_tail", "vitl 518x924"): 5.6299,
+    # Kernel B's earlier one-frame-per-lane design (PERF.md section 6, step 0:
+    # bench_temporal --root on its checkout, device ms over rotated inputs, as
+    # phase kernels times the current kernel); it took d = 8, 16 and 24 only
+    ("temporal_attention", "vits m0 518x518"): 0.1062,
+    ("temporal_attention", "vits m2 518x518"): 0.0405,
+    ("temporal_attention", "vitb m2 518x518"): 0.0706,
+    ("temporal_attention", "ragged T=17 C=64"): 0.0065,
 }
 
 
@@ -227,6 +244,27 @@ def mutant_errors(plain, q, k, v, scale, axis: int, tile: int) -> dict:
     uniform = v.float().mean(axis, keepdim=True).expand(v.shape).to(v.dtype)
     dropped = plain(q, k.narrow(axis, 0, keep), v.narrow(axis, 0, keep), scale)
     return {"uniform": rel_err(uniform, want), "drop_last_tile": rel_err(dropped, want)}
+
+
+def temporal_mutant_errors(plain, q, k, v, scale, locs: int) -> dict:
+    """mutant_errors over the frame axis (uniform attention, the last frame
+    dropped) and wrong Kernel B tilings, relative to max|plain|: the
+    rows of the last location tile (``locs`` locations, ragged at the end
+    of S) never stored (left zero); at B > 1 every batch given batch 0's
+    output (a tile walk that drops the batch index); and at T < 32 the
+    zero-filled key rows of the 32-frame tile counted in the softmax (a
+    zero key scores 0, not -inf)."""
+    out = mutant_errors(plain, q, k, v, scale, axis=1, tile=1)
+    want = plain(q, k, v, scale)
+    s = q.shape[2]
+    dropped = want.clone()
+    dropped[:, :, (s - 1) // locs * locs:] = 0
+    out["last_location_tile_dropped"] = rel_err(dropped, want)
+    if q.shape[0] > 1:
+        out["batch_index_dropped"] = rel_err(want[:1].expand(want.shape), want)
+    if q.shape[1] < 32:
+        out["unmasked_zero_keys"] = zero_pad_error(plain, q, k, v, scale, 32)
+    return out
 
 
 def motion_mutant_errors(x, p: dict, cfg, heads: int) -> dict:
@@ -438,8 +476,10 @@ def phase_kernels(dev):
     from video_depth_anything_torch.ops import motion_module as mm
     from video_depth_anything_torch.ops import output_tail as ot
     from video_depth_anything_torch.ops import resize_conv as rc
+    from video_depth_anything_torch import bench_temporal
     from video_depth_anything_torch.ops import temporal_attention as ta
     from video_depth_anything_torch.utils.device import event_ms as time_ms
+    from video_depth_anything_torch.utils.device import graph_ms
 
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -517,25 +557,39 @@ def phase_kernels(dev):
                          extra=" split_ms " + " ".join(f"{k}={v:.4f}" for k, v in split.items())))
         del q, k, v, o, lse, g_, got, want, qt, kt, vt, out, gt
 
-    for label, c in (("m0 518x518", 192), ("m2 518x518", 64), ("vitb m2 518x518", 128)):
-        b, t, s, heads = 1, 32, 1369, 8
-        q, k, v = attention_inputs((b, t, s, c), g, dev).split(c, dim=-1)
-        q, k, v = (x.contiguous() for x in (q, k, v))
+    # Kernel B at every width of its domain (vits m0/m2/m1, vitb m2/m0, vitl
+    # m2/m0 at 518x518 and m0 at 518x924; d = 32, 48 and 128 are --attn_impl
+    # pallas's), two ragged T = 17 cases (a ragged last location tile at
+    # C = 64), and the vits and vitb window calls at the pipeline's batch of
+    # 4 windows (the tile walk's batch index).  Times are device times over
+    # inputs rotated through more bytes than L2 holds (bench_temporal.inputs,
+    # graph_ms): the kernel's launch path outlasts its few microseconds on
+    # the host.
+    for n_row, (label, b, t, s, c) in enumerate(bench_temporal.SHAPES
+                                                + bench_temporal.WINDOW_SHAPES):
+        heads = bench_temporal.HEADS
+        copies = bench_temporal.inputs(b, t, s, c, 100 + n_row, dev)
+        q, k, v = copies[0]
         scale = (c // heads) ** -0.5
         got = ta.temporal_attention(q, k, v, heads, scale)
         want = ta.temporal_attention_plain(q, k, v, heads, scale)
         plain = lambda q_, k_, v_, sc: ta.temporal_attention_plain(q_, k_, v_, heads, sc)  # noqa: E731
-        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=1)
-        ms = time_ms(lambda: ta.temporal_attention(q, k, v, heads, scale))
-        plain_ms = time_ms(lambda: ta.temporal_attention_plain(q, k, v, heads, scale), iters=5)
+        mutants = temporal_mutant_errors(plain, q, k, v, scale, ta.tile_plan(c, heads)[0])
+        ms = graph_ms([lambda x=x: ta.temporal_attention(*x, heads, scale) for x in copies])
+        plain_ms = graph_ms([lambda: ta.temporal_attention_plain(q, k, v, heads, scale)], reps=5)
         d = c // heads
         q5, k5, v5 = (x.view(b, t, s, heads, d).permute(0, 2, 3, 1, 4) for x in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=scale))
+        lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=scale)])
         b_ms, b_by = bound(4.0 * b * s * c * t * t, 4.0 * b * t * s * c * 2)
-        rows.append(dict(kernel="temporal_attention", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
-                         max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=ATTN_TOL,
-                         mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms))
+        row = dict(kernel="temporal_attention",
+                   shape=f"{label} (B={b}, T={t}, S={s}, C={c}, d={d})",
+                   max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=ATTN_TOL,
+                   mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms, extra=f" ms/bound_ms={ms / b_ms:.2f}")
+        if b == 1:  # the parent was timed at B = 1 only
+            row["parent_ms"] = PARENT_MS.get(("temporal_attention", label))
+        rows.append(row)
+        del copies, q, k, v, got, want, q5, k5, v5
 
     # Kernel C: ``ms`` times the launch alone on weights prepared once
     # (``kernel_weights``, as TemporalModule caches them) and a GroupNorm
@@ -687,7 +741,8 @@ def phase_kernels(dev):
         if "gn_fold_ms" in r:
             extra += f" gn_fold_ms={r['gn_fold_ms']:.4f}"
         if "parent_ms" in r:
-            extra += f" parent_ms={r['parent_ms']:.4f}"
+            extra += (" parent_ms=none (outside the earlier kernel's domain)" if r["parent_ms"] is None
+                      else f" parent_ms={r['parent_ms']:.4f}")
         ratio = "" if r["library_ms"] is None else f" ms/library_ms={r['ms'] / r['library_ms']:.3f}"
         log(f"[kernels] {r['kernel']:<20} {r['shape']:<62} rel_err={err:.3e} (tol {r['tol']}) "
             f"max_abs_err={r['max_abs_err']:.3e}{extra} ms={r['ms']:.4f} "
@@ -780,6 +835,8 @@ def main() -> int:
         })
     if any(k["launches"] == 0 for k in kernels):
         raise SystemExit(f"a kernel of the main path never launched: {kernels}")
+    log(f"[done] Kernel B's launches by head width over the main path (phases cli, stream, "
+        f"train-cli): {dict(sorted(MAIN_PATH_WIDTHS.items()))}")
     log(f"[done] every phase passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -792,6 +849,19 @@ def launch_counts() -> dict:
     from video_depth_anything_torch.run import kernel_launches
 
     return kernel_launches()
+
+
+MAIN_PATH_WIDTHS = {}  # Kernel B's launches by head width over the main-path runs
+
+
+def main_path_launches() -> dict:
+    """``launch_counts()`` after a main-path run; Kernel B's launches by
+    head width are added to MAIN_PATH_WIDTHS."""
+    from video_depth_anything_torch.ops.temporal_attention import temporal_attention
+
+    for d, n in temporal_attention.width_launches.items():
+        MAIN_PATH_WIDTHS[d] = MAIN_PATH_WIDTHS.get(d, 0) + n
+    return launch_counts()
 
 
 def probe_wrappers() -> tuple:
@@ -813,6 +883,7 @@ def zero_counts() -> None:
               output_tail) + probe_wrappers():
         f.launches = 0
     flash_attention.fast_launches = 0
+    temporal_attention.width_launches = {}
 
 
 def phase_probes(dev, smi: str) -> dict:
@@ -962,6 +1033,16 @@ WINDOW_PLANS = {
                          ("temporal_attention", "output_tail", "flash_attention_bwd",
                           "flash_attention_fast")),
 }
+# Under --attn_impl pallas (vits and vitl at 518x518) Kernel B also takes
+# the modules whose head width auto leaves to the plain path: exact Kernel B
+# launches of one window by head width d (two attentions a module: vits m0
+# d = 24, m1 48, m2 8; vitl m0 and m1 d = 128, m2 32), Kernel C at m3 once.
+PALLAS_WINDOW_PLANS = {
+    "vits": (dict(flash_attention=12, temporal_attention=6, fused_motion_module=1),
+             {24: 2, 48: 2, 8: 2}, ("output_tail", "flash_attention_bwd", "flash_attention_fast")),
+    "vitl": (dict(flash_attention=24, temporal_attention=6, fused_motion_module=1, output_tail=1),
+             {128: 4, 32: 2}, ("flash_attention_bwd", "flash_attention_fast")),
+}
 # window batch of the timed calls: the pipeline's default
 WINDOW_BATCH = {"vits": 4, "vitb": 4, "vitl": 1}
 # under --attn_impl auto:fast every ViT block takes Kernel A's fast variant
@@ -969,18 +1050,21 @@ FAST_WINDOW_PLAN = (("flash_attention_fast", "fused_motion_module"),
                     ("flash_attention", "output_tail", "flash_attention_bwd"))
 
 
-def check_window(model, x, label: str, needed, absent) -> None:
+def check_window(model, x, label: str, needed, absent, widths=None) -> None:
     """One window on the kernel path against the plain path: relative max
     error, finite output and the launch plan (``needed`` names kernels
-    that must launch, or maps them to their exact count)."""
+    that must launch, or maps them to their exact count; ``widths`` maps
+    Kernel B's head widths to their exact launch counts)."""
     import torch
 
     from video_depth_anything_torch.ops.dispatch import plain_reference
+    from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
     zero_counts()
     got = model.infer_window(x)
     torch.cuda.synchronize()
     counts = launch_counts()
+    by_width = dict(temporal_attention.width_launches)
     torch.cuda.reset_peak_memory_stats()
     with plain_reference():
         want = model.infer_window(x)
@@ -993,12 +1077,13 @@ def check_window(model, x, label: str, needed, absent) -> None:
     rel = float((got.float() - ref).abs().max() / ref.abs().max())
     finite = bool(torch.isfinite(got).all())
     log(f"[window] {label}: rel err kernels vs plain {rel:.3e} (tol {tol:.3e}: plain bf16 vs "
-        f"fp32 activations {noise:.3e}), finite={finite}, launches {counts}, plain reference "
-        f"peak device memory {plain_peak:.2f} GiB")
+        f"fp32 activations {noise:.3e}), finite={finite}, launches {counts}, Kernel B by head "
+        f"width {by_width}, plain reference peak device memory {plain_peak:.2f} GiB")
     exact = needed if isinstance(needed, dict) else {}
     if (not finite or not rel <= tol or any(counts[k] == 0 for k in needed)
             or any(counts[k] != n for k, n in exact.items())
-            or any(counts[k] != 0 for k in absent)):
+            or any(counts[k] != 0 for k in absent)
+            or (widths is not None and by_width != widths)):
         raise SystemExit(f"window {label} failed")
 
 
@@ -1035,6 +1120,13 @@ def phase_window(dev, smi: str):
             check_window(model, x, f"{encoder} 1x32x{h}x{w}", needed, absent)
             xb = torch.randn(wb, 32, h, w, 3, device=dev, generator=g)
             time_window(model, xb, f"{encoder} {h}x{w}", smi)
+            if encoder in PALLAS_WINDOW_PLANS and (h, w) == (518, 518):
+                pal = VDAModel(encoder, device=dev, attn_impl="pallas")
+                pal.module.load_state_dict(model.module.state_dict())
+                needed_p, widths, absent_p = PALLAS_WINDOW_PLANS[encoder]
+                check_window(pal, x, f"{encoder} 1x32x{h}x{w} pallas", needed_p, absent_p, widths)
+                time_window(pal, xb, f"{encoder} {h}x{w} pallas", smi)
+                del pal
             if (encoder, h, w) == ("vits", 518, 924):
                 fast = VDAModel(encoder, device=dev, attn_impl="auto:fast")
                 fast.module.load_state_dict(model.module.state_dict())
@@ -1215,7 +1307,7 @@ def phase_train_cli(smi: str) -> dict:
         zero_counts()
         rc = train_main(args + ["--steps", "6"])
         rc_resumed = train_main(args + ["--steps", "8", "--resume"])
-        counts = launch_counts()
+        counts = main_path_launches()
         lines = [json.loads(x) for x in open(os.path.join(out, "train_log.jsonl"))]
         saved = sorted(f for f in os.listdir(out) if f.endswith(".pth"))
     steps = [x["step"] for x in lines]
@@ -1277,22 +1369,26 @@ def phase_cli(smi: str) -> dict:
     runs = (("vits", "square", ("flash_attention", "temporal_attention", "fused_motion_module")),
             ("vits", "wide", ("flash_attention", "fused_motion_module")),
             ("vitl", "square", ("flash_attention", "fused_motion_module", "output_tail")),
-            ("vitb", "square", ("flash_attention", "temporal_attention", "fused_motion_module")))
+            ("vitb", "square", ("flash_attention", "temporal_attention", "fused_motion_module")),
+            ("vitl", "square", ("flash_attention", "temporal_attention", "fused_motion_module",
+                                "output_tail"), "pallas"))
     with tempfile.TemporaryDirectory() as tmp:
         for name, (h, w) in clips.items():
             write_clip(os.path.join(tmp, f"{name}.mp4"), h, w)
         totals = dict.fromkeys(launch_counts(), 0)
-        for encoder, name, needed in runs:
+        for encoder, name, needed, *impl in runs:
             h, w = clips[name]
+            impl = impl[0] if impl else "auto"
             zero_counts()
             rc = run.main(["--input_video", os.path.join(tmp, f"{name}.mp4"), "--output_dir", tmp,
-                           "--encoder", encoder, "--random_init", "--save_npz"])
-            delta = launch_counts()
+                           "--encoder", encoder, "--random_init", "--save_npz",
+                           "--attn_impl", impl])
+            delta = main_path_launches()
             totals = {k: totals[k] + delta[k] for k in totals}
             depth = np.load(os.path.join(tmp, f"{name}_depth.npz"))["depth"]
             ok = (rc == 0 and depth.shape == (76, h, w) and bool(np.isfinite(depth).all())
                   and all(delta[k] > 0 for k in needed))
-            log(f"[cli] {encoder} {name} {w}x{h}: rc={rc} depth {depth.shape} finite="
+            log(f"[cli] {encoder} {name} {w}x{h} {impl}: rc={rc} depth {depth.shape} finite="
                 f"{bool(np.isfinite(depth).all())} launches {delta} {'OK' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"cli run of {encoder} on the {name} clip failed")
@@ -1318,6 +1414,8 @@ STREAM_PLANS = (
      ("flash_attention_fast", "output_tail", "flash_attention_bwd")),
     ("vitl", "square", "auto", ("flash_attention", "fused_motion_module", "output_tail"),
      ("flash_attention_fast", "flash_attention_bwd")),
+    ("vits", "square", "pallas", ("flash_attention", "temporal_attention", "fused_motion_module"),
+     ("flash_attention_fast", "output_tail", "flash_attention_bwd")),
 )
 
 
@@ -1399,7 +1497,7 @@ def phase_stream(dev, smi: str) -> dict:
             rc = run.main(["--input_video", os.path.join(tmp, f"{name}.mp4"), "--output_dir", tmp,
                            "--encoder", encoder, "--random_init", "--save_npz",
                            "--process_single_image", "--attn_impl", impl])
-            delta = launch_counts()
+            delta = main_path_launches()
             totals = {k: totals[k] + delta[k] for k in totals}
             depth = np.load(os.path.join(tmp, f"{name}_depth.npz"))["depth"]
             ok = (rc == 0 and depth.shape == (STREAM_FRAMES, h, w)
@@ -1443,7 +1541,7 @@ def phase_stream(dev, smi: str) -> dict:
             rc = run.main(["--input_video", os.path.join(tmp, f"{name}.mp4"), "--output_dir", tmp,
                            "--encoder", encoder, "--random_init", "--save_npz",
                            "--process_single_image", "--kv_cache"])
-            delta = launch_counts()
+            delta = main_path_launches()
             totals = {k: totals[k] + delta[k] for k in totals}
             depth = np.load(os.path.join(tmp, f"{name}_depth.npz"))["depth"]
             ok = (rc == 0 and depth.shape == (76, h, w) and bool(np.isfinite(depth).all())

@@ -183,15 +183,44 @@ def test_flash_attention_from_a_fresh_thread(dev):
         <= chip_smoke.BWD_TOL
 
 
-@pytest.mark.parametrize("c,t", [(64, 32), (192, 32), (192, 8),
-                                 (128, 32), (128, 8)])  # d = 16: vitb m2/m3
-def test_temporal_attention_kernel(dev, c, t):
+@pytest.mark.parametrize("c,t,s", [(64, 32, 37), (192, 32, 37), (192, 8, 37),
+                                   (128, 32, 37), (128, 8, 37),  # d = 16: vitb m2/m3
+                                   # every width of --attn_impl pallas (d = 32, 48, 128)
+                                   (256, 32, 37), (384, 32, 37), (1024, 32, 37),
+                                   # T = 17 (masked keys) and a ragged S at every width,
+                                   # a ragged last location tile at C = 64 and 128
+                                   (64, 17, 101), (128, 17, 101), (192, 17, 101),
+                                   (256, 17, 101), (384, 17, 101), (1024, 17, 101),
+                                   (64, 8, 3), (1024, 8, 3)])
+def test_temporal_attention_kernel(dev, c, t, s):
     g = torch.Generator(device=dev).manual_seed(c + t)
     q, k, v = (x.contiguous() for x in
-               chip_smoke.attention_inputs((2, t, 37, c), g, dev).split(c, dim=-1))
+               chip_smoke.attention_inputs((2, t, s, c), g, dev).split(c, dim=-1))
+    before = ta.temporal_attention.launches
     got = ta.temporal_attention(q, k, v, 8, (c // 8) ** -0.5)
+    assert ta.temporal_attention.launches == before + 1
     want = ta.temporal_attention_plain(q, k, v, 8, (c // 8) ** -0.5)
     assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
+
+
+@pytest.mark.parametrize("c", [64, 384])
+def test_temporal_attention_split(dev, c):
+    """The split entry (copies only) copies q through and is not counted;
+    the kernel on ``tile_plan``'s tiles (at C = 64 four locations a tile,
+    the last one ragged at S = 29) computes the attention; a width outside
+    the domain raises on the card."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    q, k, v = (x.contiguous() for x in
+               chip_smoke.attention_inputs((1, 32, 29, c), g, dev).split(c, dim=-1))
+    scale = (c // 8) ** -0.5
+    before = ta.temporal_attention.launches
+    assert torch.equal(ta.temporal_attention_split(q, k, v, 8, scale), q)
+    assert ta.temporal_attention.launches == before
+    want = ta.temporal_attention_plain(q, k, v, 8, scale)
+    got = ta.temporal_attention(q, k, v, 8, scale)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
+    with pytest.raises(NotImplementedError):
+        ta.temporal_attention(*(x[..., :64].contiguous() for x in (q, k, v)), 1, 0.125)
 
 
 @pytest.mark.parametrize("c,t,s", [(64, 32, 70), (192, 32, 33), (64, 8, 50), (192, 16, 20),

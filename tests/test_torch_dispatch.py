@@ -1,5 +1,6 @@
 """Which module takes which kernel on the vits, vitb and vitl main paths, at
-518×518 and 518×924, in the port and in the JAX package.
+518×518 and 518×924, in the port and in the JAX package, under
+``--attn_impl auto`` and ``pallas``.
 
 The JAX side runs the JAX package's own gate functions with the kernels
 they would launch replaced by tags (and, for the temporal gate and the
@@ -53,7 +54,7 @@ def _module_shapes(encoder, h, w):
             ("m2", ph, pw, f), ("m3", 2 * ph, 2 * pw, f)]
 
 
-def port_plan(encoder, h, w):
+def port_plan(encoder, h, w, impl="auto"):
     cfg = get_model_config(encoder)
     heads = cfg.motion.num_heads
     ph, pw = h // 14, w // 14
@@ -62,7 +63,7 @@ def port_plan(encoder, h, w):
     for name, mh, mw, c in _module_shapes(encoder, h, w):
         if motion_gate(cfg.motion, c, c, 32, mh, mw):
             plan[name] = "motion_module"
-        elif temporal_gate((1, 32, mh * mw, c), heads):
+        elif temporal_gate((1, 32, mh * mw, c), heads, auto=impl == "auto"):
             plan[name] = "temporal_attention"
         else:
             plan[name] = "plain"
@@ -72,7 +73,7 @@ def port_plan(encoder, h, w):
     return plan
 
 
-def jax_plan(encoder, h, w, monkeypatch):
+def jax_plan(encoder, h, w, monkeypatch, impl="auto"):
     monkeypatch.setattr(pallas_attention, "flash_attention_native",
                         lambda *a, **k: _Tag("flash_attention"))
     monkeypatch.setattr(pallas_attention, "spatial_flash_attention",
@@ -100,7 +101,7 @@ def jax_plan(encoder, h, w, monkeypatch):
             fused = pallas_motion.try_fused_motion_module(x, {}, heads=heads, cfg=cfg,
                                                           interpret=True)
         plan[name] = (fused or pallas_temporal.try_temporal_attention(
-            x, x, x, heads=heads, scale=d**-0.5, auto=True) or "plain")
+            x, x, x, heads=heads, scale=d**-0.5, auto=impl == "auto") or "plain")
     # models/dpt.py:172-233: no packed output stack, then the kernel's gate
     f = mcfg.features
     tail = None
@@ -130,3 +131,29 @@ def jax_plan(encoder, h, w, monkeypatch):
 def test_dispatch_plan_matches_jax_gates(encoder, h, w, expected, monkeypatch):
     assert jax_plan(encoder, h, w, monkeypatch) == expected
     assert port_plan(encoder, h, w) == expected
+
+
+# Under --attn_impl pallas Kernel B also takes d = 32, 48 and 128 (JAX
+# models/temporal.py:131-134, auto=False); the fused module's gate and the
+# spatial attention's are those of auto.
+@pytest.mark.parametrize("encoder,h,w,expected", [
+    ("vits", 518, 518, dict(vit="flash_attention", m0="temporal_attention",
+                            m1="temporal_attention", m2="temporal_attention",
+                            m3="motion_module", tail="plain")),
+    ("vits", 518, 924, dict(vit="flash_attention", m0="motion_module", m1="temporal_attention",
+                            m2="motion_module", m3="motion_module", tail="plain")),
+    ("vitb", 518, 518, dict(vit="flash_attention", m0="temporal_attention", m1="plain",
+                            m2="temporal_attention", m3="motion_module", tail="plain")),
+    ("vitb", 518, 924, dict(vit="flash_attention", m0="motion_module", m1="plain",
+                            m2="motion_module", m3="motion_module", tail="plain")),
+    ("vitl", 518, 518, dict(vit="flash_attention", m0="temporal_attention",
+                            m1="temporal_attention", m2="temporal_attention",
+                            m3="motion_module", tail="output_tail")),
+    ("vitl", 518, 924, dict(vit="flash_attention", m0="temporal_attention",
+                            m1="temporal_attention", m2="motion_module", m3="motion_module",
+                            tail="plain")),
+], ids=["vits-518-518", "vits-518-924", "vitb-518-518", "vitb-518-924", "vitl-518-518",
+        "vitl-518-924"])
+def test_dispatch_plan_under_pallas_matches_jax_gates(encoder, h, w, expected, monkeypatch):
+    assert jax_plan(encoder, h, w, monkeypatch, "pallas") == expected
+    assert port_plan(encoder, h, w, "pallas") == expected

@@ -7,8 +7,11 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_helpers import model_pair
+from tests.torch_port_helpers import configs, jax_param_shapes, model_pair, noised_params
+from video_depth_anything_torch.io.checkpoint import from_jax_params
 from video_depth_anything_torch.models.vda import VDAModel
+from video_depth_anything_torch.ops import temporal_attention as t_temporal
+from video_depth_anything_tpu.models.vda import VDAModel as JaxVDA
 
 # The JAX package's own bound against the torch reference (docs/PARITY.md:12).
 TOL = dict(rtol=1e-3, atol=2e-4)
@@ -66,3 +69,30 @@ def test_frame_size_must_be_patch_multiple(pair):
     _, tm = pair
     with pytest.raises(ValueError):
         tm.infer_window(np.zeros((1, 2, 30, 28, 3), np.float32))
+
+
+def test_window_under_pallas_matches_jax(monkeypatch):
+    """``attn_impl="pallas"`` in both packages on the same noised weights
+    (vits widths, 4 encoder blocks; 70×70 frames, T = 8): every motion
+    module takes the temporal gate with ``auto=False``, so m1 (C = 384,
+    d = 48), which ``auto`` leaves to the einsum, goes through Kernel B's
+    wrapper too (its plain version on CPU tensors; JAX off the TPU takes
+    its einsum)."""
+    jc, tc = configs("vits", 4)
+    jm = JaxVDA(cfg=jc, dtype=jnp.float32, attn_impl="pallas")
+    jm.params = noised_params(jax_param_shapes(jm.module, jnp.zeros((1, 2, 28, 28, 3))), 3)
+    tm = VDAModel(cfg=tc, device="cpu", dtype=torch.float32, attn_impl="pallas")
+    tm.load_state_dict(from_jax_params(jm.params, jc), strict=True)
+    widths = []
+    wrapper = t_temporal.temporal_attention
+
+    def counted(q, k, v, heads, scale):
+        widths.append(q.shape[-1] // heads)
+        return wrapper(q, k, v, heads, scale)
+
+    monkeypatch.setattr(t_temporal, "temporal_attention", counted)
+    x = np.random.RandomState(9).randn(1, 8, 70, 70, 3).astype(np.float32)
+    want = np.asarray(jm.infer_window(x))
+    got = tm.infer_window(x).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert sorted(set(widths)) == [8, 24, 48] and len(widths) == 8  # 2 attentions × 4 modules

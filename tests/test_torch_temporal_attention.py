@@ -1,6 +1,7 @@
 """Kernel B's plain version against the JAX temporal kernel (Pallas
-interpret mode on the CPU) at the vits and vitb head widths, and its
-gate."""
+interpret mode on the CPU) at every head width of its domain (vits, vitb
+and, under ``--attn_impl pallas``, vitl), and its gate under ``auto`` and
+``pallas``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +17,10 @@ from video_depth_anything_tpu.ops.pallas_temporal import temporal_attention_wind
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 
-# d = 8 (vits m2/m3), 24 (m0), 16 (vitb m2/m3)
-@pytest.mark.parametrize("c,s", [(64, 20), (192, 13), (128, 17)])
+# d = 8 (vits m2/m3), 24 (m0), 16 (vitb m2/m3); under pallas 32 (vitl m2),
+# 48 (vits m1, vitb m0), 128 (vitl m0/m1)
+@pytest.mark.parametrize("c,s", [(64, 20), (192, 13), (128, 17), (256, 11), (384, 7),
+                                 (1024, 5)])
 def test_plain_matches_pallas_kernel(c, s):
     heads, t = 8, 32
     rng = np.random.RandomState(c)
@@ -47,6 +50,48 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
 ])
 def test_temporal_gate(shape, expected):
     assert t_temporal.temporal_gate(shape, 8) is expected
+
+
+@pytest.mark.parametrize("shape,expected", [
+    ((1, 32, 1369, 192), True),    # vits m0: d = 24
+    ((1, 32, 361, 384), True),     # vits m1: d = 48
+    ((1, 32, 1369, 384), True),    # vitb m0: d = 48
+    ((1, 32, 361, 768), False),    # vitb m1: d = 96, outside the lane packing
+    ((1, 32, 1369, 1024), True),   # vitl m0: d = 128
+    ((1, 32, 1369, 256), True),    # vitl m2: d = 32
+    ((1, 4, 1369, 256), False),    # fewer than 8 frames
+])
+def test_temporal_gate_under_pallas(shape, expected, monkeypatch):
+    """``auto=False`` (``--attn_impl pallas``) drops the d ≤ 24 rule and
+    keeps the lane-packing rules: the same answer as JAX
+    ``try_temporal_attention(..., auto=False)`` with its kernel replaced by
+    a tag and a device that says TPU."""
+    import jax
+
+    from video_depth_anything_tpu.ops import pallas_temporal
+
+    class _TPU:
+        platform = "tpu"
+
+    monkeypatch.setattr(pallas_temporal, "temporal_attention_window", lambda *a, **k: "kernel")
+    monkeypatch.setattr(jax, "devices", lambda *a: [_TPU()])
+    x = np.empty(shape, np.uint8)
+    jax_says = pallas_temporal.try_temporal_attention(x, x, x, heads=8, scale=1.0, auto=False)
+    assert (jax_says == "kernel") is expected
+    assert t_temporal.temporal_gate(shape, 8, auto=False) is expected
+
+
+@pytest.mark.parametrize("c", [256, 384, 1024])
+def test_wrapper_domain_on_cpu(c):
+    """The wrapper takes the new widths (d = 32, 48, 128) on CPU tensors
+    as its plain version, and ``tile_plan`` gives each whole heads."""
+    rng = np.random.RandomState(c)
+    q, k, v = (torch.from_numpy(rng.randn(1, 17, 3, c).astype(np.float32)) for _ in range(3))
+    torch.testing.assert_close(t_temporal.temporal_attention(q, k, v, 8, 0.2),
+                               t_temporal.temporal_attention_plain(q, k, v, 8, 0.2),
+                               rtol=0, atol=0)
+    locs, group = t_temporal.tile_plan(c, 8)
+    assert 8 % group == 0 and locs >= 1 and group * (c // 8) <= max(c // 8, 256)
 
 
 @pytest.mark.parametrize("c", [64, 192, 128])  # d = 8 (vits m2), 24 (m0), 16 (vitb m2)

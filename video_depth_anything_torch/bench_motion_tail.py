@@ -31,15 +31,21 @@ TAIL_SHAPES = (("vitl 518x518", (32, 296, 296, 518, 518)),
                ("vitl 518x924", (32, 296, 528, 518, 924)))
 
 
+def use_root(root: str) -> None:
+    """Import ``video_depth_anything_torch`` from the checkout ``root`` from
+    now on (functions imported before keep this tree's code)."""
+    sys.path.insert(0, os.path.abspath(root))
+    for name in [m for m in sys.modules if m.startswith("video_depth_anything_torch")]:
+        del sys.modules[name]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None, help="checkout to import the port from")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     if args.root:
-        sys.path.insert(0, os.path.abspath(args.root))
-        for name in [m for m in sys.modules if m.startswith("video_depth_anything_torch")]:
-            del sys.modules[name]
+        use_root(args.root)
     import torch
 
     from video_depth_anything_torch.config import MotionModuleConfig

@@ -19,7 +19,9 @@ sends to the Pallas temporal core goes to Kernel B
 are called through their autograd Functions, so the module trains on
 either path.  ``attn_impl`` is the JAX switch: its base ``xla`` (the part
 before ``:``, so ``:fast`` never reaches these kernels) turns both Kernel B
-and Kernel C off, as ``temporal.py:125-126`` and ``:408-409`` there.
+and Kernel C off, as ``temporal.py:125-126`` and ``:408-409`` there; its
+base ``pallas`` gives Kernel B's gate ``auto=False`` (``:131-134``), which
+drops the head_dim ≤ 24 rule, and leaves Kernel C's gate as it is.
 
 Besides the window forward (sliding window and feature-cache streaming),
 the KV-streaming methods are ported (``collect``, ``kv_step``;
@@ -104,7 +106,9 @@ class TemporalSelfAttention(nn.Module):
                              f"got {cfg.pos_embedding_type!r}")
         self.cfg = cfg
         self.rope = cfg.pos_embedding_type == "rope"
-        self.use_kernels = attn_impl.partition(":")[0] != "xla"
+        base = attn_impl.partition(":")[0]
+        self.use_kernels = base != "xla"
+        self.auto = base == "auto"  # Kernel B's gate under auto; pallas forces it
         self.to_q = Linear(dim, dim, bias=False)
         self.to_k = Linear(dim, dim, bias=False)
         self.to_v = Linear(dim, dim, bias=False)
@@ -125,11 +129,11 @@ class TemporalSelfAttention(nn.Module):
 
     def _attend(self, q, k, v) -> torch.Tensor:
         """Attention over the frame axis and the out projection; Kernel B
-        only where q and k have one shape (JAX ``_attend``, ``:126``)."""
+        only where q and k have one shape (JAX ``_attend``, ``:126-134``)."""
         heads = self.cfg.num_heads
         scale = (q.shape[-1] // heads) ** -0.5
         if (self.use_kernels and kernels_enabled() and q.shape == k.shape
-                and temporal_gate(q.shape, heads)):
+                and temporal_gate(q.shape, heads, auto=self.auto)):
             out = TemporalAttentionFn.apply(q, k, v, heads, scale)
         else:
             out = temporal_attention_plain(q, k, v, heads, scale)

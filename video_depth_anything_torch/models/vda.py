@@ -158,8 +158,7 @@ class VDAModel:
     normalized ``(B, T, H, W, 3)`` frames and returns ``(B, T, H, W)``
     inverse depth on the device.  Runs on the card unless
     ``device="cpu"``.  ``attn_impl``: ``auto|pallas|xla`` with an optional
-    ``:fast`` (``ops/attention.parse_attn_impl``; ``pallas`` raises on the
-    card)."""
+    ``:fast`` (``ops/attention.parse_attn_impl``)."""
 
     def __init__(self, encoder: str = "vits", device=None, dtype=torch.bfloat16,
                  cfg: Optional[ModelConfig] = None, attn_impl: str = "auto"):

@@ -8,9 +8,9 @@ Kernel A (``ops/flash_attention.py``, through ``FlashAttentionFn`` so that
 it is differentiable), the no-max variant under ``:fast``; elsewhere, and
 always under ``xla`` (which ignores ``:fast``, as in JAX), it runs the
 plain dense attention (fp32 scores and softmax, output in the input
-dtype).  ``pallas`` is ``auto`` on the CPU and refused on the card: in the
-JAX package it also forces the Pallas temporal kernel at head widths that
-Kernel B has no instantiation for.
+dtype).  ``pallas`` is ``auto`` here, as in JAX (``ops/attention.py:68-70``
+there); in the motion modules it forces Kernel B wherever the JAX gate's
+domain allows (``models/temporal.py``).
 """
 
 from __future__ import annotations
@@ -31,15 +31,11 @@ IMPLS = ("auto", "pallas", "xla")
 
 def parse_attn_impl(impl: str, device_type: str) -> Tuple[str, bool]:
     """``"auto:fast"`` → ``("auto", True)``: the base implementation and
-    whether the no-max softmax is asked for.  ``pallas`` on a CUDA device
-    raises ``NotImplementedError``."""
+    whether the no-max softmax is asked for.  Every form runs on either
+    ``device_type`` (``cpu`` or ``cuda``), ``pallas`` included."""
     base, _, variant = impl.partition(":")
     if base not in IMPLS or variant not in ("", "fast"):
         raise ValueError(f"attn_impl must be auto|pallas|xla with an optional :fast, got {impl!r}")
-    if base == "pallas" and device_type == "cuda":
-        raise NotImplementedError(
-            "attn_impl 'pallas' is not ported to the card: it also forces the temporal kernel "
-            "at head_dim 32/48/128, which Kernel B lacks (ROADMAP Queue 1 item 4); use 'auto'")
     return base, variant == "fast"
 
 

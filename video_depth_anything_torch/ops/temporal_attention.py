@@ -1,19 +1,26 @@
 """Kernel B: temporal attention core (``csrc/temporal_attention.cu``).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_temporal.py``
-``_temporal_kernel`` (``temporal_attention_window``).  ``temporal_gate`` is
-the JAX ``auto`` dispatch rule of ``try_temporal_attention``
-(``pallas_temporal.py:288-307``): the lane-packing constraints of the TPU
-kernel and head_dim ≤ 24.  On vits at 518² that is m0 (C = 192, d = 24)
-and m2 (C = 64, d = 8); on vitb at 518² m2 (C = 128, d = 16).  The
-KV-streaming warm-up (no fused module) also sends vits m0/m2/m3 and vitb
-m2/m3 here at both frame sizes.
+``_temporal_kernel`` (``temporal_attention_window``) at every head width
+the JAX gate admits on the shipped encoders, d ∈ {8, 16, 24, 32, 48, 128}
+(the gate also admits d = 64 and, with location packing, other small
+widths that no shipped encoder has: the kernel raises there).  ``temporal_gate`` is the JAX
+dispatch rule of ``try_temporal_attention`` (``pallas_temporal.py:277-313``):
+the lane-packing constraints of the TPU kernel and, under ``auto``, head_dim
+≤ 24.  Under ``auto`` that is, at 518², vits m0 (C = 192, d = 24) and m2
+(C = 64, d = 8) and vitb m2 (C = 128, d = 16); the KV-streaming warm-up
+(no fused module) also sends vits m0/m2/m3 and vitb m2/m3 here at both
+frame sizes.  ``auto=False`` (``--attn_impl pallas``) drops the d ≤ 24
+rule and adds d = 32 (vitl m2), 48 (vits m1, vitb m0) and 128 (vitl m0,
+m1).
 
 ``TemporalAttentionFn`` is the differentiable entry: Kernel B forward (the
 plain version on CPU tensors) and ``temporal_attention_bwd_plain``, the
 port of the JAX custom VJP ``_attention_bwd_math``
 (``pallas_temporal.py:117-145``), backward.  ``temporal_attention`` is the
-raw launch and keeps no autograd history.
+raw launch and keeps no autograd history.  ``tile_plan`` is the kernel's
+tile geometry (locations and heads per tile), which
+``tests/test_torch_temporal_tiling.py`` emulates on the CPU.
 
 Bound on the H100: memory bytes (q, k, v read once, out written once).
 """
@@ -36,9 +43,10 @@ def _auto_pack(c: int, heads: int) -> int:
     return p
 
 
-def temporal_gate(shape, heads: int) -> bool:
-    """True where the JAX package (``auto``) sends ``(B, T, S, C)`` to the
-    Pallas temporal kernel."""
+def temporal_gate(shape, heads: int, auto: bool = True) -> bool:
+    """True where the JAX package sends ``(B, T, S, C)`` to the Pallas
+    temporal kernel: ``auto`` is JAX's argument (``--attn_impl auto``);
+    ``auto=False`` (``pallas``) drops the head_dim ≤ 24 rule."""
     if len(shape) != 4:
         return False
     _, t, _, c = shape
@@ -50,7 +58,7 @@ def temporal_gate(shape, heads: int) -> bool:
         return False
     if pack == 1 and (c % _LANES or d not in (32, 64, 128)):
         return False
-    return d <= 24
+    return d <= 24 or not auto
 
 
 def temporal_attention_plain(q, k, v, heads: int, scale: float) -> torch.Tensor:
@@ -84,10 +92,24 @@ def temporal_attention_bwd_plain(q, k, v, g, heads: int, scale: float):
 
 
 _fn = None
-# The instantiations of csrc/temporal_attention.cu: the head dims that the
-# gate sends here on vits (m2: 8, m0: 24) and vitb (m2, m3: 16).  The
-# --attn_impl pallas widths (32, 48, 128) come with that slice.
-_SUPPORTED_D = (8, 16, 24)
+# The instantiations of csrc/temporal_attention.cu: every head width the
+# JAX gate admits on the shipped encoders (vits 8/24/48, vitb 16/48, vitl
+# 32/128).
+_SUPPORTED_D = (8, 16, 24, 32, 48, 128)
+_TILE_CHANNELS = 256  # channels x locations a tile aims at: 512-byte frame runs
+
+
+def tile_plan(c: int, heads: int) -> tuple:
+    """``(locs, group)``: the adjacent locations and whole heads of one
+    kernel tile.  A tile takes every head while C ≤ 256 (then 256 / C
+    locations: one 512-byte run a frame at C = 64, 128 and 256), else the
+    largest head group of ≤ 256 channels (C = 384: 4 heads of 48; C =
+    1024: 2 of 128) at one location."""
+    d = c // heads
+    group = max(g for g in range(1, heads + 1)
+                if heads % g == 0 and (g == 1 or g * d <= _TILE_CHANNELS))
+    locs = max(1, _TILE_CHANNELS // c) if group == heads else 1
+    return locs, group
 
 
 def _kernel():
@@ -95,10 +117,42 @@ def _kernel():
     if _fn is None:
         fn = cuda_build.library("temporal_attention").vda_temporal_attention
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp]
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, i, i, i, vp]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _checked(q, k, v, heads: int):
+    """q, k and v as the kernel takes them, or raise."""
+    t, c = q.shape[1], q.shape[-1]
+    d = c // heads
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"temporal_attention kernel takes bf16, got {q.dtype}")
+    if c % heads or d not in _SUPPORTED_D or not 1 <= t <= 32 or c > 1024:
+        raise NotImplementedError(
+            f"temporal_attention kernel takes 1 <= T <= 32, heads of {_SUPPORTED_D} and "
+            f"C <= 1024, got T={t}, heads={heads}, d={d}")
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    for x in (k, v):
+        if x.shape != q.shape or x.device != q.device:
+            raise ValueError("q, k and v must share shape and device")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("temporal_attention needs 16-byte aligned tensors")
+    return q, k, v
+
+
+def _launch(q, k, v, heads: int, scale: float, stop: bool = False):
+    b, t, s, c = q.shape
+    locs, group = tile_plan(c, heads)
+    out = torch.empty_like(q)
+    err = _kernel()(
+        cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
+        b, t, s, c, heads, float(scale), locs, group, int(stop),
+        cuda_build.stream_of(q),
+    )
+    cuda_build.check(err, "temporal_attention")
+    return out
 
 
 def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
@@ -107,31 +161,22 @@ def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
     cuda_build.no_history("temporal_attention", q, k, v)
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, heads, scale)
-    b, t, s, c = q.shape
-    d = c // heads
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"temporal_attention kernel takes bf16, got {q.dtype}")
-    if c % heads or d not in _SUPPORTED_D or t > 32 or heads > 32 or c > 1024:
-        raise NotImplementedError(
-            f"temporal_attention kernel takes T <= 32, <= 32 heads of {_SUPPORTED_D} and "
-            f"C <= 1024, got T={t}, heads={heads}, d={d}")
-    q, k, v = (x.contiguous() for x in (q, k, v))
-    for x in (k, v):
-        if x.shape != q.shape or x.device != q.device:
-            raise ValueError("q, k and v must share shape and device")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("temporal_attention needs 16-byte aligned tensors")
-    out = torch.empty_like(q)
-    err = _kernel()(
-        cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
-        b, t, s, c, heads, float(scale), cuda_build.stream_of(q),
-    )
-    cuda_build.check(err, "temporal_attention")
+    out = _launch(*_checked(q, k, v, heads), heads, scale)
     temporal_attention.launches += 1
+    d = q.shape[-1] // heads
+    temporal_attention.width_launches[d] = temporal_attention.width_launches.get(d, 0) + 1
     return out
 
 
+def temporal_attention_split(q, k, v, heads: int, scale: float) -> torch.Tensor:
+    """Kernel B's copies in and out alone on CUDA tensors (the attention
+    dropped, out = q): the split that ``bench_temporal`` times.  Not
+    counted in ``temporal_attention.launches``."""
+    return _launch(*_checked(q, k, v, heads), heads, scale, stop=True)
+
+
 temporal_attention.launches = 0
+temporal_attention.width_launches = {}  # launches by head width d
 
 
 class TemporalAttentionFn(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """Where a window's time goes on the card.
 
     python -m video_depth_anything_torch.profile_window [--encoder vitb|vitl] \\
-        [--height 518 --width 518]
+        [--height 518 --width 518] [--attn_impl pallas]
 
 Runs ``VDAModel.infer_window`` for ``--encoder`` (vits by default; noised
 seeded weights, full width and depth) on ``window_batch`` windows of 32
@@ -9,8 +9,10 @@ frames (the pipeline's default: 4 for vits and vitb, 1 for vitl) under
 ``torch.profiler``, then prints: the wall time per call, the device busy
 share (sum of kernel times over the wall time of the profiled calls), the
 top kernels by device time, and the device time grouped by the port's
-kernels versus everything else.  ``--trace PATH`` also writes a chrome
-trace there.
+kernels versus everything else.  ``--attn_impl`` is the model's
+(``auto`` by default; ``pallas`` sends every motion-module attention in
+Kernel B's domain to it).  ``--trace PATH`` also writes a chrome trace
+there.
 """
 
 from __future__ import annotations
@@ -21,14 +23,14 @@ import time
 from collections import defaultdict
 
 
-PORT_KERNELS = ("flash_fwd", "flash_bwd", "temporal_attn_kernel", "motion_hopper",
+PORT_KERNELS = ("flash_fwd", "flash_bwd", "temporal_hopper", "motion_hopper",
                 "output_tail_hopper")
 
 
 def category(name: str) -> str:
     """The port's kernels by name (Kernel A's forward is ``flash_fwd_hopper``
     at D = 64 and ``flash_fwd_kernel`` at D = 192, its fast instantiations
-    apart; Kernel C is ``mm::motion_hopper``, the tail
+    apart; Kernel B is ``temporal_hopper``, Kernel C ``mm::motion_hopper``, the tail
     ``output_tail_hopper``); the plain PyTorch rest by kind."""
     if "flash_fwd" in name and ("true" in name or "(bool)1" in name):
         return "flash_fwd (fast)"
@@ -82,6 +84,7 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=518)
     ap.add_argument("--window_batch", type=int, default=None,
                     help="windows per call (default: the pipeline's, 4 for vits/vitb, 1 for vitl)")
+    ap.add_argument("--attn_impl", type=str, default="auto")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", type=str, default=None, help="chrome trace output path")
@@ -94,7 +97,7 @@ def main(argv=None) -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    model = VDAModel(args.encoder)
+    model = VDAModel(args.encoder, attn_impl=args.attn_impl)
     if args.window_batch is None:
         args.window_batch = 4 if model.cfg.features <= 128 else 1
     model.init_params(seed=0)
@@ -113,8 +116,8 @@ def main(argv=None) -> int:
         wall = (time.perf_counter() - t0) / args.iters
     frames = args.window_batch * 32
     print(f"{smi}")
-    print(f"{args.encoder} {args.window_batch}x32x{args.height}x{args.width}: {wall * 1e3:.2f} ms per call, "
-          f"{frames / wall:.1f} frames/s")
+    print(f"{args.encoder} {args.attn_impl} {args.window_batch}x32x{args.height}x{args.width}: "
+          f"{wall * 1e3:.2f} ms per call, {frames / wall:.1f} frames/s")
     report(prof, args.iters, wall, args.top)
     if args.trace:
         prof.export_chrome_trace(args.trace)

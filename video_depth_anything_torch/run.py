@@ -69,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto|pallas|xla with an optional :fast suffix (auto:fast: Kernel A's "
                         "no-max softmax, exact while attention logits stay inside fp32's exp2 "
                         "domain, about +-88); xla turns every kernel of the attention and motion "
-                        "modules off; pallas is refused on the card")
+                        "modules off; pallas also sends every motion-module attention in the "
+                        "temporal kernel's domain (head widths 8 to 128) to it")
     p.add_argument("--window_batch", type=int, default=None,
                    help="windows per model call (default 4 for vits/vitb, 1 for vitl)")
     p.add_argument("--host_upsample", action="store_true",

@@ -4,7 +4,8 @@ The port runs on the card unless the caller asks for the CPU, and never
 drops to the CPU on its own.  ``transfer_cast`` and ``start_host_transfer``
 serve the streaming pipeline's one-step-lag emit: a depth map's copy to the
 host starts as soon as it is enqueued and overlaps the next step.
-``card_line`` and ``event_ms`` serve the bench modules and ``chip_smoke.py``.
+``card_line``, ``event_ms`` and ``graph_ms`` serve the bench modules and
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -80,3 +81,29 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(calls, reps: int = 20) -> float:
+    """Device milliseconds per call: ``reps`` calls, taken in turn from
+    ``calls`` (closures over copies of the inputs, so that a small kernel's
+    inputs rotate through more bytes than the 50 MB L2 holds), captured
+    into one CUDA graph and timed with CUDA events around a replay after a
+    warm replay.  The host's launch path is not in the time, which is what
+    a kernel of a few microseconds needs (``event_ms`` times the host too
+    once a call's host work outlasts its kernel)."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps

@@ -20,8 +20,9 @@ Phases (each failure ends the run with a non-zero exit):
    junction; and show that wrong kernels (uniform attention, a dropped
    last key tile -- 128 keys for Kernel A at D = 64 --, for Kernel A on
    the flat inputs the zero-filled pad keys of the ragged last tile
-   counted in the softmax, for the no-mask probes a missing pad
-   correction; for Kernel B also the last location tile never stored, at
+   counted in the softmax, for the spatial probes the pair's two heads
+   exchanged and V rolled by one 64-key tile, for the no-mask probes a
+   missing pad correction; for Kernel B also the last location tile never stored, at
    the window batch of 4 every batch given batch 0's output, and, at
    T = 17, the zero key rows of its 32-frame tile unmasked; for Kernel
    C, uniform frame attention, no APE rows, k
@@ -33,7 +34,10 @@ Phases (each failure ends the run with a non-zero exit):
    and the library call where one exists, with ms / library ms, the
    backward's three launches apart, Kernel C's and the tail's stages apart
    (``split_ms``), and the PR 1-6 designs' ms beside Kernel C's and the
-   tail's, the one-frame-per-lane design's beside Kernel B's (``parent_ms``); Kernel
+   tail's, the one-frame-per-lane design's beside Kernel B's, the
+   mma.sync design's beside the ilv and chunk probes' (``parent_ms``),
+   and beside those probes' tensor-core bound the bound of their
+   softmax chain (``chain_bound_ms``); Kernel
    B's times are device times over inputs rotated past the L2 (its launch
    path outlasts it on the host).
 3. window: one full-width, full-depth vits, vitb and vitl window (noised
@@ -115,6 +119,17 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def chain_bound(mix: dict, scores: float) -> float:
+    """ms for ``scores`` exponentials of an instruction mix (per score, by
+    pipe) on every SM of card 0 at its largest SM clock."""
+    import torch
+
+    from video_depth_anything_torch.bench_probe_split import chain_bound_ms, max_sm_clock_hz
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return chain_bound_ms(mix, scores, sms, max_sm_clock_hz())
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -138,6 +153,22 @@ PARENT_MS = {
     ("temporal_attention", "vits m2 518x518"): 0.0405,
     ("temporal_attention", "vitb m2 518x518"): 0.0706,
     ("temporal_attention", "ragged T=17 C=64"): 0.0065,
+    # the ilv and chunk probes' earlier mma.sync design (PERF.md section 6:
+    # bench_probe_split on its checkout, in turns with the Hopper kernels)
+    ("ilv_attention", "vitl ilv"): 2.7439, ("ilv_attention", "vitl nomask"): 1.8813,
+    ("chunk_attention", "vitl chunk2"): 2.5141, ("chunk_attention", "vitl chunk4"): 2.6099,
+    ("ilv_attention", "vits ilv"): 1.0141, ("ilv_attention", "vits nomask"): 0.7485,
+    ("chunk_attention", "vits chunk2"): 0.9755, ("chunk_attention", "vits chunk4"): 1.1348,
+}
+
+# The Hopper ilv and chunk kernels' softmax chain, instructions per score by
+# pipe (PERF.md section 6: bench_probe_split's reading of their
+# SASS); chain_bound_ms is this times the run's scores over the pipes'
+# rates on every SM (bench_probe_split.chain_bound_ms).
+PROBE_CHAIN = {
+    "ilv": {"conversion": 0.5, "fp32": 10.562, "integer": 1.602, "total": 14.172},
+    "nomask": {"conversion": 0.5, "fp32": 10.156, "integer": 1.125, "total": 13.375},
+    "chunk": {"conversion": 0.5, "fp32": 10.13, "integer": 1.234, "total": 14.125},
 }
 
 
@@ -390,8 +421,10 @@ def probe_inputs(b: int, n: int, h: int, gen, device):
 def probe_mutant_errors(variant: str, q, k, v, scale, heads: int) -> dict:
     """How far wrong spatial probe kernels miss the plain version of
     ``variant`` on the same inputs, relative to max|plain|: uniform
-    attention, a dropped last (ragged) key tile, and for the no-mask
-    variants a missing pad correction (zero pad keys counted in l)."""
+    attention, a dropped last (ragged) key tile, the pair's two heads
+    exchanged, P V paired with the wrong key tile (V rolled by 64 keys),
+    and for the no-mask variants a missing pad correction (zero pad keys
+    counted in l)."""
     import torch.nn.functional as F
 
     from video_depth_anything_torch.ops.attention_variants import parse_variant, spatial_kernel_plain
@@ -405,8 +438,12 @@ def probe_mutant_errors(variant: str, q, k, v, scale, heads: int) -> dict:
     if keep == 0:
         raise ValueError(f"{n} keys leave no full key tile to keep")
     uniform = v.float().mean(1, keepdim=True).expand(v.shape).to(v.dtype)
+    b, nq, hd = want.shape
+    swapped = want.view(b, nq, heads // 2, 2, hd // heads).flip(3).reshape(b, nq, hd)
     out = {"uniform": rel_err(uniform, want),
-           "drop_last_tile": rel_err(plain(k[:, :keep], v[:, :keep]), want)}
+           "drop_last_tile": rel_err(plain(k[:, :keep], v[:, :keep]), want),
+           "heads_swapped": rel_err(swapped, want),
+           "v_tile_shifted": rel_err(plain(k, v.roll(64, dims=1)), want)}
     if kind == "chunk" or (kind == "ilv" and arg):
         pad = -(-n // 128) * 128 - n
         kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
@@ -680,11 +717,17 @@ def phase_kernels(dev):
             ms = time_ms(run)
             plain_ms = time_ms(lambda: av.spatial_variant_plain(variant, q, k, v, scale, n, h),
                                iters=3, warmup=1)
-            rows.append(dict(kernel=probe_kernel[kind],
-                             shape=f"{enc} {variant} (B*T={bt}, N={n}, H={h}, D={d})",
-                             max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
-                             tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None if variant == "ceiling" else lib_ms))
+            row = dict(kernel=probe_kernel[kind],
+                       shape=f"{enc} {variant} (B*T={bt}, N={n}, H={h}, D={d})",
+                       max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
+                       tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None if variant == "ceiling" else lib_ms)
+            if kind in ("ilv", "chunk"):  # the Hopper kernels
+                n_pad = -(-n // 128) * 128
+                mix = PROBE_CHAIN["chunk" if kind == "chunk" else variant]
+                row["parent_ms"] = PARENT_MS[(probe_kernel[kind], f"{enc} {variant}")]
+                row["extra"] = f" chain_bound_ms={chain_bound(mix, bt * h * n_pad**2):.4f}"
+            rows.append(row)
             del got, want
         del q, k, v, qt, kt, vt
 
@@ -811,9 +854,9 @@ def main() -> int:
         # the probe kernels and the fused resize -> conv: phase probes
         "resize_conv": ("resize_conv", "csrc/resize_conv.cu",
                         "video_depth_anything_tpu/ops/pallas_resize_conv.py:63"),
-        "ilv_attention": ("ilv_attention", "csrc/attention_variants.cu",
+        "ilv_attention": ("ilv_attention", "csrc/attention_variants_hopper.cu",
                           "scripts/bench_spatial_variants.py:49"),
-        "chunk_attention": ("chunk_attention", "csrc/attention_variants.cu",
+        "chunk_attention": ("chunk_attention", "csrc/attention_variants_hopper.cu",
                             "scripts/bench_spatial_variants.py:86"),
         "sbf16_attention": ("sbf16_attention", "csrc/attention_variants.cu",
                             "scripts/bench_spatial_variants.py:130"),

@@ -267,7 +267,8 @@ def test_output_tail_kernel(dev, n, h, w, oh, ow):
         chip_smoke.TAIL_TOL
 
 
-@pytest.mark.parametrize("n,h", [(100, 2), (200, 6), (1370, 2)])  # ragged query and key tiles
+# ragged query and key tiles; at n = 320 the last 64-key tile is all padding
+@pytest.mark.parametrize("n,h", [(320, 2), (100, 2), (200, 6), (1370, 2)])
 @pytest.mark.parametrize("variant", ["ilv", "nomask", "chunk1", "chunk2", "chunk4", "sbf16",
                                      "sbf16:fast", "ceiling"])
 def test_spatial_probe_kernels(dev, variant, n, h):

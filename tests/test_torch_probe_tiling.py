@@ -1,0 +1,294 @@
+"""The tilings of the spatial probes' Hopper kernels
+(``csrc/attention_variants_hopper.cu``: ``ilv_hopper<NOMASK>`` and
+``chunk_hopper``), emulated in torch on the CPU, against the TPU kernels of
+``scripts/bench_spatial_variants.py`` (``run_variant``) in Pallas interpret
+mode on the same seeded inputs.
+
+The emulation follows the kernels' plan: CTAs of 128 query rows in two
+64-row warpgroups, 64-key tiles up to round_up(n, 128) with zero-filled pad
+rows, q prescaled by scale·log2 e in fp32 and rounded to bf16 in shared
+memory, the kernels' ``exp2_poly`` (the floor by a rounding-down add), P
+rounded to bf16 before P·V.  ``ilv`` takes the per-tile order of both heads
+(S0, S1, chain 0, P0·V0, chain 1, P1·V1); ``chunk`` the flat (stream, key
+tile) pipeline with its two S/P slots, its two Q slots and the
+stream-boundary hand-off of l.  Three mutants must miss by more than
+``chip_smoke.ATTN_TOL``: P·V reading the other slot's P, a stream's output
+stored in the other head of the pair, and q scaled after the bf16 rounding
+(the scale folded into the scores) in place of before."""
+
+import functools
+import importlib.util
+import types
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from jax.experimental import pallas as pl
+
+import chip_smoke
+from video_depth_anything_torch.ops import attention_variants as av
+
+ROOT = Path(__file__).resolve().parent.parent
+BF16_ULP = 2.0**-8
+# emulation and TPU kernel (interpret) round at the same points and differ
+# in fp32 summation order: within 2 bf16 ulps of max|output|
+TOL = 2 * BF16_ULP
+SCALE = 64**-0.5
+
+
+@pytest.fixture(scope="module")
+def bsv():
+    """``scripts/bench_spatial_variants.py`` with ``pl.pallas_call`` in
+    interpret mode: its ``pl`` swapped for a namespace, nothing edited."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_spatial_variants", ROOT / "scripts" / "bench_spatial_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.pl = types.SimpleNamespace(
+        pallas_call=functools.partial(pl.pallas_call, interpret=True), BlockSpec=pl.BlockSpec)
+    return mod
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def kernel_exp2(x):
+    """``exp2_poly`` as the Hopper kernels compute it: x clamped at −127,
+    the floor (there: ``__fadd_rd(x, 1.5·2²³) − 1.5·2²³``), the exponent
+    clamped at 127 and built in the exponent field."""
+    x = torch.clamp(x, min=-127.0)
+    fl = torch.floor(x)
+    xf = x - fl
+    sc = ((torch.clamp(fl, max=127.0).to(torch.int32) + 127) << 23).view(torch.float32)
+    c = av.EXP2_C
+    return sc * (c[0] + xf * (c[1] + xf * (c[2] + xf * (c[3] + xf * c[4]))))
+
+
+def _prescale(q_rows, c, mutant):
+    """A warpgroup's Q rows as the product reads them: q·c rounded to bf16,
+    or under the mutant raw bf16 q (the scale then goes on the scores)."""
+    return q_rows if mutant == "q_scaled_after_rounding" else _bf16(q_rows * c)
+
+
+def _scores(qs, kt, c, mutant):
+    s = qs @ kt.mT
+    return s * c if mutant == "q_scaled_after_rounding" else s
+
+
+def _operands(q, k, v, rows):
+    """fp32 copies: q zero-padded to ``rows`` query rows, k and v to
+    round_up(n, 128) keys (TMA's zero fill)."""
+    n = q.shape[1]
+    n_pad = _round_up(n, 128)
+    return (F.pad(q.float(), (0, 0, 0, rows - n)), F.pad(k.float(), (0, 0, 0, n_pad - n)),
+            F.pad(v.float(), (0, 0, 0, n_pad - n)), n_pad)
+
+
+def emulate_ilv(q, k, v, heads, nomask, mutant=None):
+    b, n, hd = q.shape
+    c = torch.tensor(SCALE * av.LOG2E, dtype=torch.float32)
+    ctas = _round_up(n, 128) // 128
+    qp, kp, vp, n_pad = _operands(q, k, v, ctas * 128)
+    out = torch.zeros(b, n, hd)
+    key_idx = torch.arange(n_pad)
+    for x in range(ctas):
+        for pair in range(heads // 2):
+            cols = [slice((2 * pair + h) * 64, (2 * pair + h + 1) * 64) for h in range(2)]
+            for cw in range(2):
+                r0 = x * 128 + cw * 64
+                qs = [_prescale(qp[:, r0:r0 + 64, cl], c, mutant) for cl in cols]
+                o = [torch.zeros(b, 64, 64), torch.zeros(b, 64, 64)]
+                l = [torch.zeros(b, 64), torch.zeros(b, 64)]
+                for j in range(n_pad // 64):
+                    keys = slice(j * 64, (j + 1) * 64)
+                    s = [_scores(qs[h], kp[:, keys, cols[h]], c, mutant) for h in range(2)]
+                    for h in range(2):  # chain 0, P0 V0, then chain 1, P1 V1
+                        sh = s[h] if nomask else torch.where(key_idx[keys] < n, s[h], -1e30)
+                        p = kernel_exp2(sh)
+                        l[h] += p.sum(-1)
+                        o[h] += _bf16(p) @ vp[:, keys, cols[h]]
+                m = min(64, n - r0)
+                for h in range(2):
+                    if m > 0:
+                        lh = l[h] - (n_pad - n if nomask else 0)
+                        out[:, r0:r0 + m, cols[h]] = (o[h] / lh[..., None])[:, :m]
+    return out.to(torch.bfloat16)
+
+
+def emulate_chunk(q, k, v, heads, nc, mutant=None):
+    b, n, hd = q.shape
+    c = torch.tensor(SCALE * av.LOG2E, dtype=torch.float32)
+    ctas = -(-(_round_up(n, 128) // 128) // nc)
+    qp, kp, vp, n_pad = _operands(q, k, v, ctas * nc * 128)
+    kt = n_pad // 64
+    out = torch.zeros(b, n, hd)
+    for x in range(ctas):
+        row0 = x * nc * 128
+        nct = min(nc, -(-(n - row0) // 128))  # chunks with real rows
+        steps = 2 * nct * kt
+        for pair in range(heads // 2):
+            def head(st):  # stream st = head * nct + chunk
+                return 2 * pair + st // nct
+
+            for cw in range(2):
+                def first_row(st):
+                    return row0 + (st % nct) * 128 + cw * 64
+
+                q_slot, s_slot, p_slot = [None, None], [None, None], [None, None]
+                l_cur, l_fin, acc = torch.zeros(b, 64), None, None
+                for i in range(steps + 2):
+                    if i < steps:  # S(i)
+                        st, h = i // kt, head(i // kt)
+                        if i % kt == 0:
+                            r0 = first_row(st)
+                            q_slot[st % 2] = _prescale(qp[:, r0:r0 + 64, h * 64:(h + 1) * 64],
+                                                       c, mutant)
+                        j = i % kt
+                        s_slot[i % 2] = _scores(q_slot[st % 2],
+                                                kp[:, j * 64:(j + 1) * 64, h * 64:(h + 1) * 64],
+                                                c, mutant)
+                    if 1 <= i <= steps:  # the chain of step i - 1
+                        p = kernel_exp2(s_slot[(i - 1) % 2])
+                        l_cur = l_cur + p.sum(-1)
+                        p_slot[(i - 1) % 2] = _bf16(p)
+                        if (i - 1) % kt == kt - 1:
+                            l_fin, l_cur = l_cur, torch.zeros(b, 64)
+                    if i >= 2:  # P V(i - 2); the stream's output after its last
+                        jj = i - 2
+                        st, h, j = jj // kt, head(jj // kt), jj % kt
+                        slot = (i - 1) % 2 if mutant == "p_other_slot" else jj % 2
+                        term = p_slot[slot] @ vp[:, j * 64:(j + 1) * 64, h * 64:(h + 1) * 64]
+                        acc = term if j == 0 else acc + term
+                        if j == kt - 1:
+                            oh = h ^ 1 if mutant == "output_other_head" else h
+                            r0 = first_row(st)
+                            m = min(64, n - r0)
+                            if m > 0:
+                                out[:, r0:r0 + m, oh * 64:(oh + 1) * 64] = (
+                                    acc / (l_fin - (n_pad - n))[..., None])[:, :m]
+    return out.to(torch.bfloat16)
+
+
+def emulate(variant, q, k, v, heads, mutant=None):
+    kind, arg = av.parse_variant(variant, q.shape[1])
+    if kind == "ilv":
+        return emulate_ilv(q, k, v, heads, arg, mutant)
+    return emulate_chunk(q, k, v, heads, arg, mutant)
+
+
+def _inputs(n, heads, seed, qk_std=0.5):
+    """The probe script's inputs (bench_spatial_variants.py:250-252): q, k
+    at std 0.5 (or ``qk_std``), v at 1, bf16, batch 2."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy((rng.randn(2, n, heads * 64) * s).astype(np.float32))
+            .to(torch.bfloat16) for s in (qk_std, qk_std, 1.0)]
+
+
+def _run_variant(bsv, variant, q, k, v, heads):
+    out = bsv.run_variant(variant, *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                                      for t in (q, k, v)),
+                          scale=SCALE, n_valid=q.shape[1], num_heads=heads)
+    return torch.from_numpy(np.asarray(out, np.float32))
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _cases():
+    out = []
+    for n in (40, 64, 200):
+        for heads in (2, 4):
+            for variant in ("ilv", "nomask", "chunk1", "chunk2", "chunk4"):
+                try:
+                    av.parse_variant(variant, n)
+                except ValueError:  # outside the JAX domain: chunk4 at n = 40 and 200
+                    continue
+                out.append((variant, n, heads))
+    return out
+
+
+def test_kernel_exp2_is_exp2_poly():
+    """The kernels' floor and clamps give exp2_poly's bits over [−300, 140]
+    (x < −126 gives 0 both ways; x ≥ 128 keeps the exponent at 127)."""
+    x = np.concatenate([np.linspace(-300, 140, 40009, dtype=np.float32),
+                        np.float32([-200, -127.5, -127, -126.5, -126, -1, -0.0, 0, 1, 126.5,
+                                    127, 127.75, 128, 130.25])])
+    t = torch.from_numpy(x)
+    assert torch.equal(kernel_exp2(t), av.exp2_poly(t))
+
+
+@pytest.mark.parametrize("variant,n,heads", _cases())
+def test_tiling_matches_run_variant(bsv, variant, n, heads):
+    q, k, v = _inputs(n, heads, seed=n + heads)
+    want = _run_variant(bsv, variant, q, k, v, heads)
+    got = emulate(variant, q, k, v, heads)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= TOL
+
+
+# (variant, mutant): each wrong plan misses the TPU kernel by more than the
+# card's tolerance.  Peaked inputs (q, k at std 4: scaled logits up to ~90)
+# make the bf16 rounding point of q·c matter.
+MUTANTS = [("chunk2", "p_other_slot"), ("chunk2", "output_other_head"),
+           ("chunk2", "q_scaled_after_rounding"), ("ilv", "q_scaled_after_rounding")]
+
+
+@pytest.mark.parametrize("variant,mutant", MUTANTS)
+def test_mutant_misses_run_variant(bsv, variant, mutant):
+    n, heads = 200, 2
+    q, k, v = _inputs(n, heads, seed=7, qk_std=4.0)
+    want = _run_variant(bsv, variant, q, k, v, heads)
+    assert _rel(emulate(variant, q, k, v, heads), want) <= TOL
+    assert _rel(emulate(variant, q, k, v, heads, mutant), want) > chip_smoke.ATTN_TOL
+
+
+def test_launch_checks_tensor_maps_before_any_build():
+    """The Hopper launches check each operand's tensor map first: a base
+    that is not 16-byte aligned raises before anything is built."""
+    n, heads = 40, 2
+    flat = torch.zeros(3 * 2 * n * heads * 64 + 1, dtype=torch.bfloat16)
+    q, k, v = (flat[1 + i * 2 * n * heads * 64:1 + (i + 1) * 2 * n * heads * 64]
+               .view(2, n, heads * 64) for i in range(3))
+    for name in ("ilv", "chunk"):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            av._launch_spatial(name, q, k, v, SCALE, heads, 0, 0)
+
+
+def test_split_rewrites_find_their_anchors():
+    """``bench_probe_split``'s rewrites of the Hopper source (the split
+    builds and the clock64 timeline) each find their anchor once."""
+    from video_depth_anything_torch import bench_probe_split as bps
+
+    design, csrc = bps.design_of(str(ROOT))
+    assert design is bps.HOPPER
+    text = (Path(csrc) / design["file"]).read_text()
+    assert bps.rewrite(text, design).count("PROBE_STOP") >= 3
+    assert all(text.count(anchor) == 1 for anchor, _ in bps.TIMELINE)
+
+
+def test_chain_mix_cancels_unrolling():
+    """The chain-free build's counts are scaled to the full build's number
+    of products before they are subtracted, and P's pack is added."""
+    from collections import Counter
+
+    from video_depth_anything_torch import bench_probe_split as bps
+
+    full = Counter({"HGMMA.64": 32, "FADD.RM": 128, "FFMA": 600, "MOV": 40})
+    nochain = Counter({"HGMMA.64": 16, "FFMA": 44, "MOV": 20})
+    mix = bps.chain_mix(full, nochain)
+    assert mix["exponentials_in_sass"] == 128 and mix["products_ratio"] == 2.0
+    assert mix["per_score"]["FFMA"] == pytest.approx((600 - 88) / 128, abs=1e-3)
+    assert "MOV" not in mix["per_score"]
+    assert mix["per_score_by_class"]["conversion"] == 0.5
+    total = mix["per_score_by_class"]["total"]
+    assert bps.chain_bound_ms(mix["per_score_by_class"], 1e9, 132, 1.98e9) == \
+        pytest.approx(1e9 * total / 128 / (132 * 1.98e9) * 1e3)

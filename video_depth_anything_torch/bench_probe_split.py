@@ -1,0 +1,445 @@
+"""Where the spatial probe kernels ``ilv`` / ``nomask`` and ``chunk<k>``
+spend their time on the card: each kernel built in full and with parts
+taken out, timed at the probe script's shapes, with its ``ptxas`` lines
+and the instruction mix of its softmax chain read from the SASS.
+
+    python -m video_depth_anything_torch.bench_probe_split [ROOT ...]
+        [--variants ilv nomask chunk2 chunk4] [--no-timing] [--timeline]
+
+The kernels are built from the ``csrc`` of each checkout ROOT (default:
+this tree; for example an unpacked parent commit and this tree, to time
+the two in turns on one card), each source rewritten at fixed anchors
+behind a ``PROBE_STOP`` / ``PROBE_FLOORF`` macro (built with the macro at
+0, the source is the kernel as shipped):
+
+* ``full``: the kernel;
+* ``nochain``: the chain removed (p = s, as ``ceiling`` does);
+* ``noproducts``: the products and the chain removed (loads and stores
+  only);
+* ``floorf`` (the Hopper design only): ``exp2_poly`` with ``floorf`` and
+  ``__float2int_rz``, as the TPU kernel and the ``mma.sync`` kernels take
+  the floor and the exponent, in place of the rounding-down add.
+
+The design is found from the source: the ``mma.sync`` kernels
+(``csrc/attention_variants.cu`` with ``ilv_kernel``) or the Hopper ones
+(``csrc/attention_variants_hopper.cu``).  Each build is timed with CUDA
+events (``utils/device.event_ms``) in turns: the builds in order, then in
+reverse order, per shape.  The ``full`` and ``floorf`` builds are held
+against ``spatial_kernel_plain``.  ``--no-timing`` stops after the builds
+and the SASS; ``--timeline`` also prints the phases of one CTA of this
+tree's Hopper kernels, from ``clock64()`` stamps (``timeline``).
+
+The chain's mix: ``cuobjdump -sass`` of the ``full`` and ``nochain``
+builds, opcodes counted in each kernel function; the difference divided
+by the number of exponentials in the full build (its ``FRND`` count, or
+for the rounding-down add its ``FADD.RM`` count) is the chain's
+instructions per score, the chain-free build's counts first scaled to the
+full build's number of tensor-core instructions, plus P's bf16 pack (half
+an ``F2FP`` a score, in both builds).  The chain bound is the scores
+(32 * H * 1408^2 at n = 1370) times the largest of: conversions over 16 a
+clock, fp32 operations over 128, integer operations over 64, and all
+instructions over 128 (the SM's issue rate), on every SM at the card's
+largest SM clock (the CUDA C++ Programming Guide's throughputs for
+compute capability 9.0).  Prints the card's name and power limit, then
+one JSON line per kernel function and per timed row.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+from collections import Counter
+
+N, D, BATCH = 1370, 64, 32
+ENCODERS = (("vitl", 16), ("vits", 6))
+PEAK_BF16 = 989e12
+RATE = {"conversion": 16, "fp32": 128, "integer": 64}
+CLASSES = {
+    "conversion": ("F2I", "I2F", "FRND", "F2F", "F2FP", "I2FP", "F2IP"),
+    "fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FCHK"),
+    "integer": ("IADD3", "IMAD", "IMNMX", "SHF", "LOP3", "ISETP", "SEL", "LEA", "IABS", "IADD",
+                "SHL", "SHR", "VIMNMX", "VIADDMNMX", "VIADD"),
+}
+PACK = "F2FP.BF16.F32.PACK_AB"  # P's bf16 pack: half an instruction a score, in both builds
+
+# The rewrites of each design: (anchor, text put after the anchor).
+_STOP1 = "  if (PROBE_STOP >= 1) return;\n"
+_STOP2 = "  if (PROBE_STOP >= 2) return;\n"
+MMA_SYNC = {
+    "file": "attention_variants.cu",
+    "kernels": {"ilv": "ilv_kernel", "chunk": "chunk_kernel"},
+    "rewrites": [
+        ("__device__ __forceinline__ void poly_chain(float s[8][4], float l[2], int k0, int n, "
+         "int lane) {\n", _STOP1),
+        ("    for (int e = 0; e < 4; ++e) s[t][e] = 0.f;\n#pragma unroll\n  for (int kk = 0; kk < 4;"
+         " ++kk)\n#pragma unroll\n    for (int np = 0; np < 4; ++np) {", None),
+        ("__device__ __forceinline__ void pv_tile(float acc[8][4], const uint32_t p[4][4], "
+         "const bf16* sV,\n                                        int lane) {\n", _STOP2),
+    ],
+    "builds": {"full": [], "nochain": ["-DPROBE_STOP=1"], "noproducts": ["-DPROBE_STOP=2"]},
+}
+HOPPER = {
+    "file": "attention_variants_hopper.cu",
+    "kernels": {"ilv": "ilv_hopper", "chunk": "chunk_hopper"},
+    "rewrites": [
+        ("__device__ __forceinline__ void exp_rows(float (&s)[32], float (&l)[2], int valid, "
+         "int c2) {\n", _STOP1),
+        ("__device__ __forceinline__ void issue_s(float (&s)[32], uint64_t dq, uint64_t dk) {\n",
+         "  if (PROBE_STOP >= 2) { wgmma_commit(); return; }\n"),
+        ("                                         uint64_t dv, int first) {\n",
+         "  if (PROBE_STOP >= 2) { wgmma_commit(); return; }\n"),
+        ("__device__ __forceinline__ float exp2_poly(float x) {\n",
+         "#if PROBE_FLOORF\n"
+         "  {\n"
+         "    const float y = fmaxf(x, -200.f), yi = floorf(y), yf = y - yi;\n"
+         "    const int e = min(max(__float2int_rz(yi) + 127, 0), 254);\n"
+         "    return __int_as_float(e << 23) *\n"
+         "           fmaf(yf, fmaf(yf, fmaf(yf, fmaf(yf, 0.0135115307f, 0.051989575f), "
+         "0.241508857f), 0.69297426f), 1.00000526f);\n"
+         "  }\n"
+         "#endif\n"),
+    ],
+    "builds": {"full": [], "nochain": ["-DPROBE_STOP=1"], "noproducts": ["-DPROBE_STOP=2"],
+               "floorf": ["-DPROBE_FLOORF=1"]},
+}
+
+
+def rewrite(text: str, design: dict) -> str:
+    for anchor, add in design["rewrites"]:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"bench_probe_split: anchor not found once in {design['file']}: "
+                             f"{anchor[:60]!r}")
+        if add is None:  # qk_tile: return after the zeroing loop
+            text = text.replace(anchor, anchor.replace("#pragma unroll\n  for (int kk",
+                                                       _STOP2 + "#pragma unroll\n  for (int kk", 1))
+        else:
+            text = text.replace(anchor, anchor + add)
+    return "#ifndef PROBE_STOP\n#define PROBE_STOP 0\n#endif\n#ifndef PROBE_FLOORF\n" \
+           "#define PROBE_FLOORF 0\n#endif\n" + text
+
+
+def design_of(root: str):
+    csrc = os.path.join(root, "video_depth_anything_torch", "csrc")
+    if os.path.exists(os.path.join(csrc, HOPPER["file"])):
+        return HOPPER, csrc
+    if "ilv_kernel" in open(os.path.join(csrc, MMA_SYNC["file"])).read():
+        return MMA_SYNC, csrc
+    raise SystemExit(f"bench_probe_split: no probe kernels of a known design under {csrc}")
+
+
+def start_build(tag: str, csrc: str, design: dict, flags: list, out_dir: str):
+    """Start compiling the rewritten source with ``flags``: ``(process,
+    library path)``."""
+    from video_depth_anything_torch.ops import cuda_build
+
+    d = os.path.join(out_dir, tag)
+    os.makedirs(d, exist_ok=True)
+    for f in os.listdir(csrc):
+        if f.endswith(".cuh"):
+            shutil.copy(os.path.join(csrc, f), d)
+    cu, so = os.path.join(d, "probe.cu"), os.path.join(d, "libprobe.so")
+    with open(os.path.join(csrc, design["file"])) as f:
+        text = rewrite(f.read(), design)
+    with open(cu, "w") as f:
+        f.write(text)
+    proc = subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o", so, cu],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def finish_build(tag: str, proc) -> list:
+    """Wait for a build; its ``ptxas`` lines (registers, spills, wgmma)."""
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise SystemExit(f"bench_probe_split: nvcc failed for {tag}:\n{out}")
+    return [ln.strip() for ln in out.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln or "wgmma" in ln]
+
+
+def sass_opcodes(so: str) -> dict:
+    """``{function name: Counter of opcodes}`` from ``cuobjdump -sass``."""
+    from video_depth_anything_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:  # the anonymous namespace's hash differs from build to build
+            cur = funcs.setdefault(re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", m.group(1)),
+                                   Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and cur is not None:
+            cur[m.group(1)] += 1
+    return funcs
+
+
+def chain_mix(full: Counter, nochain: Counter) -> dict:
+    """The chain's instructions per score by opcode and by class: the full
+    build's counts less the chain-free build's, the latter scaled to the
+    same number of tensor-core instructions (HMMA or HGMMA), so that a
+    loop unrolled another number of times in one build cancels."""
+    def products(c):
+        return sum(v for k, v in c.items() if k.split(".")[0] in ("HMMA", "HGMMA"))
+
+    scores = sum(v for k, v in full.items() if k.split(".")[0] == "FRND")
+    if scores == 0:
+        scores = sum(v for k, v in full.items() if k.startswith("FADD") and ".RM" in k)
+    if scores == 0 or products(nochain) == 0:
+        return {"error": "no exponential or no product found in the SASS"}
+    r = products(full) / products(nochain)
+    diff = {k: (full.get(k, 0) - r * nochain.get(k, 0)) / scores
+            for k in set(full) | set(nochain)}
+    diff = {k: v for k, v in diff.items() if abs(v) >= 0.01}
+    diff[PACK] = diff.get(PACK, 0.0) + 0.5
+    by_class = Counter()
+    for k, v in diff.items():
+        base = k.split(".")[0]
+        cls = next((c for c, ops in CLASSES.items() if base in ops), "other")
+        by_class[cls] += v
+    by_class["total"] = sum(diff.values())
+    return {"exponentials_in_sass": scores, "products_ratio": round(r, 3),
+            "per_score": {k: round(v, 3) for k, v in sorted(diff.items())},
+            "per_score_by_class": {k: round(v, 3) for k, v in by_class.items()}}
+
+
+def chain_bound_ms(by_class: dict, scores: float, sms: int, clock_hz: float) -> float:
+    cycles = max([by_class.get(c, 0.0) / r for c, r in RATE.items()]
+                 + [by_class.get("total", 0.0) / 128])
+    return scores * cycles / (sms * clock_hz) * 1e3
+
+
+# --timeline: clock64() stamps of one CTA's warpgroups, written by thread 0
+# of each, at the phases of every key tile (ilv) or step (chunk)
+_TIMELINE_HEAD = """
+__device__ long long g_stamps[2][4096];
+#define STAMP(idx) do { if ((threadIdx.x & 127) == 0 && blockIdx.x == STAMP_X && \\
+    blockIdx.y == 3 && blockIdx.z == 16) g_stamps[cw][(idx)] = clock64(); } while (0)
+"""
+TIMELINE = [  # (anchor, the anchor with stamps)
+    ("namespace {\n\nconstexpr int kQRows", _TIMELINE_HEAD + "namespace {\n\nconstexpr int kQRows"),
+    ("    mbar_wait(&sm.full[s], (j / kIlvStages) & 1);\n",
+     "    STAMP(j * 8);\n    mbar_wait(&sm.full[s], (j / kIlvStages) & 1);\n    STAMP(j * 8 + 1);\n"),
+    ("    wgmma_wait<1>();  // S0 done; so are the previous tile's P V products\n    fence_regs(s0);\n",
+     "    wgmma_wait<1>();  // S0 done; so are the previous tile's P V products\n    fence_regs(s0);\n"
+     "    STAMP(j * 8 + 2);\n"),
+    ("    pack_p(p0, s0);\n", "    pack_p(p0, s0);\n    STAMP(j * 8 + 3);\n"),
+    ("    wgmma_wait<1>();  // S1 done, P0 V0 in flight\n    fence_regs(s1);\n",
+     "    wgmma_wait<1>();  // S1 done, P0 V0 in flight\n    fence_regs(s1);\n    STAMP(j * 8 + 4);\n"),
+    ("    pack_p(p1, s1);\n", "    pack_p(p1, s1);\n    STAMP(j * 8 + 5);\n"),
+    ("    mbar_wait(&sm.full[i % kChunkStages], (i / kChunkStages) & 1);\n",
+     "    STAMP(i * 8);\n    mbar_wait(&sm.full[i % kChunkStages], (i / kChunkStages) & 1);\n"
+     "    STAMP(i * 8 + 1);\n"),
+    ("    wgmma_wait<WS>();\n    fence_regs(S[PAR ^ 1]);\n",
+     "    wgmma_wait<WS>();\n    fence_regs(S[PAR ^ 1]);\n    STAMP(i * 8 + 2);\n"),
+    ("    if constexpr (WP >= 0) {\n      wgmma_wait<WP>();\n",
+     "    STAMP(i * 8 + 3);\n    if constexpr (WP >= 0) {\n      wgmma_wait<WP>();\n      STAMP(i * 8 + 4);\n"),
+]
+# phases between stamps 0..5 (ilv) or 0..4 (chunk), then to the next step's stamp 0
+PHASES = {"ilv": ("wait_full", "s0_wait", "chain0", "s1_wait", "chain1", "pv1_to_next"),
+          "chunk": ("wait_full", "s_issue_wait", "chain", "pv_wait", "pack_pv_to_next")}
+
+
+def timeline(csrc: str, out_dir: str, variants) -> None:
+    """Build the Hopper kernels with clock64() stamps and print, for one
+    CTA of each variant at vitl, each warpgroup's median cycles per phase
+    over its middle steps (a CTA deep in the grid: x = 5 for ilv, 1 for
+    chunk; pair 3, batch 16)."""
+    import statistics
+
+    import torch
+
+    from video_depth_anything_torch.ops import attention_variants as av
+    from video_depth_anything_torch.ops import cuda_build
+
+    with open(os.path.join(csrc, HOPPER["file"])) as f:
+        text = f.read()
+    for anchor, new in TIMELINE:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"bench_probe_split: timeline anchor not found once: {anchor[:60]!r}")
+        text = text.replace(anchor, new)
+    text += ('\nextern "C" int vda_stamps(void* out) {\n'
+             '  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));\n}\n')
+    libs = {}
+    for x in (5, 1):
+        d = os.path.join(out_dir, f"timeline{x}")
+        os.makedirs(d, exist_ok=True)
+        for f in os.listdir(csrc):
+            if f.endswith(".cuh"):
+                shutil.copy(os.path.join(csrc, f), d)
+        with open(os.path.join(d, "probe.cu"), "w") as f:
+            f.write(text)
+        so = os.path.join(d, "libprobe.so")
+        proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-DSTAMP_X={x}", "-o",
+                               so, os.path.join(d, "probe.cu")], capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit(f"bench_probe_split: timeline build failed:\n{proc.stdout}{proc.stderr}")
+        libs[x] = ctypes.CDLL(so)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    heads = 16
+    q, k, v = ((torch.randn(BATCH, N, heads * D, generator=gen, device=dev) * std)
+               .to(torch.bfloat16) for std in (0.5, 0.5, 1.0))
+    for variant in variants:
+        kind, arg = av.parse_variant(variant, N)
+        lib = libs[5 if kind == "ilv" else 1]
+        fn = getattr(lib, f"vda_{kind}")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 4 + [i] * 3 + [ctypes.c_float, i, i, vp]
+        fn.restype = ctypes.c_int
+        for _ in range(3):
+            out = torch.empty_like(q)
+            cuda_build.check(fn(*(cuda_build.ptr(t) for t in (q, k, v, out)), BATCH, N, heads,
+                                float(D**-0.5 * av.LOG2E), int(arg), 0, cuda_build.stream_of(q)),
+                             "timeline")
+        torch.cuda.synchronize()
+        buf = torch.zeros(2, 4096, dtype=torch.int64)
+        cuda_build.check(lib.vda_stamps(ctypes.c_void_p(buf.data_ptr())), "stamps")
+        n_pad = -(-N // 128) * 128
+        # the CTA's key tiles (ilv) or steps (chunk: CTA x = 1 has min(nc, its chunks) chunks)
+        steps = (n_pad // 64 if kind == "ilv"
+                 else 2 * min(arg, -(-(N - arg * 128) // 128)) * (n_pad // 64))
+        names = PHASES[kind]
+        for wg in range(2):
+            b = buf[wg].tolist()
+            rows = {name: [] for name in names}
+            for j in range(2, steps - 3):
+                marks = [b[j * 8 + c] for c in range(len(names))] + [b[(j + 1) * 8]]
+                for c, name in enumerate(names):
+                    rows[name].append(marks[c + 1] - marks[c])
+            per_step = statistics.median(b[(j + 1) * 8] - b[j * 8] for j in range(2, steps - 3))
+            print(json.dumps({"timeline": variant, "enc": "vitl", "warpgroup": wg,
+                              "cycles_per_step": per_step,
+                              "median_cycles": {n_: statistics.median(r) for n_, r in
+                                                rows.items()}}), flush=True)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*", help="checkouts whose kernels to build (default: this one)")
+    ap.add_argument("--variants", nargs="+", default=["ilv", "nomask", "chunk2", "chunk4"])
+    ap.add_argument("--no-timing", action="store_true",
+                    help="builds, ptxas lines and the chain's mix only")
+    ap.add_argument("--timeline", action="store_true",
+                    help="also the phases of one CTA of this tree's Hopper kernels, by clock64()")
+    args = ap.parse_args(argv)
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops import attention_variants as av
+    from video_depth_anything_torch.ops import cuda_build
+    from video_depth_anything_torch.utils.device import card_line, event_ms
+
+    if not torch.cuda.is_available():
+        print("bench_probe_split: no CUDA device", flush=True)
+        return 3
+    print(card_line(), flush=True)
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    roots = [os.path.abspath(r) for r in args.roots or [here]]
+    trees = [(os.path.basename(r) or r, r) for r in roots]
+    out_dir = tempfile.mkdtemp(prefix="probe_split_")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    builds, started = {}, {}  # tag -> (fns, design); tag -> (process, library)
+    for tree, root in trees:
+        design, csrc = design_of(root)
+        for name, flags in design["builds"].items():
+            tag = f"{tree}:{name}"
+            started[tag] = start_build(tag.replace(":", "_"), csrc, design, flags, out_dir)
+    for tree, root in trees:
+        design, csrc = design_of(root)
+        sass = {}
+        for name in design["builds"]:
+            tag = f"{tree}:{name}"
+            proc, so = started[tag]
+            for ln in finish_build(tag, proc):
+                print(f"[ptxas] {tag}: {ln}", flush=True)
+            if name in ("full", "nochain"):
+                sass[name] = sass_opcodes(so)
+            lib = ctypes.CDLL(so)
+            fns = {}
+            for kind in ("ilv", "chunk"):
+                fn = getattr(lib, f"vda_{kind}")
+                vp, i = ctypes.c_void_p, ctypes.c_int
+                fn.argtypes = [vp] * 4 + [i] * 3 + [ctypes.c_float, i, i, vp]
+                fn.restype = ctypes.c_int
+                fns[kind] = fn
+            builds[tag] = (fns, design)
+        for kind, kname in design["kernels"].items():
+            for func, counts in sass["full"].items():
+                if kname not in func:
+                    continue
+                mix = chain_mix(counts, sass["nochain"].get(func, Counter()))
+                row = {"tree": tree, "kernel": kind, "function": func, **mix,
+                       "counts_full": dict(counts),
+                       "counts_nochain": dict(sass["nochain"].get(func, {}))}
+                if "per_score_by_class" in mix:
+                    row["chain_bound_ms"] = {
+                        enc: round(chain_bound_ms(mix["per_score_by_class"],
+                                                  BATCH * h * 1408.0 * 1408.0, sms, clock), 4)
+                        for enc, h in ENCODERS}
+                print(json.dumps(row), flush=True)
+    print(json.dumps({"sms": sms, "max_sm_clock_mhz": clock / 1e6}), flush=True)
+    if args.timeline:
+        timeline(design_of(here)[1], out_dir, args.variants)
+    if args.no_timing:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        return 0
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scale = D**-0.5
+    tags = list(builds)
+    for enc, heads in ENCODERS:
+        q, k, v = ((torch.randn(BATCH, N, heads * D, generator=gen, device=dev) * std)
+                   .to(torch.bfloat16) for std in (0.5, 0.5, 1.0))
+        qt, kt, vt = (t.view(BATCH, N, heads, D).transpose(1, 2) for t in (q, k, v))
+        sdpa_ms = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
+        tensor_ms = 4.0 * BATCH * heads * N * N * D / PEAK_BF16 * 1e3
+        for variant in args.variants:
+            kind, arg = av.parse_variant(variant, N)
+            flag = int(arg)
+            want = av.spatial_kernel_plain(kind, arg, q, k, v, scale, heads).float()
+
+            def run(tag, kind=kind, flag=flag):
+                out = torch.empty_like(q)
+                err = builds[tag][0][kind](*(cuda_build.ptr(t) for t in (q, k, v, out)), BATCH, N,
+                                           heads, float(scale * av.LOG2E), flag, 0,
+                                           cuda_build.stream_of(q))
+                cuda_build.check(err, tag)
+                return out
+
+            times = {tag: [] for tag in tags}
+            for order in (tags, tags[::-1]):
+                for tag in order:
+                    times[tag].append(event_ms(lambda tag=tag: run(tag)))
+            for tag in tags:
+                row = {"enc": enc, "variant": variant, "build": tag,
+                       "ms": round(sum(times[tag]) / 2, 4), "ms_turns": [round(t, 4) for t in
+                                                                         times[tag]],
+                       "sdpa_ms": round(sdpa_ms, 4), "tensor_bound_ms": round(tensor_ms, 4)}
+                if tag.endswith(("full", "floorf")):
+                    got = run(tag).float()
+                    row["rel_err"] = float((got - want).abs().max() / want.abs().max())
+                print(json.dumps(row), flush=True)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,9 +1,12 @@
-// Kernel A's probe kernels: the TPU probe scripts' kernels on Hopper.
+// Kernel A's probe kernels on mma.sync: the TPU probe scripts' kernels
+// that attention_variants_hopper.cu does not hold yet.
 //
-// Replaces scripts/bench_spatial_variants.py:_kernel_ilv (variants ilv,
-// nomask), _kernel_chunk (chunk<k>) and _kernel_sbf16 (sbf16, sbf16:fast,
-// ceiling), launched by run_variant, and scripts/bench_softmax_chain.py
-// make_kernel's kern (seven modes).  The numerics are the TPU kernels':
+// Replaces scripts/bench_spatial_variants.py:_kernel_sbf16 (sbf16,
+// sbf16:fast, ceiling), launched by run_variant, and
+// scripts/bench_softmax_chain.py make_kernel's kern (seven modes).
+// _kernel_ilv (ilv, nomask) and _kernel_chunk (chunk<k>) are the Hopper
+// kernels of attention_variants_hopper.cu.  The numerics are the TPU
+// kernels':
 //   * spatial variants, on the head-interleaved (B, N, H*64) layout: q is
 //     prescaled by scale*log2(e) in fp32 and rounded to bf16 (in the q
 //     load here, in the wrapper there); keys are padded with zeros to a
@@ -21,32 +24,11 @@
 // 4 * n^2 * 64 * H * B FLOP of valid work (vitl 32 x 1370 x 16 heads:
 // 0.2487 ms at 989 TFLOP/s; vits 6 heads: 0.0933) against ~0.1 GB moved;
 // the chain probe 2 * 2 * 1376 * 1408 * 64 * 512 FLOP (0.257 ms).  The
-// design is Kernel A's skeleton (flash_attention.cu): 64 query rows per
-// CTA, 16 per warp, 64-key tiles in shared memory, QK^T and P V on
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), S and P in registers.
-// wgmma, TMA and warp specialisation are later work.
+// design is Kernel A's first skeleton: 64 query rows per CTA, 16 per
+// warp, 64-key tiles in shared memory, QK^T and P V on mma.sync m16n8k16
+// (bf16 in, fp32 accumulate), S and P in registers.  Their Hopper
+// redesign is later work.
 //
-//   ilv_kernel<NOMASK>   two heads per CTA, as the TPU grid (b, H/2) pairs
-//                        them.  Per key tile, in program order: QK^T of
-//                        head 0, QK^T of head 1, head 0's chain, P V of
-//                        head 0, head 1's chain, P V of head 1 -- the
-//                        TPU's stagger, which leaves independent mma and
-//                        FMA work side by side for the warp scheduler.  No
-//                        row max, so no rescale.  NOMASK drops the key
-//                        mask: a zero pad key gives p = exp2_poly(0) and
-//                        zero V, and l is corrected by -(n_pad - n).
-//   chunk_kernel         no mask, the pad correction, and a 3-stage
-//                        software pipeline with double-buffered scores
-//                        and P: at step i, QK(i), then the chain of step
-//                        i-1, then P V of step i-2 (bench_spatial_variants
-//                        .py:120-127).  A CTA owns nc row-tiles of 64
-//                        queries of one head pair: 2 * nc streams (head,
-//                        row-tile) in the TPU's order, each over all key
-//                        tiles; the pipeline runs over the flat sequence
-//                        of (stream, key tile) steps and crosses stream
-//                        boundaries.  nc is a launch argument (the TPU
-//                        kernel's static chunk count); the wrapper checks
-//                        the script's domain.
 //   sbf16_kernel<FAST, CEILING>  one head per CTA.  Scores are rounded to
 //                        bf16 after the fp32 mma and masked in bf16.
 //                        Exact mode subtracts the GLOBAL row max in bf16
@@ -63,8 +45,6 @@
 //                        given under sbf16 and takes a max pass.  The
 //                        output is the unnormalised (P V)[:, :64], so the
 //                        kernel reads only V's first 64 columns.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -181,147 +161,6 @@ __device__ __forceinline__ void store_rows(bf16* o, long long stride, int row0, 
     if (r0 + 8 < n)
       *reinterpret_cast<uint32_t*>(o + (long long)(r0 + 8) * stride + col) =
           pack_bf16x2(acc[t][2] / l[1], acc[t][3] / l[1]);
-  }
-}
-
-// The fast chain of ilv and chunk on a score tile (keys k0..): mask (unless
-// NOMASK) with -1e30, p = exp2_poly(s), row sums into l; s becomes p.
-template <bool NOMASK>
-__device__ __forceinline__ void poly_chain(float s[8][4], float l[2], int k0, int n, int lane) {
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = s[t][e];
-      if constexpr (!NOMASK) {
-        if (k0 + t * 8 + (lane & 3) * 2 + (e & 1) >= n) x = -1e30f;
-      }
-      const float p = exp2_poly(x);
-      s[t][e] = p;
-      l[e >> 1] += p;
-    }
-}
-
-// ---------------------------------------------------------------- ilv ----
-template <bool NOMASK>
-__global__ void __launch_bounds__(128) ilv_kernel(const bf16* __restrict__ q,
-                                                  const bf16* __restrict__ k,
-                                                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                                                  int n, int heads, float qscale) {
-  __shared__ __align__(16) bf16 smem[4 * TILE];  // K0, K1, V0, V1: 36.9 KB
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long hd = (long long)heads * D;
-  const long long base = (long long)blockIdx.z * n * hd + (long long)blockIdx.y * 2 * D;
-  const int row0 = blockIdx.x * BM + warp * 16;
-  const int n_pad = (n + 127) / 128 * 128;
-
-  uint32_t qf[2][4][4];
-  load_q_frags(qf[0], q + base, hd, row0, n, qscale, lane);
-  load_q_frags(qf[1], q + base + D, hd, row0, n, qscale, lane);
-  float acc[2][8][4], l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  zero_acc(acc[0]);
-  zero_acc(acc[1]);
-
-  for (int k0 = 0; k0 < n_pad; k0 += BN) {
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      load_tile64(smem + h * TILE, k + base + h * D, hd, k0, n, tid);
-      load_tile64(smem + (2 + h) * TILE, v + base + h * D, hd, k0, n, tid);
-    }
-    __syncthreads();
-    float s0[8][4], s1[8][4];
-    uint32_t p[4][4];
-    qk_tile(s0, qf[0], smem, lane);
-    qk_tile(s1, qf[1], smem + TILE, lane);  // independent of head 0's chain
-    poly_chain<NOMASK>(s0, l[0], k0, n, lane);
-    pack_p(p, s0);
-    pv_tile(acc[0], p, smem + 2 * TILE, lane);  // independent of head 1's chain
-    poly_chain<NOMASK>(s1, l[1], k0, n, lane);
-    pack_p(p, s1);
-    pv_tile(acc[1], p, smem + 3 * TILE, lane);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      l[h][rr] = quad_sum(l[h][rr]);
-      if constexpr (NOMASK) l[h][rr] -= float(n_pad - n);
-    }
-    store_rows(o + base + h * D, hd, row0, n, acc[h], l[h], lane);
-  }
-}
-
-// -------------------------------------------------------------- chunk ----
-__global__ void __launch_bounds__(128) chunk_kernel(const bf16* __restrict__ q,
-                                                    const bf16* __restrict__ k,
-                                                    const bf16* __restrict__ v,
-                                                    bf16* __restrict__ o, int n, int heads,
-                                                    float qscale, int nc) {
-  // K of the current step and a ring of three V tiles (steps i, i-1, i-2):
-  // 36.9 KB.
-  __shared__ __align__(16) bf16 smem[4 * TILE];
-  bf16* sK = smem;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long hd = (long long)heads * D;
-  const long long base = (long long)blockIdx.z * n * hd + (long long)blockIdx.y * 2 * D;
-  const int n_pad = (n + 127) / 128 * 128;
-  const int kt = n_pad / BN;  // key tiles per stream: even, >= 2
-  const int tile0 = blockIdx.x * nc;
-  const int nct = min(nc, (n + BM - 1) / BM - tile0);  // this CTA's row tiles with real rows
-  const int steps = 2 * nct * kt;
-
-  uint32_t qf[4][4];
-  float S[2][8][4], acc[8][4];
-  uint32_t P[2][4][4];
-  float l_cur[2] = {0.f, 0.f}, l_fin[2] = {0.f, 0.f};
-  zero_acc(acc);
-
-  // step i -> stream i / kt = h * nct + c (head-major, as the TPU's
-  // stream = head * nc + chunk), key tile i % kt
-  auto step = [&](int i, auto par_c) {
-    constexpr int PAR = decltype(par_c)::value;
-    __syncthreads();  // QK(i-1) and P V(i-3) are done with their tiles
-    if (i < steps) {
-      const int st = i / kt, h = st / nct;
-      load_tile64(sK, k + base + h * D, hd, (i % kt) * BN, n, tid);
-      load_tile64(smem + (1 + i % 3) * TILE, v + base + h * D, hd, (i % kt) * BN, n, tid);
-    }
-    __syncthreads();
-    if (i < steps) {  // stage 1: QK(i)
-      const int st = i / kt;
-      if (i % kt == 0)
-        load_q_frags(qf, q + base + (st / nct) * D, hd, (tile0 + st % nct) * BM + warp * 16, n,
-                     qscale, lane);
-      qk_tile(S[PAR], qf, sK, lane);
-    }
-    if (i >= 1 && i <= steps) {  // stage 2: the chain of step i-1
-      poly_chain<true>(S[PAR ^ 1], l_cur, 0, n, lane);
-      pack_p(P[PAR ^ 1], S[PAR ^ 1]);
-      if ((i - 1) % kt == kt - 1) {
-        l_fin[0] = l_cur[0];
-        l_fin[1] = l_cur[1];
-        l_cur[0] = l_cur[1] = 0.f;
-      }
-    }
-    if (i >= 2) {  // stage 3: P V of step i-2, and its stream's output
-      const int j = i - 2;
-      pv_tile(acc, P[PAR], smem + (1 + j % 3) * TILE, lane);
-      if (j % kt == kt - 1) {
-        const int st = j / kt;
-        float l[2];
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) l[rr] = quad_sum(l_fin[rr]) - float(n_pad - n);
-        store_rows(o + base + (st / nct) * D, hd, (tile0 + st % nct) * BM + warp * 16, n, acc, l,
-                   lane);
-        zero_acc(acc);
-      }
-    }
-  };
-  // steps is even, so pairs of steps keep the buffer parity compile-time
-  for (int i = 0; i < steps + 2; i += 2) {
-    step(i, std::integral_constant<int, 0>());
-    step(i + 1, std::integral_constant<int, 1>());
   }
 }
 
@@ -494,30 +333,8 @@ int launch(K kernel, dim3 grid, cudaStream_t st, A... args) {
 
 }  // namespace
 
-// Spatial variants: q, k, v, o contiguous (B, n, heads * 64) bf16, heads
-// even; qscale = scale * log2(e).  ilv: flag nomask; chunk: nc (>= 1);
-// sbf16: flags fast, ceiling.
-extern "C" int vda_ilv(const void* q, const void* k, const void* v, void* o, int batch, int n,
-                       int heads, float qscale, int nomask, int, void* stream) {
-  const dim3 grid((n + BM - 1) / BM, heads / 2, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(o);
-  return nomask ? launch(ilv_kernel<true>, grid, st, qb, kb, vb, ob, n, heads, qscale)
-                : launch(ilv_kernel<false>, grid, st, qb, kb, vb, ob, n, heads, qscale);
-}
-
-extern "C" int vda_chunk(const void* q, const void* k, const void* v, void* o, int batch, int n,
-                         int heads, float qscale, int nc, int, void* stream) {
-  if (nc < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (n + BM - 1) / BM;
-  const dim3 grid((tiles + nc - 1) / nc, heads / 2, batch);
-  return launch(chunk_kernel, grid, static_cast<cudaStream_t>(stream),
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(o), n, heads, qscale, nc);
-}
-
+// Spatial variant sbf16: q, k, v, o contiguous (B, n, heads * 64) bf16;
+// qscale = scale * log2(e); flags fast, ceiling.
 extern "C" int vda_sbf16(const void* q, const void* k, const void* v, void* o, int batch, int n,
                          int heads, float qscale, int fast, int ceiling, void* stream) {
   const dim3 grid((n + BM - 1) / BM, heads, batch);

@@ -1,0 +1,495 @@
+// Kernel A's schedule probes ilv / nomask and chunk<k> on Hopper (sm_90a).
+//
+// Replaces scripts/bench_spatial_variants.py:_kernel_ilv (variants ilv and
+// nomask) and _kernel_chunk (chunk<k>), launched by run_variant.  The
+// numerics are the TPU kernels' (ops/attention_variants.spatial_kernel_plain):
+//   * q is prescaled by scale*log2(e) in fp32 and rounded to bf16 before
+//     Q K^T.  TMA lands q raw; each warpgroup scales its own rows in shared
+//     memory once per Q tile and fences the writes for wgmma.
+//   * keys run to n_pad = round_up(n, 128); TMA zero-fills rows >= n, so a
+//     pad key scores exactly 0.  ilv masks keys >= n to -1e30 (p = 0);
+//     nomask and chunk do not mask and take (n_pad - n) off l, as the TPU
+//     kernels do (p = exp2_poly(0) = 1.00000526 per pad key).
+//   * fp32 scores, no row max, exp2_poly on the FMA units (not MUFU: that is
+//     the question the probes ask), P rounded to bf16 before P V, fp32
+//     accumulate, out = acc / l.
+//
+// exp2_poly is the TPU's _exp2_poly (pallas_attention.py:54-74) with the
+// floor and the exponent taken without conversions: t = x + 1.5 * 2^23
+// added rounding down is floor(x) + 1.5 * 2^23 exactly (|x| < 2^22), its
+// low mantissa bits are floor(x), and t - 1.5 * 2^23 is floor(x) as a float.
+// Clamping x at -127 in place of -200 and the integer exponent at 127
+// gives the same bits everywhere in that range (every x < -126 has a
+// biased exponent <= 0, clamped to 0: p = 0).  floorf and __float2int_rz
+// are conversions, 16 a clock on an SM against 128 fp32 operations; with
+// them the chain, not the tensor cores, bounds these kernels (PERF.md
+// section 6, step 0: about 2.5 conversions a score, 0.6 ms at vitl).
+//
+// Bound on the H100.  Tensor-core FLOPs: 4 * n^2 * 64 * H * B (vitl 32 x
+// 1370 x 16 heads: 0.2487 ms at 989 TFLOP/s; vits 6 heads: 0.0933).  The
+// chain: about 14 instructions a score (10 fp32, 3 integer, half a
+// conversion for the bf16 pack), issued at 128 a clock on an SM, over
+// 32 * H * 1408^2 scores: ~0.4 ms at vitl, more than the tensor bound.  So
+// the design overlaps the chain with the products: wgmma is asynchronous,
+// and the TPU kernels' program order becomes real overlap with
+// wgmma.wait_group<1> (or <2>) in place of <0>.
+//
+// Both kernels: a CTA is two warpgroups of 64 query rows each (256
+// threads), fed by TMA through an mbarrier ring; there is no producer
+// warp.  Whichever warpgroup releases a ring stage second (both have
+// waited for the products that read it; a shared-memory count decides)
+// issues the TMA loads that refill it.  A third warpgroup, or a third
+// warp, would make ptxas budget 65536 / 384 = 168 registers a thread,
+// setmaxnreg or not, and at 168 it serialised these kernels' products for
+// want of registers; at 256 threads the budget is 255.  S = Q K^T is
+// wgmma m64n64k16 with both operands K-major in shared memory; P V is
+// wgmma m64n64k16 with P packed to bf16 A fragments in registers (the
+// accumulator is the mma.m16n8 C layout) and V MN-major (transpose bit).
+// Keys come in 64-key tiles.  Every wait_group count is a constant in
+// straight-line code: a count chosen at run time, or a branch between a
+// product and its wait, also made ptxas serialise the products.
+//
+//   ilv_hopper<NOMASK>  a CTA is (128 query rows, head pair, batch); each
+//                       warpgroup holds both heads of the pair.  Q of both
+//                       heads (32 KB) is loaded once; a ring stage holds K0,
+//                       K1, V0, V1 of one key tile (32 KB, 4 stages).  Per
+//                       key tile, in the TPU's order: S0 and S1 issued as
+//                       two groups; wait<1> and head 0's chain while S1
+//                       runs; P0 V0 issued; wait<1> and head 1's chain
+//                       while P0 V0 runs; P1 V1 issued.  P0 stays in its
+//                       own registers until the next tile's wait shows
+//                       P0 V0 done.  A stage is released while the next
+//                       tile but one waits for its S0.  The key mask of
+//                       ilv runs on the last tiles only, in a loop of
+//                       their own.
+//   chunk_hopper        the TPU's three-stage pipeline QK(i) | chain(i-1) |
+//                       P V(i-2) over the flat sequence of (stream, key
+//                       tile) steps, double-buffered S and P in registers.
+//                       A CTA covers nc chunks of 128 rows of one head pair
+//                       (each warpgroup one 64-row half of each chunk):
+//                       2 * nc streams in head-major order (stream = head *
+//                       nc + chunk, bench_spatial_variants.py:89-90), each
+//                       over every key tile; chunks wholly past n are
+//                       dropped.  The pipeline crosses stream boundaries:
+//                       a stream's output leaves at the wait that shows
+//                       its last P V done, before the next stream's first
+//                       P V overwrites the accumulator.  Q goes through
+//                       two slots, one per stream in flight; K and V of a
+//                       step share a 16 KB ring stage (8 stages), released
+//                       after S(i+4) is issued (P V(i) is done by then).  The
+//                       chain of step i-1 runs while S(i) and P V(i-3)
+//                       are on the tensor cores (wait<2>); P(i-1) is
+//                       packed once P V(i-3), which read that P slot, is
+//                       done (wait<1>).
+#include <type_traits>
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int kQRows = 128;              // query rows of a CTA tile (two warpgroups)
+constexpr int kKeys = 64;                // keys per tile
+constexpr int kTile = kKeys * 64;        // one 64-row tile (elements, 8 KB)
+constexpr int kQTile = kQRows * 64;      // one 128-row Q tile (elements, 16 KB)
+constexpr int kIlvStages = 4;
+constexpr int kChunkStages = 8;
+constexpr int kThreads = 256;            // two warpgroups
+constexpr float kMagic = 12582912.f;     // 1.5 * 2^23
+
+__device__ __forceinline__ float exp2_poly(float x) {
+  x = fmaxf(x, -127.f);
+  const float t = __fadd_rd(x, kMagic);  // floor(x) + 1.5 * 2^23, exactly
+  const float xf = x - (t - kMagic);
+  // floor(x) + 0x4B400000 in the bits of t; shifted by 23 the constant
+  // part leaves 32 bits, so the exponent field is floor(x) + 127
+  const uint32_t k = static_cast<uint32_t>(min(__float_as_int(t), 0x4B400000 + 127));
+  const float sc = __uint_as_float((k << 23) + (127u << 23));
+  const float pf =
+      fmaf(xf, fmaf(xf, fmaf(xf, fmaf(xf, 0.0135115307f, 0.051989575f), 0.241508857f),
+                    0.69297426f),
+           1.00000526f);
+  return sc * pf;
+}
+
+// s (a 64-key score tile in the accumulator layout) becomes p = exp2_poly(s),
+// row sums into l; with MASK, keys at or past `valid` of the tile score -1e30.
+template <bool MASK>
+__device__ __forceinline__ void exp_rows(float (&s)[32], float (&l)[2], int valid, int c2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float x = s[i];
+    if constexpr (MASK) {
+      if ((i >> 2) * 8 + c2 + (i & 1) >= valid) x = -1e30f;
+    }
+    const float p = exp2_poly(x);
+    s[i] = p;
+    l[(i >> 1) & 1] += p;
+  }
+}
+
+// P (accumulator layout) as bf16 A fragments, 16 keys a step.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// A warpgroup's 64 rows of a Q tile (4096 bf16, landed raw by TMA) times c
+// in fp32, rounded to bf16, in place, then made visible to wgmma.  The
+// 128-byte swizzle moves 16-byte chunks only, so the elementwise pass
+// ignores it.
+__device__ __forceinline__ void prescale(bf16* rows, float c, int tid) {
+  uint4* p = reinterpret_cast<uint4*>(rows);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint4 u = p[tid + 128 * i];
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<bf162*>(&w[r]));
+      w[r] = pack_bf16x2(f.x * c, f.y * c);
+    }
+    p[tid + 128 * i] = u;
+  }
+  fence_async_smem();
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The warp's 16 rows (row0 + g, + 8) of one head's output, acc / l rounded
+// to bf16; rows >= n are not stored.  l is the lane's partial row sums.
+// acc is read through asm statements, after the wait that retired its
+// last product and without redefining it, so the reads stay after the
+// wait and ptxas sees no write to a wgmma register.
+__device__ __forceinline__ void store_rows(bf16* o, long long stride, int row0, int n,
+                                           const float (&acc)[32], const float (&l_part)[2],
+                                           float pad, int lane) {
+  const float l0 = quad_sum(l_part[0]) - pad, l1 = quad_sum(l_part[1]) - pad;
+  const int r0 = row0 + (lane >> 2), c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    float a[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("mov.b32 %0, %1;" : "=f"(a[e]) : "f"(acc[4 * t + e]));
+    if (r0 < n)
+      *reinterpret_cast<uint32_t*>(o + (long long)r0 * stride + t * 8 + c2) =
+          pack_bf16x2(a[0] / l0, a[1] / l0);
+    if (r0 + 8 < n)
+      *reinterpret_cast<uint32_t*>(o + (long long)(r0 + 8) * stride + t * 8 + c2) =
+          pack_bf16x2(a[2] / l1, a[3] / l1);
+  }
+}
+
+// A warpgroup's release of a ring slot (one thread, after the wait that
+// retired the products reading it): true for the second of the two
+// warpgroups, which then refills it.  The count only grows, so no reset
+// races a later release.
+__device__ __forceinline__ bool second_release(int* count) { return atomicAdd(count, 1) & 1; }
+
+__device__ __forceinline__ void issue_s(float (&s)[32], uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(s, dq + 2 * kk, dk + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// acc (+)= P V over one 64-key tile; first = 1 overwrites acc.
+__device__ __forceinline__ void issue_pv(float (&acc)[32], const uint32_t (&pa)[4][4],
+                                         uint64_t dv, int first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64_tb(acc, pa[kk], dv + 128 * kk, kk > 0 || !first);
+  wgmma_commit();
+}
+
+// ---------------------------------------------------------------- ilv ----
+struct IlvSmem {
+  bf16 q[2][kQTile];                // both heads' 128 query rows: 32 KB
+  bf16 kv[kIlvStages][4][kTile];    // K0, K1, V0, V1 of a key tile: 32 KB a stage
+  uint64_t q_full, full[kIlvStages];
+  int released[kIlvStages];
+};
+constexpr int kIlvSmemBytes = sizeof(IlvSmem) + 1024;
+
+template <bool NOMASK>
+__global__ void __launch_bounds__(kThreads, 1) ilv_hopper(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int n, int heads,
+    float qscale) {
+  extern __shared__ unsigned char smem_raw[];
+  IlvSmem& sm = aligned_smem<IlvSmem>(smem_raw);
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128;  // rows cw * 64 .. + 64
+  const int h0 = 2 * blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kQRows;
+  const int n_pad = (n + 127) / 128 * 128, n_tiles = n_pad / kKeys;
+  auto load_tile = [&](int j) {  // K0, K1, V0, V1 of key tile j into its stage
+    const int s = j % kIlvStages;
+    mbar_arrive_expect_tx(&sm.full[s], 4 * kTile * 2);
+    tma_load_4d(sm.kv[s][0], &tk, &sm.full[s], 0, h0, j * kKeys, b);
+    tma_load_4d(sm.kv[s][1], &tk, &sm.full[s], 0, h0 + 1, j * kKeys, b);
+    tma_load_4d(sm.kv[s][2], &tv, &sm.full[s], 0, h0, j * kKeys, b);
+    tma_load_4d(sm.kv[s][3], &tv, &sm.full[s], 0, h0 + 1, j * kKeys, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kIlvStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      sm.released[s] = 0;
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q of both heads and the first stages
+    mbar_arrive_expect_tx(&sm.q_full, 2 * kQTile * 2);
+    tma_load_4d(sm.q[0], &tq, &sm.q_full, 0, h0, q0, b);
+    tma_load_4d(sm.q[1], &tq, &sm.q_full, 0, h0 + 1, q0, b);
+    for (int j = 0; j < min(kIlvStages, n_tiles); ++j) load_tile(j);
+  }
+  // both heads of the pair
+  const int warp = tid >> 5, lane = tid & 31, c2 = (lane & 3) * 2;
+  mbar_wait(&sm.q_full, 0);
+  prescale(sm.q[0] + cw * 64 * 64, qscale, tid);
+  prescale(sm.q[1] + cw * 64 * 64, qscale, tid);
+  bar_sync(1 + cw, 128);
+  const uint64_t dq0 = desc_sw128(sm.q[0] + cw * 64 * 64), dq1 = desc_sw128(sm.q[1] + cw * 64 * 64);
+
+  float s0[32], s1[32], o0[32], o1[32], l0[2] = {0.f, 0.f}, l1[2] = {0.f, 0.f};
+  uint32_t p0[4][4], p1[4][4];
+  // One key tile; MASK (ilv's tiles past n, peeled into their own loop so
+  // that no branch sits between a product and its wait) masks keys >= n.
+  auto tile = [&](int j, auto mask_c) {
+    constexpr bool MASK = decltype(mask_c)::value;
+    const int s = j % kIlvStages, valid = n - j * kKeys;
+    mbar_wait(&sm.full[s], (j / kIlvStages) & 1);
+    wgmma_fence();
+    issue_s(s0, dq0, desc_sw128(sm.kv[s][0]));
+    issue_s(s1, dq1, desc_sw128(sm.kv[s][1]));
+    // tile j-2's products were retired by tile j-1's first wait: refill its stage
+    if (j > 1 && tid == 0 && second_release(&sm.released[(j - 2) % kIlvStages]) &&
+        j - 2 + kIlvStages < n_tiles)
+      load_tile(j - 2 + kIlvStages);
+    wgmma_wait<1>();  // S0 done; so are the previous tile's P V products
+    fence_regs(s0);
+    exp_rows<MASK>(s0, l0, valid, c2);
+    pack_p(p0, s0);
+    wgmma_fence();
+    issue_pv(o0, p0, desc_sw128(sm.kv[s][2]), j == 0);
+    wgmma_wait<1>();  // S1 done, P0 V0 in flight
+    fence_regs(s1);
+    exp_rows<MASK>(s1, l1, valid, c2);
+    pack_p(p1, s1);
+    wgmma_fence();
+    issue_pv(o1, p1, desc_sw128(sm.kv[s][3]), j == 0);
+  };
+  const int unmasked = NOMASK ? n_tiles : n / kKeys;
+  for (int j = 0; j < unmasked; ++j) tile(j, std::false_type());
+  for (int j = unmasked; j < n_tiles; ++j) tile(j, std::true_type());
+  wgmma_wait<0>();
+  const long long hd = (long long)heads * 64;
+  bf16* ob = o + (long long)b * n * hd + (long long)h0 * 64;
+  const int row0 = q0 + cw * 64 + warp * 16;
+  const float pad = NOMASK ? float(n_pad - n) : 0.f;
+  store_rows(ob, hd, row0, n, o0, l0, pad, lane);
+  store_rows(ob + 64, hd, row0, n, o1, l1, pad, lane);
+}
+
+// -------------------------------------------------------------- chunk ----
+struct ChunkSmem {
+  bf16 q[2][kQTile];                 // Q of two streams: 32 KB
+  bf16 kv[kChunkStages][2][kTile];   // K, V of a step: 16 KB a stage
+  uint64_t q_full[2], full[kChunkStages];
+  int q_released[2], released[kChunkStages];
+};
+constexpr int kChunkSmemBytes = sizeof(ChunkSmem) + 1024;
+
+__global__ void __launch_bounds__(kThreads, 1) chunk_hopper(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int n, int heads,
+    float qscale, int nc) {
+  extern __shared__ unsigned char smem_raw[];
+  ChunkSmem& sm = aligned_smem<ChunkSmem>(smem_raw);
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128;  // rows cw * 64 .. + 64 of a chunk
+  const int h0 = 2 * blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * nc * kQRows;
+  const int nct = min(nc, (n - row0 + kQRows - 1) / kQRows);  // chunks with real rows
+  const int n_pad = (n + 127) / 128 * 128;
+  const int kt = n_pad / kKeys;  // key tiles per stream: even, >= 2
+  const int steps = 2 * nct * kt;
+  // step i: stream st = i / kt = head * nct + chunk, key tile i % kt
+  auto load_q = [&](int st) {  // the stream's 128 query rows into its slot
+    const int slot = st & 1;
+    mbar_arrive_expect_tx(&sm.q_full[slot], kQTile * 2);
+    tma_load_4d(sm.q[slot], &tq, &sm.q_full[slot], 0, h0 + st / nct, row0 + (st % nct) * kQRows,
+                b);
+  };
+  auto load_step = [&](int i) {  // K and V of step i into its stage
+    const int s = i % kChunkStages, h = h0 + (i / kt) / nct;
+    mbar_arrive_expect_tx(&sm.full[s], 2 * kTile * 2);
+    tma_load_4d(sm.kv[s][0], &tk, &sm.full[s], 0, h, (i % kt) * kKeys, b);
+    tma_load_4d(sm.kv[s][1], &tv, &sm.full[s], 0, h, (i % kt) * kKeys, b);
+  };
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&sm.q_full[s], 1);
+      sm.q_released[s] = 0;
+    }
+#pragma unroll
+    for (int s = 0; s < kChunkStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      sm.released[s] = 0;
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the first two streams' Q (there are at least two) and stages
+    load_q(0);
+    load_q(1);
+    for (int i = 0; i < min(kChunkStages, steps); ++i) load_step(i);
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long hd = (long long)heads * 64;
+  const float pad = float(n_pad - n);
+  float S[2][32], acc[32], l_cur[2] = {0.f, 0.f}, l_fin[2] = {0.f, 0.f};
+  uint32_t P[2][4][4];
+  using C0 = std::integral_constant<int, 0>;
+  using C1 = std::integral_constant<int, 1>;
+  using C2 = std::integral_constant<int, 2>;
+  using CN = std::integral_constant<int, -1>;
+
+  // the output of the stream that step j ends
+  auto store_stream = [&](int j) {
+    const int st = j / kt;
+    store_rows(o + (long long)b * n * hd + (long long)(h0 + st / nct) * 64, hd,
+               row0 + (st % nct) * kQRows + cw * 64 + warp * 16, n, acc, l_fin, pad, lane);
+  };
+  // stage 1 of step i: issue S(i) (the stream's Q prescaled at its first step)
+  auto issue_step = [&](int i, auto par_c) {
+    constexpr int PAR = decltype(par_c)::value;  // i & 1
+    const int st = i / kt, slot = st & 1;
+    if (i % kt == 0) {
+      mbar_wait(&sm.q_full[slot], (st >> 1) & 1);
+      prescale(sm.q[slot] + cw * 64 * 64, qscale, tid);
+      bar_sync(1 + cw, 128);
+    }
+    mbar_wait(&sm.full[i % kChunkStages], (i / kChunkStages) & 1);
+    wgmma_fence();
+    issue_s(S[PAR], desc_sw128(sm.q[slot] + cw * 64 * 64),
+            desc_sw128(sm.kv[i % kChunkStages][0]));
+    // P V(i-4) was retired in step i-1: refill its stage
+    if (i >= 4 && tid == 0 && second_release(&sm.released[(i - 4) % kChunkStages]) &&
+        i - 4 + kChunkStages < steps)
+      load_step(i - 4 + kChunkStages);
+  };
+  // stage 2 of step i: the chain of step i - 1.  WS groups may stay in
+  // flight once S(i-1) is done (those committed after it: P V(i-3), S(i));
+  // WP once P V(i-3) is done (WP < 0: there is none), whose P(i-1) then
+  // overwrites, and which may end a stream.
+  auto chain_step = [&](int i, auto par_c, auto ws_c, auto wp_c) {
+    constexpr int PAR = decltype(par_c)::value, WS = decltype(ws_c)::value,
+                  WP = decltype(wp_c)::value;
+    wgmma_wait<WS>();
+    fence_regs(S[PAR ^ 1]);
+    exp_rows<false>(S[PAR ^ 1], l_cur, kKeys, 0);
+    if constexpr (WP >= 0) {
+      wgmma_wait<WP>();
+      if ((i - 3) % kt == kt - 1) store_stream(i - 3);
+    }
+    pack_p(P[PAR ^ 1], S[PAR ^ 1]);
+    if ((i - 1) % kt == kt - 1) {  // the stream's last S is done: its Q slot goes back
+      const int st = (i - 1) / kt;
+      l_fin[0] = l_cur[0];
+      l_fin[1] = l_cur[1];
+      l_cur[0] = l_cur[1] = 0.f;
+      if (tid == 0 && second_release(&sm.q_released[st & 1]) && st + 2 < 2 * nct) load_q(st + 2);
+    }
+  };
+  // stage 3 of step i: issue P V(i-2), overwriting acc at a stream's first step
+  auto pv_step = [&](int i, auto par_c) {
+    constexpr int PAR = decltype(par_c)::value;
+    const int j = i - 2;
+    wgmma_fence();
+    issue_pv(acc, P[PAR], desc_sw128(sm.kv[j % kChunkStages][1]), j % kt == 0);
+  };
+
+  issue_step(0, C0());
+  issue_step(1, C1());
+  chain_step(1, C1(), C1(), CN());
+  issue_step(2, C0());
+  chain_step(2, C0(), C1(), CN());
+  pv_step(2, C0());
+  int i = 3;  // steps is even: pairs of steps keep the buffer parity compile-time
+  for (; i + 1 < steps; i += 2) {
+    issue_step(i, C1());
+    chain_step(i, C1(), C2(), C1());
+    pv_step(i, C1());
+    issue_step(i + 1, C0());
+    chain_step(i + 1, C0(), C2(), C1());
+    pv_step(i + 1, C0());
+  }
+  issue_step(i, C1());  // i = steps - 1
+  chain_step(i, C1(), C2(), C1());
+  pv_step(i, C1());
+  chain_step(steps, C0(), C1(), C0());
+  pv_step(steps, C0());
+  pv_step(steps + 1, C1());
+  wgmma_wait<0>();
+  store_stream(steps - 1);
+}
+
+// The shared-memory size and the tensor maps of a launch (the 4-D maps
+// (64, H, N, B) of the contiguous (B, n, heads * 64) operands: Q boxes of
+// 128 rows, K and V boxes of 64); a CUDA error code, 0 on success.
+template <class K>
+int prepare(K kernel, int smem, const void* q, const void* k, const void* v, int batch, int n,
+            int heads, CUtensorMap (&maps)[3]) {
+  if (n < 1 || heads < 2 || heads % 2 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // a runtime call before the maps: it makes the context current (make_map)
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long sn = (long long)heads * 64, sb = sn * n;
+  if (!make_map(&maps[0], q, batch, n, heads, sb, sn, 64, kQRows) ||
+      !make_map(&maps[1], k, batch, n, heads, sb, sn, 64, kKeys) ||
+      !make_map(&maps[2], v, batch, n, heads, sb, sn, 64, kKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+template <bool NOMASK>
+int launch_ilv(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads,
+               float qscale, cudaStream_t st) {
+  CUtensorMap maps[3];
+  const int err = prepare(ilv_hopper<NOMASK>, kIlvSmemBytes, q, k, v, batch, n, heads, maps);
+  if (err) return err;
+  const dim3 grid((n + kQRows - 1) / kQRows, heads / 2, batch);
+  ilv_hopper<NOMASK><<<grid, kThreads, kIlvSmemBytes, st>>>(maps[0], maps[1], maps[2],
+                                                       static_cast<bf16*>(o), n, heads, qscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, k, v, o contiguous (B, n, heads * 64) bf16 with 16-byte aligned bases,
+// heads even; qscale = scale * log2(e).  ilv: flag nomask; chunk: nc >= 1.
+extern "C" int vda_ilv(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                       int heads, float qscale, int nomask, int, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return nomask ? launch_ilv<true>(q, k, v, o, batch, n, heads, qscale, st)
+                : launch_ilv<false>(q, k, v, o, batch, n, heads, qscale, st);
+}
+
+extern "C" int vda_chunk(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                         int heads, float qscale, int nc, int, void* stream) {
+  if (nc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  const int err = prepare(chunk_hopper, kChunkSmemBytes, q, k, v, batch, n, heads, maps);
+  if (err) return err;
+  const dim3 grid(((n + kQRows - 1) / kQRows + nc - 1) / nc, heads / 2, batch);
+  chunk_hopper<<<grid, kThreads, kChunkSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), n, heads, qscale, nc);
+  return static_cast<int>(cudaGetLastError());
+}

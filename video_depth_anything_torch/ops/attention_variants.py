@@ -1,4 +1,5 @@
-"""Kernel A's probe kernels (``csrc/attention_variants.cu``).
+"""Kernel A's probe kernels (``csrc/attention_variants_hopper.cu`` and
+``csrc/attention_variants.cu``).
 
 Replaces the TPU kernels of the two probe scripts that split Kernel A's
 time on the TPU:
@@ -12,6 +13,14 @@ time on the TPU:
   max) or no softmax at all (``ceiling``: the GEMM floor);
 * ``scripts/bench_softmax_chain.py`` ``make_kernel``'s ``kern``: QKᵀ → one
   of seven elementwise chains → P·V[:, :d], unnormalised, on ``(BH, N, D)``.
+
+``ilv`` / ``nomask`` and ``chunk<k>`` are Hopper kernels
+(``attention_variants_hopper.cu``: ``wgmma`` fed by a TMA ring, the TPU
+kernels' stagger and software pipeline on asynchronous products); they
+read q, k and v through 4-D tensor maps ``(D, H, N, B)``, so the launch
+checks each operand with ``flash_attention.tma_geometry`` and raises on
+what a map cannot describe.  ``sbf16`` and the chain kernel are the
+``mma.sync`` kernels of ``attention_variants.cu``.
 
 ``spatial_variant_plain`` and ``softmax_chain_plain`` define the numerics
 (the scripts' rounding points: q prescaled by scale·log2 e in fp32 and
@@ -30,7 +39,8 @@ outside the scripts' domain raises ``ValueError`` before any launch, as
 ``run_variant`` raises or asserts (``chunk8`` at n = 1370: 1376 / 8 = 172
 rows, not a multiple of 8).
 
-Bound on the H100: tensor-core FLOPs; see the source.
+Bound on the H100: tensor-core FLOPs, and for the polynomial chains the
+chain's instruction issue; see the sources.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from video_depth_anything_torch.ops import cuda_build
+from video_depth_anything_torch.ops.flash_attention import tma_geometry
 
 LOG2E = 1.4426950408889634
 # the probe scripts' default lists (bench_spatial_variants.py:280-283,
@@ -189,11 +200,14 @@ def softmax_chain_plain(mode: str, q, k, v) -> torch.Tensor:
 
 
 _fns = {}
+# the Hopper kernels' entry points; the others are in attention_variants.cu
+_HOPPER = ("ilv", "chunk")
 
 
 def _kernel(name: str):
     if name not in _fns:
-        fn = getattr(cuda_build.library("attention_variants"), f"vda_{name}")
+        lib = "attention_variants_hopper" if name in _HOPPER else "attention_variants"
+        fn = getattr(cuda_build.library(lib), f"vda_{name}")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "chain":
             fn.argtypes = [vp] * 4 + [i] * 5 + [vp]
@@ -213,6 +227,9 @@ def _launch_spatial(name: str, q, k, v, scale: float, num_heads: int, a: int, b:
         raise ValueError(f"{name}: operands must share a device")
     q, k, v = (t.contiguous() for t in (q, k, v))
     bsz, n, _ = q.shape
+    if name in _HOPPER:  # the kernels' tensor maps (D, H, N, B)
+        for t in (q, k, v):
+            tma_geometry(t.view(bsz, n, num_heads, 64))
     out = torch.empty_like(q)
     err = _kernel(name)(*(cuda_build.ptr(t) for t in (q, k, v, out)), bsz, n, num_heads,
                         float(scale * LOG2E), a, b, cuda_build.stream_of(q))

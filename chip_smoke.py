@@ -10,9 +10,10 @@ Phases (each failure ends the run with a non-zero exit):
    in bf16 at the main path's vits, vitb and vitl shapes (one window; for
    Kernel A's backward, the training shapes, also from the fast forward's
    log-sum-exp; Kernel A's fast variant also at the streaming shapes, one
-   frame and a chunk of 8; Kernel A at D = 192 and at 3 heads on synthetic
-   shapes; Kernel B at every head width of its domain, d = 8 to 128, and
-   at T = 17 on a ragged S), on inputs whose attention is peaked, and
+   frame and a chunk of 8; Kernel A at D = 192 (exact and fast, and
+   ragged at N = 2443) and at 3 heads on synthetic shapes; Kernel B at
+   every head width of its domain, d = 8 to 128, and at T = 17 on a
+   ragged S), on inputs whose attention is peaked, and
    Kernel A also on flat ones (q scaled by FLAT_Q); Kernel A's probe
    kernels (every spatial
    variant at the vitl and vits probe shapes, the seven softmax-chain
@@ -22,8 +23,10 @@ Phases (each failure ends the run with a non-zero exit):
    the flat inputs the zero-filled pad keys of the ragged last tile
    counted in the softmax, for the spatial probes the pair's two heads
    exchanged and V rolled by one 64-key tile, for the no-mask probes a
-   missing pad correction; for Kernel B also the last location tile never stored, at
-   the window batch of 4 every batch given batch 0's output, and, at
+   missing pad correction, for sbf16 the key mask dropped and, exact, a
+   running max in place of the global one; for Kernel B also the last
+   location tile never stored, at the window batch of 4 every batch given
+   batch 0's output, and, at
    T = 17, the zero key rows of its 32-frame tile unmasked; for Kernel
    C, uniform frame attention, no APE rows, k
    projected with q's weights and the last quarter of the feed-forward
@@ -35,9 +38,9 @@ Phases (each failure ends the run with a non-zero exit):
    backward's three launches apart, Kernel C's and the tail's stages apart
    (``split_ms``), and the PR 1-6 designs' ms beside Kernel C's and the
    tail's, the one-frame-per-lane design's beside Kernel B's, the
-   mma.sync design's beside the ilv and chunk probes' (``parent_ms``),
-   and beside those probes' tensor-core bound the bound of their
-   softmax chain (``chain_bound_ms``); Kernel
+   mma.sync design's beside the spatial probes' and Kernel A's at D = 192
+   (``parent_ms``), and beside the probes' tensor-core bound the bound of
+   their softmax chain (``chain_bound_ms``); Kernel
    B's times are device times over inputs rotated past the L2 (its launch
    path outlasts it on the host).
 3. window: one full-width, full-depth vits, vitb and vitl window (noised
@@ -153,6 +156,14 @@ PARENT_MS = {
     ("temporal_attention", "vits m2 518x518"): 0.0405,
     ("temporal_attention", "vitb m2 518x518"): 0.0706,
     ("temporal_attention", "ragged T=17 C=64"): 0.0065,
+    # Kernel A at D = 192 and the sbf16 probes, their earlier mma.sync
+    # kernels (PERF.md section 6: bench_probe_split on the checkout before
+    # the Hopper ones, in turns with them)
+    ("flash_attention", "synthetic D=192"): 0.5462,
+    ("flash_attention_fast", "synthetic D=192"): 0.5180,
+    ("sbf16_attention", "vitl sbf16"): 2.4708, ("sbf16_attention", "vitl sbf16:fast"): 1.6700,
+    ("sbf16_attention", "vitl ceiling"): 1.0965, ("sbf16_attention", "vits sbf16"): 0.9425,
+    ("sbf16_attention", "vits sbf16:fast"): 0.6371, ("sbf16_attention", "vits ceiling"): 0.4090,
     # the ilv and chunk probes' earlier mma.sync design (PERF.md section 6:
     # bench_probe_split on its checkout, in turns with the Hopper kernels)
     ("ilv_attention", "vitl ilv"): 2.7439, ("ilv_attention", "vitl nomask"): 1.8813,
@@ -161,14 +172,16 @@ PARENT_MS = {
     ("chunk_attention", "vits chunk2"): 0.9755, ("chunk_attention", "vits chunk4"): 1.1348,
 }
 
-# The Hopper ilv and chunk kernels' softmax chain, instructions per score by
-# pipe (PERF.md section 6: bench_probe_split's reading of their
-# SASS); chain_bound_ms is this times the run's scores over the pipes'
-# rates on every SM (bench_probe_split.chain_bound_ms).
+# The Hopper probe kernels' softmax chain, instructions per score by pipe
+# (PERF.md section 6: bench_probe_split's reading of their SASS; exact
+# sbf16's includes its max pass); chain_bound_ms is this times the run's
+# scores over the pipes' rates on every SM (bench_probe_split.chain_bound_ms).
 PROBE_CHAIN = {
-    "ilv": {"conversion": 0.5, "fp32": 10.562, "integer": 1.602, "total": 14.172},
-    "nomask": {"conversion": 0.5, "fp32": 10.156, "integer": 1.125, "total": 13.375},
-    "chunk": {"conversion": 0.5, "fp32": 10.13, "integer": 1.234, "total": 14.125},
+    "ilv": {"conversion": 0.5, "fp32": 10.594, "integer": 1.961, "total": 14.859},
+    "nomask": {"conversion": 0.5, "fp32": 10.188, "integer": 1.125, "total": 13.375},
+    "chunk": {"conversion": 0.5, "fp32": 10.156, "integer": 1.25, "total": 14.12},
+    "sbf16": {"conversion": 1.5, "fp32": 12.594, "integer": 4.094, "total": 19.867},
+    "sbf16:fast": {"conversion": 1.0, "fp32": 10.594, "integer": 2.945, "total": 16.359},
 }
 
 
@@ -418,13 +431,43 @@ def probe_inputs(b: int, n: int, h: int, gen, device):
                  for std in (0.5, 0.5, 1.0))
 
 
+def sbf16_running_max(q, k, v, scale, heads: int):
+    """Exact ``sbf16`` with a running max, the max of the 64-key tiles seen
+    so far with no rescale, in place of the global row max: the one-pass
+    plan the kernel may not take (s - m is rounded to bf16, so even a
+    rescaled running max computes another function)."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops.attention_variants import LOG2E, exp2_poly
+
+    b, n, hd = q.shape
+    d, dt = hd // heads, q.dtype
+    n_pad = -(-n // 128) * 128
+    qs = (q.float() * (scale * LOG2E)).to(dt)
+    kp, vp = (F.pad(t, (0, 0, 0, n_pad - n)) for t in (k, v))
+    neg = torch.tensor(-1e30, dtype=torch.bfloat16, device=q.device)
+    valid = torch.arange(n_pad, device=q.device) < n
+    out = torch.empty_like(q)
+    for h in range(heads):
+        sl = slice(h * d, (h + 1) * d)
+        s = torch.where(valid, (qs[..., sl].float() @ kp[..., sl].float().mT).to(torch.bfloat16),
+                        neg)
+        m = s.view(b, n, n_pad // 64, 64).amax(-1).cummax(-1).values.repeat_interleave(64, -1)
+        p = exp2_poly((s - m).float())
+        out[..., sl] = ((p.to(dt).float() @ vp[..., sl].float()) / p.sum(-1, keepdim=True)).to(dt)
+    return out
+
+
 def probe_mutant_errors(variant: str, q, k, v, scale, heads: int) -> dict:
     """How far wrong spatial probe kernels miss the plain version of
     ``variant`` on the same inputs, relative to max|plain|: uniform
     attention, a dropped last (ragged) key tile, the pair's two heads
     exchanged, P V paired with the wrong key tile (V rolled by 64 keys),
-    and for the no-mask variants a missing pad correction (zero pad keys
-    counted in l)."""
+    for the no-mask variants a missing pad correction (zero pad keys
+    counted in l), for ``sbf16`` and ``sbf16:fast`` the key mask dropped
+    (zero pad keys scoring 0) and for exact ``sbf16`` a running max in
+    place of the global one."""
     import torch.nn.functional as F
 
     from video_depth_anything_torch.ops.attention_variants import parse_variant, spatial_kernel_plain
@@ -444,11 +487,15 @@ def probe_mutant_errors(variant: str, q, k, v, scale, heads: int) -> dict:
            "drop_last_tile": rel_err(plain(k[:, :keep], v[:, :keep]), want),
            "heads_swapped": rel_err(swapped, want),
            "v_tile_shifted": rel_err(plain(k, v.roll(64, dims=1)), want)}
+    pad = -(-n // 128) * 128 - n
+    kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
     if kind == "chunk" or (kind == "ilv" and arg):
-        pad = -(-n // 128) * 128 - n
-        kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
         out["no_pad_correction"] = rel_err(spatial_kernel_plain("ilv", False, q, kp, vp, scale,
                                                                 heads), want)
+    if kind == "sbf16" and not arg[1]:
+        out["unmasked_pad_keys"] = rel_err(plain(kp, vp), want)
+        if not arg[0]:
+            out["running_max"] = rel_err(sbf16_running_max(q, k, v, scale, heads), want)
     return out
 
 
@@ -532,6 +579,8 @@ def phase_kernels(dev):
             ("flash_attention", "vitl 518x518", 32, 1370, 16, 64),
             ("flash_attention", "vitl 518x924", 32, 2443, 16, 64),
             ("flash_attention", "synthetic D=192", 32, 1370, 2, 192),
+            ("flash_attention_fast", "synthetic D=192", 32, 1370, 2, 192),
+            ("flash_attention", "synthetic D=192 ragged", 32, 2443, 2, 192),
             ("flash_attention", "synthetic odd heads", 32, 1370, 3, 64),
             ("flash_attention_fast", "518x924", 32, 2443, 6, 64),
             ("flash_attention_fast", "518x518", 32, 1370, 6, 64),
@@ -554,11 +603,14 @@ def phase_kernels(dev):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
         b_ms, b_by = bound(4.0 * bt * h * n * n * d, 4.0 * bt * n * h * d * 2)
-        rows.append(dict(kernel=kernel, shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
-                         max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
-                         tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms,
-                         extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e})"))
+        row = dict(kernel=kernel, shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
+                   max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
+                   tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms,
+                   extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e})")
+        if (kernel, label) in PARENT_MS:
+            row["parent_ms"] = PARENT_MS[(kernel, label)]
+        rows.append(row)
         del qkv, q, k, v, qf, got, want, qt, kt, vt
 
     # Kernel A's backward at the training shapes: a 518² window of 32
@@ -722,10 +774,10 @@ def phase_kernels(dev):
                        max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
                        tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=None if variant == "ceiling" else lib_ms)
-            if kind in ("ilv", "chunk"):  # the Hopper kernels
+            row["parent_ms"] = PARENT_MS[(probe_kernel[kind], f"{enc} {variant}")]
+            mix = PROBE_CHAIN.get("chunk" if kind == "chunk" else variant)
+            if mix is not None:  # ceiling has no chain
                 n_pad = -(-n // 128) * 128
-                mix = PROBE_CHAIN["chunk" if kind == "chunk" else variant]
-                row["parent_ms"] = PARENT_MS[(probe_kernel[kind], f"{enc} {variant}")]
                 row["extra"] = f" chain_bound_ms={chain_bound(mix, bt * h * n_pad**2):.4f}"
             rows.append(row)
             del got, want
@@ -858,14 +910,15 @@ def main() -> int:
                           "scripts/bench_spatial_variants.py:49"),
         "chunk_attention": ("chunk_attention", "csrc/attention_variants_hopper.cu",
                             "scripts/bench_spatial_variants.py:86"),
-        "sbf16_attention": ("sbf16_attention", "csrc/attention_variants.cu",
+        "sbf16_attention": ("sbf16_attention", "csrc/attention_variants_hopper.cu",
                             "scripts/bench_spatial_variants.py:130"),
         "softmax_chain": ("softmax_chain", "csrc/attention_variants.cu",
                           "scripts/bench_softmax_chain.py:54"),
     }
     kernels = []
     for name, (wrapper, src, replaces) in info.items():
-        first = next(r for r in rows if r["kernel"] == name)
+        # the first row at a main-path shape (synthetic rows are off the path)
+        first = next(r for r in rows if r["kernel"] == name and "synthetic" not in r["shape"])
         if wrapper in probe_launches:
             count = probe_launches[wrapper]
         else:

@@ -64,10 +64,12 @@ def test_flash_attention_kernel_sixteen_heads(dev, n):
     (2443, 6, 64, "frame"),                                         # one streamed frame
     (300, 3, 64, False), (1370, 3, 64, True), (2443, 3, 64, False),  # odd head counts
     (257, 2, 192, False), (1370, 2, 192, False), (2443, 1, 192, True),  # D = 192
+    (300, 1, 192, True), (1370, 2, 192, True), (2443, 2, 192, False), (64, 1, 192, False),
 ])
 def test_flash_attention_variants(dev, n, h, d, fast):
     """Kernel A's fast variant (also on one streamed frame, B = 1), odd
-    head counts and D = 192 (the mma.sync tiling) against their plain
+    head counts and D = 192 (``flash_fwd_hopper192``: 64-key tiles, one
+    of them ragged or whole at n = 64) against their plain
     versions, with chip_smoke.py's inputs and tolerance; each variant
     counts on its own launch counter."""
     g = torch.Generator(device=dev).manual_seed(n + h + d)
@@ -268,7 +270,7 @@ def test_output_tail_kernel(dev, n, h, w, oh, ow):
 
 
 # ragged query and key tiles; at n = 320 the last 64-key tile is all padding
-@pytest.mark.parametrize("n,h", [(320, 2), (100, 2), (200, 6), (1370, 2)])
+@pytest.mark.parametrize("n,h", [(320, 2), (100, 2), (200, 6), (1370, 2), (300, 6), (1370, 6)])
 @pytest.mark.parametrize("variant", ["ilv", "nomask", "chunk1", "chunk2", "chunk4", "sbf16",
                                      "sbf16:fast", "ceiling"])
 def test_spatial_probe_kernels(dev, variant, n, h):

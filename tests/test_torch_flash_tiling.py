@@ -1,9 +1,10 @@
 """The tilings of Kernel A's Hopper kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``), emulated in torch on the CPU, against the
 JAX flash kernels run as the JAX package's tests run them (Pallas
-interpret mode): the forward's 128-query CTAs over 128-key tiles, with the
-zero-filled ragged last tile masked there only, P rounded to bf16 per tile
-and 1/l deferred, exact and fast; the backward's dK/dV CTAs of 128 keys
+interpret mode): the forward's 128-query CTAs over 128-key tiles at D = 64
+and 64-key tiles at D = 192 (S summed over three 64-column panels, O kept
+as three), with the zero-filled ragged last tile masked there only, P
+rounded to bf16 per tile and 1/l deferred, exact and fast; the backward's dK/dV CTAs of 128 keys
 over 64-query tiles and dQ CTAs of 128 queries over 64-key tiles, from the
 forward's exp2-domain log-sum-exp and the pre-pass's padded lse (+inf) and
 Δ (0).  Also ``chip_smoke.py``'s zero-pad mutant and ``tma_geometry``."""
@@ -27,8 +28,8 @@ from video_depth_anything_tpu.ops.pallas_attention import (
 FWD_TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_torch_flash_attention.py's bound
 BWD_FP32_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_torch_flash_attention_bwd.py's
 BWD_BF16_TOL = 3e-2  # of max|want| per gradient, as there
-ROWS = 128  # forward: queries per CTA and keys per tile; backward: rows a CTA keeps
-STEP = 64  # backward: rows of a streamed tile
+ROWS = 128  # forward: queries per CTA, and keys per tile at D = 64; backward: rows a CTA keeps
+STEP = 64  # backward: rows of a streamed tile; forward: keys per tile at D = 192
 
 
 def _pad_rows(x, rows: int):
@@ -37,11 +38,15 @@ def _pad_rows(x, rows: int):
 
 
 def tiled_forward(q, k, v, scale, fast=False, mask=True):
-    """``(out, lse)`` of the forward kernel's tiling; ``mask=False`` counts
-    the zero-filled pad keys (the ``unmasked_zero_pad`` mutant)."""
+    """``(out, lse)`` of the forward kernel's tiling (``flash_fwd_hopper`` at
+    D = 64, ``flash_fwd_hopper192`` at D = 192); ``mask=False`` counts the
+    zero-filled pad keys (the ``unmasked_zero_pad`` mutant)."""
     b, n, h, d = q.shape
+    keys = ROWS if d == 64 else STEP
     n_pad = -(-n // ROWS) * ROWS
-    qp, kp, vp = (_pad_rows(x, n_pad) for x in (q, k, v))
+    k_pad = -(-n // keys) * keys
+    qp = _pad_rows(q, n_pad)
+    kp, vp = (_pad_rows(x, k_pad) for x in (k, v))
     sl2 = scale * t_flash.LOG2E
     out = torch.zeros(b, h, n_pad, d)
     lse = torch.zeros(b, h, n_pad)
@@ -50,9 +55,11 @@ def tiled_forward(q, k, v, scale, fast=False, mask=True):
         m = torch.full((b, h, ROWS), 0.0 if fast else -math.inf)
         l = torch.zeros(b, h, ROWS)
         acc = torch.zeros(b, h, ROWS, d)
-        for j in range(0, n_pad, ROWS):
-            s = qi @ kp[:, :, j:j + ROWS].transpose(-1, -2) * sl2
-            if mask and n - j < ROWS:  # the ragged last tile only
+        for j in range(0, k_pad, keys):
+            kj = kp[:, :, j:j + keys]
+            s = sum(qi[..., c:c + 64] @ kj[..., c:c + 64].transpose(-1, -2)  # 64-column panels
+                    for c in range(0, d, 64)) * sl2
+            if mask and n - j < keys:  # the ragged last tile only
                 s[..., n - j:] = -math.inf
             if not fast:
                 m_new = torch.maximum(m, s.amax(-1))
@@ -60,7 +67,7 @@ def tiled_forward(q, k, v, scale, fast=False, mask=True):
                 acc, l, m = acc * alpha[..., None], l * alpha, m_new
             p = torch.exp2(s - m[..., None])
             l = l + p.sum(-1)
-            acc = acc + p.to(torch.bfloat16).float() @ vp[:, :, j:j + ROWS]
+            acc = acc + p.to(torch.bfloat16).float() @ vp[:, :, j:j + keys]
         out[:, :, i:i + ROWS] = acc / l[..., None]
         lse[:, :, i:i + ROWS] = m + torch.log2(l)
     return out[:, :, :n].permute(0, 2, 1, 3).to(q.dtype), lse[:, :, :n]
@@ -132,6 +139,17 @@ def test_forward_tiling_matches_jax_kernels(n, h, fast):
     np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
 
 
+@pytest.mark.parametrize("n,h,fast", [(n, h, fast) for n in (300, 1370, 2443) for h in (1, 2)
+                                       for fast in (False, True)])
+def test_forward_tiling_at_d192_matches_jax_kernels(n, h, fast):
+    """D = 192: the whole-row kernel at n = 300 and 1370, the blocked one
+    (512-key blocks) at 2443; 64-key tiles, ragged at all three."""
+    q, k, v, _ = _qkv(n + h + fast, 1, n, h, d=192)
+    want = _jax_forward(q, k, v, fast)
+    got, _ = tiled_forward(*map(torch.from_numpy, (q, k, v)), 192**-0.5, fast=fast)
+    np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+
+
 def test_forward_tiling_lse_is_the_exp2_log_sum_exp():
     q, k, v, _ = map(torch.from_numpy, _qkv(5, 1, 300, 2, qk_std=1.6))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 0.125
@@ -196,6 +214,21 @@ def test_zero_pad_mutant_separates_right_from_wrong(n):
     assert abs(unmasked - err) <= 0.1 * err
 
 
+@pytest.mark.parametrize("n", [1370, 2443])  # phase kernels' D = 192 rows: 38, 53 pad keys of 64-key tiles
+def test_zero_pad_mutant_at_d192_separates_right_from_wrong(n):
+    """The same check at D = 192, whose pad keys fill the last 64-key tile."""
+    b, h, d = 1, 1, 192
+    qkv = chip_smoke.attention_inputs((b, n, h * d), torch.Generator().manual_seed(n), "cpu")
+    q, k, v = (x.reshape(b, n, h, d) for x in qkv.split(h * d, dim=-1))
+    q = chip_smoke.flat_inputs(q)
+    want = t_flash.flash_attention_plain(q, k, v, d**-0.5)
+    assert chip_smoke.rel_err(tiled_forward(q, k, v, d**-0.5)[0], want) <= chip_smoke.ATTN_TOL
+    err = chip_smoke.zero_pad_error(t_flash.flash_attention_plain, q, k, v, d**-0.5, STEP)
+    assert err > chip_smoke.ATTN_TOL
+    unmasked = chip_smoke.rel_err(tiled_forward(q, k, v, d**-0.5, mask=False)[0], want)
+    assert abs(unmasked - err) <= 0.1 * err
+
+
 @pytest.mark.parametrize("h", [3, 6, 12, 16])
 def test_tma_geometry_of_the_fused_qkv_views(h):
     b, n, d = 2, 300, 64
@@ -204,6 +237,19 @@ def test_tma_geometry_of_the_fused_qkv_views(h):
         dims, strides = t_flash.tma_geometry(part.view(b, n, h, d))
         assert dims == (d, h, n, b)
         assert strides == (d * 2, 3 * h * d * 2, n * 3 * h * d * 2)
+
+
+@pytest.mark.parametrize("h", [1, 2, 3])
+def test_tma_geometry_of_the_fused_qkv_views_at_d192(h):
+    """The (192, H, N, B) maps of ``flash_fwd_hopper192``: three 64-column
+    panels a row, 384-byte head strides."""
+    b, n, d = 2, 300, 192
+    qkv = torch.zeros(b, n, 3 * h * d, dtype=torch.bfloat16)
+    for part in qkv.split(h * d, dim=-1):
+        dims, strides = t_flash.tma_geometry(part.view(b, n, h, d))
+        assert dims == (d, h, n, b)
+        assert strides == (d * 2, 3 * h * d * 2, n * 3 * h * d * 2)
+        assert d % 64 == 0 and all(s % 16 == 0 for s in strides)
 
 
 def test_tma_geometry_refuses_what_a_map_cannot_describe():

@@ -1,8 +1,8 @@
 """The tilings of the spatial probes' Hopper kernels
-(``csrc/attention_variants_hopper.cu``: ``ilv_hopper<NOMASK>`` and
-``chunk_hopper``), emulated in torch on the CPU, against the TPU kernels of
-``scripts/bench_spatial_variants.py`` (``run_variant``) in Pallas interpret
-mode on the same seeded inputs.
+(``csrc/attention_variants_hopper.cu``: ``ilv_hopper<NOMASK>``,
+``chunk_hopper`` and ``sbf16_hopper<FAST, CEILING>``), emulated in torch on
+the CPU, against the TPU kernels of ``scripts/bench_spatial_variants.py``
+(``run_variant``) in Pallas interpret mode on the same seeded inputs.
 
 The emulation follows the kernels' plan: CTAs of 128 query rows in two
 64-row warpgroups, 64-key tiles up to round_up(n, 128) with zero-filled pad
@@ -11,13 +11,19 @@ memory, the kernels' ``exp2_poly`` (the floor by a rounding-down add), P
 rounded to bf16 before P·V.  ``ilv`` takes the per-tile order of both heads
 (S0, S1, chain 0, P0·V0, chain 1, P1·V1); ``chunk`` the flat (stream, key
 tile) pipeline with its two S/P slots, its two Q slots and the
-stream-boundary hand-off of l.  Three mutants must miss by more than
-``chip_smoke.ATTN_TOL``: P·V reading the other slot's P, a stream's output
-stored in the other head of the pair, and q scaled after the bf16 rounding
-(the scale folded into the scores) in place of before."""
+stream-boundary hand-off of l; ``sbf16`` the kernel's two passes in exact
+mode (the row max of the fp32 scores over the valid keys, rounded to bf16
+once), its score rounding (``cvt.rn.bf16x2.f32`` on a pair, the halves
+shifted back) and the mask on the last key tiles only.  Mutants must miss
+by more than ``chip_smoke.ATTN_TOL``: P·V reading the other slot's P, a
+stream's output stored in the other head of the pair, q scaled after the
+bf16 rounding (the scale folded into the scores) in place of before, and
+for ``sbf16`` a running max in place of the global one and the mask
+dropped."""
 
 import functools
 import importlib.util
+import math
 import types
 from pathlib import Path
 
@@ -177,10 +183,78 @@ def emulate_chunk(q, k, v, heads, nc, mutant=None):
     return out.to(torch.bfloat16)
 
 
+def kernel_round(x):
+    """fp32 ``x`` (an even last axis) rounded to bf16 as ``sbf16_hopper``
+    rounds scores: pairs (2i, 2i + 1) packed by ``cvt.rn.bf16x2.f32``
+    (round to nearest even: the bits plus 0x7FFF plus the kept lsb, cut to
+    16), element 2i in the low half, then the halves shifted back
+    (``w << 16``, ``w & 0xFFFF0000``)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    half = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) & 0xFFFF
+    w = half[..., 0::2] | (half[..., 1::2] << 16)
+    lo, hi = (w << 16) & 0xFFFFFFFF, w & 0xFFFF0000
+    out = torch.stack([lo, hi], dim=-1).flatten(-2)
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32).view(torch.float32)
+
+
+NEG_BF16 = float.fromhex("-0x1.94p+99")  # the kernel's kNegBf16
+
+
+def emulate_sbf16(q, k, v, heads, fast, ceiling, mutant=None):
+    """``sbf16_hopper``'s plan: 64-key tiles to round_up(n, 128) of
+    zero-filled keys, the mask (keys ≥ n at bf16(−1e30)) on the tiles from
+    n // 64 on (none for ``ceiling``); exact mode's pass 1 takes the max of
+    the fp32 scores over the valid keys and rounds it once, pass 2 rounds
+    each score, masks, rounds s − m and takes ``exp2_poly``; P rounded to
+    bf16 before P·V, l the fp32 sum of p (``ceiling``: p = s, l = n_pad).
+    Every query row's plan is its own, so all rows go at once.  Mutants:
+    ``running_max`` (the max of the tiles seen so far, no rescale) and
+    ``unmasked``."""
+    b, n, hd = q.shape
+    exact = not fast and not ceiling
+    c = torch.tensor(SCALE * av.LOG2E, dtype=torch.float32)
+    qp, kp, vp, n_pad = _operands(q, k, v, _round_up(n, 16))
+    tiles = n_pad // 64
+    masked_from = tiles if ceiling or mutant == "unmasked" else n // 64
+    out = torch.zeros(b, n, hd)
+    for h in range(heads):
+        cols = slice(h * 64, (h + 1) * 64)
+        qs = _bf16(qp[..., cols] * c)
+        s = [qs @ kp[:, j * 64:(j + 1) * 64, cols].mT for j in range(tiles)]
+        valid = [torch.arange(j * 64, (j + 1) * 64) < n if j >= masked_from else None
+                 for j in range(tiles)]
+        m = torch.full((b, qs.shape[1], 1), -math.inf)
+        if exact:  # pass 1
+            running = []
+            for j in range(tiles):
+                sj = s[j] if valid[j] is None else torch.where(valid[j], s[j], -math.inf)
+                m = torch.maximum(m, sj.amax(-1, keepdim=True))
+                running.append(_bf16(m))
+            m = _bf16(m)
+        acc = torch.zeros(b, qs.shape[1], 64)
+        l = torch.zeros(b, qs.shape[1], 1)
+        for j in range(tiles):  # pass 2
+            if ceiling:
+                p = s[j]
+            else:
+                x = kernel_round(s[j])
+                if valid[j] is not None:
+                    x = torch.where(valid[j], x, NEG_BF16)
+                if exact:
+                    x = kernel_round(x - (running[j] if mutant == "running_max" else m))
+                p = kernel_exp2(x)
+                l = l + p.sum(-1, keepdim=True)
+            acc = acc + _bf16(p) @ vp[:, j * 64:(j + 1) * 64, cols]
+        out[..., cols] = (acc / (float(n_pad) if ceiling else l))[:, :n]
+    return out.to(torch.bfloat16)
+
+
 def emulate(variant, q, k, v, heads, mutant=None):
     kind, arg = av.parse_variant(variant, q.shape[1])
     if kind == "ilv":
         return emulate_ilv(q, k, v, heads, arg, mutant)
+    if kind == "sbf16":
+        return emulate_sbf16(q, k, v, heads, *arg, mutant=mutant)
     return emulate_chunk(q, k, v, heads, arg, mutant)
 
 
@@ -213,6 +287,10 @@ def _cases():
                 except ValueError:  # outside the JAX domain: chunk4 at n = 40 and 200
                     continue
                 out.append((variant, n, heads))
+    # sbf16: a ragged tile and a tile of pad keys (300: 44 real keys in tile 4,
+    # none in tile 5), and the probe shape's 22 tiles
+    out += [(variant, n, heads) for n in (300, 1370) for heads in (2, 6)
+            for variant in ("sbf16", "sbf16:fast", "ceiling")]
     return out
 
 
@@ -242,13 +320,52 @@ MUTANTS = [("chunk2", "p_other_slot"), ("chunk2", "output_other_head"),
            ("chunk2", "q_scaled_after_rounding"), ("ilv", "q_scaled_after_rounding")]
 
 
-@pytest.mark.parametrize("variant,mutant", MUTANTS)
-def test_mutant_misses_run_variant(bsv, variant, mutant):
+def _check_mutant(bsv, variant, mutant, qk_std):
     n, heads = 200, 2
-    q, k, v = _inputs(n, heads, seed=7, qk_std=4.0)
+    q, k, v = _inputs(n, heads, seed=7, qk_std=qk_std)
     want = _run_variant(bsv, variant, q, k, v, heads)
     assert _rel(emulate(variant, q, k, v, heads), want) <= TOL
     assert _rel(emulate(variant, q, k, v, heads, mutant), want) > chip_smoke.ATTN_TOL
+
+
+@pytest.mark.parametrize("variant,mutant", MUTANTS)
+def test_mutant_misses_run_variant(bsv, variant, mutant):
+    _check_mutant(bsv, variant, mutant, 4.0)
+
+
+# sbf16's mutants: a running max (of the tiles seen so far, no rescale) in
+# place of the global one, on the peaked inputs; the mask dropped on the
+# probe script's inputs, where a zero pad key's p = exp2(-m) is not small.
+SBF16_MUTANTS = [("sbf16", "running_max", 4.0), ("sbf16", "unmasked", 0.5),
+                 ("sbf16:fast", "unmasked", 0.5)]
+
+
+@pytest.mark.parametrize("variant,mutant,qk_std", SBF16_MUTANTS)
+def test_sbf16_mutant_misses_run_variant(bsv, variant, mutant, qk_std):
+    _check_mutant(bsv, variant, mutant, qk_std)
+
+
+def test_kernel_score_rounding_is_torch_bf16():
+    """``sbf16_hopper``'s rounding of a score gives torch's bf16 bits on
+    seeded scores, on exact ties between two bf16 values (both parities of
+    the kept bit), on signed zeros, subnormals, values that round to ±inf,
+    and on bf16(−1e30), the mask value."""
+    rng = np.random.RandomState(5)
+    base = rng.randint(0, 2**16, 4096).astype(np.int64) << 16  # bf16 bit patterns
+    ties = (base | 0x8000) & 0xFFFFFFFF                          # halfway above each
+    near = (base + rng.randint(-0x8000, 0x8000, 4096)) & 0xFFFFFFFF
+    special = np.array([0x00000000, 0x80000000, 0x00000001, 0x00018000, 0x807F8000,
+                        0x7F7F8000, 0xFF7FFFFF, 0x7F7F7FFF, 0x3F808000, 0x3F818000,
+                        np.float32(-1e30).view(np.uint32)], np.int64)
+    bits = np.concatenate([ties, near, special, special[:1]])
+    x = np.where(bits >= 2**31, bits - 2**32, bits).astype(np.int32).view(np.float32)
+    x = x[np.isfinite(x)]
+    x = np.concatenate([x, (rng.randn(4096) * 40).astype(np.float32)])
+    x = torch.from_numpy(x[: len(x) // 2 * 2].copy())
+    got = kernel_round(x)
+    want = x.to(torch.bfloat16).float()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert kernel_round(torch.tensor([-1e30, -1e30])).tolist() == [NEG_BF16, NEG_BF16]
 
 
 def test_launch_checks_tensor_maps_before_any_build():
@@ -264,15 +381,20 @@ def test_launch_checks_tensor_maps_before_any_build():
 
 
 def test_split_rewrites_find_their_anchors():
-    """``bench_probe_split``'s rewrites of the Hopper source (the split
-    builds and the clock64 timeline) each find their anchor once."""
+    """``bench_probe_split``'s rewrites of this tree's sources (the split
+    builds of the Hopper probes, ``sbf16`` among them, and the clock64
+    timeline) each find their anchor once, and it finds Kernel A's D = 192
+    forward to time."""
     from video_depth_anything_torch import bench_probe_split as bps
 
-    design, csrc = bps.design_of(str(ROOT))
-    assert design is bps.HOPPER
+    designs = {d["name"]: (d, csrc, kinds) for d, csrc, kinds in bps.designs_of(str(ROOT))}
+    assert set(designs) == {"hopper", "flash"}
+    design, csrc, kinds = designs["hopper"]
+    assert kinds == ("ilv", "chunk", "sbf16")
     text = (Path(csrc) / design["file"]).read_text()
-    assert bps.rewrite(text, design).count("PROBE_STOP") >= 3
+    assert bps.rewrite(text, design, kinds).count("PROBE_STOP") >= 5
     assert all(text.count(anchor) == 1 for anchor, _ in bps.TIMELINE)
+    assert designs["flash"][2] == ("flash192",)
 
 
 def test_chain_mix_cancels_unrolling():

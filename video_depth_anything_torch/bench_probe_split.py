@@ -1,10 +1,13 @@
-"""Where the spatial probe kernels ``ilv`` / ``nomask`` and ``chunk<k>``
-spend their time on the card: each kernel built in full and with parts
-taken out, timed at the probe script's shapes, with its ``ptxas`` lines
-and the instruction mix of its softmax chain read from the SASS.
+"""Where Kernel A's spatial probe kernels (``ilv`` / ``nomask``,
+``chunk<k>``, ``sbf16`` / ``sbf16:fast`` / ``ceiling``) spend their time on
+the card: each kernel built in full and with parts taken out, timed at the
+probe script's shapes, with its ``ptxas`` lines and the instruction mix of
+its softmax chain read from the SASS; and Kernel A's forward at D = 192
+(``flash192``, ``flash192:fast``), built in full only.
 
     python -m video_depth_anything_torch.bench_probe_split [ROOT ...]
-        [--variants ilv nomask chunk2 chunk4] [--no-timing] [--timeline]
+        [--variants ilv nomask chunk2 chunk4 sbf16 sbf16:fast ceiling
+                    flash192 flash192:fast] [--no-timing] [--timeline]
 
 The kernels are built from the ``csrc`` of each checkout ROOT (default:
 this tree; for example an unpacked parent commit and this tree, to time
@@ -13,21 +16,32 @@ behind a ``PROBE_STOP`` / ``PROBE_FLOORF`` macro (built with the macro at
 0, the source is the kernel as shipped):
 
 * ``full``: the kernel;
-* ``nochain``: the chain removed (p = s, as ``ceiling`` does);
+* ``nochain``: the chain removed (p = s, as ``ceiling`` does; exact
+  ``sbf16`` keeps a max of the raw scores and p = s - m, which keep its
+  max pass's products; l is 1 more than its sum, so that no output
+  divides by 0);
 * ``noproducts``: the products and the chain removed (loads and stores
   only);
 * ``floorf`` (the Hopper design only): ``exp2_poly`` with ``floorf`` and
   ``__float2int_rz``, as the TPU kernel and the ``mma.sync`` kernels take
   the floor and the exponent, in place of the rounding-down add.
 
-The design is found from the source: the ``mma.sync`` kernels
-(``csrc/attention_variants.cu`` with ``ilv_kernel``) or the Hopper ones
-(``csrc/attention_variants_hopper.cu``).  Each build is timed with CUDA
-events (``utils/device.event_ms``) in turns: the builds in order, then in
-reverse order, per shape.  The ``full`` and ``floorf`` builds are held
-against ``spatial_kernel_plain``.  ``--no-timing`` stops after the builds
-and the SASS; ``--timeline`` also prints the phases of one CTA of this
-tree's Hopper kernels, from ``clock64()`` stamps (``timeline``).
+The designs are found from the sources (``DESIGNS``): the ``mma.sync``
+``sbf16_kernel`` of ``csrc/attention_variants.cu`` (in checkouts that
+still hold it), the Hopper probes of ``csrc/attention_variants_hopper.cu``
+(``ilv``, ``chunk`` and, where the source has it, ``sbf16_hopper``), and
+``csrc/flash_attention.cu`` for D = 192.  A design is built only where a
+variant asked for runs on it.  Each build is timed with CUDA events
+(``utils/device.event_ms``) in turns: the builds in order, then in reverse
+order, per shape (the probes at vitl and vits, 32 x 1370; ``flash192`` at
+32 x 1370 with 2 heads of 192, q, k and v strided views of one fused qkv
+tensor, as the model's projection gives them, and again at B = 30 and 33:
+5.0 and 5.5 waves of its CTAs on 132 SMs against 5.33).  The ``full`` and
+``floorf`` builds are held against the plain versions
+(``spatial_kernel_plain``, ``flash_attention_plain``).  ``--no-timing``
+stops after the builds and the SASS; ``--timeline`` also prints the
+phases of one CTA of this tree's Hopper ``ilv`` and ``chunk`` kernels,
+from ``clock64()`` stamps (``timeline``).
 
 The chain's mix: ``cuobjdump -sass`` of the ``full`` and ``nochain``
 builds, opcodes counted in each kernel function; the difference divided
@@ -58,6 +72,8 @@ from collections import Counter
 
 N, D, BATCH = 1370, 64, 32
 ENCODERS = (("vitl", 16), ("vits", 6))
+FLASH_HEADS, FLASH_D = 2, 192  # chip_smoke.py's synthetic D = 192 shape
+WAVES = (30, 32, 33)  # batches timed for the D = 192 grid's waves (660, 704, 726 CTAs)
 PEAK_BF16 = 989e12
 RATE = {"conversion": 16, "fp32": 128, "integer": 64}
 CLASSES = {
@@ -68,33 +84,66 @@ CLASSES = {
 }
 PACK = "F2FP.BF16.F32.PACK_AB"  # P's bf16 pack: half an instruction a score, in both builds
 
-# The rewrites of each design: (anchor, text put after the anchor).
+# The rewrites of each design: (anchor, what replaces it, the kernel kind
+# whose code holds the anchor, or None where every source of the design has it).
 _STOP1 = "  if (PROBE_STOP >= 1) return;\n"
 _STOP2 = "  if (PROBE_STOP >= 2) return;\n"
-MMA_SYNC = {
-    "file": "attention_variants.cu",
-    "kernels": {"ilv": "ilv_kernel", "chunk": "chunk_kernel"},
-    "rewrites": [
-        ("__device__ __forceinline__ void poly_chain(float s[8][4], float l[2], int k0, int n, "
-         "int lane) {\n", _STOP1),
-        ("    for (int e = 0; e < 4; ++e) s[t][e] = 0.f;\n#pragma unroll\n  for (int kk = 0; kk < 4;"
-         " ++kk)\n#pragma unroll\n    for (int np = 0; np < 4; ++np) {", None),
-        ("__device__ __forceinline__ void pv_tile(float acc[8][4], const uint32_t p[4][4], "
-         "const bf16* sV,\n                                        int lane) {\n", _STOP2),
-    ],
-    "builds": {"full": [], "nochain": ["-DPROBE_STOP=1"], "noproducts": ["-DPROBE_STOP=2"]},
+_QK_ZERO = ("    for (int e = 0; e < 4; ++e) s[t][e] = 0.f;\n#pragma unroll\n  for (int kk = 0; kk < 4;"
+            " ++kk)\n#pragma unroll\n    for (int np = 0; np < 4; ++np) {")
+_PV_TILE = ("__device__ __forceinline__ void pv_tile(float acc[8][4], const uint32_t p[4][4], "
+            "const bf16* sV,\n                                        int lane) {\n")
+_MMA_NOPRODUCTS = [  # the mma.sync qk_tile returns once s is zero, pv_tile at once
+    (_QK_ZERO, _QK_ZERO.replace("#pragma unroll\n  for (int kk", _STOP2 + "#pragma unroll\n  for (int kk",
+                                1), None),
+    (_PV_TILE, _PV_TILE + _STOP2, None),
+]
+_BUILDS = {"full": [], "nochain": ["-DPROBE_STOP=1"], "noproducts": ["-DPROBE_STOP=2"]}
+_EXP_ROWS = ("__device__ __forceinline__ void exp_rows(float (&s)[32], float (&l)[2], int valid, "
+             "int c2) {\n")
+_SBF16_ROWS = ("__device__ __forceinline__ void sbf16_rows(float (&s)[32], float (&l)[2], "
+               "const float (&m)[2],\n                                           int valid, int c2) {\n")
+# sbf16's chain-free build: p = s; exact keeps p = s - m, and with it the
+# max pass (a max a score) and the products that feed it
+_SBF16_STOP = ("  if (PROBE_STOP >= 1) {\n    if constexpr (EXACT)\n"
+               "      for (int i = 0; i < 32; ++i) s[i] -= m[(i >> 1) & 1];\n    return;\n  }\n")
+_KEPT = {"FMNMX": 1.0, "FADD": 1.0}
+# Without a chain l is 0, and acc / 0 takes the division's slow path for
+# every output: the chain-free builds add 1 to l.
+_L_MMA = "  for (int rr = 0; rr < 2; ++rr) l[rr] = CEILING ? float(n_pad) : quad_sum(l[rr]);\n"
+_L_HOPPER = "  const float l0 = quad_sum(l_part[0]) - pad, l1 = quad_sum(l_part[1]) - pad;\n"
+MMA_SYNC_SBF16 = {  # sbf16 on mma.sync, before its Hopper kernel
+    "name": "sbf16-mma", "file": "attention_variants.cu", "marker": "sbf16_kernel",
+    "kernels": {"sbf16": "sbf16_kernel"},
+    "rewrites": [  # without its chain, exact keeps a max of the raw scores and p = s - m
+        (_L_MMA, _L_MMA.replace(");\n", ") + (PROBE_STOP >= 1);\n"), None),
+        ("    if constexpr (!CEILING) {\n",
+         "    if constexpr (!FAST && !CEILING && PROBE_STOP == 1) {\n"
+         "#pragma unroll\n      for (int t = 0; t < 8; ++t)\n#pragma unroll\n"
+         "        for (int e = 0; e < 4; ++e) s[t][e] -= m[e >> 1];\n    }\n"
+         "    if constexpr (!CEILING && PROBE_STOP < 1) {\n", None),
+        ("          m[e >> 1] = fmaxf(m[e >> 1], valid ? bf16_round(s[t][e]) : neg);\n",
+         "          m[e >> 1] = fmaxf(m[e >> 1], PROBE_STOP < 1 ? (valid ? bf16_round(s[t][e]) : neg)"
+         " : s[t][e]);\n", None),
+    ] + _MMA_NOPRODUCTS,
+    "builds": _BUILDS,
+    "kept": {"sbf16_kernelILb0ELb0E": _KEPT},
 }
-HOPPER = {
-    "file": "attention_variants_hopper.cu",
-    "kernels": {"ilv": "ilv_hopper", "chunk": "chunk_hopper"},
+HOPPER = {  # ilv / chunk, and sbf16 where the source has it
+    "name": "hopper", "file": "attention_variants_hopper.cu", "marker": "ilv_hopper",
+    "kernels": {"ilv": "ilv_hopper", "chunk": "chunk_hopper", "sbf16": "sbf16_hopper"},
     "rewrites": [
-        ("__device__ __forceinline__ void exp_rows(float (&s)[32], float (&l)[2], int valid, "
-         "int c2) {\n", _STOP1),
+        (_L_HOPPER, _L_HOPPER.replace(" - pad,", " - pad + (PROBE_STOP >= 1),")
+         .replace(" - pad;", " - pad + (PROBE_STOP >= 1);"), None),
+        (_EXP_ROWS, _EXP_ROWS + _STOP1, None),
+        (_SBF16_ROWS, _SBF16_ROWS + _SBF16_STOP, "sbf16"),
         ("__device__ __forceinline__ void issue_s(float (&s)[32], uint64_t dq, uint64_t dk) {\n",
-         "  if (PROBE_STOP >= 2) { wgmma_commit(); return; }\n"),
+         "__device__ __forceinline__ void issue_s(float (&s)[32], uint64_t dq, uint64_t dk) {\n"
+         "  if (PROBE_STOP >= 2) { wgmma_commit(); return; }\n", None),
         ("                                         uint64_t dv, int first) {\n",
-         "  if (PROBE_STOP >= 2) { wgmma_commit(); return; }\n"),
+         "                                         uint64_t dv, int first) {\n"
+         "  if (PROBE_STOP >= 2) { wgmma_commit(); return; }\n", None),
         ("__device__ __forceinline__ float exp2_poly(float x) {\n",
+         "__device__ __forceinline__ float exp2_poly(float x) {\n"
          "#if PROBE_FLOORF\n"
          "  {\n"
          "    const float y = fmaxf(x, -200.f), yi = floorf(y), yf = y - yi;\n"
@@ -103,37 +152,58 @@ HOPPER = {
          "           fmaf(yf, fmaf(yf, fmaf(yf, fmaf(yf, 0.0135115307f, 0.051989575f), "
          "0.241508857f), 0.69297426f), 1.00000526f);\n"
          "  }\n"
-         "#endif\n"),
+         "#endif\n", None),
     ],
-    "builds": {"full": [], "nochain": ["-DPROBE_STOP=1"], "noproducts": ["-DPROBE_STOP=2"],
-               "floorf": ["-DPROBE_FLOORF=1"]},
+    "builds": {**_BUILDS, "floorf": ["-DPROBE_FLOORF=1"]},
+    "kept": {"sbf16_hopperILb0ELb0E": _KEPT},
 }
+FLASH = {  # Kernel A's forward; only its D = 192 kernel is timed here
+    "name": "flash", "file": "flash_attention.cu", "marker": "vda_flash_attention_fwd",
+    "kernels": {"flash192": "vda_flash_attention_fwd"}, "rewrites": [], "builds": {"full": []},
+}
+DESIGNS = (MMA_SYNC_SBF16, HOPPER, FLASH)
 
 
-def rewrite(text: str, design: dict) -> str:
-    for anchor, add in design["rewrites"]:
+def kind_of(variant: str) -> str:
+    """The kernel kind a variant runs on: ``ilv``, ``chunk``, ``sbf16`` or
+    ``flash192``."""
+    if variant in ("flash192", "flash192:fast"):
+        return "flash192"
+    from video_depth_anything_torch.ops.attention_variants import parse_variant
+
+    return parse_variant(variant, N)[0]
+
+
+def rewrite(text: str, design: dict, kinds) -> str:
+    """The source with the design's rewrites of the kernels in ``kinds``."""
+    for anchor, new, kind in design["rewrites"]:
+        if kind is not None and kind not in kinds:
+            continue
         if text.count(anchor) != 1:
             raise SystemExit(f"bench_probe_split: anchor not found once in {design['file']}: "
                              f"{anchor[:60]!r}")
-        if add is None:  # qk_tile: return after the zeroing loop
-            text = text.replace(anchor, anchor.replace("#pragma unroll\n  for (int kk",
-                                                       _STOP2 + "#pragma unroll\n  for (int kk", 1))
-        else:
-            text = text.replace(anchor, anchor + add)
+        text = text.replace(anchor, new)
     return "#ifndef PROBE_STOP\n#define PROBE_STOP 0\n#endif\n#ifndef PROBE_FLOORF\n" \
            "#define PROBE_FLOORF 0\n#endif\n" + text
 
 
-def design_of(root: str):
+def designs_of(root: str) -> list:
+    """``[(design, csrc, kinds)]``: the designs whose sources the checkout
+    holds, each with the kernel kinds its source has."""
     csrc = os.path.join(root, "video_depth_anything_torch", "csrc")
-    if os.path.exists(os.path.join(csrc, HOPPER["file"])):
-        return HOPPER, csrc
-    if "ilv_kernel" in open(os.path.join(csrc, MMA_SYNC["file"])).read():
-        return MMA_SYNC, csrc
-    raise SystemExit(f"bench_probe_split: no probe kernels of a known design under {csrc}")
+    out = []
+    for design in DESIGNS:
+        path = os.path.join(csrc, design["file"])
+        text = open(path).read() if os.path.exists(path) else ""
+        if design["marker"] in text:
+            kinds = tuple(k for k, fn in design["kernels"].items() if fn in text)
+            out.append((design, csrc, kinds))
+    if not out:
+        raise SystemExit(f"bench_probe_split: no kernels of a known design under {csrc}")
+    return out
 
 
-def start_build(tag: str, csrc: str, design: dict, flags: list, out_dir: str):
+def start_build(tag: str, csrc: str, design: dict, kinds, flags: list, out_dir: str):
     """Start compiling the rewritten source with ``flags``: ``(process,
     library path)``."""
     from video_depth_anything_torch.ops import cuda_build
@@ -145,7 +215,7 @@ def start_build(tag: str, csrc: str, design: dict, flags: list, out_dir: str):
             shutil.copy(os.path.join(csrc, f), d)
     cu, so = os.path.join(d, "probe.cu"), os.path.join(d, "libprobe.so")
     with open(os.path.join(csrc, design["file"])) as f:
-        text = rewrite(f.read(), design)
+        text = rewrite(f.read(), design, kinds)
     with open(cu, "w") as f:
         f.write(text)
     proc = subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o", so, cu],
@@ -160,6 +230,19 @@ def finish_build(tag: str, proc) -> list:
         raise SystemExit(f"bench_probe_split: nvcc failed for {tag}:\n{out}")
     return [ln.strip() for ln in out.splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln or "wgmma" in ln]
+
+
+def entry(lib, kind: str):
+    """The C entry point of ``kind`` in a built library, with its types."""
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if kind == "flash192":
+        fn = lib.vda_flash_attention_fwd
+        fn.argtypes = [vp] * 4 + [i] * 4 + [ctypes.c_longlong] * 12 + [f, i, vp, vp]
+    else:  # q, k, v, o, B, n, heads, qscale, two flags, stream
+        fn = getattr(lib, f"vda_{kind}")
+        fn.argtypes = [vp] * 4 + [i] * 3 + [f, i, i, vp]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def sass_opcodes(so: str) -> dict:
@@ -181,11 +264,14 @@ def sass_opcodes(so: str) -> dict:
     return funcs
 
 
-def chain_mix(full: Counter, nochain: Counter) -> dict:
+def chain_mix(full: Counter, nochain: Counter, kept=None) -> dict:
     """The chain's instructions per score by opcode and by class: the full
     build's counts less the chain-free build's, the latter scaled to the
     same number of tensor-core instructions (HMMA or HGMMA), so that a
-    loop unrolled another number of times in one build cancels."""
+    loop unrolled another number of times in one build cancels; plus
+    ``kept``, the chain's instructions a score that the chain-free build
+    keeps on purpose (exact ``sbf16``'s max and subtraction, which keep its
+    max pass's products alive)."""
     def products(c):
         return sum(v for k, v in c.items() if k.split(".")[0] in ("HMMA", "HGMMA"))
 
@@ -198,7 +284,8 @@ def chain_mix(full: Counter, nochain: Counter) -> dict:
     diff = {k: (full.get(k, 0) - r * nochain.get(k, 0)) / scores
             for k in set(full) | set(nochain)}
     diff = {k: v for k, v in diff.items() if abs(v) >= 0.01}
-    diff[PACK] = diff.get(PACK, 0.0) + 0.5
+    for k, v in {PACK: 0.5, **(kept or {})}.items():
+        diff[k] = diff.get(k, 0.0) + v
     by_class = Counter()
     for k, v in diff.items():
         base = k.split(".")[0]
@@ -227,13 +314,14 @@ TIMELINE = [  # (anchor, the anchor with stamps)
     ("namespace {\n\nconstexpr int kQRows", _TIMELINE_HEAD + "namespace {\n\nconstexpr int kQRows"),
     ("    mbar_wait(&sm.full[s], (j / kIlvStages) & 1);\n",
      "    STAMP(j * 8);\n    mbar_wait(&sm.full[s], (j / kIlvStages) & 1);\n    STAMP(j * 8 + 1);\n"),
-    ("    wgmma_wait<1>();  // S0 done; so are the previous tile's P V products\n    fence_regs(s0);\n",
-     "    wgmma_wait<1>();  // S0 done; so are the previous tile's P V products\n    fence_regs(s0);\n"
-     "    STAMP(j * 8 + 2);\n"),
-    ("    pack_p(p0, s0);\n", "    pack_p(p0, s0);\n    STAMP(j * 8 + 3);\n"),
-    ("    wgmma_wait<1>();  // S1 done, P0 V0 in flight\n    fence_regs(s1);\n",
-     "    wgmma_wait<1>();  // S1 done, P0 V0 in flight\n    fence_regs(s1);\n    STAMP(j * 8 + 4);\n"),
-    ("    pack_p(p1, s1);\n", "    pack_p(p1, s1);\n    STAMP(j * 8 + 5);\n"),
+    ("    fence_regs(s0);\n    exp_rows<MASK>(s0, l0, valid, c2);\n",
+     "    fence_regs(s0);\n    STAMP(j * 8 + 2);\n    exp_rows<MASK>(s0, l0, valid, c2);\n"),
+    ("    exp_rows<MASK>(s0, l0, valid, c2);\n    pack_p(p0, s0);\n",
+     "    exp_rows<MASK>(s0, l0, valid, c2);\n    pack_p(p0, s0);\n    STAMP(j * 8 + 3);\n"),
+    ("    fence_regs(s1);\n    exp_rows<MASK>(s1, l1, valid, c2);\n",
+     "    fence_regs(s1);\n    STAMP(j * 8 + 4);\n    exp_rows<MASK>(s1, l1, valid, c2);\n"),
+    ("    exp_rows<MASK>(s1, l1, valid, c2);\n    pack_p(p1, s1);\n",
+     "    exp_rows<MASK>(s1, l1, valid, c2);\n    pack_p(p1, s1);\n    STAMP(j * 8 + 5);\n"),
     ("    mbar_wait(&sm.full[i % kChunkStages], (i / kChunkStages) & 1);\n",
      "    STAMP(i * 8);\n    mbar_wait(&sm.full[i % kChunkStages], (i / kChunkStages) & 1);\n"
      "    STAMP(i * 8 + 1);\n"),
@@ -330,7 +418,9 @@ def max_sm_clock_hz() -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*", help="checkouts whose kernels to build (default: this one)")
-    ap.add_argument("--variants", nargs="+", default=["ilv", "nomask", "chunk2", "chunk4"])
+    ap.add_argument("--variants", nargs="+",
+                    default=["ilv", "nomask", "chunk2", "chunk4", "sbf16", "sbf16:fast", "ceiling",
+                             "flash192", "flash192:fast"])
     ap.add_argument("--no-timing", action="store_true",
                     help="builds, ptxas lines and the chain's mix only")
     ap.add_argument("--timeline", action="store_true",
@@ -341,6 +431,7 @@ def main(argv=None) -> int:
 
     from video_depth_anything_torch.ops import attention_variants as av
     from video_depth_anything_torch.ops import cuda_build
+    from video_depth_anything_torch.ops import flash_attention as fa
     from video_depth_anything_torch.utils.device import card_line, event_ms
 
     if not torch.cuda.is_available():
@@ -350,39 +441,37 @@ def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     roots = [os.path.abspath(r) for r in args.roots or [here]]
     trees = [(os.path.basename(r) or r, r) for r in roots]
+    wanted = {kind_of(v) for v in args.variants}
     out_dir = tempfile.mkdtemp(prefix="probe_split_")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
-    builds, started = {}, {}  # tag -> (fns, design); tag -> (process, library)
-    for tree, root in trees:
-        design, csrc = design_of(root)
+    # the designs each tree builds: those that run a variant asked for
+    plans = [(tree, design, csrc, kinds) for tree, root in trees
+             for design, csrc, kinds in designs_of(root) if wanted & set(kinds)]
+    builds, started = {}, {}  # tag -> (kind -> entry point, kinds); tag -> (process, library)
+    for tree, design, csrc, kinds in plans:
         for name, flags in design["builds"].items():
-            tag = f"{tree}:{name}"
-            started[tag] = start_build(tag.replace(":", "_"), csrc, design, flags, out_dir)
-    for tree, root in trees:
-        design, csrc = design_of(root)
+            tag = f"{tree}:{design['name']}:{name}"
+            started[tag] = start_build(tag.replace(":", "_"), csrc, design, kinds, flags, out_dir)
+    for tree, design, csrc, kinds in plans:
         sass = {}
         for name in design["builds"]:
-            tag = f"{tree}:{name}"
+            tag = f"{tree}:{design['name']}:{name}"
             proc, so = started[tag]
             for ln in finish_build(tag, proc):
                 print(f"[ptxas] {tag}: {ln}", flush=True)
             if name in ("full", "nochain"):
                 sass[name] = sass_opcodes(so)
             lib = ctypes.CDLL(so)
-            fns = {}
-            for kind in ("ilv", "chunk"):
-                fn = getattr(lib, f"vda_{kind}")
-                vp, i = ctypes.c_void_p, ctypes.c_int
-                fn.argtypes = [vp] * 4 + [i] * 3 + [ctypes.c_float, i, i, vp]
-                fn.restype = ctypes.c_int
-                fns[kind] = fn
-            builds[tag] = (fns, design)
-        for kind, kname in design["kernels"].items():
+            builds[tag] = ({kind: entry(lib, kind) for kind in kinds}, kinds)
+        if "nochain" not in sass:
+            continue
+        for kind in kinds:
             for func, counts in sass["full"].items():
-                if kname not in func:
+                if design["kernels"][kind] not in func:
                     continue
-                mix = chain_mix(counts, sass["nochain"].get(func, Counter()))
+                kept = next((v for k, v in design.get("kept", {}).items() if k in func), None)
+                mix = chain_mix(counts, sass["nochain"].get(func, Counter()), kept)
                 row = {"tree": tree, "kernel": kind, "function": func, **mix,
                        "counts_full": dict(counts),
                        "counts_nochain": dict(sass["nochain"].get(func, {}))}
@@ -394,49 +483,91 @@ def main(argv=None) -> int:
                 print(json.dumps(row), flush=True)
     print(json.dumps({"sms": sms, "max_sm_clock_mhz": clock / 1e6}), flush=True)
     if args.timeline:
-        timeline(design_of(here)[1], out_dir, args.variants)
+        timeline(os.path.join(here, "video_depth_anything_torch", "csrc"), out_dir,
+                 [v for v in args.variants if kind_of(v) in ("ilv", "chunk")])
     if args.no_timing:
         shutil.rmtree(out_dir, ignore_errors=True)
         return 0
 
+    def time_rows(label, variant, kind, run, want, extra):
+        """Each build of ``kind`` timed in turns (in order, then reversed)."""
+        tags = [tag for tag, (_, kinds) in builds.items() if kind in kinds]
+        times = {tag: [] for tag in tags}
+        for order in (tags, tags[::-1]):
+            for tag in order:
+                times[tag].append(event_ms(lambda tag=tag: run(tag)))
+        for tag in tags:
+            row = {"enc": label, "variant": variant, "build": tag,
+                   "ms": round(sum(times[tag]) / 2, 4),
+                   "ms_turns": [round(t, 4) for t in times[tag]], **extra}
+            if tag.endswith(("full", "floorf")):
+                got = run(tag).float()
+                row["rel_err"] = float((got - want).abs().max() / want.abs().max())
+            print(json.dumps(row), flush=True)
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     scale = D**-0.5
-    tags = list(builds)
-    for enc, heads in ENCODERS:
+    spatial = [v for v in args.variants if kind_of(v) != "flash192"]
+    for enc, heads in ENCODERS if spatial else ():
         q, k, v = ((torch.randn(BATCH, N, heads * D, generator=gen, device=dev) * std)
                    .to(torch.bfloat16) for std in (0.5, 0.5, 1.0))
         qt, kt, vt = (t.view(BATCH, N, heads, D).transpose(1, 2) for t in (q, k, v))
-        sdpa_ms = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
-        tensor_ms = 4.0 * BATCH * heads * N * N * D / PEAK_BF16 * 1e3
-        for variant in args.variants:
+        extra = {"sdpa_ms": round(event_ms(lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, scale=scale)), 4),
+                 "tensor_bound_ms": round(4.0 * BATCH * heads * N * N * D / PEAK_BF16 * 1e3, 4)}
+        for variant in spatial:
             kind, arg = av.parse_variant(variant, N)
-            flag = int(arg)
-            want = av.spatial_kernel_plain(kind, arg, q, k, v, scale, heads).float()
+            flags = (int(arg[0]), int(arg[1])) if kind == "sbf16" else (int(arg), 0)
 
-            def run(tag, kind=kind, flag=flag):
+            def run(tag, kind=kind, flags=flags):
                 out = torch.empty_like(q)
                 err = builds[tag][0][kind](*(cuda_build.ptr(t) for t in (q, k, v, out)), BATCH, N,
-                                           heads, float(scale * av.LOG2E), flag, 0,
+                                           heads, float(scale * av.LOG2E), *flags,
                                            cuda_build.stream_of(q))
                 cuda_build.check(err, tag)
                 return out
 
-            times = {tag: [] for tag in tags}
-            for order in (tags, tags[::-1]):
-                for tag in order:
-                    times[tag].append(event_ms(lambda tag=tag: run(tag)))
-            for tag in tags:
-                row = {"enc": enc, "variant": variant, "build": tag,
-                       "ms": round(sum(times[tag]) / 2, 4), "ms_turns": [round(t, 4) for t in
-                                                                         times[tag]],
-                       "sdpa_ms": round(sdpa_ms, 4), "tensor_bound_ms": round(tensor_ms, 4)}
-                if tag.endswith(("full", "floorf")):
-                    got = run(tag).float()
-                    row["rel_err"] = float((got - want).abs().max() / want.abs().max())
-                print(json.dumps(row), flush=True)
+            want = av.spatial_kernel_plain(kind, arg, q, k, v, scale, heads).float()
+            time_rows(enc, variant, kind, run, want, extra)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+
+    flash = [v_ for v_ in args.variants if kind_of(v_) == "flash192"]
+    if not flash:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        return 0
+    h, d = FLASH_HEADS, FLASH_D
+    qkv = torch.randn(WAVES[-1], N, 3 * h * d, generator=gen, device=dev)
+    qkv[..., :2 * h * d] *= 0.5
+    qkv_all = [t.view(WAVES[-1], N, h, d) for t in qkv.to(torch.bfloat16).split(h * d, dim=-1)]
+    q, k, v = (t[:BATCH] for t in qkv_all)
+    strides = fa._check_inputs("flash192", q, k, v, head_dims=(d,))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    extra = {"sdpa_ms": round(event_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, scale=d**-0.5)), 4),
+             "tensor_bound_ms": round(4.0 * BATCH * h * N * N * d / PEAK_BF16 * 1e3, 4)}
+    def run_flash(tag, fast, bsz=BATCH):
+        qb, kb, vb = (t[:bsz] for t in qkv_all)
+        out = torch.empty(bsz, N, h, d, dtype=q.dtype, device=dev)
+        err = builds[tag][0]["flash192"](*(cuda_build.ptr(t) for t in (qb, kb, vb, out)), bsz, N,
+                                         h, d, *strides, N * h * d, h * d, d, float(d**-0.5),
+                                         int(fast), None, cuda_build.stream_of(q))
+        cuda_build.check(err, tag)
+        return out
+
+    for variant in flash:
+        fast = variant.endswith(":fast")
+        want = fa.flash_attention_plain(q, k, v, d**-0.5, fast=fast).float()
+        time_rows(f"synthetic H={h} D={d}", variant, "flash192",
+                  lambda tag, fast=fast: run_flash(tag, fast), want, extra)
+        # the grid's waves: 128-query CTAs, one an SM at most
+        for tag in [t_ for t_, (_, kinds) in builds.items() if "flash192" in kinds]:
+            ctas = -(-N // 128) * h
+            ms = {bsz: round(event_ms(lambda bsz=bsz: run_flash(tag, fast, bsz)), 4) for bsz in WAVES}
+            print(json.dumps({"variant": variant, "build": tag, "waves": {
+                bsz: {"ctas": ctas * bsz, "waves": round(ctas * bsz / sms, 3), "ms": t_ms}
+                for bsz, t_ms in ms.items()}}), flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
     return 0
 

@@ -1,50 +1,31 @@
-// Kernel A's probe kernels on mma.sync: the TPU probe scripts' kernels
-// that attention_variants_hopper.cu does not hold yet.
+// Kernel A's softmax-chain probe on mma.sync: the TPU probe kernel that
+// attention_variants_hopper.cu does not hold.
 //
-// Replaces scripts/bench_spatial_variants.py:_kernel_sbf16 (sbf16,
-// sbf16:fast, ceiling), launched by run_variant, and
-// scripts/bench_softmax_chain.py make_kernel's kern (seven modes).
-// _kernel_ilv (ilv, nomask) and _kernel_chunk (chunk<k>) are the Hopper
-// kernels of attention_variants_hopper.cu.  The numerics are the TPU
-// kernels':
-//   * spatial variants, on the head-interleaved (B, N, H*64) layout: q is
-//     prescaled by scale*log2(e) in fp32 and rounded to bf16 (in the q
-//     load here, in the wrapper there); keys are padded with zeros to a
-//     multiple of 128 (here: rows >= n load as zeros and the key loop runs
-//     to n_pad), so a pad key scores exactly 0; fp32 scores; P rounded to
-//     bf16 before P V; fp32 accumulate; out = acc / l.
-//   * exp2 is _exp2_poly (pallas_attention.py:54-74): the exponent built
-//     in the int32 exponent field, a degree-4 polynomial of the fraction,
-//     on the FMA units.  The chain modes sexp and pexp are the Schraudolph
-//     and cubic bit tricks, also on the FMA units; exp, exact, bf16s and
-//     bf16x use the hardware exponential (MUFU ex2).  Which of these the
-//     card pays for is the question the probes ask.
+// Replaces scripts/bench_softmax_chain.py make_kernel's kern (seven modes).
+// The spatial probes _kernel_ilv, _kernel_chunk and _kernel_sbf16 of
+// scripts/bench_spatial_variants.py are the Hopper kernels of
+// attention_variants_hopper.cu.  The numerics are the TPU kernel's: fp32
+// scores, no mask (Nk a multiple of 64), one of seven elementwise chains,
+// P rounded to bf16 before P V, fp32 accumulate.  The chain modes sexp and
+// pexp are the Schraudolph and cubic bit tricks on the FMA units; exp,
+// exact, bf16s and bf16x use the hardware exponential (MUFU ex2).  Which of
+// these the card pays for is the question the probe asks.
 //
-// Bound on the H100: tensor-core FLOPs.  The spatial variants do
-// 4 * n^2 * 64 * H * B FLOP of valid work (vitl 32 x 1370 x 16 heads:
-// 0.2487 ms at 989 TFLOP/s; vits 6 heads: 0.0933) against ~0.1 GB moved;
-// the chain probe 2 * 2 * 1376 * 1408 * 64 * 512 FLOP (0.257 ms).  The
-// design is Kernel A's first skeleton: 64 query rows per CTA, 16 per
-// warp, 64-key tiles in shared memory, QK^T and P V on mma.sync m16n8k16
-// (bf16 in, fp32 accumulate), S and P in registers.  Their Hopper
-// redesign is later work.
+// Bound on the H100: tensor-core FLOPs, 2 * 2 * 1376 * 1408 * 64 * 512 FLOP
+// (0.257 ms at 989 TFLOP/s).  The design is Kernel A's first skeleton: 64
+// query rows per CTA, 16 per warp, 64-key tiles in shared memory, QK^T and
+// P V on mma.sync m16n8k16 (bf16 in, fp32 accumulate), S and P in
+// registers.  Its Hopper redesign is later work.
 //
-//   sbf16_kernel<FAST, CEILING>  one head per CTA.  Scores are rounded to
-//                        bf16 after the fp32 mma and masked in bf16.
-//                        Exact mode subtracts the GLOBAL row max in bf16
-//                        before the exponential: s - m is rounded to bf16,
-//                        so an online rescale would not compute the same
-//                        function, and a first pass over the key tiles
-//                        takes the max (QK^T twice).  CEILING is p = s
-//                        (no mask, no softmax) and l = n_pad.
-//   chain_kernel<MODE>   kern's seven chains on (BH, N, 64) with no mask
-//                        (Nk a multiple of 64).  exact keeps an online max
-//                        with rescale (fp32 exp: the difference from the
-//                        global max is fp32 rounding, then bf16 rounding of
-//                        P); bf16x needs the global max for the reason
-//                        given under sbf16 and takes a max pass.  The
-//                        output is the unnormalised (P V)[:, :64], so the
-//                        kernel reads only V's first 64 columns.
+//   chain_kernel<MODE>   kern's seven chains on (BH, N, 64).  exact keeps an
+//                        online max with rescale (fp32 exp: the difference
+//                        from the global max is fp32 rounding, then bf16
+//                        rounding of P); bf16x rounds s - m to bf16, so an
+//                        online rescale would compute another function: it
+//                        takes the global max in a first pass over the key
+//                        tiles (QK^T twice).  The output is the
+//                        unnormalised (P V)[:, :64], so the kernel reads
+//                        only V's first 64 columns.
 #include "common.cuh"
 
 namespace {
@@ -55,32 +36,18 @@ constexpr int BN = 64;     // keys per tile
 constexpr int LDS = kTileLds;
 constexpr int TILE = BN * LDS;  // one K or V tile in shared memory (elements)
 
-__device__ __forceinline__ float exp2_poly(float x) {
-  x = fmaxf(x, -200.f);  // keep the int conversion in range
-  const float xi = floorf(x);
-  const float xf = x - xi;
-  const int e = min(max(__float2int_rz(xi) + 127, 0), 254);
-  const float pf =
-      fmaf(xf, fmaf(xf, fmaf(xf, fmaf(xf, 0.0135115307f, 0.051989575f), 0.241508857f),
-                    0.69297426f),
-           1.00000526f);
-  return __int_as_float(e << 23) * pf;
-}
-
-// The warp's 16 query rows (row0..) of one head as m16n8k16 A fragments,
-// times qscale and rounded to bf16 (1.0 keeps q as it is); rows >= n zero.
+// The warp's 16 query rows (row0..) of one head as m16n8k16 A fragments;
+// rows >= n zero.
 __device__ __forceinline__ void load_q_frags(uint32_t qf[4][4], const bf16* q, long long stride,
-                                             int row0, int n, float qscale, int lane) {
+                                             int row0, int n, int lane) {
   const int g = lane >> 2, c2 = (lane & 3) * 2;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {  // a0 (g, 2c), a1 (g+8, 2c), a2 (g, 8+2c), a3 (g+8, 8+2c)
       const int row = row0 + g + (r & 1) * 8, col = kk * 16 + (r >> 1) * 8 + c2;
-      float2 f = make_float2(0.f, 0.f);
-      if (row < n)
-        f = __bfloat1622float2(*reinterpret_cast<const bf162*>(q + (long long)row * stride + col));
-      qf[kk][r] = pack_bf16x2(f.x * qscale, f.y * qscale);
+      qf[kk][r] = row < n ? *reinterpret_cast<const uint32_t*>(q + (long long)row * stride + col)
+                          : 0u;
     }
 }
 
@@ -137,11 +104,6 @@ __device__ __forceinline__ void zero_acc(float acc[8][4]) {
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -164,73 +126,6 @@ __device__ __forceinline__ void store_rows(bf16* o, long long stride, int row0, 
   }
 }
 
-// -------------------------------------------------------------- sbf16 ----
-template <bool FAST, bool CEILING>
-__global__ void __launch_bounds__(128) sbf16_kernel(const bf16* __restrict__ q,
-                                                    const bf16* __restrict__ k,
-                                                    const bf16* __restrict__ v,
-                                                    bf16* __restrict__ o, int n, int heads,
-                                                    float qscale) {
-  __shared__ __align__(16) bf16 smem[2 * TILE];
-  bf16 *sK = smem, *sV = smem + TILE;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long hd = (long long)heads * D;
-  const long long base = (long long)blockIdx.z * n * hd + (long long)blockIdx.y * D;
-  const int row0 = blockIdx.x * BM + warp * 16;
-  const int n_pad = (n + 127) / 128 * 128;
-  const float neg = bf16_round(-1e30f);
-
-  uint32_t qf[4][4];
-  load_q_frags(qf, q + base, hd, row0, n, qscale, lane);
-  float s[8][4], acc[8][4], l[2] = {0.f, 0.f}, m[2] = {0.f, 0.f};
-  uint32_t p[4][4];
-  zero_acc(acc);
-
-  if constexpr (!FAST && !CEILING) {  // the global row max of the bf16 scores
-    m[0] = m[1] = -INFINITY;
-    for (int k0 = 0; k0 < n_pad; k0 += BN) {
-      __syncthreads();
-      load_tile64(sK, k + base, hd, k0, n, tid);
-      __syncthreads();
-      qk_tile(s, qf, sK, lane);
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool valid = k0 + t * 8 + (lane & 3) * 2 + (e & 1) < n;
-          m[e >> 1] = fmaxf(m[e >> 1], valid ? bf16_round(s[t][e]) : neg);
-        }
-    }
-    m[0] = quad_max(m[0]);
-    m[1] = quad_max(m[1]);
-  }
-  for (int k0 = 0; k0 < n_pad; k0 += BN) {
-    __syncthreads();
-    load_tile64(sK, k + base, hd, k0, n, tid);
-    load_tile64(sV, v + base, hd, k0, n, tid);
-    __syncthreads();
-    qk_tile(s, qf, sK, lane);
-    if constexpr (!CEILING) {
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool valid = k0 + t * 8 + (lane & 3) * 2 + (e & 1) < n;
-          float x = valid ? bf16_round(s[t][e]) : neg;
-          if constexpr (!FAST) x = bf16_round(x - m[e >> 1]);
-          const float pe = exp2_poly(x);
-          s[t][e] = pe;
-          l[e >> 1] += pe;
-        }
-    }
-    pack_p(p, s);  // CEILING: p = s, rounded to bf16
-    pv_tile(acc, p, sV, lane);
-  }
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) l[rr] = CEILING ? float(n_pad) : quad_sum(l[rr]);
-  store_rows(o + base, hd, row0, n, acc, l, lane);
-}
-
 // -------------------------------------------------------------- chain ----
 enum Mode { GEMMS, EXP, EXACT, SEXP, PEXP, BF16S, BF16X };
 
@@ -250,7 +145,7 @@ __global__ void __launch_bounds__(128) chain_kernel(const bf16* __restrict__ q,
   const int row0 = blockIdx.x * BM + warp * 16;
 
   uint32_t qf[4][4];
-  load_q_frags(qf, qb, D, row0, nq, 1.f, lane);
+  load_q_frags(qf, qb, D, row0, nq, lane);
   float s[8][4], acc[8][4];
   float m[2] = {MODE == EXACT ? -INFINITY : 0.f, MODE == EXACT ? -INFINITY : 0.f};
   uint32_t p[4][4];
@@ -332,20 +227,6 @@ int launch(K kernel, dim3 grid, cudaStream_t st, A... args) {
 }
 
 }  // namespace
-
-// Spatial variant sbf16: q, k, v, o contiguous (B, n, heads * 64) bf16;
-// qscale = scale * log2(e); flags fast, ceiling.
-extern "C" int vda_sbf16(const void* q, const void* k, const void* v, void* o, int batch, int n,
-                         int heads, float qscale, int fast, int ceiling, void* stream) {
-  const dim3 grid((n + BM - 1) / BM, heads, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(o);
-  if (ceiling) return launch(sbf16_kernel<false, true>, grid, st, qb, kb, vb, ob, n, heads, qscale);
-  return fast ? launch(sbf16_kernel<true, false>, grid, st, qb, kb, vb, ob, n, heads, qscale)
-              : launch(sbf16_kernel<false, false>, grid, st, qb, kb, vb, ob, n, heads, qscale);
-}
 
 // Chain probe: q (bh, nq, 64), k (bh, nk, 64), v (bh, nk, dv) contiguous
 // bf16, nk a multiple of 64, dv >= 64; o (bh, nq, 64).  mode indexes

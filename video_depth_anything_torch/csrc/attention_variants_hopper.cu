@@ -1,8 +1,10 @@
-// Kernel A's schedule probes ilv / nomask and chunk<k> on Hopper (sm_90a).
+// Kernel A's spatial probes ilv / nomask, chunk<k> and sbf16 / sbf16:fast /
+// ceiling on Hopper (sm_90a).
 //
 // Replaces scripts/bench_spatial_variants.py:_kernel_ilv (variants ilv and
-// nomask) and _kernel_chunk (chunk<k>), launched by run_variant.  The
-// numerics are the TPU kernels' (ops/attention_variants.spatial_kernel_plain):
+// nomask), _kernel_chunk (chunk<k>) and _kernel_sbf16 (sbf16, sbf16:fast,
+// ceiling), launched by run_variant.  The numerics are the TPU kernels'
+// (ops/attention_variants.spatial_kernel_plain):
 //   * q is prescaled by scale*log2(e) in fp32 and rounded to bf16 before
 //     Q K^T.  TMA lands q raw; each warpgroup scales its own rows in shared
 //     memory once per Q tile and fences the writes for wgmma.
@@ -13,6 +15,11 @@
 //   * fp32 scores, no row max, exp2_poly on the FMA units (not MUFU: that is
 //     the question the probes ask), P rounded to bf16 before P V, fp32
 //     accumulate, out = acc / l.
+//   * sbf16 rounds each fp32 score to bf16 (round to nearest even, as the
+//     TPU's astype and torch's cast) and masks keys >= n to bf16(-1e30);
+//     exact mode then takes x = bf16(s - m), m the row's GLOBAL max of the
+//     bf16 scores, sbf16:fast x = s; p = exp2_poly(x).  ceiling is p = bf16(s)
+//     with no mask and l = n_pad.
 //
 // exp2_poly is the TPU's _exp2_poly (pallas_attention.py:54-74) with the
 // floor and the exponent taken without conversions: t = x + 1.5 * 2^23
@@ -62,6 +69,22 @@
 //                       tile but one waits for its S0.  The key mask of
 //                       ilv runs on the last tiles only, in a loop of
 //                       their own.
+//   sbf16_hopper<FAST, CEILING>  ilv_hopper's CTA, ring and per-tile order.
+//                       Because s - m is rounded to bf16, an online max with
+//                       a rescale would compute another function, so exact
+//                       mode takes two passes over the keys through one ring:
+//                       pass 1 streams K alone (a stage is filled with K0, K1
+//                       and released after both S products are waited for)
+//                       and takes the row max of the fp32 scores, rounded to
+//                       bf16 once at the end (rounding is monotonic, so that
+//                       is the max of the bf16 scores; masked keys are left
+//                       out); pass 2 streams K and V and runs the chain and
+//                       P V.  The ring's loads are one sequence over both
+//                       passes.  A score is rounded by cvt.rn.bf16x2.f32 on
+//                       a pair and the halves shifted back (half a
+//                       conversion and one integer operation a score; the
+//                       integer round-to-nearest-even takes four integer
+//                       operations, on a pipe of half the fp32 rate).
 //   chunk_hopper        the TPU's three-stage pipeline QK(i) | chain(i-1) |
 //                       P V(i-2) over the flat sequence of (stream, key
 //                       tile) steps, double-buffered S and P in registers.
@@ -96,6 +119,7 @@ constexpr int kIlvStages = 4;
 constexpr int kChunkStages = 8;
 constexpr int kThreads = 256;            // two warpgroups
 constexpr float kMagic = 12582912.f;     // 1.5 * 2^23
+constexpr float kNegBf16 = -0x1.94p+99f;  // bf16(-1e30), bits 0xF14A0000
 
 __device__ __forceinline__ float exp2_poly(float x) {
   x = fmaxf(x, -127.f);
@@ -125,6 +149,56 @@ __device__ __forceinline__ void exp_rows(float (&s)[32], float (&l)[2], int vali
     const float p = exp2_poly(x);
     s[i] = p;
     l[(i >> 1) & 1] += p;
+  }
+}
+
+// a and b rounded to bf16 (cvt.rn.bf16x2.f32: round to nearest even), back
+// as fp32: a is the low half of the pair, b the high one.
+__device__ __forceinline__ void round_pair(float& a, float& b) {
+  const uint32_t w = pack_bf16x2(a, b);
+  a = __uint_as_float(w << 16);
+  b = __uint_as_float(w & 0xFFFF0000u);
+}
+
+// The row maxima m of a 64-key score tile (accumulator layout) over its
+// keys before `valid` (MASK) or all, on the fp32 scores.
+template <bool MASK>
+__device__ __forceinline__ void max_rows(float (&m)[2], const float (&s)[32], int valid, int c2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if constexpr (MASK) {
+      if ((i >> 2) * 8 + c2 + (i & 1) >= valid) continue;
+    }
+    m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+  }
+}
+
+// sbf16's chain on a 64-key score tile s (accumulator layout), in place:
+// x = bf16(s), keys at or past `valid` of the tile (MASK) at bf16(-1e30);
+// EXACT x = bf16(x - m), m the bf16 global row max; p = exp2_poly(x), row
+// sums into l.
+template <bool MASK, bool EXACT>
+__device__ __forceinline__ void sbf16_rows(float (&s)[32], float (&l)[2], const float (&m)[2],
+                                           int valid, int c2) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = (i >> 1) & 1;
+    float a = s[i], b = s[i + 1];
+    round_pair(a, b);
+    if constexpr (MASK) {
+      const int col = (i >> 2) * 8 + c2;
+      if (col >= valid) a = kNegBf16;
+      if (col + 1 >= valid) b = kNegBf16;
+    }
+    if constexpr (EXACT) {
+      a -= m[r];
+      b -= m[r];
+      round_pair(a, b);
+    }
+    s[i] = exp2_poly(a);
+    s[i + 1] = exp2_poly(b);
+    l[r] += s[i];
+    l[r] += s[i + 1];
   }
 }
 
@@ -159,6 +233,11 @@ __device__ __forceinline__ void prescale(bf16* rows, float c, int tid) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // The warp's 16 rows (row0 + g, + 8) of one head's output, acc / l rounded
@@ -292,6 +371,122 @@ __global__ void __launch_bounds__(kThreads, 1) ilv_hopper(
   bf16* ob = o + (long long)b * n * hd + (long long)h0 * 64;
   const int row0 = q0 + cw * 64 + warp * 16;
   const float pad = NOMASK ? float(n_pad - n) : 0.f;
+  store_rows(ob, hd, row0, n, o0, l0, pad, lane);
+  store_rows(ob + 64, hd, row0, n, o1, l1, pad, lane);
+}
+
+// -------------------------------------------------------------- sbf16 ----
+template <bool FAST, bool CEILING>
+__global__ void __launch_bounds__(kThreads, 1) sbf16_hopper(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int n, int heads,
+    float qscale) {
+  constexpr bool EXACT = !FAST && !CEILING;
+  extern __shared__ unsigned char smem_raw[];
+  IlvSmem& sm = aligned_smem<IlvSmem>(smem_raw);
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128;  // rows cw * 64 .. + 64
+  const int h0 = 2 * blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kQRows;
+  const int n_pad = (n + 127) / 128 * 128, n_tiles = n_pad / kKeys;
+  // the ring's loads: pass 1's K tiles (exact mode), then pass 2's K and V tiles
+  const int pass1 = EXACT ? n_tiles : 0, total = pass1 + n_tiles;
+  auto load = [&](int g) {
+    const int s = g % kIlvStages, j = g < pass1 ? g : g - pass1;
+    mbar_arrive_expect_tx(&sm.full[s], (g < pass1 ? 2 : 4) * kTile * 2);
+    tma_load_4d(sm.kv[s][0], &tk, &sm.full[s], 0, h0, j * kKeys, b);
+    tma_load_4d(sm.kv[s][1], &tk, &sm.full[s], 0, h0 + 1, j * kKeys, b);
+    if (g >= pass1) {
+      tma_load_4d(sm.kv[s][2], &tv, &sm.full[s], 0, h0, j * kKeys, b);
+      tma_load_4d(sm.kv[s][3], &tv, &sm.full[s], 0, h0 + 1, j * kKeys, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kIlvStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      sm.released[s] = 0;
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q of both heads and the first stages
+    mbar_arrive_expect_tx(&sm.q_full, 2 * kQTile * 2);
+    tma_load_4d(sm.q[0], &tq, &sm.q_full, 0, h0, q0, b);
+    tma_load_4d(sm.q[1], &tq, &sm.q_full, 0, h0 + 1, q0, b);
+    for (int g = 0; g < min(kIlvStages, total); ++g) load(g);
+  }
+  const int warp = tid >> 5, lane = tid & 31, c2 = (lane & 3) * 2;
+  mbar_wait(&sm.q_full, 0);
+  prescale(sm.q[0] + cw * 64 * 64, qscale, tid);
+  prescale(sm.q[1] + cw * 64 * 64, qscale, tid);
+  bar_sync(1 + cw, 128);
+  const uint64_t dq0 = desc_sw128(sm.q[0] + cw * 64 * 64), dq1 = desc_sw128(sm.q[1] + cw * 64 * 64);
+
+  float s0[32], s1[32], o0[32], o1[32], l0[2] = {0.f, 0.f}, l1[2] = {0.f, 0.f};
+  float m0[2] = {-INFINITY, -INFINITY}, m1[2] = {-INFINITY, -INFINITY};
+  uint32_t p0[4][4], p1[4][4];
+  const int unmasked = CEILING ? n_tiles : n / kKeys;  // tiles with no key at or past n
+  if constexpr (EXACT) {  // pass 1: the row max, both heads
+    auto max_tile = [&](int g, auto mask_c) {
+      constexpr bool MASK = decltype(mask_c)::value;
+      const int s = g % kIlvStages, valid = n - g * kKeys;
+      mbar_wait(&sm.full[s], (g / kIlvStages) & 1);
+      wgmma_fence();
+      issue_s(s0, dq0, desc_sw128(sm.kv[s][0]));
+      issue_s(s1, dq1, desc_sw128(sm.kv[s][1]));
+      wgmma_wait<1>();
+      fence_regs(s0);
+      max_rows<MASK>(m0, s0, valid, c2);
+      wgmma_wait<0>();
+      fence_regs(s1);
+      max_rows<MASK>(m1, s1, valid, c2);
+      // both products read the stage: it goes back now
+      if (tid == 0 && second_release(&sm.released[s]) && g + kIlvStages < total)
+        load(g + kIlvStages);
+    };
+    for (int g = 0; g < unmasked; ++g) max_tile(g, std::false_type());
+    for (int g = unmasked; g < n_tiles; ++g) max_tile(g, std::true_type());
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m0[r] = bf16_round(quad_max(m0[r]));
+      m1[r] = bf16_round(quad_max(m1[r]));
+    }
+  }
+  // pass 2 (the only one of sbf16:fast and ceiling), in ilv_hopper's order
+  auto chain = [&](float (&s)[32], float (&l)[2], const float (&m)[2], int valid, auto mask_c) {
+    if constexpr (!CEILING) sbf16_rows<decltype(mask_c)::value, EXACT>(s, l, m, valid, c2);
+  };
+  auto tile = [&](int j, auto mask_c) {
+    const int g = pass1 + j, s = g % kIlvStages, valid = n - j * kKeys;
+    mbar_wait(&sm.full[s], (g / kIlvStages) & 1);
+    wgmma_fence();
+    issue_s(s0, dq0, desc_sw128(sm.kv[s][0]));
+    issue_s(s1, dq1, desc_sw128(sm.kv[s][1]));
+    // tile j-2's products were retired by tile j-1's first wait: refill its
+    // stage (pass 1 gave back its own stages)
+    if (j > 1 && tid == 0 && second_release(&sm.released[(g - 2) % kIlvStages]) &&
+        g - 2 + kIlvStages < total)
+      load(g - 2 + kIlvStages);
+    wgmma_wait<1>();  // S0 done; so are the previous tile's P V products
+    fence_regs(s0);
+    chain(s0, l0, m0, valid, mask_c);
+    pack_p(p0, s0);  // ceiling: p = bf16(s)
+    wgmma_fence();
+    issue_pv(o0, p0, desc_sw128(sm.kv[s][2]), j == 0);
+    wgmma_wait<1>();  // S1 done, P0 V0 in flight
+    fence_regs(s1);
+    chain(s1, l1, m1, valid, mask_c);
+    pack_p(p1, s1);
+    wgmma_fence();
+    issue_pv(o1, p1, desc_sw128(sm.kv[s][3]), j == 0);
+  };
+  for (int j = 0; j < unmasked; ++j) tile(j, std::false_type());
+  for (int j = unmasked; j < n_tiles; ++j) tile(j, std::true_type());
+  wgmma_wait<0>();
+  const long long hd = (long long)heads * 64;
+  bf16* ob = o + (long long)b * n * hd + (long long)h0 * 64;
+  const int row0 = q0 + cw * 64 + warp * 16;
+  const float pad = CEILING ? -float(n_pad) : 0.f;  // ceiling: l = 0 - pad = n_pad
   store_rows(ob, hd, row0, n, o0, l0, pad, lane);
   store_rows(ob + 64, hd, row0, n, o1, l1, pad, lane);
 }
@@ -471,10 +666,24 @@ int launch_ilv(const void* q, const void* k, const void* v, void* o, int batch, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool FAST, bool CEILING>
+int launch_sbf16(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                 int heads, float qscale, cudaStream_t st) {
+  CUtensorMap maps[3];
+  const int err = prepare(sbf16_hopper<FAST, CEILING>, kIlvSmemBytes, q, k, v, batch, n, heads,
+                          maps);
+  if (err) return err;
+  const dim3 grid((n + kQRows - 1) / kQRows, heads / 2, batch);
+  sbf16_hopper<FAST, CEILING><<<grid, kThreads, kIlvSmemBytes, st>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), n, heads, qscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, o contiguous (B, n, heads * 64) bf16 with 16-byte aligned bases,
-// heads even; qscale = scale * log2(e).  ilv: flag nomask; chunk: nc >= 1.
+// heads even; qscale = scale * log2(e).  ilv: flag nomask; chunk: nc >= 1;
+// sbf16: flags fast, ceiling.
 extern "C" int vda_ilv(const void* q, const void* k, const void* v, void* o, int batch, int n,
                        int heads, float qscale, int nomask, int, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -492,4 +701,12 @@ extern "C" int vda_chunk(const void* q, const void* k, const void* v, void* o, i
   chunk_hopper<<<grid, kThreads, kChunkSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), n, heads, qscale, nc);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vda_sbf16(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                         int heads, float qscale, int fast, int ceiling, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ceiling) return launch_sbf16<false, true>(q, k, v, o, batch, n, heads, qscale, st);
+  return fast ? launch_sbf16<true, false>(q, k, v, o, batch, n, heads, qscale, st)
+              : launch_sbf16<false, false>(q, k, v, o, batch, n, heads, qscale, st);
 }

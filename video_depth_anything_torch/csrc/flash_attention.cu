@@ -44,10 +44,26 @@
 //     consumers run unsynchronised, so one's softmax overlaps the other's
 //     products.
 // D = 192 (the JAX gate's domain up to 256; no shipped encoder, 0
-// launches): the mma.sync tiling, flash_fwd_kernel<192, FAST>: 64 queries
-// per CTA (4 warps x 16 rows), 64 keys per step, synchronous 16-byte loads
-// into 76.8 KB of dynamic shared memory, mma.sync m16n8k16.  The head_dim
-// dispatch at the bottom is a domain split: each width has one kernel.
+// launches): flash_fwd_hopper192<FAST>, D = 64's design over rows of three
+// 128-byte swizzle panels.
+//   * The same three warpgroups (producer, two consumers of 64 query rows,
+//     setmaxnreg 24/240) and 128 queries a CTA.  Q is 128 x 192 bf16 (48
+//     KB), loaded once as three TMA boxes of 64 columns through a 4-D map
+//     (192, H, N, B).  K and V come in 64-key tiles, 24 KB each (three
+//     panels), through a ring of kStages192 = 3 stages: 192 KB in all
+//     (128-key tiles would need 240 KB at two stages, over the 227 KB a
+//     block may have).
+//   * S = Q K^T: wgmma m64n64k16 over 12 k16 steps, the descriptors moving
+//     to the next panel every 4.  O += P V: for each 16-key step, three
+//     wgmma m64n64k16 with P from registers and V MN-major, one per
+//     64-column panel of O (96 fp32 accumulators a thread).
+//   * As at D = 64: only the ragged last tile is masked (-inf), the stage
+//     goes back once the P V products that read it are waited for, and the
+//     two consumers overlap each other's softmax and products.
+//   * Bound: 4 * N^2 * 192 * H * B FLOP; the softmax per FLOP is a third
+//     of D = 64's.
+// The head_dim dispatch at the bottom is a domain split: each width has
+// one kernel.
 //
 // FAST is the TPU kernels' no-max softmax (pallas_attention.py:123-156,
 // :183-192, :233-234): the running max stays 0 and p = exp2(s * scale *
@@ -239,179 +255,199 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o, int batc
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- D = 192: the mma.sync tiling ----
-constexpr int BM = 64;
-constexpr int BN = 64;
+// ---- D = 192: the Hopper kernel ----
+constexpr int kPanels = 3;                   // a D = 192 row: three 128-byte swizzle panels
+constexpr int kKeys192 = 64;                 // keys per tile
+constexpr int kStages192 = 3;                // K/V ring
+constexpr int kPanelBytes = kKeys192 * 64 * 2;  // one 64-key panel, 8 KB
 
-template <int D>
-__host__ __device__ constexpr int smem_elems() { return (BM + 2 * BN) * tile_lds<D>(); }
+struct Fwd192Smem {
+  bf16 q[kPanels][kRows * 64];                      // 48 KB
+  bf16 k[kStages192][kPanels][kKeys192 * 64];       // 24 KB a stage
+  bf16 v[kStages192][kPanels][kKeys192 * 64];       // 24 KB a stage
+  uint64_t q_full, k_full[kStages192], v_full[kStages192], empty[kStages192];
+};
+constexpr int kFwd192SmemBytes = sizeof(Fwd192Smem) + 1024;
 
-template <int D, bool FAST>
-__global__ void __launch_bounds__(128) flash_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int n, int heads,
-    long long q_sb, long long q_sn, long long q_sh,
-    long long k_sb, long long k_sn, long long k_sh,
-    long long v_sb, long long v_sn, long long v_sh,
+template <bool FAST>
+__global__ void __launch_bounds__(384, 1) flash_fwd_hopper192(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int n, int heads,
     long long o_sb, long long o_sn, long long o_sh, float scale_log2, float* __restrict__ lse) {
-  constexpr int LDS = tile_lds<D>();
-  constexpr int KD = D / 16;         // 16-wide steps over D in Q K^T
-  constexpr int NT = D / 8;          // 8-wide output column tiles
-  extern __shared__ __align__(16) unsigned char smem_dynamic[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_dynamic);
-  bf16* sK = sQ + BM * LDS;
-  bf16* sV = sK + BN * LDS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ unsigned char smem_raw[];
+  Fwd192Smem& sm = aligned_smem<Fwd192Smem>(smem_raw);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * BM;
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
-  bf16* ob = o + b * o_sb + h * o_sh;
-
-  load_tile<D>(sQ, qb, q_sn, q0, n, tid);
+  const int q0 = blockIdx.x * kRows;
+  const int n_tiles = (n + kKeys192 - 1) / kKeys192;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages192; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    fence_mbar_init();
+  }
   __syncthreads();
 
-  const bf16* q_row = &sQ[(warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8];
-
-  // Under FAST the running max stays 0: no max pass and no rescale.
-  float m_i[2] = {FAST ? 0.f : -INFINITY, FAST ? 0.f : -INFINITY};
-  float l_i[2] = {0.f, 0.f};
-  float acc[NT][4];
+  if (wg == 0) {  // producer: Q once, then K and V tiles, each as three panels
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, kPanels * kTileBytes);
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
+      for (int p = 0; p < kPanels; ++p) tma_load_4d(sm.q[p], &tq, &sm.q_full, 64 * p, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages192;
+        if (j >= kStages192) mbar_wait(&sm.empty[s], (j / kStages192 - 1) & 1);
+        mbar_arrive_expect_tx(&sm.k_full[s], kPanels * kPanelBytes);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-
-  const int mi = lane >> 3, r8 = lane & 7;
-  const int n_tiles = (n + BN - 1) / BN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb, k_sn, k0, n, tid);
-    load_tile<D>(sV, vb, v_sn, k0, n, tid);
-    __syncthreads();
-
-    float s[8][4];
+        for (int p = 0; p < kPanels; ++p)
+          tma_load_4d(sm.k[s][p], &tk, &sm.k_full[s], 64 * p, h, j * kKeys192, b);
+        mbar_arrive_expect_tx(&sm.v_full[s], kPanels * kPanelBytes);
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a[0], a[1], a[2], a[3], q_row + kk * 16);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4(b0, b1, b2, b3,
-                    &sK[(np * 16 + r8 + (mi >> 1) * 8) * LDS + kk * 16 + (mi & 1) * 8]);
-        mma_bf16_16816(s[2 * np], a, b0, b1);
-        mma_bf16_16816(s[2 * np + 1], a, b2, b3);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load_4d(sm.v[s][p], &tv, &sm.v_full[s], 64 * p, h, j * kKeys192, b);
       }
     }
+  } else {  // consumers: query rows (wg - 1) * 64 .. + 64 of the CTA's 128
+    setmaxnreg_inc<240>();
+    const int warp = tid >> 5, lane = tid & 31, c2 = (lane & 3) * 2;
+    uint64_t dq[kPanels];
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p) dq[p] = desc_sw128(sm.q[p] + (wg - 1) * 64 * 64);
+    // Under FAST the running max stays 0: no max pass and no rescale.
+    float m_i[2] = {FAST ? 0.f : -INFINITY, FAST ? 0.f : -INFINITY};
+    float l_i[2] = {0.f, 0.f};
+    float acc[kPanels][32];  // O's three 64-column panels
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+    mbar_wait(&sm.q_full, 0);
 
-    // scale into the exp2 domain, mask pad keys, online softmax update
-    float mx[2] = {-INFINITY, -INFINITY};
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages192;
+      const uint32_t ph = (j / kStages192) & 1;
+      mbar_wait(&sm.k_full[s], ph);
+      float sc[32];
+      wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+      for (int kk = 0; kk < 4 * kPanels; ++kk)  // 12 k16 steps, 4 a panel
+        wgmma_ss_n64(sc, dq[kk / 4] + 2 * (kk % 4), desc_sw128(sm.k[s][kk / 4]) + 2 * (kk % 4), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // mask the pad keys of the ragged last tile; the online softmax works
+      // on the raw scores and folds scale * log2(e) into the exp2's FMA
+      const int valid = n - j * kKeys192;
+      if (valid < kKeys192) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + t * 8 + (lane & 3) * 2 + (e & 1);
-        float x = s[t][e] * scale_log2;
-        if (col >= n) x = -INFINITY;
-        s[t][e] = x;
-        if constexpr (!FAST) mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int i = 0; i < 32; ++i)
+          if ((i >> 2) * 8 + c2 + (i & 1) >= valid) sc[i] = -INFINITY;
       }
-    if constexpr (!FAST) {
+      if constexpr (!FAST) {
+        float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-        const float m_new = fmaxf(m_i[rr], mx[rr]);
-        const float alpha = exp2f(m_i[rr] - m_new);
-        m_i[rr] = m_new;
-        l_i[rr] *= alpha;
+        for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          acc[t][2 * rr] *= alpha;
-          acc[t][2 * rr + 1] *= alpha;
+        for (int rr = 0; rr < 2; ++rr) {
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+          const float m_new = fmaxf(m_i[rr], mx[rr] * scale_log2);
+          const float alpha = exp2_approx(m_i[rr] - m_new);
+          m_i[rr] = m_new;
+          l_i[rr] *= alpha;
+#pragma unroll
+          for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+              acc[p][4 * t + 2 * rr] *= alpha;
+              acc[p][4 * t + 2 * rr + 1] *= alpha;
+            }
         }
       }
-    }
+      uint32_t pa[4][4];  // P as bf16 A fragments, 16 keys per step
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[t][e] - m_i[e >> 1]);
-        s[t][e] = p;
-        l_i[e >> 1] += p;
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = exp2_approx(fmaf(sc[i], scale_log2, -m_i[(i >> 1) & 1]));
+        l_i[(i >> 1) & 1] += sc[i];
       }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
-    // O += P V: P goes from the accumulator layout straight into A fragments
+      mbar_wait(&sm.v_full[s], ph);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3,
-                          &sV[(kk * 16 + r8 + (mi & 1) * 8) * LDS + (dp * 2 + (mi >> 1)) * 8]);
-        mma_bf16_16816(acc[2 * dp], a, b0, b1);
-        mma_bf16_16816(acc[2 * dp + 1], a, b2, b3);
-      }
+        for (int p = 0; p < kPanels; ++p)
+          wgmma_rs_n64_tb(acc[p], pa[kk], desc_sw128(sm.v[s][p]) + 128 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) fence_regs(acc[p]);
+      if (tid == 0) mbar_arrive(&sm.empty[s]);
     }
-  }
 
-  float inv[2];
+    float inv[2];
+    const int r0 = q0 + (wg - 1) * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float l = l_i[rr];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[rr] = 1.f / l;
-    const int row = q0 + warp * 16 + (lane >> 2) + rr * 8;
-    if (lse != nullptr && (lane & 3) == 0 && row < n)
-      lse[(long long)blockIdx.y * n + row] = m_i[rr] + log2f(l);
-  }
-  const int r0 = q0 + warp * 16 + (lane >> 2);
+    for (int rr = 0; rr < 2; ++rr) {
+      float l = l_i[rr];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[rr] = 1.f / l;
+      const int row = r0 + rr * 8;
+      if (lse != nullptr && (lane & 3) == 0 && row < n)
+        lse[(long long)blockIdx.y * n + row] = m_i[rr] + log2f(l);
+    }
+    bf16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int col = t * 8 + (lane & 3) * 2;
-    if (r0 < n)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * o_sn + col) =
-          pack_bf16x2(acc[t][0] * inv[0], acc[t][1] * inv[0]);
-    if (r0 + 8 < n)
-      *reinterpret_cast<uint32_t*>(ob + (long long)(r0 + 8) * o_sn + col) =
-          pack_bf16x2(acc[t][2] * inv[1], acc[t][3] * inv[1]);
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int col = 64 * p + t * 8 + c2;
+        if (r0 < n)
+          *reinterpret_cast<uint32_t*>(ob + (long long)r0 * o_sn + col) =
+              pack_bf16x2(acc[p][4 * t] * inv[0], acc[p][4 * t + 1] * inv[0]);
+        if (r0 + 8 < n)
+          *reinterpret_cast<uint32_t*>(ob + (long long)(r0 + 8) * o_sn + col) =
+              pack_bf16x2(acc[p][4 * t + 2] * inv[1], acc[p][4 * t + 3] * inv[1]);
+      }
   }
 }
 
-template <int D, bool FAST>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads,
-           const long long* st, float scale, void* lse, cudaStream_t stream) {
-  constexpr int smem = smem_elems<D>() * 2;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <bool FAST>
+int launch_hopper192(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                     int heads, const long long* st, float scale, void* lse, cudaStream_t stream) {
+  // a runtime call before the maps: it makes the context current (make_map)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_hopper192<FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwd192SmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((n + BM - 1) / BM, batch * heads);
-  flash_fwd_kernel<D, FAST><<<grid, 128, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), n, heads, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale * 1.4426950408889634f, static_cast<float*>(lse));
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, batch, n, heads, st[0], st[1], st[2], kRows, 192) ||
+      !make_map(&tk, k, batch, n, heads, st[3], st[4], st[5], kKeys192, 192) ||
+      !make_map(&tv, v, batch, n, heads, st[6], st[7], st[8], kKeys192, 192))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((n + kRows - 1) / kRows, batch * heads);
+  flash_fwd_hopper192<FAST><<<grid, 384, kFwd192SmemBytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), n, heads, st[9], st[10], st[11],
+      scale * 1.4426950408889634f, static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// head_dim is 64 (the Hopper kernel; q, k and v must be TMA-describable:
-// 16-byte aligned bases, strides multiples of 8 elements) or 192 (the
-// mma.sync tiling); anything else, or a view no tensor map can describe,
-// returns cudaErrorInvalidValue.  fast != 0 selects the no-max variant.
+// head_dim is 64 or 192, one Hopper kernel each (q, k and v must be
+// TMA-describable: 16-byte aligned bases, strides multiples of 8
+// elements); anything else, or a view no tensor map can describe, returns
+// cudaErrorInvalidValue.  fast != 0 selects the no-max variant.
 extern "C" int vda_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int batch, int n, int heads,
     int head_dim, long long q_sb, long long q_sn, long long q_sh,
@@ -425,7 +461,7 @@ extern "C" int vda_flash_attention_fwd(
     return fast ? launch_hopper<true>(q, k, v, o, batch, n, heads, st, scale, lse, s)
                 : launch_hopper<false>(q, k, v, o, batch, n, heads, st, scale, lse, s);
   if (head_dim == 192)
-    return fast ? launch<192, true>(q, k, v, o, batch, n, heads, st, scale, lse, s)
-                : launch<192, false>(q, k, v, o, batch, n, heads, st, scale, lse, s);
+    return fast ? launch_hopper192<true>(q, k, v, o, batch, n, heads, st, scale, lse, s)
+                : launch_hopper192<false>(q, k, v, o, batch, n, heads, st, scale, lse, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -272,19 +272,21 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 4-D map (D = 64, H, N, B) of a bf16 (B, N, H, 64) view with these
-// element strides (multiples of 8: 16-byte aligned rows), boxes of
-// (64, 1, rows, 1) with the 128-byte swizzle; rows past N read as zeros.
+// The 4-D map (D, H, N, B) of a bf16 (B, N, H, D) view with these element
+// strides (multiples of 8: 16-byte aligned rows), D = `width` (64 unless
+// given; a multiple of 64), boxes of (64, 1, rows, 1) with the 128-byte
+// swizzle: a box at c0 = 64 p is the p-th 64-column panel of the rows;
+// rows past N read as zeros.
 // False where the encoder refuses the map.  The encoder needs a current
 // context, which a thread whose first CUDA work is this launch (autograd's
 // backward thread) lacks: callers make a runtime call first, which binds
 // the device's primary context to the thread.
 inline bool make_map(CUtensorMap* map, const void* base, int batch, int n, int heads,
-                     long long sb, long long sn, long long sh, int rows) {
+                     long long sb, long long sn, long long sh, int rows, int width = 64) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sn) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};

@@ -153,7 +153,7 @@ def load_init_checkpoint(path: str):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of the JAX package); convert it to a "
             "reference-keyed .pth first: torch.save of export_torch_state_dict(load_native(path), "
-            "cfg) from video_depth_anything_tpu.io.checkpoint")
+            "cfg), both in the JAX package's video_depth_anything_tpu.io.checkpoint")
     return load_pth(path)
 
 

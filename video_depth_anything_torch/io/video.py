@@ -1,6 +1,8 @@
 """Video decode/encode with cv2: frame reading with max-resolution
 downscale and fps striding, and depth video writing with a global min-max
-normalization and cv2's inferno colormap."""
+normalization and matplotlib's inferno or Spectral colormap, as the JAX
+package writes them (``video_depth_anything_tpu/io/video.py``), from the
+port's own tables (``io/colormaps.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ from typing import Tuple
 
 import cv2
 import numpy as np
+
+from video_depth_anything_torch.io.colormaps import INFERNO, SPECTRAL
 
 
 def ensure_even(value: int) -> int:
@@ -49,20 +53,22 @@ def read_video_frames(video_path: str, process_length: int = -1, target_fps: flo
     return np.stack(frames, axis=0), fps
 
 
-def colorize_depth(depths: np.ndarray, grayscale: bool = False) -> np.ndarray:
-    """Depth stack → uint8 RGB frames (global min-max, inferno)."""
+def colorize_depth(depths: np.ndarray, grayscale: bool = False,
+                   spectral: bool = False) -> np.ndarray:
+    """Depth stack → uint8 RGB frames: global min-max to 0..255, then the
+    inferno (or Spectral) table, or gray."""
     d_min, d_max = float(depths.min()), float(depths.max())
     norm = ((depths - d_min) / ((d_max - d_min) or 1.0) * 255.0).astype(np.uint8)
     if grayscale:
         return np.repeat(norm[..., None], 3, axis=-1)
-    return np.stack([cv2.applyColorMap(f, cv2.COLORMAP_INFERNO)[..., ::-1] for f in norm])
+    return (SPECTRAL if spectral else INFERNO)[norm]
 
 
 def save_video(frames: np.ndarray, output_path: str, fps: float = 10, is_depths: bool = False,
-               grayscale: bool = False) -> None:
+               grayscale: bool = False, spectral: bool = False) -> None:
     """Write RGB uint8 frames, or depth frames colorized, to an mp4 (mp4v)."""
     if is_depths:
-        frames = colorize_depth(frames, grayscale=grayscale)
+        frames = colorize_depth(frames, grayscale=grayscale, spectral=spectral)
     h, w = frames.shape[1:3]
     writer = cv2.VideoWriter(output_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
     if not writer.isOpened():

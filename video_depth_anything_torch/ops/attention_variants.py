@@ -14,13 +14,15 @@ time on the TPU:
 * ``scripts/bench_softmax_chain.py`` ``make_kernel``'s ``kern``: QKᵀ → one
   of seven elementwise chains → P·V[:, :d], unnormalised, on ``(BH, N, D)``.
 
-``ilv`` / ``nomask`` and ``chunk<k>`` are Hopper kernels
-(``attention_variants_hopper.cu``: ``wgmma`` fed by a TMA ring, the TPU
-kernels' stagger and software pipeline on asynchronous products); they
-read q, k and v through 4-D tensor maps ``(D, H, N, B)``, so the launch
-checks each operand with ``flash_attention.tma_geometry`` and raises on
-what a map cannot describe.  ``sbf16`` and the chain kernel are the
-``mma.sync`` kernels of ``attention_variants.cu``.
+``ilv`` / ``nomask``, ``chunk<k>`` and ``sbf16`` / ``sbf16:fast`` /
+``ceiling`` are Hopper kernels (``attention_variants_hopper.cu``: ``wgmma``
+fed by a TMA ring, the TPU kernels' stagger and software pipeline on
+asynchronous products; exact ``sbf16`` in two passes over the keys, the
+first for the global row max); they read q, k and v through 4-D tensor
+maps ``(D, H, N, B)``, so the launch checks each operand with
+``flash_attention.tma_geometry`` and raises on what a map cannot
+describe.  The chain kernel is the ``mma.sync`` kernel of
+``attention_variants.cu``.
 
 ``spatial_variant_plain`` and ``softmax_chain_plain`` define the numerics
 (the scripts' rounding points: q prescaled by scale·log2 e in fp32 and
@@ -200,8 +202,8 @@ def softmax_chain_plain(mode: str, q, k, v) -> torch.Tensor:
 
 
 _fns = {}
-# the Hopper kernels' entry points; the others are in attention_variants.cu
-_HOPPER = ("ilv", "chunk")
+# the Hopper kernels' entry points; the chain probe's is in attention_variants.cu
+_HOPPER = ("ilv", "chunk", "sbf16")
 
 
 def _kernel(name: str):

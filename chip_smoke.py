@@ -17,8 +17,11 @@ Phases (each failure ends the run with a non-zero exit):
    Kernel A also on flat ones (q scaled by FLAT_Q); Kernel A's probe
    kernels (every spatial
    variant at the vitl and vits probe shapes, the seven softmax-chain
-   modes) on their scripts' inputs; the fused resize -> conv at the vitl
-   junction; and show that wrong kernels (uniform attention, a dropped
+   modes, also at an odd count of query blocks and of key tiles) on their
+   scripts' inputs; the fused resize -> conv at the vitl junction (its
+   kernel's launch alone timed beside the wrapper's call) and at the
+   kernel tests' shapes (a downsampling, a near-identity size, a large
+   upsampling, more tiles than SMs); and show that wrong kernels (uniform attention, a dropped
    last key tile -- 128 keys for Kernel A at D = 64 --, for Kernel A on
    the flat inputs the zero-filled pad keys of the ragged last tile
    counted in the softmax, for the spatial probes the pair's two heads
@@ -170,6 +173,14 @@ PARENT_MS = {
     ("chunk_attention", "vitl chunk2"): 2.5141, ("chunk_attention", "vitl chunk4"): 2.6099,
     ("ilv_attention", "vits ilv"): 1.0141, ("ilv_attention", "vits nomask"): 0.7485,
     ("chunk_attention", "vits chunk2"): 0.9755, ("chunk_attention", "vits chunk4"): 1.1348,
+    # the chain probe's and resize -> conv's mma.sync kernels (PERF.md section
+    # 6: bench_probe_split and bench_resize_conv on the checkout before the
+    # Hopper ones, in turns with them; resize -> conv the launch alone)
+    ("softmax_chain", "gemms"): 1.0528, ("softmax_chain", "exp"): 1.2252,
+    ("softmax_chain", "exact"): 1.1665, ("softmax_chain", "sexp"): 1.0527,
+    ("softmax_chain", "pexp"): 1.4534, ("softmax_chain", "bf16s"): 1.2511,
+    ("softmax_chain", "bf16x"): 2.0853,
+    ("resize_conv", "vitl junction"): 5.9131,
 }
 
 # The Hopper probe kernels' softmax chain, instructions per score by pipe
@@ -182,6 +193,17 @@ PROBE_CHAIN = {
     "chunk": {"conversion": 0.5, "fp32": 10.156, "integer": 1.25, "total": 14.12},
     "sbf16": {"conversion": 1.5, "fp32": 12.594, "integer": 4.094, "total": 19.867},
     "sbf16:fast": {"conversion": 1.0, "fp32": 10.594, "integer": 2.945, "total": 16.359},
+}
+# The chain probe's chain by mode (PERF.md section 6: bench_probe_split's
+# reading of chain_hopper's SASS, with what its chain-free build keeps),
+# over its 512 x 1408^2 scores; "mufu" runs at 16 a clock.
+CHAIN_MIX = {
+    "exp": {"conversion": 0.5, "fp32": 3.714, "mufu": 1.0, "total": 5.214},
+    "exact": {"conversion": 0.5, "fp32": 7.0, "mufu": 1.0, "integer": -0.371, "total": 8.509},
+    "sexp": {"conversion": 1.5, "fp32": 1.0, "total": 2.496},
+    "pexp": {"conversion": 2.5, "fp32": 5.0, "integer": 0.871, "total": 8.522},
+    "bf16s": {"conversion": 1.0, "fp32": 3.0, "integer": 1.0, "mufu": 1.0, "total": 6.0},
+    "bf16x": {"conversion": 1.5, "fp32": 5.0, "integer": 2.0, "mufu": 1.0, "total": 9.5},
 }
 
 
@@ -534,7 +556,8 @@ def resize_conv_inputs(n: int, h: int, w: int, c: int, gen, device):
 def resize_conv_mutant_errors(x, w, b, out_h: int, out_w: int) -> dict:
     """How far two wrong kernels miss the plain version, relative to
     max|plain|: half-pixel (align_corners False) taps, and a conv3x3 that
-    keeps only its centre tap."""
+    keeps only its centre tap.  At the input's own size both corner rules
+    give the identity, so the first is left out there."""
     import torch
     import torch.nn.functional as F
 
@@ -546,8 +569,10 @@ def resize_conv_mutant_errors(x, w, b, out_h: int, out_w: int) -> dict:
     shifted = F.conv2d(y, w.to(x.dtype), padding=1).permute(0, 2, 3, 1) + b.to(x.dtype)
     centre = torch.zeros_like(w)
     centre[:, :, 1, 1] = w[:, :, 1, 1]
-    return {"align_corners_false": rel_err(shifted, want),
-            "centre_tap_only": rel_err(resize_conv_plain(x, centre, b, out_h, out_w), want)}
+    errors = {"centre_tap_only": rel_err(resize_conv_plain(x, centre, b, out_h, out_w), want)}
+    if (out_h, out_w) != tuple(x.shape[1:3]):
+        errors["align_corners_false"] = rel_err(shifted, want)
+    return errors
 
 
 def phase_kernels(dev):
@@ -556,6 +581,7 @@ def phase_kernels(dev):
 
     from video_depth_anything_torch.config import MotionModuleConfig
     from video_depth_anything_torch.ops import attention_variants as av
+    from video_depth_anything_torch.ops import cuda_build
     from video_depth_anything_torch.ops import flash_attention as fa
     from video_depth_anything_torch.ops import motion_module as mm
     from video_depth_anything_torch.ops import output_tail as ot
@@ -795,11 +821,13 @@ def phase_kernels(dev):
         mutants = chain_mutant_errors(mode, qc[:64], kc[:64], vc[:64])
         ms = time_ms(lambda: av.softmax_chain(mode, qc, kc, vc))
         plain_ms = time_ms(lambda: av.softmax_chain_plain(mode, qc, kc, vc), iters=3, warmup=1)
-        rows.append(dict(kernel="softmax_chain",
-                         shape=f"{mode} (BH={bh}, Nq={nq}, Nk={nk}, D={d}, Dv=128)",
-                         max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=CHAIN_TOL,
-                         mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None))
+        row = dict(kernel="softmax_chain", shape=f"{mode} (BH={bh}, Nq={nq}, Nk={nk}, D={d}, Dv=128)",
+                   max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=CHAIN_TOL,
+                   mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, parent_ms=PARENT_MS[("softmax_chain", mode)])
+        if mode in CHAIN_MIX:  # both kernels compute 1408 query rows
+            row["extra"] = f" chain_bound_ms={chain_bound(CHAIN_MIX[mode], bh * 1408.0 * nk):.4f}"
+        rows.append(row)
         del got, want
     del qc, kc, vc
 
@@ -812,6 +840,8 @@ def phase_kernels(dev):
     want = rc.resize_conv_plain(x, wc, bc, oh, ow)
     mutants = resize_conv_mutant_errors(x, wc, bc, oh, ow)
     ms = time_ms(lambda: rc.resize_conv(x, wc, bc, oh, ow))
+    _, keep, launch = rc._launch_args(x, wc, bc, oh, ow)  # the kernel's launch alone
+    kernel_ms = time_ms(lambda: cuda_build.check(rc._kernel()(*launch), "resize_conv"))
     plain_ms = time_ms(lambda: rc.resize_conv_plain(x, wc, bc, oh, ow), iters=5)
     xn, wb, bb = x.permute(0, 3, 1, 2), wc.to(x.dtype), bc.to(x.dtype)
     lib_ms = time_ms(lambda: F.conv2d(F.interpolate(xn, size=(oh, ow), mode="bilinear",
@@ -821,8 +851,40 @@ def phase_kernels(dev):
     rows.append(dict(kernel="resize_conv", shape=f"vitl junction ({n}x{h}x{w}x{c} -> {oh}x{ow}x128)",
                      max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
                      tol=RESIZE_CONV_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=lib_ms))
-    del x, got, want, xn
+                     bound_by=b_by, library_ms=lib_ms,
+                     parent_ms=PARENT_MS[("resize_conv", "vitl junction")],
+                     extra=f" kernel_ms={kernel_ms:.4f} (the launch alone, as parent_ms)"))
+    del x, got, want, xn, keep, launch
+
+    # The kernel tests' shapes (tests/test_torch_cuda_kernels.py), each with
+    # its mutants: the chain at an odd count of query blocks and of key
+    # tiles; resize -> conv downsampling, at and near the same size (taps
+    # read from global memory), at a large upsampling and with more tiles
+    # than SMs.
+    for mode, (nq, nk) in [(m, (300, 384)) for m in av.CHAIN_MODES] + [("exp", (200, 320))]:
+        q, k, v = chain_inputs(8, g, dev, nq, nk)
+        got, want = av.softmax_chain(mode, q, k, v), av.softmax_chain_plain(mode, q, k, v)
+        b_ms, b_by = bound(4.0 * 8 * nq * nk * 64, (2 * 8 * nq * 64 + 2 * 8 * nk * 64) * 2)
+        rows.append(dict(kernel="softmax_chain", shape=f"test {mode} (BH=8, Nq={nq}, Nk={nk})",
+                         max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
+                         tol=CHAIN_TOL, mutants=chain_mutant_errors(mode, q, k, v),
+                         ms=time_ms(lambda: av.softmax_chain(mode, q, k, v)),
+                         plain_ms=time_ms(lambda: av.softmax_chain_plain(mode, q, k, v)),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for n, h, w, c, oh, ow in ((2, 40, 36, 128, 19, 23), (1, 19, 21, 256, 19, 21),
+                               (1, 19, 21, 256, 21, 23), (1, 5, 7, 128, 64, 90),
+                               (140, 8, 8, 128, 16, 16)):
+        x, wc, bc = resize_conv_inputs(n, h, w, c, g, dev)
+        got, want = rc.resize_conv(x, wc, bc, oh, ow), rc.resize_conv_plain(x, wc, bc, oh, ow)
+        b_ms, b_by = bound(n * oh * ow * 2.0 * 9 * c * 128,
+                           x.numel() * 2 + n * oh * ow * 128 * 2 + (wc.numel() + 128) * 2)
+        rows.append(dict(kernel="resize_conv", shape=f"test {n}x{h}x{w}x{c} -> {oh}x{ow}x128",
+                         max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
+                         tol=RESIZE_CONV_TOL, mutants=resize_conv_mutant_errors(x, wc, bc, oh, ow),
+                         ms=time_ms(lambda: rc.resize_conv(x, wc, bc, oh, ow)),
+                         plain_ms=time_ms(lambda: rc.resize_conv_plain(x, wc, bc, oh, ow)),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del x, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     failed = False
@@ -912,7 +974,7 @@ def main() -> int:
                             "scripts/bench_spatial_variants.py:86"),
         "sbf16_attention": ("sbf16_attention", "csrc/attention_variants_hopper.cu",
                             "scripts/bench_spatial_variants.py:130"),
-        "softmax_chain": ("softmax_chain", "csrc/attention_variants.cu",
+        "softmax_chain": ("softmax_chain", "csrc/attention_variants_hopper.cu",
                           "scripts/bench_softmax_chain.py:54"),
     }
     kernels = []

@@ -18,6 +18,7 @@ from jax.experimental import pallas as pl
 
 import chip_smoke
 from video_depth_anything_torch.ops import attention_variants as av
+from tests.torch_port_helpers import chain_kern
 from video_depth_anything_tpu.ops.pallas_attention import _exp2_poly
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -107,43 +108,6 @@ def test_domain_errors_match_the_script():
         av.spatial_variant("ilv", q[..., :192], q[..., :192], q[..., :192], 0.125, 1370, 3)
 
 
-def _chain_kernel(mode, d):
-    """``bench_softmax_chain.py:55-94``, transcribed: ``make_kernel`` is a
-    closure inside the script's ``main``."""
-
-    def kern(q_ref, k_ref, v_ref, o_ref):
-        s = jax.lax.dot_general(
-            q_ref[0], k_ref[0], (((1,), (1,)), ((), ())),
-            preferred_element_type=(jnp.bfloat16 if mode in ("bf16s", "bf16x") else jnp.float32))
-        if mode == "gemms":
-            p = s
-        elif mode == "exp":
-            p = jnp.exp2(s)
-        elif mode == "exact":
-            m = jnp.max(s, axis=1, keepdims=True)
-            p = jnp.exp(s - m)
-        elif mode == "sexp":
-            i = jnp.asarray(s * (1 << 23) + (127.0 * (1 << 23)), jnp.int32)
-            p = jax.lax.bitcast_convert_type(i, jnp.float32)
-        elif mode == "pexp":
-            xi = jnp.floor(s)
-            xf = s - xi
-            i = (jnp.asarray(xi, jnp.int32) + 127) << 23
-            scale = jax.lax.bitcast_convert_type(i, jnp.float32)
-            pf = 1.0 + xf * (0.6951937 + xf * (0.2288332 + xf * 0.0779731))
-            p = scale * pf
-        elif mode == "bf16s":
-            p = jnp.exp2(s)
-        else:  # bf16x
-            m = jnp.max(s, axis=1, keepdims=True)
-            p = jnp.exp2(s - m)
-        acc = jax.lax.dot_general(p.astype(v_ref.dtype), v_ref[0], (((1,), (0,)), ((), ())),
-                                  preferred_element_type=jnp.float32)
-        o_ref[0] = acc[:, :d].astype(o_ref.dtype)
-
-    return kern
-
-
 def _chain_inputs(bh=2, nq=32, nk=64, d=64, dv=128, seed=0):
     """The script's inputs at a small size (bench_softmax_chain.py:48-51)."""
     rng = np.random.RandomState(seed)
@@ -156,7 +120,7 @@ def test_softmax_chain_plain_matches_kern(mode):
     bh, nq, d = q.shape
     nk, dv = v.shape[1:]
     want = pl.pallas_call(
-        _chain_kernel(mode, d), grid=(bh,),
+        chain_kern(mode, d), grid=(bh,),
         in_specs=[pl.BlockSpec((1, nq, d), lambda b: (b, 0, 0)),
                   pl.BlockSpec((1, nk, d), lambda b: (b, 0, 0)),
                   pl.BlockSpec((1, nk, dv), lambda b: (b, 0, 0))],

@@ -295,7 +295,10 @@ def test_spatial_probe_kernels(dev, variant, n, h):
         chip_smoke.ATTN_TOL
 
 
-@pytest.mark.parametrize("nq,nk", [(100, 256), (1376, 1408)])
+# (100, 256): one query block; (300, 384): three blocks, the last
+# partial; (200, 320): an odd count of key tiles; (64, 64):
+# one key tile; (1376, 1408): the script's shape, 11 blocks
+@pytest.mark.parametrize("nq,nk", [(100, 256), (300, 384), (200, 320), (64, 64), (1376, 1408)])
 @pytest.mark.parametrize("mode", av.CHAIN_MODES)
 def test_softmax_chain_kernel(dev, mode, nq, nk):
     q, k, v = chip_smoke.chain_inputs(4, torch.Generator(device=dev).manual_seed(nq), dev, nq, nk)
@@ -303,13 +306,30 @@ def test_softmax_chain_kernel(dev, mode, nq, nk):
     got = av.softmax_chain(mode, q, k, v)
     assert av.softmax_chain.launches == before + 1
     assert chip_smoke.rel_err(got, av.softmax_chain_plain(mode, q, k, v)) <= chip_smoke.CHAIN_TOL
-    assert min(chip_smoke.chain_mutant_errors(mode, q, k, v).values()) > chip_smoke.CHAIN_TOL
+    if nk > 64:  # the mutants drop the last key tile
+        assert min(chip_smoke.chain_mutant_errors(mode, q, k, v).values()) > chip_smoke.CHAIN_TOL
+
+
+def test_softmax_chain_kernel_reads_v_first_columns(dev):
+    """V wider than 64 (the map's row stride is Dv), also given as a
+    strided view: the kernel reads V's first 64 columns."""
+    q, k, v = chip_smoke.chain_inputs(2, torch.Generator(device=dev).manual_seed(3), dev, 200, 256)
+    wide = torch.cat([v, v], dim=-1)  # Dv = 256
+    for vv in (wide, wide[..., 64:192]):
+        got = av.softmax_chain("exp", q, k, vv)
+        want = av.softmax_chain_plain("exp", q, k, vv)
+        assert chip_smoke.rel_err(got, want) <= chip_smoke.CHAIN_TOL
 
 
 @pytest.mark.parametrize("n,h,w,c,oh,ow", [
     (1, 8, 12, 128, 15, 23),      # one frame, ragged tiles in both directions
     (2, 6, 10, 256, 12, 20),      # two channel chunks
     (3, 21, 37, 384, 42, 70),     # three chunks, several tiles
+    (2, 40, 36, 128, 19, 23),     # downsampling: taps read from global memory
+    (1, 19, 21, 256, 19, 21),     # the same size: taps wider than the patch
+    (1, 19, 21, 256, 21, 23),     # near the same size
+    (1, 5, 7, 128, 64, 90),       # a large upsampling, one source pixel a tile
+    (140, 8, 8, 128, 16, 16),     # more tiles than SMs: each CTA walks several
 ])
 def test_resize_conv_kernel(dev, n, h, w, c, oh, ow):
     x, wc, bc = chip_smoke.resize_conv_inputs(n, h, w, c, torch.Generator(device=dev).manual_seed(c),

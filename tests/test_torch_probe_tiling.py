@@ -1,8 +1,10 @@
-"""The tilings of the spatial probes' Hopper kernels
+"""The tilings of the probes' Hopper kernels
 (``csrc/attention_variants_hopper.cu``: ``ilv_hopper<NOMASK>``,
-``chunk_hopper`` and ``sbf16_hopper<FAST, CEILING>``), emulated in torch on
-the CPU, against the TPU kernels of ``scripts/bench_spatial_variants.py``
-(``run_variant``) in Pallas interpret mode on the same seeded inputs.
+``chunk_hopper``, ``sbf16_hopper<FAST, CEILING>`` and
+``chain_hopper<MODE>``), emulated in torch on the CPU, against the
+TPU kernels of ``scripts/bench_spatial_variants.py`` (``run_variant``) and
+``scripts/bench_softmax_chain.py`` (``kern``) in Pallas interpret mode on
+the same seeded inputs.
 
 The emulation follows the kernels' plan: CTAs of 128 query rows in two
 64-row warpgroups, 64-key tiles up to round_up(n, 128) with zero-filled pad
@@ -19,7 +21,18 @@ by more than ``chip_smoke.ATTN_TOL``: P·V reading the other slot's P, a
 stream's output stored in the other head of the pair, q scaled after the
 bf16 rounding (the scale folded into the scores) in place of before, and
 for ``sbf16`` a running max in place of the global one and the mask
-dropped."""
+dropped.
+
+The chain kernel's plan (``emulate_chain``): 128-row query blocks with
+TMA's zero-filled partial block, 64-key tiles through a ring of six
+stages (pass 1's K tiles, then pass 2's K and V tiles), S in fp32, each
+mode's chain (``exact``'s online max with rescale, ``bf16x``'s first pass
+over K for the global max of the scores, rounded once), P rounded to
+bf16, the unnormalised (P·V)[:, :64].  Its mutants: ``bf16x`` with an
+online max (no rescale) in place of the first pass, ``bf16x`` reading
+pass 2's V from the stage without pass 1's offset, and a stage released
+after S instead of after P·V, so that a later load overwrites V before
+P·V reads it."""
 
 import functools
 import importlib.util
@@ -27,6 +40,7 @@ import math
 import types
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +49,7 @@ import torch.nn.functional as F
 from jax.experimental import pallas as pl
 
 import chip_smoke
+from tests.torch_port_helpers import chain_kern
 from video_depth_anything_torch.ops import attention_variants as av
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -382,17 +397,26 @@ def test_launch_checks_tensor_maps_before_any_build():
 
 def test_split_rewrites_find_their_anchors():
     """``bench_probe_split``'s rewrites of this tree's sources (the split
-    builds of the Hopper probes, ``sbf16`` among them, and the clock64
-    timeline) each find their anchor once, and it finds Kernel A's D = 192
-    forward to time."""
+    builds of the Hopper probes, ``sbf16`` among them, of the chain probe,
+    and the clock64 timeline) each find their anchor once, and it finds
+    Kernel A's D = 192 forward to time; ``bench_resize_conv`` finds the
+    Hopper resize -> conv, whose split builds are in its source."""
     from video_depth_anything_torch import bench_probe_split as bps
+    from video_depth_anything_torch import bench_resize_conv as brc
 
     designs = {d["name"]: (d, csrc, kinds) for d, csrc, kinds in bps.designs_of(str(ROOT))}
-    assert set(designs) == {"hopper", "flash"}
+    assert set(designs) == {"hopper", "chain-hopper", "flash"}
     design, csrc, kinds = designs["hopper"]
     assert kinds == ("ilv", "chunk", "sbf16")
     text = (Path(csrc) / design["file"]).read_text()
     assert bps.rewrite(text, design, kinds).count("PROBE_STOP") >= 5
+    chain, _, chain_kinds = designs["chain-hopper"]
+    assert chain_kinds == ("chain",)
+    assert bps.rewrite(text, chain, chain_kinds).count("PROBE_STOP") >= 4
+    assert [bps.kind_of(f"chain:{m}") for m in av.CHAIN_MODES] == ["chain"] * 7
+    rc_src = Path(csrc) / "resize_conv.cu"
+    assert brc.design_of(str(rc_src.parent)) is brc.HOPPER
+    assert "RC_STOP" in rc_src.read_text()
     assert all(text.count(anchor) == 1 for anchor, _ in bps.TIMELINE)
     assert designs["flash"][2] == ("flash192",)
 
@@ -414,3 +438,152 @@ def test_chain_mix_cancels_unrolling():
     total = mix["per_score_by_class"]["total"]
     assert bps.chain_bound_ms(mix["per_score_by_class"], 1e9, 132, 1.98e9) == \
         pytest.approx(1e9 * total / 128 / (132 * 1.98e9) * 1e3)
+
+
+# ---- the softmax-chain probe: chain_hopper<MODE> ----
+CHAIN_STAGES = 6
+
+
+def _chain_p(mode, s, m):
+    """kern's chain on fp32 scores ``s`` (already bf16-rounded for bf16s
+    and bf16x) as the kernel computes it; m the row max where the mode
+    takes one."""
+    if mode == "gemms":
+        return s
+    if mode == "exact":
+        return torch.exp(s - m)
+    if mode == "sexp":
+        return av.schraudolph_exp2(s)
+    if mode == "pexp":
+        return av.cubic_exp2(s)
+    if mode == "bf16x":
+        return torch.exp2(_bf16(s - m))
+    return torch.exp2(s)  # exp, bf16s
+
+
+def emulate_chain(mode, q, k, v, mutant=None):
+    """``chain_hopper``'s result on q (BH, Nq, 64), k (BH, Nk, 64), v (BH,
+    Nk, Dv), bf16.  Under ``online_max`` ``bf16x`` skips its first pass
+    and takes the max of the tiles seen so far (no rescale); under
+    ``v_stage_without_pass1`` pass 2 reads tile j's V from ring stage
+    j % 6 in place of (pass 1's loads + j) % 6; under ``early_release``
+    a stage goes back once S of its tile is issued, so that the load six
+    on lands before P·V reads the V it held."""
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    tiles = nk // 64
+    blocks = -(-nq // 128)
+    qp = F.pad(q.float(), (0, 0, 0, blocks * 128 - nq))  # TMA's zero fill
+    kf, vf = k.float(), v[..., :64].float()
+    two_pass = mode == "bf16x" and mutant != "online_max"
+    pass1 = two_pass * tiles
+    # the ring's loads: pass 1's K tiles, then pass 2's K and V tiles
+    loads = [("k", j) for j in range(pass1)] + [("kv", j) for j in range(tiles)]
+    stage = torch.zeros(CHAIN_STAGES, 2, bh, 64, 64)  # the ring (K, V)
+    views = []  # what each stage holds once load g has landed
+    for g, (kind, j) in enumerate(loads):
+        st = stage[g % CHAIN_STAGES]
+        st[0] = kf[:, j * 64:(j + 1) * 64]
+        if kind == "kv":
+            st[1] = vf[:, j * 64:(j + 1) * 64]
+        views.append(stage.clone())
+
+    def kv_of(j):  # K and V of pass 2's tile j as its products read them
+        g = pass1 + j
+        kt = views[g][g % CHAIN_STAGES][0]
+        vg = g if mutant != "early_release" else min(g + CHAIN_STAGES, len(loads) - 1)
+        vs = g % CHAIN_STAGES if mutant != "v_stage_without_pass1" else j % CHAIN_STAGES
+        return kt, views[vg][vs][1]
+
+    out = torch.zeros(bh, blocks * 128, 64)
+    for x in range(blocks):
+        for cw in range(2):  # the consumer warpgroups' 64 rows each
+            r0 = x * 128 + cw * 64
+            qs = qp[:, r0:r0 + 64]
+            m = torch.full((bh, 64, 1), -math.inf)
+            if two_pass:  # the global max of the fp32 scores, rounded once
+                for g in range(pass1):
+                    m = torch.maximum(m, (qs @ views[g][g % CHAIN_STAGES][0].mT)
+                                      .amax(-1, keepdim=True))
+                m = _bf16(m)
+            acc = torch.zeros(bh, 64, 64)
+            for j in range(tiles):
+                kt, vt = kv_of(j)
+                s = qs @ kt.mT
+                if mode in ("bf16s", "bf16x"):
+                    s = _bf16(s)
+                if mode == "exact":  # online max and rescale
+                    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                    acc = acc * torch.exp(m - m_new)
+                    m = m_new
+                elif mutant == "online_max":
+                    m = torch.maximum(m, s.amax(-1, keepdim=True))
+                acc = acc + _bf16(_chain_p(mode, s, m)) @ vt
+            out[:, r0:r0 + 64] = acc
+    return out[:, :nq].to(torch.bfloat16)
+
+
+def _chain_inputs(bh, nq, nk, seed):
+    """The chain script's inputs (bench_softmax_chain.py:48-51): q, k at std
+    0.35, v at 1 and 128 wide, bf16."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy((rng.randn(*shape) * std).astype(np.float32)).to(torch.bfloat16)
+            for shape, std in (((bh, nq, 64), 0.35), ((bh, nk, 64), 0.35), ((bh, nk, 128), 1.0))]
+
+
+@functools.lru_cache(maxsize=None)
+def _kern_case(mode, nq, nk, seed):
+    """``kern`` on ``_chain_inputs(2, nq, nk, seed)``, computed once."""
+    return _kern(mode, *_chain_inputs(2, nq, nk, seed))
+
+
+def _kern(mode, q, k, v):
+    """The TPU kernel ``kern`` in interpret mode, one batch-head a grid step."""
+    bh, nq, d = q.shape
+    nk, dv = v.shape[1:]
+    out = pl.pallas_call(
+        chain_kern(mode, d), grid=(bh,),
+        in_specs=[pl.BlockSpec((1, nq, d), lambda b: (b, 0, 0)),
+                  pl.BlockSpec((1, nk, d), lambda b: (b, 0, 0)),
+                  pl.BlockSpec((1, nk, dv), lambda b: (b, 0, 0))],
+        out_specs=pl.BlockSpec((1, nq, d), lambda b: (b, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((bh, nq, d), jnp.bfloat16), interpret=True)(
+            *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)))
+    return torch.from_numpy(np.asarray(out, np.float32))
+
+
+# The plan against kern: 2 bf16 ulps of max|output| (fp32 sums in another
+# order, the same rounding points), except where kern's chain runs on bf16
+# scores: on the CPU, XLA evaluates its bf16 exp2 (and bf16x's s - m) with
+# bf16 intermediates, one bf16 ulp of p or more from the fp32 exp2 rounded
+# once that the TPU kernel's rounding points and the port's plain version
+# define; the plain version itself is 1.1e-2 of max|output| from kern at
+# Nq = 300, Nk = 128 (bf16s), so those modes are held to 1.5e-2, and the
+# plan to the plain version within 2 ulps.
+CHAIN_KERN_TOL = {m: 1.5e-2 if m in ("bf16s", "bf16x") else TOL for m in av.CHAIN_MODES}
+
+# Nq = 100: one query block; 300: three blocks with a partial last one;
+# Nk = 128, 384 and 640: 2, 6 and 10 key tiles (the ring wraps in pass 2)
+@pytest.mark.parametrize("nq,nk", [(100, 128), (100, 384), (300, 128), (300, 384), (300, 640)])
+@pytest.mark.parametrize("mode", av.CHAIN_MODES)
+def test_chain_tiling_matches_kern(mode, nq, nk):
+    q, k, v = _chain_inputs(2, nq, nk, seed=nq + nk)
+    want = _kern_case(mode, nq, nk, nq + nk)
+    got = emulate_chain(mode, q, k, v)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= CHAIN_KERN_TOL[mode]
+    # the port's plain version defines the numerics: the plan meets it closely
+    assert _rel(got, av.softmax_chain_plain(mode, q, k, v)) <= TOL
+
+
+# each mutant at a shape where it changes what the products read
+@pytest.mark.parametrize("mode,mutant,nk", [("bf16x", "online_max", 384),
+                                            ("bf16x", "v_stage_without_pass1", 128),
+                                            ("exp", "early_release", 640),
+                                            ("bf16x", "early_release", 640)])
+def test_chain_mutant_misses_kern(mode, mutant, nk):
+    q, k, v = _chain_inputs(2, 300, nk, seed=11)
+    want = _kern_case(mode, 300, nk, 11)
+    assert _rel(emulate_chain(mode, q, k, v), want) <= CHAIN_KERN_TOL[mode]
+    assert _rel(emulate_chain(mode, q, k, v, mutant), want) > CHAIN_KERN_TOL[mode]
+    assert _rel(emulate_chain(mode, q, k, v, mutant), want) > chip_smoke.CHAIN_TOL

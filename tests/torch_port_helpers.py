@@ -1,6 +1,6 @@
 """Shared helpers of the ``test_torch_*`` files: matching small configs of
-both packages, seeded noised JAX parameters, and their conversion into the
-PyTorch port."""
+both packages, seeded noised JAX parameters, their conversion into the
+PyTorch port, and the softmax-chain probe's Pallas kernel."""
 
 from __future__ import annotations
 
@@ -84,3 +84,41 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+def chain_kern(mode, d):
+    """The Pallas kernel ``kern`` of ``scripts/bench_softmax_chain.py:55-94``
+    for ``mode`` and output width ``d``, transcribed: ``make_kernel`` is a
+    closure inside the script's ``main``."""
+
+    def kern(q_ref, k_ref, v_ref, o_ref):
+        s = jax.lax.dot_general(
+            q_ref[0], k_ref[0], (((1,), (1,)), ((), ())),
+            preferred_element_type=(jnp.bfloat16 if mode in ("bf16s", "bf16x") else jnp.float32))
+        if mode == "gemms":
+            p = s
+        elif mode == "exp":
+            p = jnp.exp2(s)
+        elif mode == "exact":
+            m = jnp.max(s, axis=1, keepdims=True)
+            p = jnp.exp(s - m)
+        elif mode == "sexp":
+            i = jnp.asarray(s * (1 << 23) + (127.0 * (1 << 23)), jnp.int32)
+            p = jax.lax.bitcast_convert_type(i, jnp.float32)
+        elif mode == "pexp":
+            xi = jnp.floor(s)
+            xf = s - xi
+            i = (jnp.asarray(xi, jnp.int32) + 127) << 23
+            scale = jax.lax.bitcast_convert_type(i, jnp.float32)
+            pf = 1.0 + xf * (0.6951937 + xf * (0.2288332 + xf * 0.0779731))
+            p = scale * pf
+        elif mode == "bf16s":
+            p = jnp.exp2(s)
+        else:  # bf16x
+            m = jnp.max(s, axis=1, keepdims=True)
+            p = jnp.exp2(s - m)
+        acc = jax.lax.dot_general(p.astype(v_ref.dtype), v_ref[0], (((1,), (0,)), ((), ())),
+                                  preferred_element_type=jnp.float32)
+        o_ref[0] = acc[:, :d].astype(o_ref.dtype)
+
+    return kern

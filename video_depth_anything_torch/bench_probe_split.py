@@ -1,13 +1,15 @@
-"""Where Kernel A's spatial probe kernels (``ilv`` / ``nomask``,
-``chunk<k>``, ``sbf16`` / ``sbf16:fast`` / ``ceiling``) spend their time on
-the card: each kernel built in full and with parts taken out, timed at the
-probe script's shapes, with its ``ptxas`` lines and the instruction mix of
-its softmax chain read from the SASS; and Kernel A's forward at D = 192
-(``flash192``, ``flash192:fast``), built in full only.
+"""Where Kernel A's probe kernels (the spatial ``ilv`` / ``nomask``,
+``chunk<k>``, ``sbf16`` / ``sbf16:fast`` / ``ceiling``, and the softmax-chain
+probe's seven modes, ``chain:<mode>``) spend their time on the card: each
+kernel built in full and with parts taken out, timed at the probe script's
+shapes, with its ``ptxas`` lines and the instruction mix of its softmax
+chain read from the SASS; and Kernel A's forward at D = 192 (``flash192``,
+``flash192:fast``), built in full only.
 
     python -m video_depth_anything_torch.bench_probe_split [ROOT ...]
         [--variants ilv nomask chunk2 chunk4 sbf16 sbf16:fast ceiling
-                    flash192 flash192:fast] [--no-timing] [--timeline]
+                    flash192 flash192:fast chain:gemms ... chain:bf16x]
+        [--no-timing] [--timeline]
 
 The kernels are built from the ``csrc`` of each checkout ROOT (default:
 this tree; for example an unpacked parent commit and this tree, to time
@@ -27,13 +29,15 @@ behind a ``PROBE_STOP`` / ``PROBE_FLOORF`` macro (built with the macro at
   the floor and the exponent, in place of the rounding-down add.
 
 The designs are found from the sources (``DESIGNS``): the ``mma.sync``
-``sbf16_kernel`` of ``csrc/attention_variants.cu`` (in checkouts that
-still hold it), the Hopper probes of ``csrc/attention_variants_hopper.cu``
-(``ilv``, ``chunk`` and, where the source has it, ``sbf16_hopper``), and
+``sbf16_kernel`` and ``chain_kernel`` of ``csrc/attention_variants.cu`` (in
+checkouts that still hold them), the Hopper probes of
+``csrc/attention_variants_hopper.cu`` (``ilv``, ``chunk`` and, where the
+source has them, ``sbf16_hopper`` and ``chain_hopper``), and
 ``csrc/flash_attention.cu`` for D = 192.  A design is built only where a
 variant asked for runs on it.  Each build is timed with CUDA events
 (``utils/device.event_ms``) in turns: the builds in order, then in reverse
-order, per shape (the probes at vitl and vits, 32 x 1370; ``flash192`` at
+order, per shape (the chain probe at 512 x 1376 x 1408 with V 128 wide;
+the spatial probes at vitl and vits, 32 x 1370; ``flash192`` at
 32 x 1370 with 2 heads of 192, q, k and v strided views of one fused qkv
 tensor, as the model's projection gives them, and again at B = 30 and 33:
 5.0 and 5.5 waves of its CTAs on 132 SMs against 5.33).  The ``full`` and
@@ -46,15 +50,17 @@ from ``clock64()`` stamps (``timeline``).
 The chain's mix: ``cuobjdump -sass`` of the ``full`` and ``nochain``
 builds, opcodes counted in each kernel function; the difference divided
 by the number of exponentials in the full build (its ``FRND`` count, or
-for the rounding-down add its ``FADD.RM`` count) is the chain's
+for the rounding-down add its ``FADD.RM`` count; for the chain probe the
+difference of the mode's ``CHAIN_MARKER`` opcode) is the chain's
 instructions per score, the chain-free build's counts first scaled to the
 full build's number of tensor-core instructions, plus P's bf16 pack (half
 an ``F2FP`` a score, in both builds).  The chain bound is the scores
-(32 * H * 1408^2 at n = 1370) times the largest of: conversions over 16 a
-clock, fp32 operations over 128, integer operations over 64, and all
-instructions over 128 (the SM's issue rate), on every SM at the card's
-largest SM clock (the CUDA C++ Programming Guide's throughputs for
-compute capability 9.0).  Prints the card's name and power limit, then
+(32 * H * 1408^2 at n = 1370; 512 * 1408^2 for the chain probe) times the
+largest of: conversions over 16 a clock, fp32 operations over 128,
+integer operations over 64, ``MUFU`` over 16, and all instructions over
+128 (the SM's issue rate), on every SM at the card's largest SM clock
+(the CUDA C++ Programming Guide's throughputs for compute capability
+9.0).  Prints the card's name and power limit, then
 one JSON line per kernel function and per timed row.
 """
 
@@ -75,9 +81,10 @@ ENCODERS = (("vitl", 16), ("vits", 6))
 FLASH_HEADS, FLASH_D = 2, 192  # chip_smoke.py's synthetic D = 192 shape
 WAVES = (30, 32, 33)  # batches timed for the D = 192 grid's waves (660, 704, 726 CTAs)
 PEAK_BF16 = 989e12
-RATE = {"conversion": 16, "fp32": 128, "integer": 64}
+RATE = {"conversion": 16, "fp32": 128, "integer": 64, "mufu": 16}
 CLASSES = {
     "conversion": ("F2I", "I2F", "FRND", "F2F", "F2FP", "I2FP", "F2IP"),
+    "mufu": ("MUFU",),
     "fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FCHK"),
     "integer": ("IADD3", "IMAD", "IMNMX", "SHF", "LOP3", "ISETP", "SEL", "LEA", "IABS", "IADD",
                 "SHL", "SHR", "VIMNMX", "VIADDMNMX", "VIADD"),
@@ -161,14 +168,70 @@ FLASH = {  # Kernel A's forward; only its D = 192 kernel is timed here
     "name": "flash", "file": "flash_attention.cu", "marker": "vda_flash_attention_fwd",
     "kernels": {"flash192": "vda_flash_attention_fwd"}, "rewrites": [], "builds": {"full": []},
 }
-DESIGNS = (MMA_SYNC_SBF16, HOPPER, FLASH)
+# The softmax-chain probe (bench_softmax_chain's seven modes), kind "chain".
+# Its chain-free build keeps on purpose what keeps the products alive:
+# exact's online max and rescale and p = s - m, bf16x's first pass (the
+# max) and p = s - m; the other modes take p = s ("gemms" has no chain).
+# "marker" is the SASS opcode of which each mode's chain has one a score
+# (MUFU.EX2: exp2f and __expf; sexp's truncation; pexp's floor); "kept" the
+# chain's instructions a score that its chain-free build keeps (the max,
+# the subtraction, exact's rescale of acc, the mma.sync bf16x's rounding of
+# each score in its first pass), added back to the mix.
+CHAIN_MODES = ("gemms", "exp", "exact", "sexp", "pexp", "bf16s", "bf16x")
+CHAIN_MARKER = {"exp": "MUFU.EX2", "exact": "MUFU.EX2", "sexp": "F2I", "pexp": "FRND",
+                "bf16s": "MUFU.EX2", "bf16x": "MUFU.EX2"}
+CHAIN_SHAPE = (512, 1376, 1408, 128)  # BH, Nq, Nk, Dv: bench_softmax_chain's
+_CHAIN_EXACT_KEPT = {"FMNMX": 1.0, "FADD": 1.0, "FMUL": 1.0}
+MMA_SYNC_CHAIN = {  # the chain kernel on mma.sync, before its Hopper kernel
+    "name": "chain-mma", "file": "attention_variants.cu", "marker": "chain_kernel",
+    "kernels": {"chain": "chain_kernel"},
+    "rewrites": [
+        ("        s[t][e] = pe;\n",
+         "        s[t][e] = PROBE_STOP < 1 ? pe\n"
+         "                  : (MODE == EXACT || MODE == BF16X) ? x - m[e >> 1] : x;\n", None),
+    ] + _MMA_NOPRODUCTS,
+    "builds": _BUILDS,
+    "chain_kept": {"exact": _CHAIN_EXACT_KEPT,
+                   "bf16x": {"FMNMX": 1.0, "FADD": 1.0, PACK: 1.0, "SHL": 1.0}},
+}
+_CHAIN_ROWS = ("__device__ __forceinline__ void chain_rows(float (&s)[32], float (&m)[2], "
+               "float (&alpha)[2]) {\n")
+CHAIN_HOPPER = {  # chain_hopper<MODE>
+    "name": "chain-hopper", "file": "attention_variants_hopper.cu", "marker": "chain_hopper",
+    "kernels": {"chain": "chain_hopper"},
+    "rewrites": [
+        (_CHAIN_ROWS, _CHAIN_ROWS +
+         "  if (PROBE_STOP >= 1) {\n"
+         "    if constexpr (MODE == EXACT) {\n"
+         "      for (int r = 0; r < 2; ++r) {\n"
+         "        float mx = m[r];\n"
+         "        for (int t = 0; t < 8; ++t) mx = fmaxf(mx, fmaxf(s[4 * t + 2 * r], "
+         "s[4 * t + 2 * r + 1]));\n"
+         "        mx = quad_max(mx);\n"
+         "        alpha[r] = __expf(m[r] - mx);\n"
+         "        m[r] = mx;\n"
+         "      }\n"
+         "    }\n"
+         "    if constexpr (MODE == EXACT || MODE == BF16X)\n"
+         "      for (int i = 0; i < 32; ++i) s[i] -= m[(i >> 1) & 1];\n"
+         "    return;\n"
+         "  }\n", None),
+    ] + [r for r in HOPPER["rewrites"] if "PROBE_STOP >= 2" in r[1]],
+    "builds": _BUILDS,
+    "chain_kept": {"exact": _CHAIN_EXACT_KEPT, "bf16x": {"FMNMX": 1.0, "FADD": 1.0}},
+}
+DESIGNS = (MMA_SYNC_SBF16, MMA_SYNC_CHAIN, HOPPER, CHAIN_HOPPER, FLASH)
 
 
 def kind_of(variant: str) -> str:
-    """The kernel kind a variant runs on: ``ilv``, ``chunk``, ``sbf16`` or
-    ``flash192``."""
+    """The kernel kind a variant runs on: ``ilv``, ``chunk``, ``sbf16``,
+    ``flash192`` or ``chain`` (variants ``chain:<mode>``)."""
     if variant in ("flash192", "flash192:fast"):
         return "flash192"
+    if variant.startswith("chain:"):
+        if variant[6:] not in CHAIN_MODES:
+            raise ValueError(variant)
+        return "chain"
     from video_depth_anything_torch.ops.attention_variants import parse_variant
 
     return parse_variant(variant, N)[0]
@@ -238,6 +301,9 @@ def entry(lib, kind: str):
     if kind == "flash192":
         fn = lib.vda_flash_attention_fwd
         fn.argtypes = [vp] * 4 + [i] * 4 + [ctypes.c_longlong] * 12 + [f, i, vp, vp]
+    elif kind == "chain":  # q, k, v, o, bh, nq, nk, dv, mode, stream
+        fn = lib.vda_chain
+        fn.argtypes = [vp] * 4 + [i] * 5 + [vp]
     else:  # q, k, v, o, B, n, heads, qscale, two flags, stream
         fn = getattr(lib, f"vda_{kind}")
         fn.argtypes = [vp] * 4 + [i] * 3 + [f, i, i, vp]
@@ -264,23 +330,31 @@ def sass_opcodes(so: str) -> dict:
     return funcs
 
 
-def chain_mix(full: Counter, nochain: Counter, kept=None) -> dict:
+def chain_mix(full: Counter, nochain: Counter, kept=None, marker=None) -> dict:
     """The chain's instructions per score by opcode and by class: the full
     build's counts less the chain-free build's, the latter scaled to the
     same number of tensor-core instructions (HMMA or HGMMA), so that a
     loop unrolled another number of times in one build cancels; plus
     ``kept``, the chain's instructions a score that the chain-free build
     keeps on purpose (exact ``sbf16``'s max and subtraction, which keep its
-    max pass's products alive)."""
+    max pass's products alive).  The scores are the full build's
+    exponentials (``FRND``, else the rounding-down ``FADD.RM``), or with
+    ``marker`` the difference of that opcode's counts (one a score)."""
     def products(c):
         return sum(v for k, v in c.items() if k.split(".")[0] in ("HMMA", "HGMMA"))
 
-    scores = sum(v for k, v in full.items() if k.split(".")[0] == "FRND")
-    if scores == 0:
-        scores = sum(v for k, v in full.items() if k.startswith("FADD") and ".RM" in k)
-    if scores == 0 or products(nochain) == 0:
-        return {"error": "no exponential or no product found in the SASS"}
+    if products(nochain) == 0:
+        return {"error": "no product found in the SASS"}
     r = products(full) / products(nochain)
+    if marker is not None:
+        scores = sum(v for k, v in full.items() if k.startswith(marker)) - r * sum(
+            v for k, v in nochain.items() if k.startswith(marker))
+    else:
+        scores = sum(v for k, v in full.items() if k.split(".")[0] == "FRND")
+        if scores == 0:
+            scores = sum(v for k, v in full.items() if k.startswith("FADD") and ".RM" in k)
+    if scores <= 0:
+        return {"error": "no exponential found in the SASS"}
     diff = {k: (full.get(k, 0) - r * nochain.get(k, 0)) / scores
             for k in set(full) | set(nochain)}
     diff = {k: v for k, v in diff.items() if abs(v) >= 0.01}
@@ -420,7 +494,7 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="*", help="checkouts whose kernels to build (default: this one)")
     ap.add_argument("--variants", nargs="+",
                     default=["ilv", "nomask", "chunk2", "chunk4", "sbf16", "sbf16:fast", "ceiling",
-                             "flash192", "flash192:fast"])
+                             "flash192", "flash192:fast"] + [f"chain:{m}" for m in CHAIN_MODES])
     ap.add_argument("--no-timing", action="store_true",
                     help="builds, ptxas lines and the chain's mix only")
     ap.add_argument("--timeline", action="store_true",
@@ -470,12 +544,25 @@ def main(argv=None) -> int:
             for func, counts in sass["full"].items():
                 if design["kernels"][kind] not in func:
                     continue
-                kept = next((v for k, v in design.get("kept", {}).items() if k in func), None)
-                mix = chain_mix(counts, sass["nochain"].get(func, Counter()), kept)
-                row = {"tree": tree, "kernel": kind, "function": func, **mix,
-                       "counts_full": dict(counts),
-                       "counts_nochain": dict(sass["nochain"].get(func, {}))}
-                if "per_score_by_class" in mix:
+                nochain = sass["nochain"].get(func, Counter())
+                row = {"tree": tree, "kernel": kind, "function": func}
+                if kind == "chain":  # the mode is the template's first argument
+                    mode = CHAIN_MODES[int(re.search(r"ILi(\d)E", func).group(1))]
+                    row["mode"] = mode
+                    if mode == "gemms":  # no chain
+                        print(json.dumps(row), flush=True)
+                        continue
+                    mix = chain_mix(counts, nochain, design["chain_kept"].get(mode),
+                                    CHAIN_MARKER[mode])
+                else:
+                    kept = next((v for k, v in design.get("kept", {}).items() if k in func), None)
+                    mix = chain_mix(counts, nochain, kept)
+                row.update(mix, counts_full=dict(counts), counts_nochain=dict(nochain))
+                if "per_score_by_class" in mix and kind == "chain":
+                    bh, _, nk, _ = CHAIN_SHAPE  # both designs compute 1408 query rows
+                    row["chain_bound_ms"] = round(chain_bound_ms(
+                        mix["per_score_by_class"], bh * 1408.0 * nk, sms, clock), 4)
+                elif "per_score_by_class" in mix:
                     row["chain_bound_ms"] = {
                         enc: round(chain_bound_ms(mix["per_score_by_class"],
                                                   BATCH * h * 1408.0 * 1408.0, sms, clock), 4)
@@ -507,8 +594,31 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    chain = [v_ for v_ in args.variants if kind_of(v_) == "chain"]
+    if chain:  # bench_softmax_chain's inputs: q, k ~ N(0, 0.35^2), v ~ N(0, 1)
+        bh, nq, nk, dv = CHAIN_SHAPE
+        q, k, v = ((torch.randn(*shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+                   for shape, std in (((bh, nq, D), 0.35), ((bh, nk, D), 0.35),
+                                      ((bh, nk, dv), 1.0)))
+        extra = {"tensor_bound_ms": round(4.0 * bh * nq * nk * D / PEAK_BF16 * 1e3, 4)}
+        for variant in chain:
+            mode = variant[6:]
+
+            def run(tag, mode=mode):
+                out = torch.empty_like(q)
+                err = builds[tag][0]["chain"](*(cuda_build.ptr(t) for t in (q, k, v, out)), bh,
+                                              nq, nk, dv, CHAIN_MODES.index(mode),
+                                              cuda_build.stream_of(q))
+                cuda_build.check(err, tag)
+                return out
+
+            want = av.softmax_chain_plain(mode, q, k, v).float()
+            time_rows("chain 512x1376x1408", variant, "chain", run, want, extra)
+            del want
+        del q, k, v
+        torch.cuda.empty_cache()
     scale = D**-0.5
-    spatial = [v for v in args.variants if kind_of(v) != "flash192"]
+    spatial = [v for v in args.variants if kind_of(v) not in ("flash192", "chain")]
     for enc, heads in ENCODERS if spatial else ():
         q, k, v = ((torch.randn(BATCH, N, heads * D, generator=gen, device=dev) * std)
                    .to(torch.bfloat16) for std in (0.5, 0.5, 1.0))

@@ -1,10 +1,11 @@
-// Kernel A's spatial probes ilv / nomask, chunk<k> and sbf16 / sbf16:fast /
-// ceiling on Hopper (sm_90a).
+// Kernel A's probes on Hopper (sm_90a): the spatial probes ilv / nomask,
+// chunk<k> and sbf16 / sbf16:fast / ceiling, and the softmax-chain probe.
 //
 // Replaces scripts/bench_spatial_variants.py:_kernel_ilv (variants ilv and
 // nomask), _kernel_chunk (chunk<k>) and _kernel_sbf16 (sbf16, sbf16:fast,
-// ceiling), launched by run_variant.  The numerics are the TPU kernels'
-// (ops/attention_variants.spatial_kernel_plain):
+// ceiling), launched by run_variant, and scripts/bench_softmax_chain.py
+// make_kernel's kern (chain_hopper, at the end).  The spatial probes'
+// numerics are the TPU kernels' (ops/attention_variants.spatial_kernel_plain):
 //   * q is prescaled by scale*log2(e) in fp32 and rounded to bf16 before
 //     Q K^T.  TMA lands q raw; each warpgroup scales its own rows in shared
 //     memory once per Q tile and fences the writes for wgmma.
@@ -104,6 +105,33 @@
 //                       are on the tensor cores (wait<2>); P(i-1) is
 //                       packed once P V(i-3), which read that P slot, is
 //                       done (wait<1>).
+//
+// chain_hopper<MODE>  kern's seven chains (gemms, exp, exact, sexp,
+//   pexp, bf16s, bf16x) on q, k (BH, N, 64) and v (BH, Nk, Dv): fp32 scores,
+//   no mask (Nk a multiple of 64), P rounded to bf16 before P V, fp32
+//   accumulate, the unnormalised (P V)[:, :64]; every mode takes the
+//   mma.sync kernel's intrinsics (exp2f, __expf, the bit tricks), and bf16
+//   rounding by cvt.rn on pairs.  exact keeps an online max with rescale;
+//   bf16x rounds s - m to bf16, so it takes the global max of the scores
+//   in a first pass over K (rounded once: rounding is monotonic).
+//   Bound: the tensor cores, 4 * BH * Nq * Nk * 64 FLOP (0.257 ms at
+//   512 x 1376 x 1408), and MUFU for the modes with a hardware
+//   exponential (one a score, 0.24 ms); what held the mma.sync kernel was
+//   its products (4x the tensor bound) and each 64-row CTA reading its
+//   batch-head's K and V whole (4.06 GB a call at Nq = 1376).
+//   Design: Kernel A's skeleton.  A CTA is 128 query rows of one
+//   batch-head: a producer warpgroup (setmaxnreg 24) whose one thread
+//   keeps TMA loads in flight, and two consumer warpgroups (240) of 64
+//   rows.  The ring's stage is the K tile and V's first 64 columns of 64
+//   keys (16 KB, 6 stages); V's map is the (BH, Nk, 1, 64) view of row
+//   stride Dv, so nothing is copied.  S = Q K^T on wgmma m64n64k16 from
+//   shared memory, P V on wgmma m64n64k16 with P in registers.  Per key
+//   tile j a consumer issues S(j + 1), runs the chain of tile j while
+//   S(j + 1) and P V(j - 1) are on the tensor cores, then issues P V(j).
+//   Each CTA loads its own K and V tiles: a cluster of two CTAs sharing
+//   them by TMA multicast was built and timed, and lost in every mode
+//   (PERF.md section 6: its loads alone took 0.43 ms against 0.31 for
+//   twice the bytes).
 #include <type_traits>
 
 #include "common.cuh"
@@ -635,6 +663,200 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_hopper(
   store_stream(steps - 1);
 }
 
+// -------------------------------------------------------------- chain ----
+enum ChainMode { GEMMS, EXP, EXACT, SEXP, PEXP, BF16S, BF16X };
+constexpr int kChainStages = 6;
+constexpr int kChainThreads = 384;  // a producer warpgroup and two consumer warpgroups
+
+struct ChainSmem {
+  bf16 q[kQTile];                    // the CTA's 128 query rows: 16 KB
+  bf16 kv[kChainStages][2][kTile];   // K and V[:, :64] of a 64-key tile: 16 KB a stage
+  uint64_t q_full, full[kChainStages], empty[kChainStages];
+};
+constexpr int kChainSmemBytes = sizeof(ChainSmem) + 1024;
+
+// kern's chain for MODE on a 64-key score tile (accumulator layout), in
+// place: p of each score.  EXACT first moves its running max m to the
+// tile's and returns the factor alpha = exp(m_old - m_new) of the rows'
+// accumulators; BF16X takes m, the bf16 global row max, from pass 1.  The
+// intrinsics are the mma.sync kernel's; bf16 rounding is cvt.rn on pairs.
+template <int MODE>
+__device__ __forceinline__ void chain_rows(float (&s)[32], float (&m)[2], float (&alpha)[2]) {
+  if constexpr (MODE == EXACT) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) mx = fmaxf(mx, fmaxf(s[4 * t + 2 * r], s[4 * t + 2 * r + 1]));
+      mx = quad_max(mx);
+      alpha[r] = __expf(m[r] - mx);
+      m[r] = mx;
+    }
+  }
+  if constexpr (MODE == BF16S || MODE == BF16X) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) round_pair(s[i], s[i + 1]);
+  }
+  if constexpr (MODE == BF16X) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float r = m[(i >> 1) & 1];
+      s[i] -= r;
+      s[i + 1] -= r;
+      round_pair(s[i], s[i + 1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float x = s[i];
+    float pe = x;  // GEMMS
+    if constexpr (MODE == EXP || MODE == BF16S || MODE == BF16X) {
+      pe = exp2f(x);  // BF16S / BF16X: P's bf16 pack is the chain's last rounding
+    } else if constexpr (MODE == EXACT) {
+      pe = __expf(x - m[(i >> 1) & 1]);
+    } else if constexpr (MODE == SEXP) {
+      pe = __int_as_float(__float2int_rz(fmaf(x, 8388608.f, 1065353216.f)));
+    } else if constexpr (MODE == PEXP) {
+      const float xi = floorf(x), xf = x - xi;
+      const float sc = __int_as_float(int(unsigned(__float2int_rz(xi) + 127) << 23));
+      pe = sc * fmaf(xf, fmaf(xf, fmaf(xf, 0.0779731f, 0.2288332f), 0.6951937f), 1.f);
+    }
+    s[i] = pe;
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kChainThreads, 1) chain_hopper(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int nq, int nk) {
+  constexpr bool TWO_PASS = MODE == BF16X;
+  extern __shared__ unsigned char smem_raw[];
+  ChainSmem& sm = aligned_smem<ChainSmem>(smem_raw);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kQRows;
+  const int n_tiles = nk / kKeys;
+  const int pass1 = TWO_PASS ? n_tiles : 0, total = pass1 + n_tiles;  // the ring's loads
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kChainStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 2);  // both consumer warpgroups
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // a consumer warpgroup is done with ring load g
+  auto release = [&](int g) {
+    if (tid == 0) mbar_arrive(&sm.empty[g % kChainStages]);
+  };
+  if (wg == 0) {  // producer: Q once, then pass 1's K tiles and pass 2's K and V tiles
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, kQTile * 2);
+      tma_load_4d(sm.q, &tq, &sm.q_full, 0, 0, q0, bh);
+      for (int g = 0; g < total; ++g) {
+        const int s = g % kChainStages, key0 = (g < pass1 ? g : g - pass1) * kKeys;
+        if (g >= kChainStages) mbar_wait(&sm.empty[s], (g / kChainStages - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[s], (g < pass1 ? 1 : 2) * kTile * 2);
+        tma_load_4d(sm.kv[s][0], &tk, &sm.full[s], 0, 0, key0, bh);
+        if (g >= pass1) tma_load_4d(sm.kv[s][1], &tv, &sm.full[s], 0, 0, key0, bh);
+      }
+    }
+  } else {  // consumers: query rows cw * 64 .. + 64 of the CTA's 128
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1, warp = tid >> 5, lane = tid & 31;
+    mbar_wait(&sm.q_full, 0);
+    const uint64_t dq = desc_sw128(sm.q + cw * 64 * 64);
+    float m[2] = {-INFINITY, -INFINITY}, alpha[2] = {1.f, 1.f};
+    float S[2][32], acc[32];
+    uint32_t P[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    if constexpr (TWO_PASS) {  // pass 1: the global row max of the scores, rounded once
+      for (int g = 0; g < pass1; ++g) {
+        const int s = g % kChainStages;
+        mbar_wait(&sm.full[s], (g / kChainStages) & 1);
+        wgmma_fence();
+        issue_s(S[0], dq, desc_sw128(sm.kv[s][0]));
+        wgmma_wait<0>();
+        fence_regs(S[0]);
+        release(g);
+        max_rows<false>(m, S[0], 0, 0);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m[r] = bf16_round(quad_max(m[r]));
+    }
+    // pass 2: S(j + 1) is issued before the chain of tile j, and P V(j)
+    // after it; the stage of tile j - 1 goes back once P V(j - 1) is done
+    auto issue_tile = [&](int j, float (&s)[32]) {
+      const int g = pass1 + j, st = g % kChainStages;
+      mbar_wait(&sm.full[st], (g / kChainStages) & 1);
+      wgmma_fence();
+      issue_s(s, dq, desc_sw128(sm.kv[st][0]));
+    };
+    // tile j, its scores in S[PAR]; FIRST: j = 0; MORE: a tile j + 1
+    auto step = [&](int j, auto par_c, auto first_c, auto more_c) {
+      constexpr int PAR = decltype(par_c)::value;
+      constexpr bool FIRST = decltype(first_c)::value, MORE = decltype(more_c)::value;
+      if constexpr (MORE) issue_tile(j + 1, S[PAR ^ 1]);
+      // in flight, oldest first: S(j), P V(j - 1) unless FIRST, S(j + 1) if MORE
+      wgmma_wait<(FIRST ? 0 : 1) + (MORE ? 1 : 0)>();
+      fence_regs(S[PAR]);
+      chain_rows<MODE>(S[PAR], m, alpha);
+      if constexpr (!FIRST) {
+        wgmma_wait<MORE ? 1 : 0>();  // P V(j - 1) is done with acc, P and its stage
+        fence_regs(acc);
+        release(pass1 + j - 1);
+      }
+      if constexpr (MODE == EXACT) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+      pack_p(P, S[PAR]);
+      wgmma_fence();
+      issue_pv(acc, P, desc_sw128(sm.kv[(pass1 + j) % kChainStages][1]), 0);
+    };
+    using C0 = std::integral_constant<int, 0>;
+    using C1 = std::integral_constant<int, 1>;
+    using T = std::true_type;
+    using F = std::false_type;
+    issue_tile(0, S[0]);
+    if (n_tiles == 1) {
+      step(0, C0(), T(), F());
+    } else {
+      step(0, C0(), T(), T());
+      int j = 1;
+      for (; j + 2 < n_tiles; j += 2) {
+        step(j, C1(), F(), T());
+        step(j + 1, C0(), F(), T());
+      }
+      if (j + 2 == n_tiles) {
+        step(j, C1(), F(), T());
+        step(j + 1, C0(), F(), F());
+      } else {
+        step(j, C1(), F(), F());
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(total - 1);
+    // the unnormalised (P V)[:, :64]; rows >= nq are not stored
+    const int r0 = q0 + cw * 64 + warp * 16 + (lane >> 2), c2 = (lane & 3) * 2;
+    bf16* ob = o + (long long)bh * nq * 64;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (r0 < nq)
+        *reinterpret_cast<uint32_t*>(ob + (long long)r0 * 64 + t * 8 + c2) =
+            pack_bf16x2(acc[4 * t], acc[4 * t + 1]);
+      if (r0 + 8 < nq)
+        *reinterpret_cast<uint32_t*>(ob + (long long)(r0 + 8) * 64 + t * 8 + c2) =
+            pack_bf16x2(acc[4 * t + 2], acc[4 * t + 3]);
+    }
+  }
+}
+
 // The shared-memory size and the tensor maps of a launch (the 4-D maps
 // (64, H, N, B) of the contiguous (B, n, heads * 64) operands: Q boxes of
 // 128 rows, K and V boxes of 64); a CUDA error code, 0 on success.
@@ -679,6 +901,28 @@ int launch_sbf16(const void* q, const void* k, const void* v, void* o, int batch
   return static_cast<int>(cudaGetLastError());
 }
 
+// q (bh, nq, 64), k (bh, nk, 64) contiguous, v (bh, nk, dv) contiguous with
+// dv >= 64 a multiple of 8, 16-byte aligned bases; o (bh, nq, 64).  The
+// maps are 4-D (64, 1, rows, bh) views; V's reads its first 64 columns
+// with the row stride dv.
+template <int MODE>
+int launch_chain(const void* q, const void* k, const void* v, void* o, int bh, int nq, int nk,
+                 int dv, cudaStream_t st) {
+  const cudaError_t attr = cudaFuncSetAttribute(chain_hopper<MODE>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                kChainSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, bh, nq, 1, (long long)nq * 64, 64, 64, kQRows) ||
+      !make_map(&tk, k, bh, nk, 1, (long long)nk * 64, 64, 64, kKeys) ||
+      !make_map(&tv, v, bh, nk, 1, (long long)nk * dv, dv, 64, kKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((nq + kQRows - 1) / kQRows, bh);
+  chain_hopper<MODE><<<grid, kChainThreads, kChainSmemBytes, st>>>(tq, tk, tv,
+                                                                   static_cast<bf16*>(o), nq, nk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, o contiguous (B, n, heads * 64) bf16 with 16-byte aligned bases,
@@ -709,4 +953,24 @@ extern "C" int vda_sbf16(const void* q, const void* k, const void* v, void* o, i
   if (ceiling) return launch_sbf16<false, true>(q, k, v, o, batch, n, heads, qscale, st);
   return fast ? launch_sbf16<true, false>(q, k, v, o, batch, n, heads, qscale, st)
               : launch_sbf16<false, false>(q, k, v, o, batch, n, heads, qscale, st);
+}
+
+// Chain probe: q (bh, nq, 64), k (bh, nk, 64), v (bh, nk, dv) bf16 (see
+// launch_chain), nk a multiple of 64; o (bh, nq, 64).  mode indexes
+// (gemms, exp, exact, sexp, pexp, bf16s, bf16x).
+extern "C" int vda_chain(const void* q, const void* k, const void* v, void* o, int bh, int nq,
+                         int nk, int dv, int mode, void* stream) {
+  if (bh < 1 || nq < 1 || nk < kKeys || nk % kKeys || dv < 64 || dv % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case GEMMS: return launch_chain<GEMMS>(q, k, v, o, bh, nq, nk, dv, st);
+    case EXP: return launch_chain<EXP>(q, k, v, o, bh, nq, nk, dv, st);
+    case EXACT: return launch_chain<EXACT>(q, k, v, o, bh, nq, nk, dv, st);
+    case SEXP: return launch_chain<SEXP>(q, k, v, o, bh, nq, nk, dv, st);
+    case PEXP: return launch_chain<PEXP>(q, k, v, o, bh, nq, nk, dv, st);
+    case BF16S: return launch_chain<BF16S>(q, k, v, o, bh, nq, nk, dv, st);
+    case BF16X: return launch_chain<BF16X>(q, k, v, o, bh, nq, nk, dv, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -48,39 +48,3 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, uint
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// The attention kernels' tile load: 64 rows x D bf16 (rows row0.. of an
-// n-row matrix, `stride` elements apart) into shared rows of
-// tile_lds<D>() = D + 8 bf16 (an odd multiple of 16 B: conflict-free
-// ldmatrix).  Rows >= n are zero.  128 threads, 16-byte copies.
-template <int D>
-__host__ __device__ constexpr int tile_lds() { return D + 8; }
-
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride, int row0,
-                                          int n, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte copies per row
-#pragma unroll
-  for (int i = tid; i < 64 * kChunks; i += 128) {
-    int r, c;
-    if constexpr (kChunks == 8) {  // D = 64
-      r = i >> 3;
-      c = (i & 7) * 8;
-    } else {
-      r = i / kChunks;
-      c = (i % kChunks) * 8;
-    }
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * tile_lds<D>() + c) = val;
-  }
-}
-
-// D = 64, the head width of every shipped encoder (the backward kernels'
-// only width).
-constexpr int kTileLds = tile_lds<64>();
-
-__device__ __forceinline__ void load_tile64(bf16* dst, const bf16* src, long long stride,
-                                            int row0, int n, int tid) {
-  load_tile<64>(dst, src, stride, row0, n, tid);
-}

@@ -1,9 +1,8 @@
 // Hopper (sm_90a) primitives of the port's Hopper kernels: mbarrier,
 // TMA tensor and bulk loads, wgmma with its fences and shared-memory
-// descriptors for the 128-byte swizzle, setmaxnreg, named barriers, and
-// the host-side tensor-map encoder.  Included by the Hopper kernels
-// (flash_attention.cu, flash_attention_bwd.cu, motion_module.cuh,
-// output_tail.cu); the others include common.cuh alone.
+// descriptors (128-byte swizzle, and no swizzle), setmaxnreg, named
+// barriers, and the host-side tensor-map encoder.  Included by every
+// kernel source.
 //
 // Layouts.  A TMA box of R rows x 64 bf16 (128 B per row) lands in shared
 // memory as R rows of 128 B, each row's eight 16-byte chunks XOR-swizzled
@@ -109,6 +108,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 }
 
 // ---- wgmma ----
+// A K-major operand with no swizzle: 8-row core matrices of 16-byte rows
+// (rows 16 B apart, 128 contiguous bytes), the next core matrix along K
+// `lbo` bytes on and along M or N `sbo` bytes on; the start needs only
+// 16-byte alignment.
+__device__ __forceinline__ uint64_t desc_noswizzle(const void* tile, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFFu) >> 4)  // start address
          | (static_cast<uint64_t>(1) << 16)                     // LBO (unused here)

@@ -1,5 +1,4 @@
-"""Kernel A's probe kernels (``csrc/attention_variants_hopper.cu`` and
-``csrc/attention_variants.cu``).
+"""Kernel A's probe kernels (``csrc/attention_variants_hopper.cu``).
 
 Replaces the TPU kernels of the two probe scripts that split Kernel A's
 time on the TPU:
@@ -14,15 +13,16 @@ time on the TPU:
 * ``scripts/bench_softmax_chain.py`` ``make_kernel``'s ``kern``: QKᵀ → one
   of seven elementwise chains → P·V[:, :d], unnormalised, on ``(BH, N, D)``.
 
-``ilv`` / ``nomask``, ``chunk<k>`` and ``sbf16`` / ``sbf16:fast`` /
-``ceiling`` are Hopper kernels (``attention_variants_hopper.cu``: ``wgmma``
-fed by a TMA ring, the TPU kernels' stagger and software pipeline on
-asynchronous products; exact ``sbf16`` in two passes over the keys, the
-first for the global row max); they read q, k and v through 4-D tensor
-maps ``(D, H, N, B)``, so the launch checks each operand with
-``flash_attention.tma_geometry`` and raises on what a map cannot
-describe.  The chain kernel is the ``mma.sync`` kernel of
-``attention_variants.cu``.
+All are Hopper kernels: ``wgmma`` fed by TMA rings.  ``ilv`` /
+``nomask``, ``chunk<k>`` and ``sbf16`` / ``sbf16:fast`` / ``ceiling`` take
+the TPU kernels' stagger and software pipeline on asynchronous products
+(exact ``sbf16`` in two passes over the keys, the first for the global row
+max); the chain kernel is Kernel A's skeleton (``bf16x`` in two passes).
+They read their
+operands through 4-D tensor maps ``(D, H, N, B)`` (the chain's V as the
+``(BH, Nk, 1, 64)`` view of its first 64 columns), so the launch checks
+each with ``flash_attention.tma_geometry`` and raises on what a map
+cannot describe.
 
 ``spatial_variant_plain`` and ``softmax_chain_plain`` define the numerics
 (the scripts' rounding points: q prescaled by scale·log2 e in fp32 and
@@ -202,14 +202,11 @@ def softmax_chain_plain(mode: str, q, k, v) -> torch.Tensor:
 
 
 _fns = {}
-# the Hopper kernels' entry points; the chain probe's is in attention_variants.cu
-_HOPPER = ("ilv", "chunk", "sbf16")
 
 
 def _kernel(name: str):
     if name not in _fns:
-        lib = "attention_variants_hopper" if name in _HOPPER else "attention_variants"
-        fn = getattr(cuda_build.library(lib), f"vda_{name}")
+        fn = getattr(cuda_build.library("attention_variants_hopper"), f"vda_{name}")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "chain":
             fn.argtypes = [vp] * 4 + [i] * 5 + [vp]
@@ -229,9 +226,8 @@ def _launch_spatial(name: str, q, k, v, scale: float, num_heads: int, a: int, b:
         raise ValueError(f"{name}: operands must share a device")
     q, k, v = (t.contiguous() for t in (q, k, v))
     bsz, n, _ = q.shape
-    if name in _HOPPER:  # the kernels' tensor maps (D, H, N, B)
-        for t in (q, k, v):
-            tma_geometry(t.view(bsz, n, num_heads, 64))
+    for t in (q, k, v):  # the kernels' tensor maps (D, H, N, B)
+        tma_geometry(t.view(bsz, n, num_heads, 64))
     out = torch.empty_like(q)
     err = _kernel(name)(*(cuda_build.ptr(t) for t in (q, k, v, out)), bsz, n, num_heads,
                         float(scale * LOG2E), a, b, cuda_build.stream_of(q))
@@ -313,6 +309,8 @@ def softmax_chain(mode: str, q, k, v) -> torch.Tensor:
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("softmax_chain: operands must share a device")
     q, k, v = (t.contiguous() for t in (q, k, v))
+    for t in (q, k, v[..., :d]):  # the tensor maps (64, 1, N, BH); V's of row stride Dv
+        tma_geometry(t.unsqueeze(2))
     out = torch.empty_like(q)
     err = _kernel("chain")(*(cuda_build.ptr(t) for t in (q, k, v, out)), bh, nq, nk, dv,
                            CHAIN_MODES.index(mode), cuda_build.stream_of(q))

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention", "motion_module",
-           "motion_module_split", "output_tail", "resize_conv", "attention_variants",
+           "motion_module_split", "output_tail", "resize_conv",
            "attention_variants_hopper")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

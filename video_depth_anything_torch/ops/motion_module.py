@@ -172,16 +172,6 @@ def motion_module_plain(x: torch.Tensor, p: Dict, cfg: MotionModuleConfig, heads
     return y + x
 
 
-def _frag(w_in_out: torch.Tensor) -> torch.Tensor:
-    """``(K, N)`` JAX-layout weight → bf16 fragment order of the
-    ``mma.sync`` kernels that read B from L2 (``csrc/resize_conv.cu``): per
-    8-column n-tile and 32-row k-block, 32 lanes × 8 values holding the two
-    k-steps' B fragments of mma.m16n8k16."""
-    w = w_in_out.t().to(torch.bfloat16)
-    n, k = w.shape
-    return w.reshape(n // 8, 8, k // 32, 2, 2, 4, 2).permute(0, 2, 1, 5, 3, 4, 6).contiguous()
-
-
 def sw128_tiles(w_in_out: torch.Tensor, rows: int = 64) -> torch.Tensor:
     """``(K, N)`` JAX-layout weight → bf16 ``(K/64 · N/rows, rows, 64)``: the
     wgmma B tiles of ``y = x @ w``, k panel major and n block inner, each

@@ -210,25 +210,33 @@ def _tile_taps(in_size: int, out_size: int, tile: int, device: torch.device) -> 
     return torch.from_numpy(tab).to(device)
 
 
+def cached_operands(slot: list, tensors, build):
+    """``build()``, the kernel operands made from ``tensors``, kept in
+    ``slot`` and made again only for other tensors or when one of them is
+    written in place (its version moves), as ``TemporalModule`` keeps
+    Kernel C's.  Weak references tell the same tensors from new ones at a
+    reused address."""
+    versions = tuple(t._version for t in tensors)
+    if slot:
+        refs, vers, ops = slot[0]
+        if vers == versions and all(r() is t for r, t in zip(refs, tensors)):
+            return ops
+    ops = build()
+    slot[:] = [(tuple(weakref.ref(t) for t in tensors), versions, ops)]
+    return ops
+
+
 _prepared_last: list = []  # [(weakrefs of w1, b1, w2, b2), their versions, operands]
 
 
 def _prepared(w1, b1, w2, b2):
     """The kernel's weight operands: ``conv_weight_tiles(w1)`` and the fp32
-    ``[b1, w2, b2]`` of bf16 values, built once for the same weight
-    tensors and rebuilt when one is written in place (its version moves),
-    as ``TemporalModule`` keeps Kernel C's.  Weak references tell the same
-    tensors from new ones at a reused address."""
-    ts = (w1, b1, w2, b2)
-    versions = tuple(t._version for t in ts)
-    if _prepared_last:
-        refs, vers, ops = _prepared_last[0]
-        if vers == versions and all(r() is t for r, t in zip(refs, ts)):
-            return ops
-    epi = torch.cat([b1.reshape(-1), w2.reshape(-1), b2.reshape(-1)]).to(torch.bfloat16).float()
-    ops = (conv_weight_tiles(w1.detach()), epi.detach())
-    _prepared_last[:] = [(tuple(weakref.ref(t) for t in ts), versions, ops)]
-    return ops
+    ``[b1, w2, b2]`` of bf16 values, built once for the same tensors."""
+    def build():
+        epi = torch.cat([b1.reshape(-1), w2.reshape(-1), b2.reshape(-1)]).to(torch.bfloat16)
+        return conv_weight_tiles(w1.detach()), epi.float().detach()
+
+    return cached_operands(_prepared_last, (w1, b1, w2, b2), build)
 
 
 def _launch_args(x, w1, b1, w2, b2, out_h: int, out_w: int):

@@ -25,6 +25,16 @@ forward (the plain chain on CPU tensors) and the plain chain's gradient
 backward, as the JAX VJP (``:287-297``).  ``resize_conv`` is the raw launch
 and keeps no autograd history.
 
+The kernel (``resize_conv_hopper``) walks 16×16-pixel output tiles in
+persistent CTAs: one warpgroup builds the resized tile, four run the conv
+on ``wgmma`` with the weights streaming through a TMA ring of (chunk, tap)
+B tiles (``weight_tiles``, built on the device once for the same weight
+tensors), and the tap tables come from a per-(size, device) cache
+(``output_tail._tile_taps``), so a call makes no host-to-device copy.  Where a tile's taps spread over more than
+12×12 source pixels (downsampling, near-identity sizes) the builders read
+them from global memory in place of a staged source patch: every shape
+the gate admits runs.
+
 Bound on the H100: tensor-core FLOPs (589,824 per output pixel at
 C = 256); see the source.
 """
@@ -38,14 +48,16 @@ import torch.nn.functional as F
 
 from video_depth_anything_torch.ops import cuda_build
 from video_depth_anything_torch.ops.dispatch import recompute_vjp
-from video_depth_anything_torch.ops.motion_module import _frag
+from video_depth_anything_torch.ops.motion_module import sw128_tiles
 from video_depth_anything_torch.ops.output_tail import (
     _CHUNK,
     _VMEM_BUDGET,
+    _patch_span,
     _pick_row_block,
     _round_up,
     _row_span,
-    _taps,
+    _tile_taps,
+    cached_operands,
 )
 from video_depth_anything_torch.ops.resize import bilinear_resize
 
@@ -99,6 +111,15 @@ def resize_conv_plain(x, w, b, out_h: int, out_w: int) -> torch.Tensor:
     return y + b.to(dt)
 
 
+# csrc/resize_conv.cu's output tile (16 x 16 pixels), the source patch its
+# builders stage (12 x 12 pixels) and the channels of a B tile's K.
+TILE = 16
+PATCH = 12
+CHUNK = 64
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+# vda_resize_conv: x, ytab, xtab, w tiles, bias, out, N, H, W, C, out_h,
+# out_w, patch, stream
+ARGTYPES = [_vp] * 6 + [_i] * 7 + [_vp]
 _fn = None
 
 
@@ -106,20 +127,37 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = cuda_build.library("resize_conv").vda_resize_conv
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [i] * 6 + [vp]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def resize_conv(x, w, b, out_h: int, out_w: int) -> torch.Tensor:
-    """``(N, H, W, C)`` → ``(N, out_h, out_w, 128)``.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (bf16, C a multiple of
-    128, Cout = 128) or raise."""
-    cuda_build.no_history("resize_conv", x, w, b)
-    if x.device.type == "cpu":
-        return resize_conv_plain(x, w, b, out_h, out_w)
+def weight_tiles(w: torch.Tensor) -> torch.Tensor:
+    """``w (128, C, 3, 3)`` → the kernel's wgmma B tiles, bf16 ``(9·C/64,
+    128, 64)``: tile ``9·cc + tap`` holds W[tap, 64·cc + k, n] (tap = 3·dy +
+    dx) at row n (the output channel), K-major and 128-byte swizzled
+    (``sw128_tiles``), so a bulk copy of a tile is a wgmma operand as it
+    is.  Torch ops on w's device."""
+    c = w.shape[1]
+    w_kn = w.permute(2, 3, 1, 0).reshape(9, c // CHUNK, CHUNK, COUT).transpose(0, 1)
+    return sw128_tiles(w_kn.reshape(9 * c, COUT), rows=COUT)
+
+
+_prepared_last: list = []  # [(weakrefs of w, b), their versions, operands]
+
+
+def _prepared(w, b):
+    """The kernel's weight operands, ``weight_tiles(w)`` and the fp32 bias of
+    bf16 values, built once for the same tensors (``cached_operands``)."""
+    return cached_operands(_prepared_last, (w, b), lambda: (
+        weight_tiles(w.detach()), b.detach().reshape(-1).to(torch.bfloat16).float()))
+
+
+def _launch_args(x, w, b, out_h: int, out_w: int):
+    """``(out, keep, args)`` of a launch on CUDA tensors: the output, the
+    tensors the arguments point into, and ``vda_resize_conv``'s arguments.
+    Raises on what the kernel does not take."""
     n, h, wd, c = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"resize_conv kernel takes bf16, got {x.dtype}")
@@ -132,16 +170,25 @@ def resize_conv(x, w, b, out_h: int, out_w: int) -> torch.Tensor:
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("resize_conv needs a 16-byte aligned input")
-    wf = _frag(w.permute(2, 3, 1, 0).reshape(9 * c, COUT))
-    bias = b.reshape(-1).to(torch.bfloat16).float()
-    yi, yw = _taps(h, out_h, x.device)
-    xi, xw = _taps(wd, out_w, x.device)
+    wt, bias = _prepared(w, b)
+    ytab = _tile_taps(h, out_h, TILE, x.device)
+    xtab = _tile_taps(wd, out_w, TILE, x.device)
+    patch = _patch_span(h, out_h, TILE) <= PATCH and _patch_span(wd, out_w, TILE) <= PATCH
     out = torch.empty((n, out_h, out_w, COUT), dtype=x.dtype, device=x.device)
-    err = _kernel()(
-        *(cuda_build.ptr(t) for t in (x, yi, yw, xi, xw, wf, bias, out)),
-        n, h, wd, c, out_h, out_w, cuda_build.stream_of(x),
-    )
-    cuda_build.check(err, "resize_conv")
+    keep = (x, ytab, xtab, wt, bias)  # alive until the launch is enqueued
+    return out, keep, (*(cuda_build.ptr(t) for t in (*keep, out)), n, h, wd, c, out_h, out_w,
+                       int(patch), cuda_build.stream_of(x))
+
+
+def resize_conv(x, w, b, out_h: int, out_w: int) -> torch.Tensor:
+    """``(N, H, W, C)`` → ``(N, out_h, out_w, 128)``.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (bf16, C a multiple of
+    128, Cout = 128) or raise."""
+    cuda_build.no_history("resize_conv", x, w, b)
+    if x.device.type == "cpu":
+        return resize_conv_plain(x, w, b, out_h, out_w)
+    out, _keep, args = _launch_args(x, w, b, out_h, out_w)
+    cuda_build.check(_kernel()(*args), "resize_conv")
     resize_conv.launches += 1
     return out
 

@@ -94,11 +94,29 @@ Phases (each failure ends the run with a non-zero exit):
    the vitl junction against autograd through the plain chain: the path of
    the probe kernels and of the resize -> conv kernel (counts zeroed
    before, read after).
+9. fp32 (``--fp32``, TF32 off in matrix products and convolutions): each
+   fp32 kernel (Kernel A at vits 32x1370 and 32x2443, exact and fast, and
+   D = 192; Kernel B at every shape of ``bench_temporal``; Kernel C at
+   phase kernels' nine shapes) against its plain fp32 version within
+   F32_TOL, the mutants of phase kernels at fp32 and the plain version in
+   one TF32 pass missing by more, with ms, bound, plain and library ms and
+   the bf16 kernel's error on the same inputs; fp32 vits, vitb and vitl
+   518x518 windows, kernel path against plain path within F32_WINDOW_TOL,
+   with exact fp32 launch plans, wall ms and frames/s; the CLI with
+   ``--fp32`` (window mode, ``--process_single_image`` and ``--kv_cache``:
+   the main path of the fp32 kernels, each must launch, but Kernel C in the
+   KV mode, and no bf16 kernel may) and vitl with ``--fp32_island`` (the
+   tail kernel never launches).
+10. bench: ``python -m video_depth_anything_torch.bench`` with
+   VDA_BENCH_FAST=1 (the card line, then the headline line), then each of
+   its row functions once at iters=2, their fields checked.
 The card's line (``nvidia-smi``'s name and power limit) comes first and
 stands beside every time.  The last two lines are the kernels JSON object
 (launches summed over the main-path runs of phases cli, stream and
-train-cli, and for the probe kernels and the resize -> conv those of phase
-probes; Kernel A's fast variant is its own entry) and the contract line
+train-cli, for the probe kernels and the resize -> conv those of phase
+probes, for the fp32 kernels those of phase fp32's ``--fp32`` runs; Kernel
+A's fast variant and each fp32 kernel are entries of their own) and the
+contract line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -887,6 +905,13 @@ def phase_kernels(dev):
         del x, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    check_rows(rows, "kernels")
+    return rows
+
+
+def check_rows(rows, tag: str) -> None:
+    """Print each kernel row; fail if a kernel misses its tolerance or a
+    mutant meets it."""
     failed = False
     for r in rows:
         err = r["rel_err"]
@@ -901,14 +926,13 @@ def phase_kernels(dev):
             extra += (" parent_ms=none (outside the earlier kernel's domain)" if r["parent_ms"] is None
                       else f" parent_ms={r['parent_ms']:.4f}")
         ratio = "" if r["library_ms"] is None else f" ms/library_ms={r['ms'] / r['library_ms']:.3f}"
-        log(f"[kernels] {r['kernel']:<20} {r['shape']:<62} rel_err={err:.3e} (tol {r['tol']}) "
+        log(f"[{tag}] {r['kernel']:<20} {r['shape']:<62} rel_err={err:.3e} (tol {r['tol']}) "
             f"max_abs_err={r['max_abs_err']:.3e}{extra} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms={r['library_ms']}{ratio} {'OK' if ok else 'FAIL'}")
     if failed:
         raise SystemExit("a kernel disagrees with its plain version, or the check cannot "
                          "tell a wrong kernel from a right one")
-    return rows
 
 
 def main() -> int:
@@ -951,6 +975,9 @@ def main() -> int:
     timed("train", phase_train_check, dev, smi)
     train_launches = timed("train-cli", phase_train_cli, smi)
     probe_launches = timed("probes", phase_probes, dev, smi)
+    f32_rows, f32_launches = timed("fp32", phase_fp32, dev, smi)
+    timed("bench", phase_bench, smi)
+    rows = rows + f32_rows
 
     info = {
         "flash_attention": ("flash_attention", "csrc/flash_attention.cu",
@@ -976,6 +1003,13 @@ def main() -> int:
                             "scripts/bench_spatial_variants.py:130"),
         "softmax_chain": ("softmax_chain", "csrc/attention_variants_hopper.cu",
                           "scripts/bench_softmax_chain.py:54"),
+        # the fp32 kernels: phase fp32's --fp32 CLI runs
+        "flash_attention_f32": ("flash_attention_f32", "csrc/flash_attention_f32.cu",
+                                "video_depth_anything_tpu/ops/pallas_attention.py:202"),
+        "temporal_attention_f32": ("temporal_attention_f32", "csrc/temporal_attention_f32.cu",
+                                   "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
+        "motion_module_f32": ("fused_motion_module_f32", "csrc/motion_module_f32.cu",
+                              "video_depth_anything_tpu/ops/pallas_motion.py:107"),
     }
     kernels = []
     for name, (wrapper, src, replaces) in info.items():
@@ -983,6 +1017,8 @@ def main() -> int:
         first = next(r for r in rows if r["kernel"] == name and "synthetic" not in r["shape"])
         if wrapper in probe_launches:
             count = probe_launches[wrapper]
+        elif wrapper in f32_launches:
+            count = f32_launches[wrapper]
         else:
             count = launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper]
         kernels.append({
@@ -1041,6 +1077,8 @@ def zero_counts() -> None:
               output_tail) + probe_wrappers():
         f.launches = 0
     flash_attention.fast_launches = 0
+    for f in (flash_attention, temporal_attention, fused_motion_module):
+        f.f32_launches = 0
     temporal_attention.width_launches = {}
 
 
@@ -1735,6 +1773,318 @@ def phase_stream(dev, smi: str) -> dict:
     del models
     torch.cuda.empty_cache()
     return totals
+
+
+# -- phase fp32: the fp32 kernels and --fp32 / --fp32_island ------------------
+
+PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
+F32_TOL = 1e-4  # an fp32 kernel against its plain fp32 version (TF32 off),
+# relative to max|plain| (Kernel C: max|plain - x|): both sum fp32 products
+# in another order (about 1e-6 apart); one TF32 pass (10 mantissa bits)
+# misses by more, which the tf32_plain mutant shows (``tf32_plain``)
+F32_WINDOW_TOL = 1e-3  # an fp32 window, kernel path against plain path,
+# relative to max|depth|
+# The fp32 launches of one 518x518 window (the gates of tests/test_torch_fp32.py):
+# Kernel A in every ViT block, Kernel B at vits m0 and m2 and vitb m2 (two
+# attentions each), Kernel C at m3; no bf16 kernel and no tail.
+F32_WINDOW_PLANS = {
+    "vits": dict(flash_attention_f32=12, temporal_attention_f32=4, fused_motion_module_f32=1),
+    "vitb": dict(flash_attention_f32=12, temporal_attention_f32=2, fused_motion_module_f32=1),
+    "vitl": dict(flash_attention_f32=24, temporal_attention_f32=0, fused_motion_module_f32=1),
+}
+F32_KERNELS = ("flash_attention_f32", "temporal_attention_f32", "fused_motion_module_f32")
+
+
+def bound_f32(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tf32_round(t):
+    """fp32 ``t`` rounded to TF32 (10 mantissa bits, to nearest)."""
+    import torch
+
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32).view(t.shape)
+
+
+def tf32_plain(plain, *inputs):
+    """``plain`` as one TF32 pass computes it: every input rounded to TF32
+    and matrix products with ``allow_tf32`` (cuBLAS leaves the skinny
+    products of Kernel B's plain version in fp32 even then, so the rounded
+    inputs make its products TF32 products all the same)."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return plain(*(tf32_round(t) for t in inputs))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def f32_inputs(shape, gen, device):
+    """fp32 ``(..., 3 * C)`` as ``attention_inputs`` draws them, left in fp32
+    (bf16-valued inputs would pass through TF32 exactly)."""
+    import torch
+
+    x = torch.randn(*shape[:-1], 3 * shape[-1], generator=gen, device=device)
+    x[..., : 2 * shape[-1]] *= QK_STD
+    return x
+
+
+def fp32_kernel_rows(dev) -> list:
+    """Each fp32 kernel against its plain fp32 version at phase kernels'
+    shapes, with the mutants of phase kernels at fp32 and the plain version
+    in one TF32 pass as one more; beside each row the bf16 kernel's error
+    on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch import bench_temporal
+    from video_depth_anything_torch.config import MotionModuleConfig
+    from video_depth_anything_torch.ops import flash_attention as fa
+    from video_depth_anything_torch.ops import motion_module as mm
+    from video_depth_anything_torch.ops import temporal_attention as ta
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for label, bt, n, h, d, fast in (("518x518", 32, 1370, 6, 64, False),
+                                     ("518x924", 32, 2443, 6, 64, False),
+                                     ("518x518 fast", 32, 1370, 6, 64, True),
+                                     ("518x924 fast", 32, 2443, 6, 64, True),
+                                     ("synthetic D=192", 32, 1370, 2, 192, False),
+                                     ("synthetic D=192 ragged fast", 32, 2443, 2, 192, True)):
+        qkv = f32_inputs((bt, n, h * d), g, dev)
+        q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
+        scale = d**-0.5
+        plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
+        got = fa.flash_attention(q, k, v, scale, fast=fast)
+        want = plain(q, k, v, scale)
+        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=32)  # the fp32 key tile
+        qf = flat_inputs(q)
+        flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
+        mutants["unmasked_zero_pad"] = zero_pad_error(plain, qf, k, v, scale, 32)
+        mutants["tf32_plain"] = rel_err(tf32_plain(lambda *t: plain(*t, scale), q, k, v), want)
+        bf16_err = rel_err(fa.flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)), scale,
+                                              fast=fast), want)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast), iters=5, warmup=1)
+        plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=5,
+                         warmup=1)
+        b_ms, b_by = bound_f32(4.0 * bt * h * n * n * d, 4.0 * bt * n * h * d * 4)
+        rows.append(dict(kernel="flash_attention_f32", shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
+                         max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
+                         tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms,
+                         extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e}) "
+                               f"bf16_kernel_rel_err={bf16_err:.3e}"))
+        del qkv, q, k, v, qf, got, want, qt, kt, vt
+
+    heads = bench_temporal.HEADS
+    for label, b, t, s, c in bench_temporal.SHAPES + bench_temporal.WINDOW_SHAPES:
+        q, k, v = (x.contiguous() for x in f32_inputs((b, t, s, c), g, dev).split(c, dim=-1))
+        d = c // heads
+        scale = d**-0.5
+        plain = lambda q_, k_, v_, sc: ta.temporal_attention_plain(q_, k_, v_, heads, sc)  # noqa: E731
+        got = ta.temporal_attention(q, k, v, heads, scale)
+        want = plain(q, k, v, scale)
+        mutants = temporal_mutant_errors(plain, q, k, v, scale, ta.tile_plan(c, heads, 4)[0])
+        mutants["tf32_plain"] = rel_err(tf32_plain(lambda *t: plain(*t, scale), q, k, v), want)
+        bf16_err = rel_err(ta.temporal_attention(*(x.to(torch.bfloat16) for x in (q, k, v)), heads,
+                                                 scale), want)
+        ms = time_ms(lambda: ta.temporal_attention(q, k, v, heads, scale), iters=10, warmup=2)
+        plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
+        q5, k5, v5 = (x.view(b, t, s, heads, d).permute(0, 2, 3, 1, 4) for x in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=scale), iters=10,
+                         warmup=2)
+        b_ms, b_by = bound_f32(4.0 * b * s * c * t * t, 4.0 * b * t * s * c * 4)
+        rows.append(dict(kernel="temporal_attention_f32",
+                         shape=f"{label} (B={b}, T={t}, S={s}, C={c}, d={d})",
+                         max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=F32_TOL,
+                         mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, extra=f" bf16_kernel_rel_err={bf16_err:.3e}"))
+        del q, k, v, got, want, q5, k5, v5
+
+    cfg = MotionModuleConfig()
+    for label, c, s in (("m3 518x518", 64, 5476), ("m0 518x924", 192, 2442),
+                        ("m2 518x924", 64, 2442), ("m3 518x924", 64, 9768),
+                        ("vitl m3 518x518", 256, 5476), ("vitl m2 518x924", 256, 2442),
+                        ("vitl m3 518x924", 256, 9768), ("vitb m3 518x518", 128, 5476),
+                        ("vitb m0 518x924", 384, 2442)):
+        b, t = 1, 32
+        x = torch.randn(b, t, s, c, device=dev, generator=g)
+        p = motion_params(c, seed=c, device=dev)
+        w = mm.kernel_weights(p, cfg, torch.float32)
+        gna, gnb = mm.gn_fold(x, w, cfg)
+        got = mm.motion_module_launch(x, gna, gnb, w, cfg, 8)
+        want = mm.motion_module_plain(x, p, cfg, 8)
+        base = float((want - x).abs().max())
+        mutants = motion_mutant_errors(x, p, cfg, 8)
+        names = tuple(p)
+        mutants["tf32_plain"] = max_err(tf32_plain(
+            lambda x_, *v: mm.motion_module_plain(x_, dict(zip(names, v)), cfg, 8), x,
+            *p.values()), want) / base
+        bf16_err = max_err(mm.fused_motion_module(x.to(torch.bfloat16), p, cfg, 8), want) / base
+        ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, 8), iters=3, warmup=1)
+        plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, 8), iters=3, warmup=1)
+        tokens = b * t * s
+        b_ms, b_by = bound_f32(tokens * (44.0 * c * c + 2 * 4.0 * t * c),
+                               2 * tokens * c * 4 + 22 * c * c * 4 + 2 * b * t * c * 4)
+        rows.append(dict(kernel="motion_module_f32", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
+                         max_abs_err=max_err(got, want), rel_err=max_err(got, want) / base,
+                         tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None, extra=f" bf16_kernel_rel_err={bf16_err:.3e}"))
+        del x, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_fp32(dev, smi: str):
+    """The fp32 kernels against their plain versions (``fp32_kernel_rows``);
+    fp32 vits, vitb and vitl 518x518 windows, kernel path against plain
+    path, with their exact fp32 launch plans and wall ms (kernel, plain,
+    plain, kernel: each timed call after an untimed one of its path); the CLI with ``--fp32`` in
+    window mode and with ``--process_single_image`` (the main path of the
+    fp32 kernels: counts zeroed before, read after; each fp32 kernel must
+    launch, no bf16 kernel may), with ``--kv_cache`` too (Kernel C never),
+    and vitl with ``--fp32_island`` (the tail
+    kernel never).  TF32 off in matrix products and convolutions
+    throughout.  Returns ``(rows, fp32 launches of the two --fp32 runs)``."""
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch import run
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        rows = fp32_kernel_rows(dev)
+        check_rows(rows, "fp32")
+        g = torch.Generator(device=dev).manual_seed(6)
+        for encoder, plan in F32_WINDOW_PLANS.items():
+            model = VDAModel(encoder, device=dev, dtype=torch.float32)
+            model.init_params(seed=0)
+            noise_weights(model.module, seed=1)
+            x = torch.randn(1, 32, 518, 518, 3, device=dev, generator=g)
+            zero_counts()
+            got = model.infer_window(x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            with plain_reference():
+                want = model.infer_window(x)
+            ms = {"kernel": 0.0, "plain": 0.0}
+            for path in ("kernel", "plain", "plain", "kernel"):
+                with plain_reference() if path == "plain" else contextlib.nullcontext():
+                    model.infer_window(x)  # the first call after the other path is slower
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.infer_window(x)
+                    torch.cuda.synchronize()
+                    ms[path] += (time.perf_counter() - t0) * 1e3 / 2
+            rel = float((got - want).abs().max() / want.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            ok = (finite and rel <= F32_WINDOW_TOL and all(counts[k] == n for k, n in plan.items())
+                  and all(n == 0 for k, n in counts.items() if k not in plan))
+            log(f"[fp32] window {encoder} 1x32x518x518 fp32: rel err kernels vs plain {rel:.3e} "
+                f"(tol {F32_WINDOW_TOL}), finite={finite}, launches {counts}; kernel path "
+                f"{ms['kernel']:.2f} ms ({32e3 / ms['kernel']:.1f} frames/s), plain path "
+                f"{ms['plain']:.2f} ms ({32e3 / ms['plain']:.1f} frames/s) ({smi}) "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"fp32 window of {encoder} failed")
+            del model, x, got, want
+            torch.cuda.empty_cache()
+
+        totals = dict.fromkeys(F32_KERNELS, 0)
+        with tempfile.TemporaryDirectory() as tmp:
+            clip = os.path.join(tmp, "square.mp4")
+            write_clip(clip, 480, 480)
+            for encoder, flags, frames in (("vits", ["--fp32"], 76),
+                                           ("vits", ["--fp32", "--process_single_image"],
+                                            STREAM_FRAMES),
+                                           ("vits", ["--fp32", "--process_single_image",
+                                                     "--kv_cache"], 76),
+                                           ("vitl", ["--fp32_island"], 76)):
+                zero_counts()
+                rc = run.main(["--input_video", clip, "--output_dir", tmp, "--encoder", encoder,
+                               "--random_init", "--save_npz"] + flags)
+                delta = main_path_launches()
+                depth = np.load(os.path.join(tmp, "square_depth.npz"))["depth"]
+                finite = bool(np.isfinite(depth).all())
+                if "--fp32" in flags:
+                    totals = {k: totals[k] + delta[k] for k in totals}
+                    # the KV mode never reaches Kernel C (its warm-up bypasses the fused module)
+                    needed = F32_KERNELS[:2] if "--kv_cache" in flags else F32_KERNELS
+                    kernels_ok = (all(delta[k] > 0 for k in needed)
+                                  and all(n == 0 for k, n in delta.items() if k not in needed))
+                else:  # bf16 with the island: the tail stays plain
+                    kernels_ok = (delta["output_tail"] == 0 and delta["flash_attention"] > 0
+                                  and delta["fused_motion_module"] > 0)
+                ok = rc == 0 and depth.shape == (frames, 480, 480) and finite and kernels_ok
+                log(f"[fp32] cli {encoder} 480x480 {' '.join(flags)}: rc={rc} depth {depth.shape} "
+                    f"finite={finite} launches {delta} {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"cli run {encoder} {flags} failed")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    log(f"[fp32] fp32 launches over the --fp32 CLI runs: {totals} ({smi})")
+    return rows, totals
+
+
+# -- phase bench: python -m video_depth_anything_torch.bench -------------------
+
+BENCH_KEYS = {  # the JAX bench.py rows' fields, without mem_static
+    "window": ["encoder", "size", "frames", "batch", "compile_s", "median_window_s",
+               "frames_per_s", "ms_per_frame", "mem"],
+    "streaming": ["encoder", "size", "chunk", "compile_s", "median_step_s", "frames_per_s", "mem"],
+    "kv_streaming": ["encoder", "size", "chunk", "aligned", "compile_s", "median_step_s",
+                     "frames_per_s", "mem"],
+    "train": ["encoder", "size", "frames", "clips_per_step", "compile_s", "step_s",
+              "clip_frames_per_s_per_chip", "loss", "mem"],
+}
+
+
+def phase_bench(smi: str) -> None:
+    """``python -m video_depth_anything_torch.bench`` as a subprocess with
+    VDA_BENCH_FAST=1 (the card line, then the headline line), then each row
+    function once at iters=2 (warmup=1): vitl's window, the feature-cache
+    chunk, the aligned KV chunk and the vits training step."""
+    import subprocess
+
+    from video_depth_anything_torch import bench
+
+    res = subprocess.run([sys.executable, "-m", "video_depth_anything_torch.bench"], cwd=REPO,
+                         env=dict(os.environ, VDA_BENCH_FAST="1"), capture_output=True, text=True,
+                         timeout=600)
+    lines = res.stdout.strip().splitlines()
+    try:
+        head = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        head = {}
+    ok = (res.returncode == 0 and len(lines) == 2 and lines[0] == smi
+          and head.get("metric") == "frames/sec/chip vits 1x32x518x518 bf16"
+          and head.get("value", 0) > 0)
+    log(f"[bench] VDA_BENCH_FAST=1: rc={res.returncode} {lines[-1] if lines else ''} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the bench failed: {res.stderr[-3000:]}")
+    for kind, fn in (("window", lambda: bench.bench_window("vitl", iters=2, warmup=1)),
+                     ("streaming", lambda: bench.bench_streaming("vits", iters=2, warmup=1)),
+                     ("kv_streaming", lambda: bench.bench_kv_streaming("vits", iters=2, warmup=1,
+                                                                       chunk=8, aligned=True)),
+                     ("train", lambda: bench.bench_train("vits", iters=2))):
+        row = fn()
+        rate = row.get("frames_per_s", row.get("clip_frames_per_s_per_chip", 0))
+        ok = (list(row) == BENCH_KEYS[kind] and rate > 0 and row["mem"].get("peak_mb", 0) > 0)
+        log(f"[bench] {kind}: {json.dumps(row)} ({smi}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the bench's {kind} row failed")
 
 
 if __name__ == "__main__":

@@ -384,3 +384,119 @@ def test_output_tail_split_and_refusal(dev):
     assert set(split) == set(ot.SPLIT_STAGES) | {"whole"} and split["whole"] > 0
     with pytest.raises(NotImplementedError, match="source pixels"):
         ot.output_tail(x, w1, b1, w2, b2, 20, 12)  # a downscale: taps spread over the patch
+
+
+# -- the fp32 kernels (csrc/*_f32.cu), held to chip_smoke.py's fp32 tolerance -----------
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("n,h,d,fast", [
+    (257, 6, 64, False), (362, 6, 64, True), (1370, 3, 64, False), (2443, 2, 64, True),
+    (64, 1, 192, False), (300, 2, 192, True), (1370, 1, 192, False), (2443, 2, 192, False),
+])
+def test_flash_attention_f32_kernel(dev, no_tf32, n, h, d, fast):
+    """fp32 operands: the fp32 kernel, ragged 32-key tiles, odd heads, D =
+    192, flat inputs too; its own launch count; no log-sum-exp."""
+    g = torch.Generator(device=dev).manual_seed(n + h + d)
+    qkv = chip_smoke.f32_inputs((2, n, h * d), g, dev)
+    q, k, v = (t.view(2, n, h, d) for t in qkv.split(h * d, dim=-1))
+    before = (fa.flash_attention.launches, fa.flash_attention.fast_launches,
+              fa.flash_attention.f32_launches)
+    got = fa.flash_attention(q, k, v, d**-0.5, fast=fast)
+    assert (fa.flash_attention.launches, fa.flash_attention.fast_launches,
+            fa.flash_attention.f32_launches) == (before[0], before[1], before[2] + 1)
+    assert got.dtype == torch.float32
+    want = fa.flash_attention_plain(q, k, v, d**-0.5, fast=fast)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.F32_TOL
+    qf = chip_smoke.flat_inputs(q)
+    assert chip_smoke.rel_err(fa.flash_attention(qf, k, v, d**-0.5, fast=fast),
+                              fa.flash_attention_plain(qf, k, v, d**-0.5, fast=fast)) <= \
+        chip_smoke.F32_TOL
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa.flash_attention(q, k, v, d**-0.5, with_lse=True)
+
+
+def test_flash_attention_fn_in_fp32(dev, no_tf32):
+    """FlashAttentionFn in fp32: the fp32 kernel forward, the plain backward."""
+    b, n, h, d = 1, 300, 2, 64
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (t.view(b, n, h, d).detach().requires_grad_()
+               for t in chip_smoke.f32_inputs((b, n, h * d), g, dev).split(h * d, dim=-1))
+    before = fa.flash_attention.f32_launches
+    out = fa.FlashAttentionFn.apply(q, k, v, d**-0.5, False)
+    assert fa.flash_attention.f32_launches == before + 1
+    go = torch.randn(b, n, h, d, device=dev, generator=g)
+    got = torch.autograd.grad(out, (q, k, v), go)
+    ref = fa.flash_attention_plain(q, k, v, d**-0.5)
+    want = torch.autograd.grad(ref, (q, k, v), go)
+    for a, w in zip(got, want):
+        assert chip_smoke.rel_err(a, w) <= chip_smoke.F32_TOL
+
+
+@pytest.mark.parametrize("c,t,s", [(64, 32, 37), (128, 8, 37), (192, 32, 37), (256, 32, 37),
+                                   (384, 32, 37), (1024, 32, 37), (64, 17, 101), (384, 17, 101),
+                                   (1024, 8, 3), (64, 1, 5)])
+def test_temporal_attention_f32_kernel(dev, no_tf32, c, t, s):
+    """fp32 operands at every head width, T = 17 and 1, a ragged last
+    location tile (two locations a tile at C = 64 in fp32)."""
+    g = torch.Generator(device=dev).manual_seed(c + t)
+    q, k, v = (x.contiguous() for x in chip_smoke.f32_inputs((2, t, s, c), g, dev).split(c, dim=-1))
+    before = (ta.temporal_attention.launches, ta.temporal_attention.f32_launches)
+    got = ta.temporal_attention(q, k, v, 8, (c // 8) ** -0.5)
+    assert (ta.temporal_attention.launches, ta.temporal_attention.f32_launches) == \
+        (before[0], before[1] + 1)
+    want = ta.temporal_attention_plain(q, k, v, 8, (c // 8) ** -0.5)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.F32_TOL
+
+
+@pytest.mark.parametrize("c,t,s", [(64, 32, 70), (64, 8, 50), (128, 16, 11), (192, 32, 33),
+                                   (192, 8, 13), (256, 16, 7), (384, 32, 9), (384, 8, 11)])
+def test_motion_module_f32_kernel(dev, no_tf32, c, t, s):
+    """fp32 operands at every width and T, S leaving a ragged last CTA,
+    against the plain module (erf GELU), relative to max|plain - x|; the
+    fp32 weights' dtype must match x's."""
+    p = chip_smoke.motion_params(c, seed=c, device=dev)
+    x = torch.randn(2, t, s, c, device=dev, generator=torch.Generator(device=dev).manual_seed(s))
+    cfg = MotionModuleConfig()
+    before = (mm.fused_motion_module.launches, mm.fused_motion_module.f32_launches)
+    got = mm.fused_motion_module(x, p, cfg, 8)
+    assert (mm.fused_motion_module.launches, mm.fused_motion_module.f32_launches) == \
+        (before[0], before[1] + 1)
+    want = mm.motion_module_plain(x, p, cfg, 8)
+    assert float((got - want).abs().max()) <= chip_smoke.F32_TOL * float((want - x).abs().max())
+    w = mm.kernel_weights(p, cfg)  # the bf16 layout
+    gna, gnb = mm.gn_fold(x, w, cfg)
+    with pytest.raises(ValueError, match="kernel_weights"):
+        mm.motion_module_launch(x, gna, gnb, w, cfg, 8)
+
+
+def test_fp32_window_through_the_fp32_kernels(dev, no_tf32):
+    """A small fp32 window on the card (vits, 4 encoder blocks, 322x322, T =
+    8: Kernel A at 529 tokens, Kernel C at m3) against the plain path."""
+    import dataclasses
+
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+
+    cfg = get_model_config("vits")
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, depth=4),
+                              intermediate_layer_idx=(0, 1, 2, 3))
+    model = VDAModel(cfg=cfg, device=dev, dtype=torch.float32)
+    model.init_params(seed=0)
+    chip_smoke.noise_weights(model.module, seed=1)
+    x = torch.randn(1, 8, 322, 322, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    before = (fa.flash_attention.f32_launches, mm.fused_motion_module.f32_launches)
+    got = model.infer_window(x)
+    assert fa.flash_attention.f32_launches == before[0] + 4
+    assert mm.fused_motion_module.f32_launches == before[1] + 1
+    with plain_reference():
+        want = model.infer_window(x)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.F32_WINDOW_TOL

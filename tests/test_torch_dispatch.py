@@ -54,7 +54,9 @@ def _module_shapes(encoder, h, w):
             ("m2", ph, pw, f), ("m3", 2 * ph, 2 * pw, f)]
 
 
-def port_plan(encoder, h, w, impl="auto"):
+def port_plan(encoder, h, w, impl="auto", dtype="bfloat16"):
+    """The port's plan for activations of ``dtype`` ("bfloat16" or
+    "float32"): only the output tail's gate reads the dtype."""
     cfg = get_model_config(encoder)
     heads = cfg.motion.num_heads
     ph, pw = h // 14, w // 14
@@ -68,12 +70,15 @@ def port_plan(encoder, h, w, impl="auto"):
         else:
             plan[name] = "plain"
     tail = (32, 8 * ph, 8 * pw, cfg.features // 2)
-    plan["tail"] = ("output_tail" if output_tail_gate(cfg, tail, torch.bfloat16, 14 * ph, 14 * pw)
-                    else "plain")
+    plan["tail"] = ("output_tail" if output_tail_gate(cfg, tail, getattr(torch, dtype), 14 * ph,
+                                                      14 * pw) else "plain")
     return plan
 
 
-def jax_plan(encoder, h, w, monkeypatch, impl="auto"):
+def jax_plan(encoder, h, w, monkeypatch, impl="auto", dtype="bfloat16"):
+    """The JAX gates' plan; with ``dtype="float32"`` the gates see fp32
+    arrays (else byte arrays: they read shapes, and the tail's a bf16
+    spec)."""
     monkeypatch.setattr(pallas_attention, "flash_attention_native",
                         lambda *a, **k: _Tag("flash_attention"))
     monkeypatch.setattr(pallas_attention, "spatial_flash_attention",
@@ -90,10 +95,11 @@ def jax_plan(encoder, h, w, monkeypatch, impl="auto"):
     cfg, heads = JCfg(), JCfg().num_heads
     ph, pw = h // 14, w // 14
     n = ph * pw + 1
-    q = np.empty((32, n, mcfg.vit.num_heads, 64), np.uint8)
+    arr = np.float32 if dtype == "float32" else np.uint8
+    q = np.empty((32, n, mcfg.vit.num_heads, 64), arr)
     plan = {"vit": pallas_attention.try_spatial_attention(q, q, q, 0.125) or "plain"}
     for name, mh, mw, c in _module_shapes(encoder, h, w):
-        x = np.empty((1, 32, mh * mw, c), np.uint8)
+        x = np.empty((1, 32, mh * mw, c), arr)
         d = c // heads
         # models/temporal.py:410-423: inner == channels, h·w ≥ 2048, d ≤ 64
         fused = None
@@ -106,7 +112,7 @@ def jax_plan(encoder, h, w, monkeypatch, impl="auto"):
     f = mcfg.features
     tail = None
     if not (_s2d_profitable(f, f // 2) or _s2d_profitable(f // 2, 32)):
-        x = _Spec((32, 8 * ph, 8 * pw, f // 2), jnp.bfloat16)
+        x = _Spec((32, 8 * ph, 8 * pw, f // 2), getattr(jnp, dtype))
         k1, k2 = np.empty((3, 3, f // 2, 32), np.float32), np.empty((1, 1, 32, 1), np.float32)
         tail = pallas_output_stack.try_fused_output_tail(x, k1, None, k2, None, 14 * ph, 14 * pw)
     plan["tail"] = tail or "plain"

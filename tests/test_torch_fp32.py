@@ -1,0 +1,426 @@
+"""``--fp32`` and ``--fp32_island`` of the port on the CPU: the fp32 island
+against the JAX package's in bf16, the output tail's refusal under the
+island and in fp32, the fp32 gate decisions against JAX's, CPU emulations of
+the plans of the fp32 Kernels A, B and C (``csrc/*_f32.cu``) against the
+JAX kernels run in interpret mode on fp32 inputs, and the CLI flags.
+
+The fp32 kernels compute every product with FFMA in fp32.  Each emulation
+follows its kernel's plan (tiles, online softmax, the q/k/v and
+feed-forward chunks of the fp32 weight layout) in fp32 and must come within
+1e-5 of the JAX kernel, relative to max|JAX| (Kernel C: to max|JAX − x|,
+the module's own contribution); the same plan with every product's
+operands rounded once to TF32 (10 mantissa bits, rounded in numpy) must
+miss by more, so that the bound tells fp32 products from one TF32 pass."""
+
+import dataclasses
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_dispatch import jax_plan, port_plan
+from tests.torch_port_helpers import configs, jax_param_shapes, noised_params
+from video_depth_anything_torch import run
+from video_depth_anything_torch.config import MotionModuleConfig as TCfg
+from video_depth_anything_torch.config import get_model_config
+from video_depth_anything_torch.io.checkpoint import from_jax_params
+from video_depth_anything_torch.models.vda import VDAModel
+from video_depth_anything_torch.ops import flash_attention as t_flash
+from video_depth_anything_torch.ops import motion_module as t_motion
+from video_depth_anything_torch.ops import output_tail as t_tail
+from video_depth_anything_torch.ops import temporal_attention as t_temporal
+from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
+from video_depth_anything_tpu.models.vda import VDAModel as JaxVDA
+from video_depth_anything_tpu.ops import pallas_output_stack
+from video_depth_anything_tpu.ops.pallas_attention import (
+    flash_attention_native,
+    spatial_flash_attention,
+)
+from video_depth_anything_tpu.ops.pallas_motion import fused_motion_module
+from video_depth_anything_tpu.ops.pallas_temporal import temporal_attention_window
+
+FP32_TOL = 1e-5  # the emulation against the JAX kernel in fp32, relative
+# Two bf16 evaluations of a 2-block vits on 28x28 frames, one in each
+# package: bf16 rounds at different points in the two (fused epilogues, the
+# resize), about 2^-8 per rounding through the encoder and the head; both
+# sides run the fp32 output_conv2 (measured: 2.2e-2; the island itself moves
+# JAX's output by 5.5e-3).
+ISLAND_BF16_TOL = 3e-2
+LOG2E = 1.0 / math.log(2.0)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero) in numpy, back as fp32."""
+    bits = x.detach().float().contiguous().numpy().view(np.uint32)
+    out = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    return torch.from_numpy(out.copy())
+
+
+def _rnd(use_tf32: bool):
+    return tf32 if use_tf32 else (lambda x: x)
+
+
+def rel(got, want, base=None) -> float:
+    want = torch.as_tensor(np.array(want, np.float32))
+    base = want if base is None else want - torch.as_tensor(np.array(base, np.float32))
+    return float((torch.as_tensor(got).float() - want).abs().max() / base.abs().max())
+
+
+# -- the fp32 head island ----------------------------------------------------------
+
+
+def test_fp32_island_matches_jax_in_bf16():
+    """vits widths, 2 encoder blocks, both packages in bf16 with
+    ``fp32_head_island``: within ISLAND_BF16_TOL of max|JAX depth|; the
+    island changes the port's output (it is wired)."""
+    jc, tc = configs("vits", 2)
+    jc, tc = (dataclasses.replace(c, fp32_head_island=True) for c in (jc, tc))
+    jm = JaxVDA(cfg=jc, dtype=jnp.bfloat16)
+    jm.params = noised_params(jax_param_shapes(jm.module, jnp.zeros((1, 2, 28, 28, 3))), 4)
+    tm = VDAModel(cfg=tc, device="cpu", dtype=torch.bfloat16)
+    tm.load_state_dict(from_jax_params(jm.params, jc), strict=True)
+    x = np.random.RandomState(11).randn(1, 4, 42, 56, 3).astype(np.float32)
+    want = np.asarray(jm.infer_window(x).astype(jnp.float32))
+    got = tm.infer_window(x).float()
+    assert got.shape == want.shape == x.shape[:4]
+    assert rel(got, want) <= ISLAND_BF16_TOL
+    plain = VDAModel(cfg=dataclasses.replace(tc, fp32_head_island=False), device="cpu",
+                     dtype=torch.bfloat16)
+    plain.module.load_state_dict(tm.module.state_dict())
+    assert not torch.equal(plain.infer_window(x).float(), got)
+
+
+@pytest.mark.parametrize("island,dtype", [(True, torch.bfloat16), (False, torch.float32),
+                                          (False, torch.bfloat16)])
+def test_tail_gate_refuses_under_the_island_and_in_fp32(island, dtype, monkeypatch):
+    """vitl at 518² is the tail kernel's shape: the gate says yes in bf16
+    without the island alone, as JAX's: ``models/dpt.py:202`` refuses under
+    the island, and the kernel's gate (``pallas_output_stack.py:587``, run
+    here with the kernel replaced by a tag and a TPU assumed) any dtype but
+    bf16."""
+    cfg = dataclasses.replace(get_model_config("vitl"), fp32_head_island=island)
+    shape = (32, 296, 296, 128)
+    monkeypatch.setattr(pallas_output_stack, "fused_output_tail", lambda *a, **k: "kernel")
+    monkeypatch.setattr(pallas_output_stack, "_on_tpu", lambda: True)
+    spec = type("Spec", (), dict(shape=shape, ndim=4, dtype=jnp.dtype(str(dtype).split(".")[1])))
+    k1, k2 = np.empty((3, 3, 128, 32), np.float32), np.empty((1, 1, 32, 1), np.float32)
+    jax_kernel_gate = pallas_output_stack.try_fused_output_tail(spec(), k1, None, k2, None,
+                                                                518, 518) is not None
+    got = t_tail.output_tail_gate(cfg, shape, dtype, 518, 518)
+    assert got is (jax_kernel_gate and not island)
+    assert got is (not island and dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+@pytest.mark.parametrize("encoder,h,w", [(e, h, w) for e in ("vits", "vitb", "vitl")
+                                         for h, w in ((518, 518), (518, 924))])
+def test_fp32_gate_decisions_match_jax(encoder, h, w, impl, monkeypatch):
+    """Every motion module, the ViT's attention and the tail at fp32: the
+    port's gates decide as JAX's do on fp32 arrays (the motion and temporal
+    gates read no dtype in either package; the tail refuses fp32)."""
+    got = port_plan(encoder, h, w, impl, dtype="float32")
+    assert got == jax_plan(encoder, h, w, monkeypatch, impl, dtype="float32")
+    assert got["tail"] == "plain"
+    bf16 = port_plan(encoder, h, w, impl)
+    assert {k: v for k, v in got.items() if k != "tail"} == \
+        {k: v for k, v in bf16.items() if k != "tail"}
+
+
+# -- Kernel A -------------------------------------------------------------------------
+
+
+def emulate_flash_f32(q, k, v, scale, fast=False, use_tf32=False):
+    """``(B, N, H, D)`` fp32 → the plan of ``flash_fwd_f32`` (P = 2 threads
+    a row at D = 64, 4 at D = 192, 256 threads a CTA): q scaled by scale ·
+    log2 e, 32-key tiles, a score the sum of its P panel dot products
+    (xor shuffles: (p0 + p1) + (p2 + p3)), online exp2 softmax (FAST: m = 0,
+    no rescale), o = o · α + p V, then o / l."""
+    rnd = _rnd(use_tf32)
+    b, n, h, d = q.shape
+    panels = 2 if d == 64 else 4
+    rows = 256 // panels
+    dp = d // panels
+    qs = q.float().permute(0, 2, 1, 3) * (scale * LOG2E)
+    kp, vp = (x.float().permute(0, 2, 1, 3) for x in (k, v))
+    out = torch.empty(b, h, n, d)
+    for i in range(0, n, rows):  # one CTA
+        qi = rnd(qs[:, :, i:i + rows])
+        m = torch.full(qi.shape[:3], 0.0 if fast else -math.inf)
+        l = torch.zeros(qi.shape[:3])
+        acc = torch.zeros(qi.shape)
+        for j in range(0, n, 32):  # a key tile; keys past N never enter
+            kj, vj = rnd(kp[:, :, j:j + 32]), rnd(vp[:, :, j:j + 32])
+            part = [qi[..., c * dp:(c + 1) * dp] @ kj[..., c * dp:(c + 1) * dp].transpose(-1, -2)
+                    for c in range(panels)]
+            s = part[0] + part[1] if panels == 2 else (part[0] + part[1]) + (part[2] + part[3])
+            if not fast:
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                m, l, acc = m_new, l * alpha, acc * alpha[..., None]
+            p = torch.exp2(s - m[..., None])
+            l = l + p.sum(-1)
+            acc = acc + rnd(p) @ vj
+        out[:, :, i:i + rows] = acc / l[..., None]
+    return out.permute(0, 2, 1, 3)
+
+
+def _jax_flash(q, k, v, fast=False):
+    """The JAX package's dispatch on fp32 inputs: the native-layout kernel
+    for even heads and at most 2048 padded keys at D = 64, else the
+    whole-row or blocked kernel."""
+    b, n, h, d = q.shape
+    if d == 64 and h % 2 == 0 and -(-n // 128) * 128 <= 2048:
+        out = flash_attention_native(*(jnp.asarray(x.reshape(b, n, h * d)) for x in (q, k, v)),
+                                     scale=d**-0.5, n_valid=n, num_heads=h, fast_softmax=fast,
+                                     interpret=True)
+        return np.asarray(out).reshape(b, n, h, d)
+    return np.asarray(spatial_flash_attention(*(jnp.asarray(x) for x in (q, k, v)), d**-0.5,
+                                              fast_softmax=fast, interpret=True))
+
+
+@pytest.mark.parametrize("d,n", [(64, 300), (64, 1370), (192, 300), (192, 1370)])
+def test_flash_f32_plan_matches_jax_kernel(d, n):
+    rng = np.random.RandomState(d + n)
+    q, k, v = (rng.randn(1, n, 2, d).astype(np.float32) for _ in range(3))
+    want = _jax_flash(q, k, v)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = emulate_flash_f32(tq, tk, tv, d**-0.5)
+    assert rel(got, want) <= FP32_TOL
+    assert rel(t_flash.flash_attention_plain(tq, tk, tv, d**-0.5), want) <= FP32_TOL
+    assert rel(emulate_flash_f32(tq, tk, tv, d**-0.5, use_tf32=True), want) > FP32_TOL
+
+
+def test_flash_f32_fast_plan_matches_plain():
+    """The FAST plan (no max, no rescale) at D = 64 against the plain fast
+    softmax in fp32."""
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 300, 2, 64).astype(np.float32)) for _ in range(3))
+    want = t_flash.flash_attention_plain(q, k, v, 0.125, fast=True)
+    assert rel(emulate_flash_f32(q, k, v, 0.125, fast=True), want) <= FP32_TOL
+
+
+# -- Kernel B -------------------------------------------------------------------------
+
+
+def emulate_temporal_f32(q, k, v, heads, scale, use_tf32=False):
+    """``(B, T, S, C)`` fp32 → the plan of ``temporal_f32``: tiles of
+    ``tile_plan(C, heads, 4)`` (locations past S never stored), per
+    (location, head) the T scores q · k, then · scale · log2 e, an exact
+    exp2 softmax, (Σ p v) · 1/l."""
+    rnd = _rnd(use_tf32)
+    b, t, s, c = q.shape
+    d = c // heads
+    locs, group = t_temporal.tile_plan(c, heads, 4)
+    cg = group * d
+    out = torch.full((b, t, s, c), math.nan)
+    for bi in range(b):
+        for s0 in range(0, s, locs):
+            for c0 in range(0, c, cg):
+                sl = (bi, slice(None), slice(s0, min(s0 + locs, s)), slice(c0, c0 + cg))
+                qh, kh, vh = (rnd(x[sl].float()).reshape(t, -1, group, d) for x in (q, k, v))
+                sc = torch.einsum("qlgd,klgd->lgqk", qh, kh) * (scale * LOG2E)
+                p = torch.exp2(sc - sc.amax(-1, keepdim=True))
+                o = torch.einsum("lgqk,klgd->qlgd", rnd(p), vh) / p.sum(-1).permute(2, 0, 1)[..., None]
+                out[sl] = o.reshape(t, -1, cg)
+    assert not torch.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("t", [8, 17, 32])
+@pytest.mark.parametrize("d", [8, 48])
+def test_temporal_f32_plan_matches_jax_kernel(d, t):
+    """S = 7: a ragged last location tile at C = 64 (two locations a tile
+    in fp32)."""
+    c, s, heads = 8 * d, 7, 8
+    rng = np.random.RandomState(d * 100 + t)
+    q, k, v = (rng.randn(2, t, s, c).astype(np.float32) for _ in range(3))
+    want = np.asarray(temporal_attention_window(*(jnp.asarray(x) for x in (q, k, v)), heads=heads,
+                                                scale=d**-0.5, interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    assert rel(emulate_temporal_f32(tq, tk, tv, heads, d**-0.5), want) <= FP32_TOL
+    assert rel(emulate_temporal_f32(tq, tk, tv, heads, d**-0.5, use_tf32=True), want) > FP32_TOL
+
+
+@pytest.mark.parametrize("c,plan", [(64, (2, 8)), (128, (1, 8)), (192, (1, 4)), (256, (1, 4)),
+                                    (384, (1, 2)), (1024, (1, 1))])
+def test_temporal_tile_plan_at_fp32(c, plan):
+    """128 channels a tile in fp32 (512-byte frame runs)."""
+    assert t_temporal.tile_plan(c, 8, 4) == plan
+
+
+# -- Kernel C -------------------------------------------------------------------------
+
+
+def _ln(y, g, b, eps):
+    mean = y.mean(-1, keepdim=True)
+    var = torch.clamp((y * y).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    return (y - mean) * (torch.rsqrt(var + eps) * g) + b
+
+
+def emulate_motion_f32(x, p, cfg, heads, use_tf32=False):
+    """``(B, T, S, C)`` fp32 → the plan of ``motion_f32``: CTAs of 32 rows
+    (32 / T locations, location major; locations past S zero rows, never
+    stored) over the weights of ``weight_matrices_f32`` as the kernel
+    slices them: proj_in; per block q | k | v by chunk of
+    ``chunk_channels`` then attention per (location, head) of the chunk;
+    w_o; the feed-forward by 64-column hidden chunk (h and gate side by
+    side), erf GELU, w2 rows accumulated; proj_out; + x."""
+    rnd = _rnd(use_tf32)
+    b, t, s, c = x.shape
+    w = t_motion.kernel_weights(p, cfg, torch.float32)
+    gna, gnb = t_motion.gn_fold(x, w, cfg)
+    flat, c2 = w["w"], c * c
+    mat = lambda off, rows, cols: flat[off:off + rows * cols].view(rows, cols)  # noqa: E731
+    nch, d = t_motion.chunk_channels(c, heads), c // heads
+    mm = lambda a, m: rnd(a) @ rnd(m)  # noqa: E731
+    locs = 32 // t
+    out = torch.full_like(x, math.nan)
+    for bi in range(b):
+        for s0 in range(0, s, locs):
+            xs = torch.zeros(locs, t, c)
+            nl = min(locs, s - s0)
+            xs[:nl] = x[bi, :, s0:s0 + nl].permute(1, 0, 2)
+            y = mm(xs * gna[bi] + gnb[bi], mat(0, c, c)) + w["b_in"]
+            for i in range(2):
+                base = c2 + i * 4 * c2
+                h = _ln(y, w["ln_scale"][i], w["ln_bias"][i], cfg.layer_norm_eps) + w["pe"][:t]
+                wqkv, o = mat(base, c, 3 * c), torch.empty(locs, t, c)
+                for ch in range(c // nch):
+                    qkv = mm(h, wqkv[:, 3 * nch * ch:3 * nch * (ch + 1)])
+                    qc, kc, vc = (qkv[..., j * nch:(j + 1) * nch].reshape(locs, t, -1, d)
+                                  for j in range(3))
+                    sc = torch.einsum("lqhd,lkhd->lhqk", qc, kc) * (d**-0.5 * LOG2E)
+                    pr = torch.exp2(sc - sc.amax(-1, keepdim=True))
+                    oc = torch.einsum("lhqk,lkhd->lqhd", pr, vc) / pr.sum(-1).permute(0, 2, 1)[..., None]
+                    o[..., ch * nch:(ch + 1) * nch] = oc.reshape(locs, t, nch)
+                y = y + (mm(o, mat(base + 3 * c2, c, c)) + w["bo"][i])
+            h = _ln(y, w["ln_scale"][2], w["ln_bias"][2], cfg.layer_norm_eps)
+            ff = torch.zeros(locs, t, c)
+            w1r, w2 = mat(9 * c2, c, 8 * c), mat(17 * c2, 4 * c, c)
+            for f in range(4 * c // 64):
+                g = mm(h, w1r[:, 128 * f:128 * f + 128])
+                a = g[..., :64] + w["b1"][64 * f:64 * f + 64]
+                gt = g[..., 64:] + w["b1"][4 * c + 64 * f:4 * c + 64 * f + 64]
+                ff = ff + mm(a * (0.5 * gt * (1 + torch.erf(gt * 0.7071067811865476))),
+                             w2[64 * f:64 * f + 64])
+            y = y + (ff + w["b2"])
+            res = mm(y, mat(21 * c2, c, c)) + w["b_out"] + xs
+            out[bi, :, s0:s0 + nl] = res[:nl].permute(1, 0, 2)
+    return out
+
+
+def _motion_params(c, seed):
+    rng = np.random.default_rng(seed)
+    n = lambda *s, std=1.0: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32))  # noqa: E731
+    return dict(gn_scale=1 + n(c, std=0.1), gn_bias=n(c, std=0.1), w_in=n(c, c, std=c**-0.5),
+                b_in=n(c, std=0.1), ln_scale=1 + n(3, c, std=0.1), ln_bias=n(3, c, std=0.1),
+                wq=n(2, c, c, std=c**-0.5), wk=n(2, c, c, std=c**-0.5), wv=n(2, c, c, std=c**-0.5),
+                wo=n(2, c, c, std=c**-0.5), bo=n(2, c, std=0.1), w1=n(c, 8 * c, std=c**-0.5),
+                b1=n(8 * c, std=0.1), w2=n(4 * c, c, std=(4 * c) ** -0.5), b2=n(c, std=0.1),
+                w_out=n(c, c, std=c**-0.5), b_out=n(c, std=0.1))
+
+
+def test_motion_f32_plan_matches_jax_kernel():
+    """C = 64, T = 8 (4 locations a CTA), S = 10: a ragged last CTA."""
+    c, t, s = 64, 8, 10
+    p = _motion_params(c, 5)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((1, t, s, c)).astype(np.float32))
+    want = np.asarray(fused_motion_module(jnp.asarray(x.numpy()),
+                                          {k: jnp.asarray(v.numpy()) for k, v in p.items()},
+                                          heads=8, cfg=JCfg(), interpret=True))
+    got = emulate_motion_f32(x, p, TCfg(), 8)
+    assert rel(got, want, x) <= FP32_TOL
+    assert rel(t_motion.motion_module_plain(x, p, TCfg(), 8), want, x) <= FP32_TOL
+    assert rel(emulate_motion_f32(x, p, TCfg(), 8, use_tf32=True), want, x) > FP32_TOL
+
+
+@pytest.mark.parametrize("c", [128, 192, 384])
+def test_motion_f32_plan_matches_plain_at_other_widths(c):
+    """The chunks of the other widths (d = 16: 64-channel chunks; d = 24
+    and 48: 48-channel chunks), T = 16 and 32, against the plain module."""
+    t, s = (16, 3) if c == 128 else (32, 2)
+    p = _motion_params(c, c)
+    x = torch.from_numpy(np.random.default_rng(c).standard_normal((1, t, s, c)).astype(np.float32))
+    want = t_motion.motion_module_plain(x, p, TCfg(), 8)
+    assert rel(emulate_motion_f32(x, p, TCfg(), 8), want, x) <= FP32_TOL
+
+
+@pytest.mark.parametrize("c", [64, 192])
+def test_weight_matrices_f32_layout(c):
+    """The fp32 weight buffer addresses the raw weights: 22 C² values; q,
+    k, v columns by chunk; w1's h and gate columns by 64-column chunk."""
+    p = _motion_params(c, 1)
+    flat = t_motion.weight_matrices_f32(p)
+    assert flat.dtype == torch.float32 and flat.numel() == 22 * c * c
+    c2, nch = c * c, t_motion.chunk_channels(c)
+    assert torch.equal(flat[:c2].view(c, c), p["w_in"])
+    wqkv = flat[c2 + 4 * c2:c2 + 7 * c2].view(c, 3 * c)  # block 1
+    ch = c // nch - 1  # the last chunk
+    for j, name in enumerate(("wq", "wk", "wv")):
+        got = wqkv[:, 3 * nch * ch + j * nch:3 * nch * ch + (j + 1) * nch]
+        assert torch.equal(got, p[name][1][:, ch * nch:(ch + 1) * nch])
+    assert torch.equal(flat[c2 + 7 * c2:c2 + 8 * c2].view(c, c), p["wo"][1])
+    w1r = flat[9 * c2:17 * c2].view(c, 8 * c)
+    f = 4 * c // 64 - 1
+    assert torch.equal(w1r[:, 128 * f:128 * f + 64], p["w1"][:, 64 * f:64 * f + 64])
+    assert torch.equal(w1r[:, 128 * f + 64:128 * f + 128],
+                       p["w1"][:, 4 * c + 64 * f:4 * c + 64 * f + 64])
+    assert torch.equal(flat[17 * c2:21 * c2].view(4 * c, c), p["w2"])
+    assert torch.equal(flat[21 * c2:].view(c, c), p["w_out"])
+
+
+def test_kernel_weights_cached_by_dtype():
+    """TemporalModule keeps one prepared layout per dtype, each rebuilt when
+    a parameter changes."""
+    from video_depth_anything_torch.models.temporal import TemporalModule
+
+    mod = TemporalModule(TCfg(), 64)
+    bf, f32 = mod.kernel_weights(), mod.kernel_weights(torch.float32)
+    assert bf["w"].dtype == torch.bfloat16 and f32["w"].dtype == torch.float32
+    assert f32["pe"].dtype == torch.float32 and mod.kernel_weights(torch.float32) is f32
+    assert mod.kernel_weights() is bf
+    with torch.no_grad():
+        mod.temporal_transformer.proj_in.weight.add_(1.0)
+    again = mod.kernel_weights(torch.float32)
+    assert again is not f32
+    torch.testing.assert_close(again["w"], t_motion.weight_matrices_f32(mod.raw_params()),
+                               rtol=0, atol=0)
+
+
+# -- the CLI ----------------------------------------------------------------------------
+
+
+def test_cli_takes_fp32_island(monkeypatch, tmp_path):
+    """``--fp32_island`` parses, survives ``normalize_args`` and gives
+    ``VDAModel`` the config with ``fp32_head_island`` in bf16 only (JAX
+    ``run.py:205-211``)."""
+    args = run.normalize_args(run.build_parser().parse_args(
+        ["--input_video", "clip.mp4", "--fp32_island", "--original"]))
+    assert args.fp32_island and not args.fp32
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_model(encoder, device=None, dtype=None, cfg=None, attn_impl="auto"):
+        seen.append((dtype, cfg))
+        raise Stop
+
+    import video_depth_anything_torch.models.vda as vda
+
+    monkeypatch.setattr(vda, "VDAModel", fake_model)
+    for extra, dtype, island in (([], torch.bfloat16, True), (["--fp32"], torch.float32, None)):
+        with pytest.raises(Stop):
+            run.main(["--input_video", "clip.mp4", "--fp32_island", "--device", "cpu",
+                      "--output_dir", str(tmp_path)] + extra)
+        got_dtype, cfg = seen[-1]
+        assert got_dtype == dtype
+        assert (cfg.fp32_head_island if cfg is not None else None) is island
+
+
+def test_fp32_launch_counts_have_names_of_their_own():
+    counts = run.kernel_launches()
+    assert {"flash_attention_f32", "temporal_attention_f32", "fused_motion_module_f32"} <= set(counts)

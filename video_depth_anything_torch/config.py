@@ -4,6 +4,7 @@ The same frozen dataclasses as ``video_depth_anything_tpu/config.py``,
 kept as a copy so that this package never imports the JAX one.  Only the
 fields that the port reads are carried: the TPU layout switches
 (``packed_output_stack``, ``fused_output_tail``) have no meaning here.
+``fp32_head_island`` is the JAX field of the same name.
 ``remat_motion`` recomputes the four motion modules in the backward
 (``torch.utils.checkpoint``), as JAX's ``nn.remat`` does.
 """
@@ -68,6 +69,14 @@ class ModelConfig:
     # activations (fp32 norm statistics, the 8x-wide GEGLU input, attention
     # probabilities); one more forward through them per training step.
     remat_motion: bool = False
+    # The reference forces output_conv2 to fp32 to dodge *fp16* range and
+    # precision collapse (dpt_temporal.py:95-97 there).  bf16 has fp32's
+    # exponent range and the products accumulate in fp32 regardless, so in
+    # bf16 the island buys little accuracy while it moves the (T, 518, 518,
+    # 32) maps of output_conv2 in fp32.  In fp32 model mode everything is
+    # fp32 anyway; set True to force the cast in bf16 (``run.py
+    # --fp32_island``).  The output tail kernel refuses while it is on.
+    fp32_head_island: bool = False
 
 
 _VIT_CONFIGS: Mapping[str, ViTConfig] = {

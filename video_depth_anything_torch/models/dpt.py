@@ -6,7 +6,9 @@ and refinenets, motion modules at the four points of the reference
 refinenet3), and the output head (output_conv1 → bilinear align_corners
 to 14·ph × 14·pw → output_conv2, ``ops/output_tail.py``).  Where the JAX
 gate sends that tail to its fused Pallas kernel (vitl at 518²), the tail
-kernel runs it.  With ``cfg.remat_motion`` each motion module runs under
+kernel runs it; with ``cfg.fp32_head_island`` output_conv2 runs in fp32
+on the resized map and the tail kernel is refused, as in JAX.  With
+``cfg.remat_motion`` each motion module runs under
 ``torch.utils.checkpoint`` where gradients are recorded (JAX ``nn.remat``,
 ``models/dpt.py:126-128`` there).  Parameter names are the reference torch keys
 (``projects``, ``resize_layers``, ``scratch``, ``motion_modules``).
@@ -134,7 +136,7 @@ class DPTHeadTemporal(nn.Module):
         args = (out, conv3.weight, conv3.bias, conv1.weight, conv1.bias, oh, ow)
         if kernels_enabled() and output_tail_gate(self.cfg, out.shape, out.dtype, oh, ow):
             return OutputTailFn.apply(*args)
-        return output_tail_plain(*args)
+        return output_tail_plain(*args, fp32_island=self.cfg.fp32_head_island)
 
     def forward(self, features, batch: int, ph: int, pw: int,
                 skip_tmp_block: bool = False) -> torch.Tensor:

@@ -289,22 +289,23 @@ class TemporalModule(nn.Module):
             w_out=lin(tt.proj_out), b_out=tt.proj_out.bias,
         )
 
-    def kernel_weights(self) -> dict:
-        """Kernel C's operands from the parameters, built once and rebuilt
-        only when a parameter changes (in place, or moved to another
-        device or dtype): in training, once per optimizer step."""
+    def kernel_weights(self, dtype: torch.dtype = torch.bfloat16) -> dict:
+        """Kernel C's operands from the parameters for inputs of ``dtype``
+        (the bf16 or the fp32 kernel's layout), built once per dtype and
+        rebuilt only when a parameter changes (in place, or moved to
+        another device or dtype): in training, once per optimizer step."""
         key = tuple((p.data_ptr(), p.device, p.dtype, p._version) for p in self.parameters())
-        if getattr(self, "_kernel_weights_key", None) != key:
+        cache = self.__dict__.setdefault("_kernel_weights", {})
+        if dtype not in cache or cache[dtype][0] != key:
             with torch.no_grad():
-                self._kernel_weights = kernel_weights(self.raw_params(), self.cfg)
-            self._kernel_weights_key = key
-        return self._kernel_weights
+                cache[dtype] = (key, kernel_weights(self.raw_params(), self.cfg, dtype))
+        return cache[dtype][1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
         if self.use_kernels and kernels_enabled() and motion_gate(self.cfg, c, self.inner, t, h, w):
             p = self.raw_params()
-            weights = self.kernel_weights() if x.device.type == "cuda" else None
+            weights = self.kernel_weights(x.dtype) if x.device.type == "cuda" else None
             out = FusedMotionModuleFn.apply(x.reshape(b, t, h * w, c), self.cfg,
                                             self.cfg.num_heads, weights, tuple(p), *p.values())
             return out.reshape(x.shape)

@@ -157,7 +157,9 @@ class VDAModel:
     """Config + module + device/dtype; ``infer_window(frames)`` takes
     normalized ``(B, T, H, W, 3)`` frames and returns ``(B, T, H, W)``
     inverse depth on the device.  Runs on the card unless
-    ``device="cpu"``.  ``attn_impl``: ``auto|pallas|xla`` with an optional
+    ``device="cpu"``; ``dtype`` bf16 (the default) or fp32 (every kernel
+    then takes its fp32 counterpart; the output tail's gate says no, as in
+    JAX).  ``attn_impl``: ``auto|pallas|xla`` with an optional
     ``:fast`` (``ops/attention.parse_attn_impl``)."""
 
     def __init__(self, encoder: str = "vits", device=None, dtype=torch.bfloat16,
@@ -165,8 +167,6 @@ class VDAModel:
         self.cfg = cfg or get_model_config(encoder)
         self.device = resolve_device(device)
         parse_attn_impl(attn_impl, self.device.type)
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
-            raise NotImplementedError("fp32 inference on the card is not yet ported")
         if self.device.type == "cuda" and self.cfg.encoder == "vitg":
             # no released video checkpoint and no slice of its own; the CPU
             # runs it plain.

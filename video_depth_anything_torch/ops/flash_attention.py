@@ -1,5 +1,6 @@
-"""Kernel A: spatial flash attention (``csrc/flash_attention.cu``) and its
-backward (``csrc/flash_attention_bwd.cu``).
+"""Kernel A: spatial flash attention (``csrc/flash_attention.cu``, and on
+fp32 operands ``csrc/flash_attention_f32.cu``) and its backward
+(``csrc/flash_attention_bwd.cu``).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_attention.py``
 ``_flash_kernel_native`` (``flash_attention_native``), ``_flash_kernel``
@@ -20,10 +21,15 @@ Kernel A (saving the per-row log-sum-exp), its backward the backward
 kernel; on CPU tensors both are the plain versions.  ``flash_attention``
 and ``flash_attention_bwd`` are the raw launches and keep no autograd
 history.  ``flash_attention.launches`` counts the exact variant's launches
-and ``flash_attention.fast_launches`` the fast variant's.
+and ``flash_attention.fast_launches`` the fast variant's, both bf16;
+``flash_attention.f32_launches`` counts the fp32 kernel's (either
+variant).  The fp32 kernel is the JAX kernels on fp32 inputs (their gates
+check no dtype; p stays fp32): FFMA in fp32, same domain, forward only (no
+JAX entry point trains in fp32), no log-sum-exp.
 
 Bound on the H100: tensor-core FLOPs (4·N²·D·H·B forward, 10·N²·D·H·B
-backward); see the source notes.
+backward); the fp32 kernel's, the same FLOPs at the CUDA cores' fp32
+rate; see the source notes.
 """
 
 from __future__ import annotations
@@ -101,6 +107,9 @@ def _kernel(name: str):
         if name == "fwd":
             fn = cuda_build.library("flash_attention").vda_flash_attention_fwd
             fn.argtypes = [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, vp, vp]
+        elif name == "f32":
+            fn = cuda_build.library("flash_attention_f32").vda_flash_attention_f32
+            fn.argtypes = [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, vp]
         else:
             fn = getattr(cuda_build.library("flash_attention_bwd"), f"vda_flash_attention_{name}")
             fn.argtypes = [vp] * 10 + [i] * 3 + [ll] * 9 + [ctypes.c_float, vp]
@@ -112,8 +121,9 @@ def _kernel(name: str):
 
 
 def tma_geometry(t) -> tuple:
-    """``(dims, byte_strides)`` of a bf16 ``(B, N, H, D)`` view as the
-    kernels' TMA maps describe it: dims innermost first ``(D, H, N, B)``,
+    """``(dims, byte_strides)`` of a ``(B, N, H, D)`` view as the bf16
+    kernels' TMA maps describe it (and as the fp32 kernel's 16-byte loads
+    need it): dims innermost first ``(D, H, N, B)``,
     the byte strides of H, N and B (a dimension of size 1 takes the dense
     stride, its own being never used).  Raises ``ValueError`` on what a
     tensor map cannot describe: D not unit-stride, a base not 16-byte
@@ -138,30 +148,31 @@ def tma_geometry(t) -> tuple:
     return (d, h, n, b), tuple(strides)
 
 
-def _check_inputs(what: str, *tensors, head_dims=(64,)) -> list:
+def _check_inputs(what: str, *tensors, head_dims=(64,), dtypes=(torch.bfloat16,)) -> list:
     """Raise on what the kernels do not take; return each tensor's
     ``(B, N, H)`` element strides from ``tma_geometry``, flat."""
-    shape, device = tensors[0].shape, tensors[0].device
+    shape, device, dtype = tensors[0].shape, tensors[0].device, tensors[0].dtype
     if shape[3] not in head_dims:
         raise NotImplementedError(f"{what} kernel takes head_dim {head_dims}, got {shape[3]}")
     strides = []
     for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what} kernel takes bf16, got {[t.dtype for t in tensors]}")
+        if t.dtype not in dtypes or t.dtype != dtype:
+            raise TypeError(f"{what} kernel takes one of {dtypes}, got {[t.dtype for t in tensors]}")
         if t.shape != shape or t.device != device:
             raise ValueError(f"{what}: operands must share shape and device")
         sh, sn, sb = tma_geometry(t)[1]
-        strides += (sb // 2, sn // 2, sh // 2)
+        item = t.element_size()
+        strides += (sb // item, sn // item, sh // item)
     return strides
 
 
 def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = False):
     """Attention over ``(B, N, H, D)`` tensors, which may be strided views
-    of a fused qkv projection; D = 64 or 192, any head count.  CPU tensors
-    take the plain version; CUDA tensors launch Kernel A or raise.
-    ``with_lse`` (CUDA only) also returns the fp32 ``(B, H, N)``
-    log-sum-exp of the scaled scores in the exp2 domain, which
-    ``flash_attention_bwd`` takes.
+    of a fused qkv projection; D = 64 or 192, any head count, bf16 or fp32.
+    CPU tensors take the plain version; CUDA tensors launch Kernel A (its
+    fp32 kernel on fp32 operands) or raise.  ``with_lse`` (CUDA, bf16
+    only) also returns the fp32 ``(B, H, N)`` log-sum-exp of the scaled
+    scores in the exp2 domain, which ``flash_attention_bwd`` takes.
 
     ``fast`` launches the no-max variant (the JAX ``:fast`` suffix): no
     running max and no rescale.  Its result is the exact softmax's while
@@ -174,9 +185,21 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = 
         if with_lse:
             raise ValueError("the log-sum-exp comes from the CUDA kernel only")
         return flash_attention_plain(q, k, v, scale, fast=fast)
-    strides = _check_inputs("flash_attention", q, k, v, head_dims=HEAD_DIMS)
+    strides = _check_inputs("flash_attention", q, k, v, head_dims=HEAD_DIMS,
+                            dtypes=(torch.bfloat16, torch.float32))
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32:
+        if with_lse:
+            raise ValueError("the fp32 kernel writes no log-sum-exp: no JAX entry point "
+                             "trains in fp32")
+        err = _kernel("f32")(
+            cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
+            b, n, h, d, *strides, n * h * d, h * d, d, float(scale), int(fast),
+            cuda_build.stream_of(q))
+        cuda_build.check(err, "flash_attention (fp32)")
+        flash_attention.f32_launches += 1
+        return out
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     err = _kernel("fwd")(
         cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
@@ -194,6 +217,7 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = 
 
 flash_attention.launches = 0
 flash_attention.fast_launches = 0
+flash_attention.f32_launches = 0
 
 
 def _bwd_args(q, k, v, o, lse, g, scale: float):
@@ -253,12 +277,16 @@ class FlashAttentionFn(torch.autograd.Function):
     path does).  The fast forward's log-sum-exp is log2 of its row sum, so
     the backward kernel recomputes the same normalised P from it, as the
     TPU's fast backward does.  On the CPU both directions are the plain
-    versions."""
+    versions; in fp32 the forward is the fp32 kernel and the backward the
+    plain version (the backward kernel is bf16: no JAX entry point trains
+    in fp32)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, fast=False):
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, scale, fast=fast), None
+        elif q.dtype == torch.float32:
+            out, lse = flash_attention(q, k, v, scale, fast=fast), None
         else:
             out, lse = flash_attention(q, k, v, scale, with_lse=True, fast=fast)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -268,7 +296,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cuda" and bwd_gate(q.shape):
+        if lse is not None and bwd_gate(q.shape):
             dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, ctx.scale)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, g, ctx.scale)

@@ -1,4 +1,5 @@
-"""Kernel C: the fused whole motion module (``csrc/motion_module.cu``).
+"""Kernel C: the fused whole motion module (``csrc/motion_module.cu``, and on
+fp32 operands ``csrc/motion_module_f32.cu``).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_motion.py`` ``_motion_kernel``
 (``fused_motion_module``).  ``motion_module_plain`` is the port of
@@ -23,7 +24,14 @@ plain version on CPU tensors), and a backward that recomputes through
 for x and every raw parameter.  ``fused_motion_module`` and
 ``motion_module_launch`` are raw and keep no autograd history.
 
-Bound on the H100: tensor-core FLOPs (~44·C² per token); see the source.
+fp32 inputs take the fp32 kernel (the JAX kernel on fp32 inputs: its gate
+and plan look at shapes alone, its body computes in x's dtype with the erf
+GELU), FFMA in fp32, on its own weight layout (``weight_matrices_f32``,
+``kernel_weights(p, cfg, torch.float32)``); ``fused_motion_module.launches``
+counts the bf16 kernel's launches, ``f32_launches`` the fp32 kernel's.
+
+Bound on the H100: tensor-core FLOPs (~44·C² per token); the fp32
+kernel's, the same FLOPs at the CUDA cores' fp32 rate; see the sources.
 """
 
 from __future__ import annotations
@@ -217,12 +225,40 @@ def weight_blocks(p: Dict) -> torch.Tensor:
     return torch.cat([sw128_tiles(g).reshape(-1) for g in gemms])
 
 
+def weight_matrices_f32(p: Dict) -> torch.Tensor:
+    """The fp32 kernel's weights as one fp32 sequence of 22 C² values, each
+    product's matrix row-major (K rows × N columns, ``y = x @ w``), in the
+    order the CTA uses them (``csrc/motion_module_f32.cu``): proj_in; per
+    attention block the q, k and v columns interleaved by chunk of whole
+    heads (``chunk_channels`` columns of q, then of k, then of v, chunk
+    after chunk), then w_o; w1 interleaved by 64-column hidden chunk (the
+    chunk's h columns, then its gate columns); w2; proj_out."""
+    c = p["w_in"].shape[0]
+    ch = chunk_channels(c)
+    f32 = lambda w: w.to(torch.float32)  # noqa: E731
+    mats = [f32(p["w_in"])]
+    for i in range(p["wq"].shape[0]):
+        qkv = torch.stack([f32(p[n][i]).reshape(c, c // ch, ch) for n in ("wq", "wk", "wv")], 2)
+        mats += [qkv.reshape(c, 3 * c), f32(p["wo"][i])]
+    w1 = f32(p["w1"]).reshape(c, 2, 4 * c // 64, 64)
+    mats += [w1.permute(0, 2, 1, 3).reshape(c, 8 * c), f32(p["w2"]), f32(p["w_out"])]
+    return torch.cat([m.reshape(-1) for m in mats]).contiguous()
+
+
+def chunk_channels(c: int, heads: int = 8) -> int:
+    """Channels of one q/k/v chunk of the fp32 kernel: whole heads, at most
+    64."""
+    d = c // heads
+    return d * (64 // d)
+
+
 _fns = {}
 
 
 def _kernel(name: str = "motion_module"):
-    """``vda_<name>`` of ``csrc/<name>.cu``: the launch (``motion_module``)
-    or the split (``motion_module_split``)."""
+    """``vda_<name>`` of ``csrc/<name>.cu``: the launch (``motion_module``),
+    the split (``motion_module_split``) or the fp32 launch
+    (``motion_module_f32``)."""
     if name not in _fns:
         fn = getattr(cuda_build.library(name), f"vda_{name}")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -242,20 +278,28 @@ _SUPPORTED_C = (64, 128, 192, 256, 384)
 _OPERANDS = ("pe", "w", "b_in", "ln_scale", "ln_bias", "bo", "b1", "b2", "b_out")
 
 
-def kernel_weights(p: Dict, cfg: MotionModuleConfig) -> Dict[str, torch.Tensor]:
-    """Kernel C's operands that depend only on the parameters: the bf16
-    weight tiles in the order the kernel streams them (``weight_blocks``,
-    under ``"w"``), fp32 biases and norm parameters, the bf16 APE table
-    (``temporal_max_len`` rows), on the parameters' device.  A caller that
-    runs the module more than once builds this once (``TemporalModule``
-    caches it)."""
+def kernel_weights(p: Dict, cfg: MotionModuleConfig,
+                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Kernel C's operands that depend only on the parameters, for inputs of
+    ``dtype``: in bf16 the weight tiles in the order the kernel streams
+    them (``weight_blocks``) and the bf16 APE table, in fp32 the fp32
+    kernel's matrices (``weight_matrices_f32``) and the fp32 table (both
+    under ``"w"`` and ``"pe"``, ``temporal_max_len`` rows); fp32 biases and
+    norm parameters; on the parameters' device.  A caller that runs the
+    module more than once builds this once (``TemporalModule`` caches it
+    by dtype)."""
     c = p["w_in"].shape[0]
     f32 = lambda v: v.to(torch.float32).contiguous()  # noqa: E731
     w = {k: f32(p[k]) for k in ("gn_scale", "gn_bias", "b_in", "ln_scale", "ln_bias", "bo",
                                 "b1", "b2", "b_out")}
-    w["w"] = weight_blocks(p)
+    if dtype == torch.float32:
+        w["w"] = weight_matrices_f32(p)
+    elif dtype == torch.bfloat16:
+        w["w"] = weight_blocks(p)
+    else:
+        raise TypeError(f"motion_module kernels take bf16 or fp32, got {dtype}")
     w["pe"] = torch.from_numpy(sinusoidal_position_table(cfg.temporal_max_len, c)).to(
-        p["w_in"].device, torch.bfloat16)
+        p["w_in"].device, dtype)
     return w
 
 
@@ -263,20 +307,23 @@ def fused_motion_module(x: torch.Tensor, p: Optional[Dict], cfg: MotionModuleCon
                         heads: int, weights: Optional[Dict[str, torch.Tensor]] = None):
     """``(B, T, S, C)`` → whole motion module output.  CPU tensors take the
     plain version of the raw parameters ``p``; CUDA tensors launch Kernel C
-    or raise.  ``weights`` is ``kernel_weights(p, cfg)``, built here from
-    ``p`` when not given."""
+    (its fp32 kernel on fp32 x) or raise.  ``weights`` is
+    ``kernel_weights(p, cfg, x.dtype)``, built here from ``p`` when not
+    given."""
     cuda_build.no_history("fused_motion_module", x, *(p or {}).values())
     if x.device.type == "cpu":
         return motion_module_plain(x, p, cfg, heads)
-    w = kernel_weights(p, cfg) if weights is None else weights
+    w = kernel_weights(p, cfg, x.dtype) if weights is None else weights
     gna, gnb = gn_fold(x, w, cfg)
     return motion_module_launch(x, gna, gnb, w, cfg, heads)
 
 
 def _launch_args(x, gna, gnb, w, cfg, heads):
     b, t, s, c = x.shape
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"motion_module kernel takes bf16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"motion_module kernel takes bf16 or fp32, got {x.dtype}")
+    if w["w"].dtype != x.dtype or w["pe"].dtype != x.dtype:
+        raise ValueError(f"motion_module weights are not kernel_weights for {x.dtype}")
     if heads != 8 or c not in _SUPPORTED_C or t not in (8, 16, 32) or t > w["pe"].shape[0]:
         raise NotImplementedError(
             f"motion_module kernel takes 8 heads, C in {_SUPPORTED_C}, T in 8/16/32 within "
@@ -300,10 +347,15 @@ def _launch_args(x, gna, gnb, w, cfg, heads):
 def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
                          w: Dict[str, torch.Tensor], cfg: MotionModuleConfig, heads: int):
     """Kernel C's launch alone, given the folded GroupNorm (``gn_fold``) and
-    ``kernel_weights``; counts on ``fused_motion_module.launches``."""
+    ``kernel_weights`` for x's dtype; counts on
+    ``fused_motion_module.launches`` (bf16) or ``f32_launches`` (fp32)."""
     out, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)  # _x: alive until enqueued
-    cuda_build.check(_kernel()(*args), "motion_module")
-    fused_motion_module.launches += 1
+    if x.dtype == torch.float32:
+        cuda_build.check(_kernel("motion_module_f32")(*args), "motion_module (fp32)")
+        fused_motion_module.f32_launches += 1
+    else:
+        cuda_build.check(_kernel()(*args), "motion_module")
+        fused_motion_module.launches += 1
     return out
 
 
@@ -317,7 +369,9 @@ def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
     events around ``iters`` launches of instantiations that stop after each
     stage of ``SPLIT_STAGES`` (each writes its current activation rows
     out), the mean ms of each stage as the difference of successive stops,
-    plus ``whole``.  C in ``SPLIT_C``; not counted as launches."""
+    plus ``whole``.  C in ``SPLIT_C``, bf16; not counted as launches."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError("the split instantiations are the bf16 kernel's")
     _, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)
     ms = (ctypes.c_float * 8)()
     cuda_build.check(_kernel("motion_module_split")(*args, iters, ms), "motion_module_split")
@@ -327,6 +381,7 @@ def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
 
 
 fused_motion_module.launches = 0
+fused_motion_module.f32_launches = 0
 
 
 class FusedMotionModuleFn(torch.autograd.Function):

@@ -110,10 +110,12 @@ def _vmem_estimate(n: int, h: int, w: int, c: int, out_h: int, out_w: int) -> in
 
 def output_tail_gate(cfg, shape, dtype, out_h: int, out_w: int) -> bool:
     """True where the JAX package runs the fused Pallas tail on
-    ``output_conv1``'s map of ``shape (N, H, W, C)``.  The weight shapes
+    ``output_conv1``'s map of ``shape (N, H, W, C)``: never in fp32 nor
+    under ``cfg.fp32_head_island`` (JAX ``models/dpt.py:202``).  The weight shapes
     the JAX gate also checks, ``(3, 3, C, 32)`` and 32, hold by
     construction when C is the head's ``features // 2``."""
-    if dtype != torch.bfloat16 or len(shape) != 4 or _packed_plan(cfg.features) is not None:
+    if (dtype != torch.bfloat16 or cfg.fp32_head_island or len(shape) != 4
+            or _packed_plan(cfg.features) is not None):
         return False
     n, h, w, c = shape
     if c not in (32, 64, 128) or c != cfg.features // 2 or h < 2 or w < 2:
@@ -121,16 +123,22 @@ def output_tail_gate(cfg, shape, dtype, out_h: int, out_w: int) -> bool:
     return _vmem_estimate(n, h, w, c, out_h, out_w) <= _VMEM_BUDGET
 
 
-def output_tail_plain(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
+def output_tail_plain(x, w1, b1, w2, b2, out_h: int, out_w: int,
+                      fp32_island: bool = False) -> torch.Tensor:
     """``(N, H, W, C)`` → ``(N, out_h, out_w, 1)``: ``F.interpolate``
     (align_corners, fp32 arithmetic, one rounding to x's dtype), then
-    ``F.conv2d`` twice with ReLUs, in x's dtype; in chunks of frames whose
-    resized map stays within ``resize._MAX_ELEMENTS``."""
+    ``F.conv2d`` twice with ReLUs, in x's dtype (in fp32 from the resized
+    map on with ``fp32_island``, as JAX ``models/dpt.py:243-246``); in
+    chunks of frames whose resized map stays within
+    ``resize._MAX_ELEMENTS``."""
     n = max(1, resize._MAX_ELEMENTS // (out_h * out_w * x.shape[-1]))
     if x.shape[0] > n:
-        return torch.cat([output_tail_plain(c, w1, b1, w2, b2, out_h, out_w) for c in x.split(n)])
-    dt = x.dtype
+        return torch.cat([output_tail_plain(c, w1, b1, w2, b2, out_h, out_w, fp32_island)
+                          for c in x.split(n)])
     y = bilinear_resize(x, out_h, out_w).permute(0, 3, 1, 2)
+    if fp32_island:
+        y = y.float()
+    dt = y.dtype
     y = torch.relu(F.conv2d(y, w1.to(dt), b1.to(dt), padding=1))
     y = torch.relu(F.conv2d(y, w2.to(dt), b2.to(dt)))
     return y.permute(0, 2, 3, 1)

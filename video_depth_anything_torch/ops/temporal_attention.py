@@ -1,4 +1,5 @@
-"""Kernel B: temporal attention core (``csrc/temporal_attention.cu``).
+"""Kernel B: temporal attention core (``csrc/temporal_attention.cu``, and on
+fp32 operands ``csrc/temporal_attention_f32.cu``).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_temporal.py``
 ``_temporal_kernel`` (``temporal_attention_window``) at every head width
@@ -20,7 +21,12 @@ port of the JAX custom VJP ``_attention_bwd_math``
 (``pallas_temporal.py:117-145``), backward.  ``temporal_attention`` is the
 raw launch and keeps no autograd history.  ``tile_plan`` is the kernel's
 tile geometry (locations and heads per tile), which
-``tests/test_torch_temporal_tiling.py`` emulates on the CPU.
+``tests/test_torch_temporal_tiling.py`` emulates on the CPU; the fp32
+kernel's tiles are the same plan reckoned at 4-byte elements.
+``temporal_attention.launches`` counts the bf16 kernel's launches (and
+``width_launches`` them by head width), ``f32_launches`` the fp32
+kernel's: the JAX kernel on fp32 inputs (its gate checks no dtype; the
+probabilities stay fp32), FFMA in fp32, the same widths.
 
 Bound on the H100: memory bytes (q, k, v read once, out written once).
 """
@@ -91,44 +97,49 @@ def temporal_attention_bwd_plain(q, k, v, g, heads: int, scale: float):
     return tuple(x.reshape(b, t, s, c) for x in (dq, dk, dv))
 
 
-_fn = None
+_fns = {}
 # The instantiations of csrc/temporal_attention.cu: every head width the
 # JAX gate admits on the shipped encoders (vits 8/24/48, vitb 16/48, vitl
 # 32/128).
 _SUPPORTED_D = (8, 16, 24, 32, 48, 128)
-_TILE_CHANNELS = 256  # channels x locations a tile aims at: 512-byte frame runs
+_TILE_BYTES = 512  # bytes of a frame's run that a tile aims at
 
 
-def tile_plan(c: int, heads: int) -> tuple:
+def tile_plan(c: int, heads: int, itemsize: int = 2) -> tuple:
     """``(locs, group)``: the adjacent locations and whole heads of one
-    kernel tile.  A tile takes every head while C ≤ 256 (then 256 / C
-    locations: one 512-byte run a frame at C = 64, 128 and 256), else the
-    largest head group of ≤ 256 channels (C = 384: 4 heads of 48; C =
-    1024: 2 of 128) at one location."""
+    kernel tile, for elements of ``itemsize`` bytes.  In bf16 a tile takes
+    every head while C ≤ 256 (then 256 / C locations: one 512-byte run a
+    frame at C = 64, 128 and 256), else the largest head group of ≤ 256
+    channels (C = 384: 4 heads of 48; C = 1024: 2 of 128) at one location;
+    in fp32 the same rule at 128 channels."""
+    channels = _TILE_BYTES // itemsize
     d = c // heads
     group = max(g for g in range(1, heads + 1)
-                if heads % g == 0 and (g == 1 or g * d <= _TILE_CHANNELS))
-    locs = max(1, _TILE_CHANNELS // c) if group == heads else 1
+                if heads % g == 0 and (g == 1 or g * d <= channels))
+    locs = max(1, channels // c) if group == heads else 1
     return locs, group
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.library("temporal_attention").vda_temporal_attention
+def _kernel(name: str = "temporal_attention"):
+    """``vda_<name>`` of ``csrc/<name>.cu``: the bf16 kernel or
+    ``temporal_attention_f32``."""
+    if name not in _fns:
+        fn = getattr(cuda_build.library(name), f"vda_{name}")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, i, i]
+        fn.argtypes += [vp] if name.endswith("f32") else [i, vp]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 def _checked(q, k, v, heads: int):
     """q, k and v as the kernel takes them, or raise."""
     t, c = q.shape[1], q.shape[-1]
     d = c // heads
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"temporal_attention kernel takes bf16, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"temporal_attention kernel takes bf16 or fp32, got "
+                        f"{(q.dtype, k.dtype, v.dtype)}")
     if c % heads or d not in _SUPPORTED_D or not 1 <= t <= 32 or c > 1024:
         raise NotImplementedError(
             f"temporal_attention kernel takes 1 <= T <= 32, heads of {_SUPPORTED_D} and "
@@ -144,24 +155,31 @@ def _checked(q, k, v, heads: int):
 
 def _launch(q, k, v, heads: int, scale: float, stop: bool = False):
     b, t, s, c = q.shape
-    locs, group = tile_plan(c, heads)
+    locs, group = tile_plan(c, heads, q.element_size())
     out = torch.empty_like(q)
-    err = _kernel()(
-        cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
-        b, t, s, c, heads, float(scale), locs, group, int(stop),
-        cuda_build.stream_of(q),
-    )
+    args = (cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
+            b, t, s, c, heads, float(scale), locs, group)
+    if q.dtype == torch.float32:
+        if stop:
+            raise ValueError("the split (copies only) is the bf16 kernel's")
+        err = _kernel("temporal_attention_f32")(*args, cuda_build.stream_of(q))
+    else:
+        err = _kernel()(*args, int(stop), cuda_build.stream_of(q))
     cuda_build.check(err, "temporal_attention")
     return out
 
 
 def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
-    """``(B, T, S, C)`` → ``(B, T, S, C)``.  CPU tensors take the plain
-    version; CUDA tensors launch Kernel B or raise."""
+    """``(B, T, S, C)`` → ``(B, T, S, C)``, bf16 or fp32.  CPU tensors take
+    the plain version; CUDA tensors launch Kernel B (its fp32 kernel on
+    fp32 operands) or raise."""
     cuda_build.no_history("temporal_attention", q, k, v)
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, heads, scale)
     out = _launch(*_checked(q, k, v, heads), heads, scale)
+    if q.dtype == torch.float32:
+        temporal_attention.f32_launches += 1
+        return out
     temporal_attention.launches += 1
     d = q.shape[-1] // heads
     temporal_attention.width_launches[d] = temporal_attention.width_launches.get(d, 0) + 1
@@ -176,7 +194,8 @@ def temporal_attention_split(q, k, v, heads: int, scale: float) -> torch.Tensor:
 
 
 temporal_attention.launches = 0
-temporal_attention.width_launches = {}  # launches by head width d
+temporal_attention.width_launches = {}  # the bf16 kernel's launches by head width d
+temporal_attention.f32_launches = 0
 
 
 class TemporalAttentionFn(torch.autograd.Function):

@@ -59,28 +59,38 @@ def steady_step(model, height: int, width: int, chunk: int, seed: int = 0):
     return step, k
 
 
-def steady_kv_step(model, height: int, width: int, chunk: int, seed: int = 0):
+def steady_kv_step(model, height: int, width: int, chunk: int, seed: int = 0,
+                   aligned: bool = False):
     """``(step, k)`` for the KV-cache mode: a closure that runs one steady
     KV step of ``k = chunk`` frames on the caches the previous call left
-    (seeded by the warm-up window of L = 32 noise frames), and ``k``."""
+    (seeded by the warm-up window of L = 32 noise frames), and ``k``.
+    ``aligned`` is the ``align_each_new_frame`` step (JAX ``bench.py``
+    ``bench_kv_streaming(aligned=True)``): the first warm-up frame pinned as
+    the anchor, predicted again at every step, and (s, t) fitted to its
+    warm-up depth on the device."""
     import torch
 
     from video_depth_anything_torch.inference.kv_streaming import KVStreamingPipeline
 
-    pipe = KVStreamingPipeline(model, inference_length=32, stream_chunk=chunk)
+    pipe = KVStreamingPipeline(model, inference_length=32, stream_chunk=chunk,
+                               align_each_new_frame=aligned)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     k = pipe.chunk
     out_hw = (height, width)
     warm, xs = (torch.randn(n, height, width, 3, device=model.device, generator=gen).to(model.dtype)
                 for n in (pipe.L, k))
     with torch.inference_mode():
-        _, caches = pipe.start(warm[None], False, out_hw)
+        depth0, caches = pipe.start(warm[None], False, out_hw)
+        anchor = model.module.encode_level_features(warm[:1]) if aligned else None
     state = [caches]
 
     def step():
         with torch.inference_mode():
             if k > 1:
-                depth, state[0] = pipe.chunk_step(xs, state[0], False, out_hw)
+                depth, state[0] = pipe.chunk_step(xs, state[0], False, out_hw, anchor,
+                                                  depth0[0] if aligned else None)
+            elif aligned:
+                depth, state[0] = pipe.aligned_step(xs, state[0], anchor, depth0[0], False, out_hw)
             else:
                 depth, state[0] = pipe.step(xs, state[0], False, out_hw)
         return depth

@@ -22,6 +22,35 @@ import subprocess
 import time
 
 
+def train_setup(encoder: str, size: int, frames: int, train_encoder: bool = True, device=None):
+    """``(trainer, batch)``: a bf16 ``Trainer`` over ``encoder`` at full
+    width and depth (seeded weights with seeded noise; the encoder trained
+    unless ``train_encoder`` is False) and one clip of ``frames`` square
+    ``size`` frames made on ``device`` (None: the card): noise frames, a
+    ramp of disparity, a full mask."""
+    import torch
+
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.train.trainer import Trainer, make_optimizer
+
+    model = VDAModel(encoder, device=device)
+    model.init_params(seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.module.parameters():
+            p.add_(torch.randn(p.shape, generator=gen).to(p.device) * 0.02)
+    trainer = Trainer(model.module, make_optimizer(1e-5, train_encoder=train_encoder),
+                      train_encoder=train_encoder)
+    dev, t, s = model.device, frames, size
+    g = torch.Generator(device=dev).manual_seed(2)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, s, device=dev),
+                            torch.linspace(0, 1, s, device=dev), indexing="ij")
+    batch = {"frames": torch.randn(1, t, s, s, 3, device=dev, generator=g),
+             "disparity": (0.3 + 0.5 * xx + 0.2 * yy).expand(1, t, s, s).contiguous(),
+             "mask": torch.ones(1, t, s, s, device=dev)}
+    return trainer, batch
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--encoder", default="vits", choices=["vits", "vitl"])
@@ -35,30 +64,15 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from video_depth_anything_torch.models.vda import VDAModel
     from video_depth_anything_torch.ops.dispatch import plain_reference
     from video_depth_anything_torch.ops.motion_module import motion_gate
     from video_depth_anything_torch.profile_window import report
-    from video_depth_anything_torch.train.trainer import Trainer, make_optimizer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     train_encoder = not args.frozen_encoder
-    model = VDAModel(args.encoder)
-    model.init_params(seed=0)
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for p in model.module.parameters():
-            p.add_(torch.randn(p.shape, generator=gen).to(p.device) * 0.02)
-    trainer = Trainer(model.module, make_optimizer(1e-5, train_encoder=train_encoder),
-                      train_encoder=train_encoder)
+    trainer, batch = train_setup(args.encoder, args.size, args.frames, train_encoder)
     t, s = args.frames, args.size
-    g = torch.Generator(device="cuda").manual_seed(2)
-    yy, xx = torch.meshgrid(torch.linspace(0, 1, s, device="cuda"),
-                            torch.linspace(0, 1, s, device="cuda"), indexing="ij")
-    batch = {"frames": torch.randn(1, t, s, s, 3, device="cuda", generator=g),
-             "disparity": (0.3 + 0.5 * xx + 0.2 * yy).expand(1, t, s, s).contiguous(),
-             "mask": torch.ones(1, t, s, s, device="cuda")}
 
     def steps_per_s(n: int) -> float:
         trainer.step(batch)
@@ -105,7 +119,7 @@ def main(argv=None) -> int:
 
     ph = s // 14
     sides = (ph, (ph + 1) // 2, ph, 2 * ph)  # the maps of motion modules 0-3
-    for i, (mod, side) in enumerate(zip(model.module.head.motion_modules, sides)):
+    for i, (mod, side) in enumerate(zip(trainer.module.head.motion_modules, sides)):
         hw = (side, side)
         if not motion_gate(mod.cfg, mod.channels, mod.inner, t, *hw):
             continue

@@ -1,7 +1,7 @@
 """Where a window's time goes on the card.
 
     python -m video_depth_anything_torch.profile_window [--encoder vitb|vitl] \\
-        [--height 518 --width 518] [--attn_impl pallas]
+        [--height 518 --width 518] [--attn_impl pallas] [--fp32] [--plain]
 
 Runs ``VDAModel.infer_window`` for ``--encoder`` (vits by default; noised
 seeded weights, full width and depth) on ``window_batch`` windows of 32
@@ -11,8 +11,10 @@ share (sum of kernel times over the wall time of the profiled calls), the
 top kernels by device time, and the device time grouped by the port's
 kernels versus everything else.  ``--attn_impl`` is the model's
 (``auto`` by default; ``pallas`` sends every motion-module attention in
-Kernel B's domain to it).  ``--trace PATH`` also writes a chrome trace
-there.
+Kernel B's domain to it).  ``--fp32`` runs the model in fp32 (the fp32
+kernels; TF32 off in matrix products and convolutions), ``--plain`` the
+plain path (``ops.dispatch.plain_reference``) that the kernels are held
+against.  ``--trace PATH`` also writes a chrome trace there.
 """
 
 from __future__ import annotations
@@ -23,16 +25,17 @@ import time
 from collections import defaultdict
 
 
-PORT_KERNELS = ("flash_fwd", "flash_bwd", "temporal_hopper", "motion_hopper",
-                "output_tail_hopper")
+PORT_KERNELS = ("flash_fwd_f32", "temporal_f32", "motion_f32", "flash_fwd", "flash_bwd",
+                "temporal_hopper", "motion_hopper", "output_tail_hopper")
 
 
 def category(name: str) -> str:
     """The port's kernels by name (Kernel A's forward is ``flash_fwd_hopper``
     at D = 64 and ``flash_fwd_kernel`` at D = 192, its fast instantiations
     apart; Kernel B is ``temporal_hopper``, Kernel C ``mm::motion_hopper``, the tail
-    ``output_tail_hopper``); the plain PyTorch rest by kind."""
-    if "flash_fwd" in name and ("true" in name or "(bool)1" in name):
+    ``output_tail_hopper``; the fp32 kernels ``flash_fwd_f32``, ``temporal_f32``
+    and ``motion_f32``); the plain PyTorch rest by kind."""
+    if "flash_fwd" in name and "_f32" not in name and ("true" in name or "(bool)1" in name):
         return "flash_fwd (fast)"
     for k in PORT_KERNELS:
         if k in name:
@@ -88,16 +91,24 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", type=str, default=None, help="chrome trace output path")
+    ap.add_argument("--fp32", action="store_true", help="the model in fp32 (TF32 off)")
+    ap.add_argument("--plain", action="store_true", help="the plain path, no kernels")
     args = ap.parse_args(argv)
+
+    import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.dispatch import plain_reference
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    model = VDAModel(args.encoder, attn_impl=args.attn_impl)
+    if args.fp32:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    model = VDAModel(args.encoder, attn_impl=args.attn_impl,
+                     dtype=torch.float32 if args.fp32 else torch.bfloat16)
     if args.window_batch is None:
         args.window_batch = 4 if model.cfg.features <= 128 else 1
     model.init_params(seed=0)
@@ -106,17 +117,19 @@ def main(argv=None) -> int:
         for p in model.module.parameters():
             p.add_(torch.randn(p.shape, generator=gen).to(p.device) * 0.02)
     x = torch.randn(args.window_batch, 32, args.height, args.width, 3, device="cuda")
-    model.infer_window(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            model.infer_window(x)
+    with plain_reference() if args.plain else contextlib.nullcontext():
+        model.infer_window(x)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / args.iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                model.infer_window(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / args.iters
     frames = args.window_batch * 32
+    label = " ".join([args.attn_impl] + ["fp32"] * args.fp32 + ["plain path"] * args.plain)
     print(f"{smi}")
-    print(f"{args.encoder} {args.attn_impl} {args.window_batch}x32x{args.height}x{args.width}: "
+    print(f"{args.encoder} {label} {args.window_batch}x32x{args.height}x{args.width}: "
           f"{wall * 1e3:.2f} ms per call, {frames / wall:.1f} frames/s")
     report(prof, args.iters, wall, args.top)
     if args.trace:

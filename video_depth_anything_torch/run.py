@@ -10,8 +10,10 @@ KV-cache streaming mode.
 
 Writes ``<name>_depth.mp4`` (and ``<name>_depth.npz`` with ``--save_npz``)
 and prints the frames/s and how often each CUDA kernel was launched, the
-exact and the fast variant of Kernel A apart.  Runs on the card;
-``--device cpu`` runs the plain PyTorch path.  The flags are the JAX
+exact and the fast variant of Kernel A apart, the fp32 kernels (``--fp32``)
+under names of their own.  Runs on the card; ``--device cpu`` runs the
+plain PyTorch path.  ``--fp32_island`` (bf16 only, as the JAX
+``run.py:205-211``) runs output_conv2 in fp32.  The flags are the JAX
 ``run.py``'s for these modes; ``--original`` overrides the streaming flags
 (``normalize_args``).  ``--kv_cache`` takes ``--inference_length``,
 ``--align_each_new_frame``, ``--stream_chunk``, ``--host_upsample`` and
@@ -22,6 +24,7 @@ exact and the fast variant of Kernel A apart.  Runs on the card;
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -42,7 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_res", type=int, default=1280)
     p.add_argument("--max_len", type=int, default=-1)
     p.add_argument("--target_fps", type=int, default=-1)
-    p.add_argument("--fp32", action="store_true", help="fp32 end to end (CPU only for now)")
+    p.add_argument("--fp32", action="store_true", help="fp32 end-to-end (default bf16 + fp32 islands)")
+    p.add_argument("--fp32_island", action="store_true",
+                   help="force the reference's fp32 output_conv2 island in bf16 mode (the output "
+                        "tail kernel is then refused, as in JAX)")
     p.add_argument("--skip_tmp_block", action="store_true", help="skip the third motion module")
     p.add_argument("--original", action="store_true",
                    help="reference-default sliding-window mode (overrides the streaming flags)")
@@ -91,6 +97,8 @@ def kernel_launches() -> dict:
                                                 temporal_attention, fused_motion_module,
                                                 output_tail)}
     counts["flash_attention_fast"] = flash_attention.fast_launches
+    for f in (flash_attention, temporal_attention, fused_motion_module):
+        counts[f"{f.__name__}_f32"] = f.f32_launches
     return counts
 
 
@@ -107,6 +115,7 @@ def main(argv=None) -> int:
     args = normalize_args(build_parser().parse_args(argv))
     import torch
 
+    from video_depth_anything_torch.config import get_model_config
     from video_depth_anything_torch.inference.kv_streaming import KVStreamingPipeline
     from video_depth_anything_torch.inference.pipeline import VideoDepthPipeline
     from video_depth_anything_torch.inference.streaming import StreamingDepthPipeline
@@ -114,9 +123,12 @@ def main(argv=None) -> int:
     from video_depth_anything_torch.models.vda import VDAModel
 
     os.makedirs(args.output_dir, exist_ok=True)
+    cfg = None
+    if args.fp32_island and not args.fp32:
+        cfg = dataclasses.replace(get_model_config(args.encoder), fp32_head_island=True)
     model = VDAModel(args.encoder, device=args.device,
                      dtype=torch.float32 if args.fp32 else torch.bfloat16,
-                     attn_impl=args.attn_impl)
+                     cfg=cfg, attn_impl=args.attn_impl)
     if args.random_init:
         model.init_params(seed=0)
     else:

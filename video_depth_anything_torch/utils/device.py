@@ -4,8 +4,8 @@ The port runs on the card unless the caller asks for the CPU, and never
 drops to the CPU on its own.  ``transfer_cast`` and ``start_host_transfer``
 serve the streaming pipeline's one-step-lag emit: a depth map's copy to the
 host starts as soon as it is enqueued and overlaps the next step.
-``card_line``, ``event_ms`` and ``graph_ms`` serve the bench modules and
-``chip_smoke.py``.
+``card_line``, ``event_ms``, ``graph_ms`` and ``mem`` serve the bench
+modules and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -107,3 +107,19 @@ def graph_ms(calls, reps: int = 20) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / reps
+
+
+def mem(device=None) -> dict:
+    """Device memory of the bench row being finished, in MB (the counterpart
+    of the JAX ``bench.py`` ``_mem``): ``in_use_mb`` from
+    ``torch.cuda.memory_allocated`` and ``peak_mb`` from
+    ``torch.cuda.max_memory_allocated``.  The row calls
+    ``torch.cuda.reset_peak_memory_stats()`` when it starts, so ``peak_mb``
+    is the row's own high-water mark, where JAX's is the process's so far.
+    Both count the tensors PyTorch's allocator holds, not its cache.  A
+    row on the CPU has no device memory: ``{}``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return {}
+    return {"in_use_mb": round(torch.cuda.memory_allocated(dev) / 2**20, 1),
+            "peak_mb": round(torch.cuda.max_memory_allocated(dev) / 2**20, 1)}

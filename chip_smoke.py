@@ -1080,6 +1080,7 @@ def zero_counts() -> None:
     for f in (flash_attention, temporal_attention, fused_motion_module):
         f.f32_launches = 0
     temporal_attention.width_launches = {}
+    temporal_attention.f32_width_launches = {}
 
 
 def phase_probes(dev, smi: str) -> dict:
@@ -1778,6 +1779,7 @@ def phase_stream(dev, smi: str) -> dict:
 # -- phase fp32: the fp32 kernels and --fp32 / --fp32_island ------------------
 
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
 F32_TOL = 1e-4  # an fp32 kernel against its plain fp32 version (TF32 off),
 # relative to max|plain| (Kernel C: max|plain - x|): both sum fp32 products
 # in another order (about 1e-6 apart); one TF32 pass (10 mantissa bits)
@@ -1793,6 +1795,9 @@ F32_WINDOW_PLANS = {
     "vitl": dict(flash_attention_f32=24, temporal_attention_f32=0, fused_motion_module_f32=1),
 }
 F32_KERNELS = ("flash_attention_f32", "temporal_attention_f32", "fused_motion_module_f32")
+# and under --attn_impl pallas (the gates of PALLAS_WINDOW_PLANS): Kernel B's
+# fp32 launches of one window by head width
+F32_PALLAS_WIDTHS = {"vits": {24: 2, 48: 2, 8: 2}, "vitl": {128: 4, 32: 2}}
 
 
 def bound_f32(flops: float, nbytes: float):
@@ -1823,6 +1828,35 @@ def tf32_plain(plain, *inputs):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def tf32_split_plain(q, k, v, scale, fast: bool, mutant: str):
+    """Kernel A's fp32 attention with its products split as a wrong 3xTF32
+    kernel would split them, in plain torch on ``(B, N, H, D)`` (run with
+    TF32 off: products of TF32-valued operands are then exact fp32 FMAs):
+    ``two_pass`` drops the lo·hi term of both products; ``truncating_split``
+    feeds each raw operand as its hi (the tensor cores read it truncated)
+    beside the lo of a rounded hi; any other value gives the kernel's three
+    passes."""
+    import torch
+
+    def split(x):
+        hi = tf32_round(x)
+        lo = tf32_round(x - hi)
+        if mutant == "truncating_split":
+            hi = (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32).view(x.shape)
+        return hi, lo
+
+    def product(a, b):
+        (ahi, alo), (bhi, blo) = split(a), split(b)
+        if mutant == "two_pass":
+            return ahi @ blo + ahi @ bhi
+        return alo @ bhi + ahi @ blo + ahi @ bhi
+
+    qs, kt, vt = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    s = product(qs * (scale * 1.4426950408889634), kt.transpose(-1, -2))
+    p = torch.exp2(s if fast else s - s.amax(-1, keepdim=True))
+    return (product(p, vt) / p.sum(-1, keepdim=True)).permute(0, 2, 1, 3)
+
+
 def f32_inputs(shape, gen, device):
     """fp32 ``(..., 3 * C)`` as ``attention_inputs`` draws them, left in fp32
     (bf16-valued inputs would pass through TF32 exactly)."""
@@ -1836,8 +1870,11 @@ def f32_inputs(shape, gen, device):
 def fp32_kernel_rows(dev) -> list:
     """Each fp32 kernel against its plain fp32 version at phase kernels'
     shapes, with the mutants of phase kernels at fp32 and the plain version
-    in one TF32 pass as one more; beside each row the bf16 kernel's error
-    on the same inputs."""
+    in one TF32 pass as one more (Kernel A also two passes and a truncating
+    split, ``tf32_split_plain``); beside each row the bf16 kernel's error
+    on the same inputs.  Kernel A's ``bound_ms`` is its 3xTF32 products at
+    the tensor cores' TF32 rate, printed beside the same products' FFMA
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1862,11 +1899,14 @@ def fp32_kernel_rows(dev) -> list:
         plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
         got = fa.flash_attention(q, k, v, scale, fast=fast)
         want = plain(q, k, v, scale)
-        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=32)  # the fp32 key tile
+        key_tile = 64 if d == 64 else 32  # the fp32 kernel's
+        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=key_tile)
         qf = flat_inputs(q)
         flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
-        mutants["unmasked_zero_pad"] = zero_pad_error(plain, qf, k, v, scale, 32)
+        mutants["unmasked_zero_pad"] = zero_pad_error(plain, qf, k, v, scale, key_tile)
         mutants["tf32_plain"] = rel_err(tf32_plain(lambda *t: plain(*t, scale), q, k, v), want)
+        for wrong in ("two_pass", "truncating_split"):
+            mutants[wrong] = rel_err(tf32_split_plain(q, k, v, scale, fast, wrong), want)
         bf16_err = rel_err(fa.flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)), scale,
                                               fast=fast), want)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast), iters=5, warmup=1)
@@ -1874,13 +1914,17 @@ def fp32_kernel_rows(dev) -> list:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=5,
                          warmup=1)
-        b_ms, b_by = bound_f32(4.0 * bt * h * n * n * d, 4.0 * bt * n * h * d * 4)
+        flops = 4.0 * bt * h * n * n * d
+        ffma_ms, _ = bound_f32(flops, 4.0 * bt * n * h * d * 4)
+        b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
         rows.append(dict(kernel="flash_attention_f32", shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
                          max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
                          tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms,
+                         bound_by="operations", library_ms=lib_ms,
                          extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e}) "
-                               f"bf16_kernel_rel_err={bf16_err:.3e}"))
+                               f"bf16_kernel_rel_err={bf16_err:.3e} bound_3xtf32_ms={b_ms:.4f} "
+                               f"ms/bound_3xtf32={ms / b_ms:.2f} bound_ffma_ms={ffma_ms:.4f} "
+                               f"ms/bound_ffma={ms / ffma_ms:.2f}"))
         del qkv, q, k, v, qf, got, want, qt, kt, vt
 
     heads = bench_temporal.HEADS
@@ -1947,7 +1991,9 @@ def phase_fp32(dev, smi: str):
     """The fp32 kernels against their plain versions (``fp32_kernel_rows``);
     fp32 vits, vitb and vitl 518x518 windows, kernel path against plain
     path, with their exact fp32 launch plans and wall ms (kernel, plain,
-    plain, kernel: each timed call after an untimed one of its path); the CLI with ``--fp32`` in
+    plain, kernel: each timed call after an untimed one of its path), and
+    vits and vitl windows under ``pallas`` with Kernel B's fp32 launches by
+    head width (``F32_PALLAS_WIDTHS``); the CLI with ``--fp32`` in
     window mode and with ``--process_single_image`` (the main path of the
     fp32 kernels: counts zeroed before, read after; each fp32 kernel must
     launch, no bf16 kernel may), with ``--kv_cache`` too (Kernel C never),
@@ -1960,6 +2006,7 @@ def phase_fp32(dev, smi: str):
     from video_depth_anything_torch import run
     from video_depth_anything_torch.models.vda import VDAModel
     from video_depth_anything_torch.ops.dispatch import plain_reference
+    from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
     prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -1998,6 +2045,27 @@ def phase_fp32(dev, smi: str):
                 f"{'OK' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"fp32 window of {encoder} failed")
+            del model, x, got, want
+            torch.cuda.empty_cache()
+
+        for encoder, widths in F32_PALLAS_WIDTHS.items():
+            model = VDAModel(encoder, device=dev, dtype=torch.float32, attn_impl="pallas")
+            model.init_params(seed=0)
+            noise_weights(model.module, seed=1)
+            x = torch.randn(1, 32, 518, 518, 3, device=dev, generator=g)
+            zero_counts()
+            got = model.infer_window(x)
+            torch.cuda.synchronize()
+            by_width = dict(temporal_attention.f32_width_launches)
+            with plain_reference():
+                want = model.infer_window(x)
+            rel = float((got - want).abs().max() / want.abs().max())
+            ok = bool(torch.isfinite(got).all()) and rel <= F32_WINDOW_TOL and by_width == widths
+            log(f"[fp32] window {encoder} 1x32x518x518 fp32 pallas: rel err kernels vs plain "
+                f"{rel:.3e} (tol {F32_WINDOW_TOL}), Kernel B fp32 launches by head width "
+                f"{by_width} ({smi}) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"fp32 pallas window of {encoder} failed")
             del model, x, got, want
             torch.cuda.empty_cache()
 

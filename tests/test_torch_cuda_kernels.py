@@ -402,8 +402,9 @@ def no_tf32():
     (64, 1, 192, False), (300, 2, 192, True), (1370, 1, 192, False), (2443, 2, 192, False),
 ])
 def test_flash_attention_f32_kernel(dev, no_tf32, n, h, d, fast):
-    """fp32 operands: the fp32 kernel, ragged 32-key tiles, odd heads, D =
-    192, flat inputs too; its own launch count; no log-sum-exp."""
+    """fp32 operands: the fp32 kernel (3xTF32), ragged last key tiles (64
+    keys at D = 64, 32 at D = 192), odd heads, D = 192, flat inputs too;
+    its own launch count; no log-sum-exp."""
     g = torch.Generator(device=dev).manual_seed(n + h + d)
     qkv = chip_smoke.f32_inputs((2, n, h * d), g, dev)
     q, k, v = (t.view(2, n, h, d) for t in qkv.split(h * d, dim=-1))

@@ -4,13 +4,17 @@ island and in fp32, the fp32 gate decisions against JAX's, CPU emulations of
 the plans of the fp32 Kernels A, B and C (``csrc/*_f32.cu``) against the
 JAX kernels run in interpret mode on fp32 inputs, and the CLI flags.
 
-The fp32 kernels compute every product with FFMA in fp32.  Each emulation
-follows its kernel's plan (tiles, online softmax, the q/k/v and
-feed-forward chunks of the fp32 weight layout) in fp32 and must come within
-1e-5 of the JAX kernel, relative to max|JAX| (Kernel C: to max|JAX − x|,
-the module's own contribution); the same plan with every product's
-operands rounded once to TF32 (10 mantissa bits, rounded in numpy) must
-miss by more, so that the bound tells fp32 products from one TF32 pass."""
+Kernel A computes both products in 3xTF32 on the tensor cores (every
+operand split into hi = rna(x) and lo = rna(x − hi), three TF32 products
+summed in fp32); Kernels B and C compute every product with FFMA in fp32.
+Each emulation follows its kernel's plan (tiles, online softmax, the q/k/v
+and feed-forward chunks of the fp32 weight layout) in fp32 and must come
+within 1e-5 of the JAX kernel, relative to max|JAX| (Kernel C: to max|JAX −
+x|, the module's own contribution); the same plan with every product's
+operands rounded once to TF32 (10 mantissa bits, rounded in numpy: one
+TF32 pass) must miss by more, so that the bound tells fp32-accurate
+products from one TF32 pass.  ``tests/test_torch_fp32_tiling.py`` holds the
+split bit for bit and the plans' other mutants."""
 
 import dataclasses
 import math
@@ -53,10 +57,40 @@ LOG2E = 1.0 / math.log(2.0)
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away from
-    zero) in numpy, back as fp32."""
+    zero) in numpy, back as fp32: what ``cvt.rna.tf32.f32`` gives."""
     bits = x.detach().float().contiguous().numpy().view(np.uint32)
     out = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
     return torch.from_numpy(out.copy())
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its 13 low mantissa bits dropped: what the tensor cores
+    read of an fp32 operand that was never rounded."""
+    bits = x.detach().float().contiguous().numpy().view(np.uint32)
+    return torch.from_numpy((bits & np.uint32(0xFFFFE000)).view(np.float32).copy())
+
+
+def split_tf32(x: torch.Tensor, mutant=None) -> tuple:
+    """``(hi, lo)`` of the 3xTF32 split: hi = rna(x), lo = rna(x − hi).  The
+    ``truncating_split`` mutant feeds the raw x as hi (the tensor cores
+    truncate it) beside the lo of a rounded hi."""
+    hi = tf32(x)
+    lo = tf32(x - hi)
+    return (tf32_trunc(x) if mutant == "truncating_split" else hi), lo
+
+
+def tf32_product(a, b, mutant=None) -> torch.Tensor:
+    """``a @ b`` as Kernel A's 3xTF32 passes compute it: lo·hi + hi·lo +
+    hi·hi into one fp32 sum (products of TF32 values are exact in fp32).
+    Mutants: ``one_pass`` (hi·hi), ``two_pass`` (no lo·hi),
+    ``truncating_split``; ``use_tf32`` is ``one_pass``."""
+    ahi, alo = split_tf32(a, mutant)
+    bhi, blo = split_tf32(b, mutant)
+    if mutant in ("one_pass", "use_tf32"):
+        return ahi @ bhi
+    if mutant == "two_pass":
+        return ahi @ blo + ahi @ bhi
+    return (alo @ bhi + ahi @ blo) + ahi @ bhi
 
 
 def _rnd(use_tf32: bool):
@@ -132,37 +166,43 @@ def test_fp32_gate_decisions_match_jax(encoder, h, w, impl, monkeypatch):
 # -- Kernel A -------------------------------------------------------------------------
 
 
-def emulate_flash_f32(q, k, v, scale, fast=False, use_tf32=False):
-    """``(B, N, H, D)`` fp32 → the plan of ``flash_fwd_f32`` (P = 2 threads
-    a row at D = 64, 4 at D = 192, 256 threads a CTA): q scaled by scale ·
-    log2 e, 32-key tiles, a score the sum of its P panel dot products
-    (xor shuffles: (p0 + p1) + (p2 + p3)), online exp2 softmax (FAST: m = 0,
-    no rescale), o = o · α + p V, then o / l."""
-    rnd = _rnd(use_tf32)
+FLASH_F32_PLAN = {64: (128, 64), 192: (64, 32)}  # D: (query rows a CTA, keys a tile)
+
+
+def emulate_flash_f32(q, k, v, scale, fast=False, use_tf32=False, mutant=None):
+    """``(B, N, H, D)`` fp32 → the plan of ``flash_fwd_f32<D, FAST>``: CTAs
+    of 128 query rows (two 64-row consumer warpgroups) and 64-key tiles at
+    D = 64, 64 rows and 32-key tiles at D = 192; q scaled by scale · log2 e
+    in fp32, then split; K and V tiles zero-filled past N (TMA) and split;
+    S = Q Kᵀ in 3xTF32, keys past N masked to −inf; online exp2 softmax
+    (FAST: m = 0, no rescale); p split; O = O · α + P V in 3xTF32; then
+    O / l.  ``use_tf32``: one TF32 pass (hi·hi) everywhere.  ``mutant``:
+    ``one_pass``, ``two_pass``, ``truncating_split`` (``tf32_product``) or
+    ``unmasked_pad`` (TMA's zero keys left in the softmax)."""
+    mutant = "use_tf32" if use_tf32 else mutant
     b, n, h, d = q.shape
-    panels = 2 if d == 64 else 4
-    rows = 256 // panels
-    dp = d // panels
+    rows, kt = FLASH_F32_PLAN[d]
     qs = q.float().permute(0, 2, 1, 3) * (scale * LOG2E)
-    kp, vp = (x.float().permute(0, 2, 1, 3) for x in (k, v))
+    npad = -(-n // kt) * kt
+    kp, vp = (torch.nn.functional.pad(x.float().permute(0, 2, 1, 3), (0, 0, 0, npad - n))
+              for x in (k, v))
     out = torch.empty(b, h, n, d)
-    for i in range(0, n, rows):  # one CTA
-        qi = rnd(qs[:, :, i:i + rows])
+    for i in range(0, n, rows):  # one CTA; pad query rows are never stored
+        qi = qs[:, :, i:i + rows]
         m = torch.full(qi.shape[:3], 0.0 if fast else -math.inf)
         l = torch.zeros(qi.shape[:3])
         acc = torch.zeros(qi.shape)
-        for j in range(0, n, 32):  # a key tile; keys past N never enter
-            kj, vj = rnd(kp[:, :, j:j + 32]), rnd(vp[:, :, j:j + 32])
-            part = [qi[..., c * dp:(c + 1) * dp] @ kj[..., c * dp:(c + 1) * dp].transpose(-1, -2)
-                    for c in range(panels)]
-            s = part[0] + part[1] if panels == 2 else (part[0] + part[1]) + (part[2] + part[3])
+        for j in range(0, n, kt):  # a key tile
+            s = tf32_product(qi, kp[:, :, j:j + kt].transpose(-1, -2), mutant)
+            if mutant != "unmasked_pad" and n - j < kt:
+                s[..., n - j:] = -math.inf
             if not fast:
                 m_new = torch.maximum(m, s.amax(-1))
                 alpha = torch.exp2(m - m_new)
                 m, l, acc = m_new, l * alpha, acc * alpha[..., None]
             p = torch.exp2(s - m[..., None])
             l = l + p.sum(-1)
-            acc = acc + rnd(p) @ vj
+            acc = acc + tf32_product(p, vp[:, :, j:j + kt], mutant)
         out[:, :, i:i + rows] = acc / l[..., None]
     return out.permute(0, 2, 1, 3)
 
@@ -205,35 +245,77 @@ def test_flash_f32_fast_plan_matches_plain():
 # -- Kernel B -------------------------------------------------------------------------
 
 
-def emulate_temporal_f32(q, k, v, heads, scale, use_tf32=False):
-    """``(B, T, S, C)`` fp32 → the plan of ``temporal_f32``: tiles of
-    ``tile_plan(C, heads, 4)`` (locations past S never stored), per
-    (location, head) the T scores q · k, then · scale · log2 e, an exact
-    exp2 softmax, (Σ p v) · 1/l."""
+def temporal_f32_unit(d: int) -> tuple:
+    """``(query frames a unit, lanes a query row, columns a P·V pass)`` of
+    ``temporal_f32<d>`` (``unit_frames``, ``row_lanes``, ``pass_cols``): a
+    lane's QF · KL / 32 query frames × DC columns are 32 accumulators."""
+    qf = 32 if d <= 32 else 16 if d <= 64 else 8
+    kl = 4 if d <= 64 else 8
+    return qf, kl, 32 // (qf * kl // 32)
+
+
+def emulate_temporal_f32(q, k, v, heads, scale, use_tf32=False, mutant=None, grid=3):
+    """``(B, T, S, C)`` fp32 → the plan of ``temporal_f32<d>``: ``grid``
+    persistent CTAs walk the tiles of ``tile_plan(C, heads, 4)`` (tile = CTA
+    + it · grid; the kernel takes one location a tile where these would not
+    cover the card's SMs, which changes no unit's arithmetic), each through
+    its own two-stage ring whose rows are never
+    loaded past T (stale: NaN here before a first copy) but for v's, zeroed
+    once; units of (location, head, QF query frames); the scores of 32 key
+    frames, keys at or past T masked to −inf, an exact exp2 softmax, p ·
+    1/l; P·V as the KL lanes' partial sums over keys c + KL·j, reduced in
+    pairs by lane (xor 1, then 2, then 4); rows at or past T and locations
+    past S never stored.  ``mutant``: ``stale_stage`` (a stage read before its
+    copy lands: the CTA's tile of two steps before, or NaN),
+    ``unmasked_keys`` (stale key rows left in the softmax) or
+    ``v_rows_not_zeroed``."""
     rnd = _rnd(use_tf32)
     b, t, s, c = q.shape
     d = c // heads
     locs, group = t_temporal.tile_plan(c, heads, 4)
     cg = group * d
+    qf, kl, _ = temporal_f32_unit(d)
+    sblocks, hgroups = -(-s // locs), heads // group
+    tiles = b * sblocks * hgroups
     out = torch.full((b, t, s, c), math.nan)
-    for bi in range(b):
-        for s0 in range(0, s, locs):
-            for c0 in range(0, c, cg):
-                sl = (bi, slice(None), slice(s0, min(s0 + locs, s)), slice(c0, c0 + cg))
-                qh, kh, vh = (rnd(x[sl].float()).reshape(t, -1, group, d) for x in (q, k, v))
-                sc = torch.einsum("qlgd,klgd->lgqk", qh, kh) * (scale * LOG2E)
-                p = torch.exp2(sc - sc.amax(-1, keepdim=True))
-                o = torch.einsum("lgqk,klgd->qlgd", rnd(p), vh) / p.sum(-1).permute(2, 0, 1)[..., None]
-                out[sl] = o.reshape(t, -1, cg)
-    assert not torch.isnan(out).any()
+    for cta in range(grid):
+        ring = torch.full((2, 3, 32, locs, cg), math.nan)
+        if mutant != "v_rows_not_zeroed":
+            ring[:, 2, t:] = 0.0
+        for it, tile in enumerate(range(cta, tiles, grid)):
+            hg, r = tile % hgroups, tile // hgroups
+            sb, bi = r % sblocks, r // sblocks
+            s0, c0 = sb * locs, hg * cg
+            lv = min(locs, s - s0)
+            stage = ring[it % 2]
+            copy = [rnd(x[bi, :, s0:s0 + lv, c0:c0 + cg].float()) for x in (q, k, v)]
+            if mutant == "stale_stage":  # the consumers see the stage before the copy lands
+                stage = stage.clone()
+            for x in range(3):
+                ring[it % 2, x, :t, :lv] = copy[x]
+            for l in range(lv):
+                for h in range(group):
+                    qh, kh, vh = (stage[x, :, l, h * d:(h + 1) * d] for x in range(3))
+                    for f0 in range(0, min(t, 32), qf):
+                        sc = (qh[f0:f0 + qf] @ kh.T) * (scale * LOG2E)
+                        if mutant != "unmasked_keys":
+                            sc[:, t:] = -math.inf
+                        p = torch.exp2(sc - sc.amax(-1, keepdim=True))
+                        p = rnd(p * (1.0 / p.sum(-1, keepdim=True)))
+                        part = [p[:, j::kl] @ vh[j::kl] for j in range(kl)]
+                        while len(part) > 1:
+                            part = [part[j] + part[j + 1] for j in range(0, len(part), 2)]
+                        o = part[0]
+                        rows = min(qf, t - f0)
+                        out[bi, f0:f0 + rows, s0 + l, c0 + h * d:c0 + (h + 1) * d] = o[:rows]
     return out
 
 
 @pytest.mark.parametrize("t", [8, 17, 32])
-@pytest.mark.parametrize("d", [8, 48])
+@pytest.mark.parametrize("d", [8, 48, 128])
 def test_temporal_f32_plan_matches_jax_kernel(d, t):
     """S = 7: a ragged last location tile at C = 64 (two locations a tile
-    in fp32)."""
+    in fp32); d = 48 and 128 take 16 and 8 query frames a unit."""
     c, s, heads = 8 * d, 7, 8
     rng = np.random.RandomState(d * 100 + t)
     q, k, v = (rng.randn(2, t, s, c).astype(np.float32) for _ in range(3))

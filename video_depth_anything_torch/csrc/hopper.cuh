@@ -1,14 +1,16 @@
 // Hopper (sm_90a) primitives of the port's Hopper kernels: mbarrier,
-// TMA tensor and bulk loads, wgmma with its fences and shared-memory
-// descriptors (128-byte swizzle, and no swizzle), setmaxnreg, named
-// barriers, and the host-side tensor-map encoder.  Included by every
-// kernel source.
+// TMA tensor and bulk loads, wgmma (bf16 and tf32) with its fences and
+// shared-memory descriptors (128-byte swizzle, and no swizzle), the TF32
+// round, setmaxnreg, named barriers, and the host-side tensor-map encoder
+// (bf16 and fp32 elements).  Included by every kernel source.
 //
 // Layouts.  A TMA box of R rows x 64 bf16 (128 B per row) lands in shared
 // memory as R rows of 128 B, each row's eight 16-byte chunks XOR-swizzled
 // by (row % 8): CU_TENSOR_MAP_SWIZZLE_128B, matched by the descriptors'
 // 128-byte swizzle mode.  Tiles start on 1024-byte boundaries (the swizzle
-// atom is 8 rows x 128 B).
+// atom is 8 rows x 128 B).  In fp32 a 128-byte row is 32 floats, and a
+// tf32 k8 step is 32 bytes, as a bf16 k16 step: the same descriptors and
+// the same 32-byte step along K (descriptor + 2 * k) serve both.
 //   * K-major operand (rows = M or N, contiguous = the product's K axis):
 //     SBO = 1024 B between 8-row groups; the k-th 16-wide step starts
 //     32 * k bytes into the tile (descriptor + 2 * k).
@@ -93,6 +95,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// A box of the 3-D map at coordinates (c0 innermost, c1, c2), completed on
+// `bar` (which counts the box's full bytes, zero-filled elements included).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -228,6 +241,82 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// ---- tf32 ----
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as an fp32 value with its 13 low bits zero.  The tensor cores read only
+// the top 19 bits of an fp32 operand (a truncation), so every tf32
+// operand of the port is rounded by this first.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// The 3xTF32 split: hi = rna(x), lo = rna(x - hi) (x - hi is exact), so
+// hi + lo is x within 2^-22 of |x|.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// D[64 x 64] (+)= A[64 x 8] B^T in tf32: A from registers (each warp's 16
+// rows in the mma.m16n8k8 tf32 A fragment: a0 = (g, c), a1 = (g + 8, c),
+// a2 = (g, c + 4), a3 = (g + 8, c + 4), g = lane >> 2, c = lane & 3), B[64
+// x 8] K-major in shared memory (tf32 takes no transposed operand);
+// scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 8] B^T in tf32, A[64 x 8] and B[64 x 8] both
+// K-major in shared memory; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 8] B^T in tf32, A[64 x 8] and B[32 x 8] both
+// K-major in shared memory; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // Generic-proxy shared-memory writes made visible to later wgmma reads
 // (each writing thread, before the barrier that hands the data over).
 __device__ __forceinline__ void fence_async_smem() {
@@ -280,26 +369,52 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 4-D map (D, H, N, B) of a bf16 (B, N, H, D) view with these element
-// strides (multiples of 8: 16-byte aligned rows), D = `width` (64 unless
-// given; a multiple of 64), boxes of (64, 1, rows, 1) with the 128-byte
-// swizzle: a box at c0 = 64 p is the p-th 64-column panel of the rows;
-// rows past N read as zeros.
+// The 4-D map (D, H, N, B) of a (B, N, H, D) view of bf16 (or, with `type`
+// CU_TENSOR_MAP_DATA_TYPE_FLOAT32, fp32) elements with these element
+// strides (16-byte aligned rows), D = `width` (64 unless given; a multiple
+// of one 128-byte panel: 64 bf16 or 32 floats), boxes of (one panel, 1,
+// rows, 1) with the 128-byte swizzle: a box at c0 = 64 p (bf16) or 32 p
+// (fp32) is the p-th panel of the rows; rows past N read as zeros.
 // False where the encoder refuses the map.  The encoder needs a current
 // context, which a thread whose first CUDA work is this launch (autograd's
 // backward thread) lacks: callers make a runtime call first, which binds
 // the device's primary context to the thread.
 inline bool make_map(CUtensorMap* map, const void* base, int batch, int n, int heads,
-                     long long sb, long long sn, long long sh, int rows, int width = 64) {
+                     long long sb, long long sn, long long sh, int rows, int width = 64,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  const int elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sn) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * elem,
+                                 static_cast<cuuint64_t>(sn) * elem,
+                                 static_cast<cuuint64_t>(sb) * elem};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 3-D map (R, T, B) of fp32 rows: B blocks of T rows of R contiguous
+// floats (R a multiple of 4), boxes of (box_r, box_t, 1) with no swizzle: a
+// box lands in shared memory as box_t rows of box_r floats, packed (a
+// 128-byte aligned destination); coordinates past R, T or B read as zeros.
+// False where the encoder refuses the map (callers make a runtime call
+// first, as for make_map).
+inline bool make_map_rows_f32(CUtensorMap* map, const void* base, long long r, int t, int b,
+                              int box_r, int box_t) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(r), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(r) * 4,
+                                 static_cast<cuuint64_t>(r) * t * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_r), static_cast<cuuint32_t>(box_t), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -24,12 +24,14 @@ history.  ``flash_attention.launches`` counts the exact variant's launches
 and ``flash_attention.fast_launches`` the fast variant's, both bf16;
 ``flash_attention.f32_launches`` counts the fp32 kernel's (either
 variant).  The fp32 kernel is the JAX kernels on fp32 inputs (their gates
-check no dtype; p stays fp32): FFMA in fp32, same domain, forward only (no
-JAX entry point trains in fp32), no log-sum-exp.
+check no dtype; p stays fp32): both products in 3xTF32 on the tensor cores
+(every operand split into hi = rna(x) and lo = rna(x − hi), three TF32
+products summed in fp32: fp32-accurate), same domain, forward only (no JAX
+entry point trains in fp32), no log-sum-exp.
 
 Bound on the H100: tensor-core FLOPs (4·N²·D·H·B forward, 10·N²·D·H·B
-backward); the fp32 kernel's, the same FLOPs at the CUDA cores' fp32
-rate; see the source notes.
+backward); the fp32 kernel's, three times the forward's FLOPs at the
+tensor cores' TF32 rate; see the source notes.
 """
 
 from __future__ import annotations
@@ -121,9 +123,9 @@ def _kernel(name: str):
 
 
 def tma_geometry(t) -> tuple:
-    """``(dims, byte_strides)`` of a ``(B, N, H, D)`` view as the bf16
-    kernels' TMA maps describe it (and as the fp32 kernel's 16-byte loads
-    need it): dims innermost first ``(D, H, N, B)``,
+    """``(dims, byte_strides)`` of a ``(B, N, H, D)`` view as the kernels'
+    TMA maps describe it (2-byte elements in bf16, 4-byte in fp32): dims
+    innermost first ``(D, H, N, B)``,
     the byte strides of H, N and B (a dimension of size 1 takes the dense
     stride, its own being never used).  Raises ``ValueError`` on what a
     tensor map cannot describe: D not unit-stride, a base not 16-byte

@@ -25,8 +25,10 @@ tile geometry (locations and heads per tile), which
 kernel's tiles are the same plan reckoned at 4-byte elements.
 ``temporal_attention.launches`` counts the bf16 kernel's launches (and
 ``width_launches`` them by head width), ``f32_launches`` the fp32
-kernel's: the JAX kernel on fp32 inputs (its gate checks no dtype; the
-probabilities stay fp32), FFMA in fp32, the same widths.
+kernel's (``f32_width_launches`` by head width): the JAX kernel on fp32
+inputs (its gate checks no dtype; the probabilities stay fp32), FFMA in
+fp32 fed from registers, the same widths and the bf16 kernel's pipelined
+walk over a ring of tiles.
 
 Bound on the H100: memory bytes (q, k, v read once, out written once).
 """
@@ -177,12 +179,14 @@ def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, heads, scale)
     out = _launch(*_checked(q, k, v, heads), heads, scale)
+    d = q.shape[-1] // heads
     if q.dtype == torch.float32:
         temporal_attention.f32_launches += 1
-        return out
-    temporal_attention.launches += 1
-    d = q.shape[-1] // heads
-    temporal_attention.width_launches[d] = temporal_attention.width_launches.get(d, 0) + 1
+        widths = temporal_attention.f32_width_launches
+    else:
+        temporal_attention.launches += 1
+        widths = temporal_attention.width_launches
+    widths[d] = widths.get(d, 0) + 1
     return out
 
 
@@ -196,6 +200,7 @@ def temporal_attention_split(q, k, v, heads: int, scale: float) -> torch.Tensor:
 temporal_attention.launches = 0
 temporal_attention.width_launches = {}  # the bf16 kernel's launches by head width d
 temporal_attention.f32_launches = 0
+temporal_attention.f32_width_launches = {}  # the fp32 kernel's launches by head width d
 
 
 class TemporalAttentionFn(torch.autograd.Function):

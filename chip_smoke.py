@@ -1857,6 +1857,34 @@ def tf32_split_plain(q, k, v, scale, fast: bool, mutant: str):
     return (product(p, vt) / p.sum(-1, keepdim=True)).permute(0, 2, 1, 3)
 
 
+def motion_split_plain(x, p: dict, cfg, heads: int, mutant: str):
+    """Kernel C's fp32 motion module with its weight products split as a
+    wrong 3xTF32 kernel would split them (``motion_module_plain`` with its
+    ``product``; run with TF32 off: products of TF32-valued operands are
+    then exact fp32 FMAs): ``two_pass`` drops the lo·hi term,
+    ``truncating_split`` feeds each raw operand as its hi (the tensor cores
+    read it truncated) beside the lo of a rounded hi; any other value gives
+    the kernel's three passes."""
+    import torch
+
+    from video_depth_anything_torch.ops.motion_module import motion_module_plain
+
+    def split(t):
+        hi = tf32_round(t)
+        lo = tf32_round(t - hi)
+        if mutant == "truncating_split":
+            hi = (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32).view(t.shape)
+        return hi, lo
+
+    def product(a, w):
+        (ahi, alo), (whi, wlo) = split(a), split(w)
+        if mutant == "two_pass":
+            return ahi @ wlo + ahi @ whi
+        return alo @ whi + ahi @ wlo + ahi @ whi
+
+    return motion_module_plain(x, p, cfg, heads, product=product)
+
+
 def f32_inputs(shape, gen, device):
     """fp32 ``(..., 3 * C)`` as ``attention_inputs`` draws them, left in fp32
     (bf16-valued inputs would pass through TF32 exactly)."""
@@ -1872,9 +1900,11 @@ def fp32_kernel_rows(dev) -> list:
     shapes, with the mutants of phase kernels at fp32 and the plain version
     in one TF32 pass as one more (Kernel A also two passes and a truncating
     split, ``tf32_split_plain``); beside each row the bf16 kernel's error
-    on the same inputs.  Kernel A's ``bound_ms`` is its 3xTF32 products at
-    the tensor cores' TF32 rate, printed beside the same products' FFMA
-    bound."""
+    on the same inputs.  Kernels A's and C's ``bound_ms`` are their 3xTF32
+    products at the tensor cores' TF32 rate, printed beside the same
+    products' FFMA bound (Kernel C also with the two wrong splits of
+    ``motion_split_plain`` as mutants, and the weight bytes its CTAs read
+    from L2 in the call)."""
     import torch
     import torch.nn.functional as F
 
@@ -1971,16 +2001,22 @@ def fp32_kernel_rows(dev) -> list:
         mutants["tf32_plain"] = max_err(tf32_plain(
             lambda x_, *v: mm.motion_module_plain(x_, dict(zip(names, v)), cfg, 8), x,
             *p.values()), want) / base
+        for wrong in ("two_pass", "truncating_split"):
+            mutants[wrong] = max_err(motion_split_plain(x, p, cfg, 8, wrong), want) / base
         bf16_err = max_err(mm.fused_motion_module(x.to(torch.bfloat16), p, cfg, 8), want) / base
         ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, 8), iters=3, warmup=1)
         plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, 8), iters=3, warmup=1)
-        tokens = b * t * s
-        b_ms, b_by = bound_f32(tokens * (44.0 * c * c + 2 * 4.0 * t * c),
-                               2 * tokens * c * 4 + 22 * c * c * 4 + 2 * b * t * c * 4)
+        flops = b * t * s * (44.0 * c * c + 8.0 * t * c)
+        ffma_ms, _ = bound_f32(flops, 2 * b * t * s * c * 4 + w["w"].numel() * 4)
+        b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
+        l2_gb = b * -(-s // (mm.F32_ROWS // t)) * w["w"].numel() * 4 / 1e9
         rows.append(dict(kernel="motion_module_f32", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
                          max_abs_err=max_err(got, want), rel_err=max_err(got, want) / base,
                          tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None, extra=f" bf16_kernel_rel_err={bf16_err:.3e}"))
+                         bound_by="operations", library_ms=None,
+                         extra=f" bf16_kernel_rel_err={bf16_err:.3e} bound_3xtf32_ms={b_ms:.4f} "
+                               f"ms/bound_3xtf32={ms / b_ms:.2f} bound_ffma_ms={ffma_ms:.4f} "
+                               f"ms/bound_ffma={ms / ffma_ms:.2f} l2_weight_gb={l2_gb:.2f}"))
         del x, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -4,9 +4,10 @@ island and in fp32, the fp32 gate decisions against JAX's, CPU emulations of
 the plans of the fp32 Kernels A, B and C (``csrc/*_f32.cu``) against the
 JAX kernels run in interpret mode on fp32 inputs, and the CLI flags.
 
-Kernel A computes both products in 3xTF32 on the tensor cores (every
-operand split into hi = rna(x) and lo = rna(x − hi), three TF32 products
-summed in fp32); Kernels B and C compute every product with FFMA in fp32.
+Kernels A and C compute their products in 3xTF32 on the tensor cores
+(every operand split into hi = rna(x) and lo = rna(x − hi), three TF32
+products summed in fp32; Kernel C's weights split once on the host, in
+``weight_blocks_f32``); Kernel B computes every product with FFMA in fp32.
 Each emulation follows its kernel's plan (tiles, online softmax, the q/k/v
 and feed-forward chunks of the fp32 weight layout) in fp32 and must come
 within 1e-5 of the JAX kernel, relative to max|JAX| (Kernel C: to max|JAX −
@@ -342,56 +343,151 @@ def _ln(y, g, b, eps):
     return (y - mean) * (torch.rsqrt(var + eps) * g) + b
 
 
-def emulate_motion_f32(x, p, cfg, heads, use_tf32=False):
-    """``(B, T, S, C)`` fp32 → the plan of ``motion_f32``: CTAs of 32 rows
-    (32 / T locations, location major; locations past S zero rows, never
-    stored) over the weights of ``weight_matrices_f32`` as the kernel
-    slices them: proj_in; per block q | k | v by chunk of
-    ``chunk_channels`` then attention per (location, head) of the chunk;
-    w_o; the feed-forward by 64-column hidden chunk (h and gate side by
-    side), erf GELU, w2 rows accumulated; proj_out; + x."""
-    rnd = _rnd(use_tf32)
+def f32_panel_order() -> list:
+    """The input held at each logical position L of a 32-input panel of the
+    fp32 Kernel C's weight tiles: the tf32 A fragment's slot j of k8 step
+    t takes input 4 (j % 4) + 2 t + j // 4 of its 16-input unit, so that a
+    thread's (c, c + 4) slots of both steps are one 16-byte load of columns
+    4c .. 4c + 3."""
+    return [16 * (L // 16) + 4 * (L % 4) + 2 * ((L // 8) % 2) + (L % 8) // 4 for L in range(32)]
+
+
+def decode_f32_blocks(flat: torch.Tensor) -> torch.Tensor:
+    """``weight_blocks_f32``'s blocks (each a hi tile then a lo tile: 64
+    output columns × 32 inputs, 16-byte chunk j of row n at j ^ (n % 8),
+    the inputs in ``f32_panel_order``) → ``(blocks, 2, 32 inputs, 64
+    outputs)``, hi then lo, the inputs in their own order."""
+    rows = torch.arange(64)
+    src = torch.arange(8)[None, :] ^ (rows % 8)[:, None]
+    logical = flat.reshape(-1, 2, 64, 8, 4)[:, :, rows[:, None], src].reshape(-1, 2, 64, 32)
+    out = torch.empty_like(logical)
+    out[..., f32_panel_order()] = logical
+    return out.transpose(-1, -2)
+
+
+class MotionRing:
+    """The fp32 Kernel C's weight blocks as its consumer warpgroups read
+    them: one sequence a warpgroup (their lengths counted here as the
+    kernel's ``Shape::blocks`` counts them), each read in order."""
+
+    def __init__(self, flat: torch.Tensor, c: int, heads: int = 8):
+        self.ns = t_motion.F32_PLAN[c][0]
+        d = c // heads
+        kp, nsw, nchk = c // 32, c // 64 // self.ns, c // (d * (64 // d))
+        fs = 4 * c // (64 * self.ns)
+        lens = [2 * nsw * kp + 2 * nchk * (len(range(cs, 3, self.ns)) * kp + 2 * nsw)
+                + fs * (2 * kp + 2 * self.ns * nsw) for cs in range(self.ns)]
+        assert flat.numel() == 4096 * sum(lens)
+        self.blocks = decode_f32_blocks(flat)
+        self.pos = [sum(lens[:cs]) for cs in range(self.ns)]
+        self.end = [sum(lens[:cs + 1]) for cs in range(self.ns)]
+
+    def matrix(self, panels: int, owners: list) -> tuple:
+        """``(hi, lo)`` of a product's ``(32 panels, 64 len(owners))``
+        weight: output block n from warpgroup ``owners[n]``'s sequence,
+        each warpgroup taking its blocks in order of n, each over all its
+        panels."""
+        hi = torch.zeros(32 * panels, 64 * len(owners))
+        lo = torch.zeros_like(hi)
+        for n, cs in enumerate(owners):
+            for kp in range(panels):
+                assert self.pos[cs] < self.end[cs], "a warpgroup read past its sequence"
+                block = self.blocks[self.pos[cs]]
+                self.pos[cs] += 1
+                hi[32 * kp:32 * kp + 32, 64 * n:64 * n + 64] = block[0]
+                lo[32 * kp:32 * kp + 32, 64 * n:64 * n + 64] = block[1]
+        return hi, lo
+
+
+def product_3xtf32(a: torch.Tensor, w: tuple, mutant=None) -> torch.Tensor:
+    """``a @ w`` as the kernel's wgmma passes compute it, from the split
+    weight ``w = (hi, lo)`` and ``a`` split as the kernel splits it in
+    registers: lo·hi + hi·lo + hi·hi in fp32.  Mutants: ``one_pass``
+    (hi·hi: one TF32 pass), ``two_pass`` (no lo·hi), ``truncating_split``
+    (the raw operands, read truncated by the tensor cores, as hi)."""
+    whi, wlo = w
+    if mutant == "truncating_split":
+        whi = tf32_trunc(whi + wlo)
+    ahi, alo = split_tf32(a, mutant)
+    if mutant == "one_pass":
+        return ahi @ whi
+    if mutant == "two_pass":
+        return ahi @ wlo + ahi @ whi
+    return (alo @ whi + ahi @ wlo) + ahi @ whi
+
+
+def emulate_motion_f32(x, p, cfg, heads, mutant=None):
+    """``(B, T, S, C)`` fp32 → the plan of ``motion_f32``: CTAs of 64 rows
+    (64 / T locations, location major; locations past S zero rows, never
+    stored), every product in 3xTF32 (``product_3xtf32``) over the weight
+    blocks of ``weight_blocks_f32`` read from each warpgroup's sequence in
+    the kernel's order (``MotionRing``): proj_in on the GroupNorm applied at
+    the load; per attention block LayerNorm + APE applied once a row, per
+    chunk of ``chunk_channels`` q | k | v
+    (64-column blocks, padded), attention per (location, head) in fp32, the
+    out projection accumulated over the chunks (64 inputs, padded), then +
+    b_o and the residual; the feed-forward in steps of nsplit 64-column
+    hidden chunks (h, gate, erf GELU, w2 accumulated over the steps); proj_out;
+    + x.  Mutants: those of ``product_3xtf32``; ``wrong_block`` (the
+    feed-forward's h and gate products each read the other's blocks);
+    ``stats_wrong_block`` (each row's LayerNorm statistics from the same
+    row of the next CTA's 64-row block)."""
     b, t, s, c = x.shape
     w = t_motion.kernel_weights(p, cfg, torch.float32)
     gna, gnb = t_motion.gn_fold(x, w, cfg)
-    flat, c2 = w["w"], c * c
-    mat = lambda off, rows, cols: flat[off:off + rows * cols].view(rows, cols)  # noqa: E731
-    nch, d = t_motion.chunk_channels(c, heads), c // heads
-    mm = lambda a, m: rnd(a) @ rnd(m)  # noqa: E731
-    locs = 32 // t
-    out = torch.full_like(x, math.nan)
-    for bi in range(b):
-        for s0 in range(0, s, locs):
-            xs = torch.zeros(locs, t, c)
-            nl = min(locs, s - s0)
-            xs[:nl] = x[bi, :, s0:s0 + nl].permute(1, 0, 2)
-            y = mm(xs * gna[bi] + gnb[bi], mat(0, c, c)) + w["b_in"]
-            for i in range(2):
-                base = c2 + i * 4 * c2
-                h = _ln(y, w["ln_scale"][i], w["ln_bias"][i], cfg.layer_norm_eps) + w["pe"][:t]
-                wqkv, o = mat(base, c, 3 * c), torch.empty(locs, t, c)
-                for ch in range(c // nch):
-                    qkv = mm(h, wqkv[:, 3 * nch * ch:3 * nch * (ch + 1)])
-                    qc, kc, vc = (qkv[..., j * nch:(j + 1) * nch].reshape(locs, t, -1, d)
-                                  for j in range(3))
-                    sc = torch.einsum("lqhd,lkhd->lhqk", qc, kc) * (d**-0.5 * LOG2E)
-                    pr = torch.exp2(sc - sc.amax(-1, keepdim=True))
-                    oc = torch.einsum("lhqk,lkhd->lqhd", pr, vc) / pr.sum(-1).permute(0, 2, 1)[..., None]
-                    o[..., ch * nch:(ch + 1) * nch] = oc.reshape(locs, t, nch)
-                y = y + (mm(o, mat(base + 3 * c2, c, c)) + w["bo"][i])
-            h = _ln(y, w["ln_scale"][2], w["ln_bias"][2], cfg.layer_norm_eps)
-            ff = torch.zeros(locs, t, c)
-            w1r, w2 = mat(9 * c2, c, 8 * c), mat(17 * c2, 4 * c, c)
-            for f in range(4 * c // 64):
-                g = mm(h, w1r[:, 128 * f:128 * f + 128])
-                a = g[..., :64] + w["b1"][64 * f:64 * f + 64]
-                gt = g[..., 64:] + w["b1"][4 * c + 64 * f:4 * c + 64 * f + 64]
-                ff = ff + mm(a * (0.5 * gt * (1 + torch.erf(gt * 0.7071067811865476))),
-                             w2[64 * f:64 * f + 64])
-            y = y + (ff + w["b2"])
-            res = mm(y, mat(21 * c2, c, c)) + w["b_out"] + xs
-            out[bi, :, s0:s0 + nl] = res[:nl].permute(1, 0, 2)
-    return out
+    ring = MotionRing(w["w"], c, heads)
+    ns, d = ring.ns, c // heads
+    nch = t_motion.chunk_channels(c, heads)
+    locs = 64 // t
+    ncta = -(-s // locs)
+    rows = b * ncta * 64
+    xs = torch.zeros(b, ncta * locs, t, c)
+    xs[:, :s] = x.permute(0, 2, 1, 3)
+    xr = xs.reshape(b, ncta, 64, c)
+    frame = torch.arange(64) % t
+    y = (xr * gna[:, None, frame] + gnb[:, None, frame]).reshape(rows, c)
+    frames = frame.repeat(b * ncta)
+    out_owners = [n % ns for n in range(c // 64)]
+    mm = lambda a, panels, owners: product_3xtf32(a, ring.matrix(panels, owners), mutant)  # noqa: E731
+
+    def ln(y, i, ape):
+        mean = y.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(torch.clamp((y * y).mean(-1, keepdim=True) - mean * mean, min=0.0)
+                           + cfg.layer_norm_eps)
+        if mutant == "stats_wrong_block":
+            mean, rstd = mean.roll(-64, 0), rstd.roll(-64, 0)
+        h = (y - mean) * (rstd * w["ln_scale"][i]) + w["ln_bias"][i]
+        return h + w["pe"][frames] if ape else h
+
+    y = mm(y, c // 32, out_owners) + w["b_in"]
+    for i in range(2):
+        h = ln(y, i, True)
+        acc = torch.zeros(rows, c)
+        for _ in range(c // nch):
+            qkv = mm(h, c // 32, [n % ns for n in range(3)])
+            q, k, v = (qkv[:, 64 * j:64 * j + nch].reshape(-1, t, nch // d, d) for j in range(3))
+            sc = torch.einsum("lqhd,lkhd->lhqk", q, k) * (d**-0.5 * LOG2E)
+            pr = torch.exp2(sc - sc.amax(-1, keepdim=True))
+            o = torch.einsum("lhqk,lkhd->lqhd", pr, v) / pr.sum(-1).permute(0, 2, 1)[..., None]
+            oa = torch.zeros(rows, 64)
+            oa[:, :nch] = o.reshape(rows, nch)
+            acc = acc + mm(oa, 2, out_owners)
+        y = y + (acc + w["bo"][i])
+    h = ln(y, 2, False)
+    acc = torch.zeros(rows, c)
+    for f in range(4 * c // (64 * ns)):
+        wh, wg = ring.matrix(c // 32, list(range(ns))), ring.matrix(c // 32, list(range(ns)))
+        if mutant == "wrong_block":
+            wh, wg = wg, wh
+        cols = slice(f * ns * 64, (f + 1) * ns * 64)
+        hh = product_3xtf32(h, wh, mutant) + w["b1"][cols]
+        g = product_3xtf32(h, wg, mutant) + w["b1"][4 * c:][cols]
+        acc = acc + mm(hh * (0.5 * g * (1 + torch.erf(g * 0.7071067811865476))), 2 * ns,
+                       out_owners)
+    y = y + (acc + w["b2"])
+    res = mm(y, c // 32, out_owners) + w["b_out"] + xs.reshape(rows, c)
+    assert ring.pos == ring.end, "every warpgroup reads its whole sequence"
+    return res.reshape(b, ncta * locs, t, c)[:, :s].permute(0, 2, 1, 3)
 
 
 def _motion_params(c, seed):
@@ -406,7 +502,8 @@ def _motion_params(c, seed):
 
 
 def test_motion_f32_plan_matches_jax_kernel():
-    """C = 64, T = 8 (4 locations a CTA), S = 10: a ragged last CTA."""
+    """C = 64, T = 8 (8 locations a CTA), S = 10: a ragged last CTA; one TF32
+    pass misses."""
     c, t, s = 64, 8, 10
     p = _motion_params(c, 5)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal((1, t, s, c)).astype(np.float32))
@@ -416,7 +513,7 @@ def test_motion_f32_plan_matches_jax_kernel():
     got = emulate_motion_f32(x, p, TCfg(), 8)
     assert rel(got, want, x) <= FP32_TOL
     assert rel(t_motion.motion_module_plain(x, p, TCfg(), 8), want, x) <= FP32_TOL
-    assert rel(emulate_motion_f32(x, p, TCfg(), 8, use_tf32=True), want, x) > FP32_TOL
+    assert rel(emulate_motion_f32(x, p, TCfg(), 8, mutant="one_pass"), want, x) > FP32_TOL
 
 
 @pytest.mark.parametrize("c", [128, 192, 384])
@@ -430,28 +527,43 @@ def test_motion_f32_plan_matches_plain_at_other_widths(c):
     assert rel(emulate_motion_f32(x, p, TCfg(), 8), want, x) <= FP32_TOL
 
 
-@pytest.mark.parametrize("c", [64, 192])
+@pytest.mark.parametrize("c", [64, 192, 128, 256, 384])
 def test_weight_matrices_f32_layout(c):
-    """The fp32 weight buffer addresses the raw weights: 22 C² values; q,
-    k, v columns by chunk; w1's h and gate columns by 64-column chunk."""
+    """The fp32 weight buffer (``weight_blocks_f32``, ``f32_weight_blocks``
+    blocks) read as the kernel's warpgroups read it gives the raw weights'
+    3xTF32 split bit for bit: proj_in, each chunk's q, k and v (padded
+    columns zero), w_o's rows of the chunk (padded rows zero), w1's h and
+    gate columns and w2's rows of each step, proj_out; nothing is left
+    over."""
     p = _motion_params(c, 1)
-    flat = t_motion.weight_matrices_f32(p)
-    assert flat.dtype == torch.float32 and flat.numel() == 22 * c * c
-    c2, nch = c * c, t_motion.chunk_channels(c)
-    assert torch.equal(flat[:c2].view(c, c), p["w_in"])
-    wqkv = flat[c2 + 4 * c2:c2 + 7 * c2].view(c, 3 * c)  # block 1
-    ch = c // nch - 1  # the last chunk
-    for j, name in enumerate(("wq", "wk", "wv")):
-        got = wqkv[:, 3 * nch * ch + j * nch:3 * nch * ch + (j + 1) * nch]
-        assert torch.equal(got, p[name][1][:, ch * nch:(ch + 1) * nch])
-    assert torch.equal(flat[c2 + 7 * c2:c2 + 8 * c2].view(c, c), p["wo"][1])
-    w1r = flat[9 * c2:17 * c2].view(c, 8 * c)
-    f = 4 * c // 64 - 1
-    assert torch.equal(w1r[:, 128 * f:128 * f + 64], p["w1"][:, 64 * f:64 * f + 64])
-    assert torch.equal(w1r[:, 128 * f + 64:128 * f + 128],
-                       p["w1"][:, 4 * c + 64 * f:4 * c + 64 * f + 64])
-    assert torch.equal(flat[17 * c2:21 * c2].view(4 * c, c), p["w2"])
-    assert torch.equal(flat[21 * c2:].view(c, c), p["w_out"])
+    flat = t_motion.weight_blocks_f32(p)
+    assert flat.numel() == 4096 * t_motion.f32_weight_blocks(c)
+    ring = MotionRing(flat, c)
+    ns, nch, kp = ring.ns, t_motion.chunk_channels(c), c // 32
+    out_owners = [n % ns for n in range(c // 64)]
+
+    def same(got, w):
+        hi = tf32(w)
+        assert torch.equal(got[0], hi) and torch.equal(got[1], tf32(w - hi))
+
+    same(ring.matrix(kp, out_owners), p["w_in"])
+    for i in range(2):
+        for ch in range(c // nch):
+            cols = slice(ch * nch, (ch + 1) * nch)
+            qkv = ring.matrix(kp, [n % ns for n in range(3)])
+            for j, name in enumerate(("wq", "wk", "wv")):
+                same(tuple(m[:, 64 * j:64 * j + nch] for m in qkv), p[name][i][:, cols])
+                assert not any(m[:, 64 * j + nch:64 * j + 64].any() for m in qkv)
+            wo = ring.matrix(2, out_owners)
+            same(tuple(m[:nch] for m in wo), p["wo"][i][cols])
+            assert not any(m[nch:].any() for m in wo)
+    for f in range(4 * c // (64 * ns)):
+        cols = slice(f * ns * 64, (f + 1) * ns * 64)
+        same(ring.matrix(kp, list(range(ns))), p["w1"][:, cols])
+        same(ring.matrix(kp, list(range(ns))), p["w1"][:, 4 * c:][:, cols])
+        same(ring.matrix(2 * ns, out_owners), p["w2"][cols])
+    same(ring.matrix(kp, out_owners), p["w_out"])
+    assert ring.pos == ring.end
 
 
 def test_kernel_weights_cached_by_dtype():
@@ -468,7 +580,7 @@ def test_kernel_weights_cached_by_dtype():
         mod.temporal_transformer.proj_in.weight.add_(1.0)
     again = mod.kernel_weights(torch.float32)
     assert again is not f32
-    torch.testing.assert_close(again["w"], t_motion.weight_matrices_f32(mod.raw_params()),
+    torch.testing.assert_close(again["w"], t_motion.weight_blocks_f32(mod.raw_params()),
                                rtol=0, atol=0)
 
 

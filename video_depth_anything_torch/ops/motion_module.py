@@ -26,12 +26,14 @@ for x and every raw parameter.  ``fused_motion_module`` and
 
 fp32 inputs take the fp32 kernel (the JAX kernel on fp32 inputs: its gate
 and plan look at shapes alone, its body computes in x's dtype with the erf
-GELU), FFMA in fp32, on its own weight layout (``weight_matrices_f32``,
+GELU), its products in 3xTF32 on the tensor cores, on its own weight layout
+(``weight_blocks_f32``: hi and lo tiles split once on the host,
 ``kernel_weights(p, cfg, torch.float32)``); ``fused_motion_module.launches``
 counts the bf16 kernel's launches, ``f32_launches`` the fp32 kernel's.
 
 Bound on the H100: tensor-core FLOPs (~44·C² per token); the fp32
-kernel's, the same FLOPs at the CUDA cores' fp32 rate; see the sources.
+kernel's, three times the FLOPs at the tensor cores' TF32 rate; see the
+sources.
 """
 
 from __future__ import annotations
@@ -149,10 +151,15 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
 
 
-def motion_module_plain(x: torch.Tensor, p: Dict, cfg: MotionModuleConfig, heads: int):
-    """The whole motion module on ``(B, T, S, C)`` from raw parameters."""
+def motion_module_plain(x: torch.Tensor, p: Dict, cfg: MotionModuleConfig, heads: int,
+                        product=None):
+    """The whole motion module on ``(B, T, S, C)`` from raw parameters;
+    ``product(a, w)`` computes its weight products where given (``a @ w``
+    where not: ``chip_smoke.motion_split_plain`` passes wrong 3xTF32
+    splits)."""
     from video_depth_anything_torch.ops.temporal_attention import temporal_attention_plain
 
+    mm = product or torch.matmul
     b, t, s, c = x.shape
     dt = x.dtype
     g = cfg.norm_num_groups
@@ -160,23 +167,23 @@ def motion_module_plain(x: torch.Tensor, p: Dict, cfg: MotionModuleConfig, heads
     var, mean = torch.var_mean(xf, dim=(2, 4), keepdim=True, unbiased=False)
     xf = ((xf - mean) * torch.rsqrt(var + cfg.group_norm_eps)).reshape(b, t, s, c)
     y = (xf * p["gn_scale"].float() + p["gn_bias"].float()).to(dt)
-    y = y @ p["w_in"].to(dt) + p["b_in"].to(dt)
+    y = mm(y, p["w_in"].to(dt)) + p["b_in"].to(dt)
     d = c // heads
     pe = torch.from_numpy(sinusoidal_position_table(cfg.temporal_max_len, c)[:t]).to(x.device, dt)
     for i in range(cfg.num_attention_blocks):
         h = _ln(y, p["ln_scale"][i], p["ln_bias"][i], cfg.layer_norm_eps)
         hp = h + pe[None, :, None, :]
-        q = hp @ p["wq"][i].to(dt)
-        k = hp @ p["wk"][i].to(dt)
-        v = hp @ p["wv"][i].to(dt)
+        q = mm(hp, p["wq"][i].to(dt))
+        k = mm(hp, p["wk"][i].to(dt))
+        v = mm(hp, p["wv"][i].to(dt))
         out = temporal_attention_plain(q, k, v, heads, d**-0.5)
-        y = y + out @ p["wo"][i].to(dt) + p["bo"][i].to(dt)
+        y = y + mm(out, p["wo"][i].to(dt)) + p["bo"][i].to(dt)
     h = _ln(y, p["ln_scale"][-1], p["ln_bias"][-1], cfg.layer_norm_eps)
-    hh = h @ p["w1"].to(dt) + p["b1"].to(dt)
+    hh = mm(h, p["w1"].to(dt)) + p["b1"].to(dt)
     hh, gate = hh.chunk(2, dim=-1)
     hh = hh * _gelu(gate)
-    y = y + hh @ p["w2"].to(dt) + p["b2"].to(dt)
-    y = y @ p["w_out"].to(dt) + p["b_out"].to(dt)
+    y = y + mm(hh, p["w2"].to(dt)) + p["b2"].to(dt)
+    y = mm(y, p["w_out"].to(dt)) + p["b_out"].to(dt)
     return y + x
 
 
@@ -225,24 +232,100 @@ def weight_blocks(p: Dict) -> torch.Tensor:
     return torch.cat([sw128_tiles(g).reshape(-1) for g in gemms])
 
 
-def weight_matrices_f32(p: Dict) -> torch.Tensor:
-    """The fp32 kernel's weights as one fp32 sequence of 22 C² values, each
-    product's matrix row-major (K rows × N columns, ``y = x @ w``), in the
-    order the CTA uses them (``csrc/motion_module_f32.cu``): proj_in; per
-    attention block the q, k and v columns interleaved by chunk of whole
-    heads (``chunk_channels`` columns of q, then of k, then of v, chunk
-    after chunk), then w_o; w1 interleaved by 64-column hidden chunk (the
-    chunk's h columns, then its gate columns); w2; proj_out."""
+# The fp32 kernel's plan (csrc/motion_module_f32.cu Plan): consumer
+# warpgroups, which take the 64-wide output blocks n = cs, cs + nsplit, ...
+# of each product, and the ring stages of each warpgroup.  Rows a CTA: 64.
+F32_PLAN = {64: (1, 2), 128: (2, 4), 192: (3, 2), 256: (2, 3), 384: (2, 2)}
+F32_ROWS = 64
+# Input order within each 32-input panel of an fp32 tile: logical position L
+# (k8 step L // 8, slot L % 8 of the tf32 A fragment) holds input
+# 16 (L // 16) + 4 (L % 4) + 2 ((L // 8) % 2) + (L % 8) // 4, so that one
+# 16-byte load of an activation row gives a thread its A fragments of two
+# k8 steps.
+F32_PANEL_ORDER = tuple(16 * (L // 16) + 4 * (L % 4) + 2 * ((L // 8) % 2) + (L % 8) // 4
+                        for L in range(32))
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero), as ``cvt.rna.tf32.f32`` rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32).view(x.shape)
+
+
+def f32_tiles(w_in_out: torch.Tensor) -> torch.Tensor:
+    """``(K, N)`` JAX-layout fp32 weight → ``(N/64, K/32, 2, 64, 32)``: for
+    output block n and input panel k, the 3xTF32 split (hi = rna(w), lo =
+    rna(w − hi)) as two K-major tiles of 64 output columns × 32 inputs in
+    ``F32_PANEL_ORDER``, each row's 16-byte chunk j at chunk ``j ^ (row %
+    8)`` (the 128-byte swizzle a wgmma descriptor reads)."""
+    k, n = w_in_out.shape
+    t = w_in_out.to(torch.float32).t().reshape(n // 64, 64, k // 32, 32).permute(0, 2, 1, 3)
+    t = t[..., list(F32_PANEL_ORDER)]
+    hi = tf32_rna(t)
+    tiles = torch.stack([hi, tf32_rna(t - hi)], 2).reshape(n // 64, k // 32, 2, 64, 8, 4)
+    rows = torch.arange(64, device=t.device)
+    src = torch.arange(8, device=t.device)[None, :] ^ (rows % 8)[:, None]
+    return tiles[:, :, :, rows[:, None], src].reshape(n // 64, k // 32, 2, 64, 32).contiguous()
+
+
+def weight_blocks_f32(p: Dict) -> torch.Tensor:
+    """The fp32 kernel's weights (``csrc/motion_module_f32.cu``): for each
+    consumer warpgroup cs < nsplit (``F32_PLAN``), the ``f32_tiles`` blocks
+    it takes, in the order it takes them, one sequence after another, each
+    block its hi tile then its lo tile.  A warpgroup takes: proj_in's
+    output blocks n = cs, cs + nsplit, ... (each over all its input
+    panels); per attention block and chunk of ``chunk_channels`` (whole
+    heads), its blocks n ≡ cs (mod nsplit) of the chunk's q, k, v (n = 0,
+    1, 2; q, k and v columns padded to 64 with zero columns), then its
+    output blocks of the chunk's w_o rows (padded to 64 with zero rows);
+    per feed-forward step f the h columns of hidden chunk f·nsplit + cs,
+    their gate columns, then its output blocks of w2's rows of the step's
+    nsplit chunks; proj_out."""
     c = p["w_in"].shape[0]
-    ch = chunk_channels(c)
+    ns = F32_PLAN[c][0]
+    nch = chunk_channels(c)
     f32 = lambda w: w.to(torch.float32)  # noqa: E731
-    mats = [f32(p["w_in"])]
+    seqs = [[] for _ in range(ns)]
+
+    def out_blocks(tiles, cs):  # a warpgroup's output blocks, each over all panels
+        return [tiles[n, kp] for n in range(cs, tiles.shape[0], ns) for kp in range(tiles.shape[1])]
+
+    def padded(w, rows, cols):
+        out = w.new_zeros(rows, cols)
+        out[:w.shape[0], :w.shape[1]] = w
+        return out
+
+    for cs in range(ns):
+        seqs[cs] += out_blocks(f32_tiles(p["w_in"]), cs)
     for i in range(p["wq"].shape[0]):
-        qkv = torch.stack([f32(p[n][i]).reshape(c, c // ch, ch) for n in ("wq", "wk", "wv")], 2)
-        mats += [qkv.reshape(c, 3 * c), f32(p["wo"][i])]
-    w1 = f32(p["w1"]).reshape(c, 2, 4 * c // 64, 64)
-    mats += [w1.permute(0, 2, 1, 3).reshape(c, 8 * c), f32(p["w2"]), f32(p["w_out"])]
-    return torch.cat([m.reshape(-1) for m in mats]).contiguous()
+        for ch in range(c // nch):
+            cols = slice(ch * nch, (ch + 1) * nch)
+            qkv = [f32_tiles(padded(f32(p[k][i])[:, cols], c, 64)) for k in ("wq", "wk", "wv")]
+            wo = f32_tiles(padded(f32(p["wo"][i])[cols], 64, c))
+            for cs in range(ns):
+                for n in range(cs, 3, ns):
+                    seqs[cs] += list(qkv[n][0])
+                seqs[cs] += out_blocks(wo, cs)
+    w1, w2 = f32(p["w1"]), f32(p["w2"])
+    for f in range(4 * c // (64 * ns)):
+        w2t = f32_tiles(w2[f * ns * 64:(f + 1) * ns * 64])
+        for cs in range(ns):
+            j0 = (f * ns + cs) * 64
+            seqs[cs] += list(f32_tiles(w1[:, j0:j0 + 64])[0])
+            seqs[cs] += list(f32_tiles(w1[:, 4 * c + j0:4 * c + j0 + 64])[0])
+            seqs[cs] += out_blocks(w2t, cs)
+    for cs in range(ns):
+        seqs[cs] += out_blocks(f32_tiles(p["w_out"]), cs)
+    return torch.cat([torch.stack(sq).reshape(-1) for sq in seqs])
+
+
+def f32_weight_blocks(c: int, heads: int = 8) -> int:
+    """Blocks (hi and lo tiles, 4096 floats) of ``weight_blocks_f32`` at C."""
+    ns = F32_PLAN[c][0]
+    kp, nsw, nchk, fs = c // 32, c // 64 // ns, c // chunk_channels(c, heads), 4 * c // (64 * ns)
+    return sum(2 * nsw * kp + 2 * nchk * (len(range(cs, 3, ns)) * kp + 2 * nsw)
+               + fs * (2 * kp + 2 * ns * nsw) for cs in range(ns))
 
 
 def chunk_channels(c: int, heads: int = 8) -> int:
@@ -283,7 +366,7 @@ def kernel_weights(p: Dict, cfg: MotionModuleConfig,
     """Kernel C's operands that depend only on the parameters, for inputs of
     ``dtype``: in bf16 the weight tiles in the order the kernel streams
     them (``weight_blocks``) and the bf16 APE table, in fp32 the fp32
-    kernel's matrices (``weight_matrices_f32``) and the fp32 table (both
+    kernel's hi and lo blocks (``weight_blocks_f32``) and the fp32 table (both
     under ``"w"`` and ``"pe"``, ``temporal_max_len`` rows); fp32 biases and
     norm parameters; on the parameters' device.  A caller that runs the
     module more than once builds this once (``TemporalModule`` caches it
@@ -293,7 +376,7 @@ def kernel_weights(p: Dict, cfg: MotionModuleConfig,
     w = {k: f32(p[k]) for k in ("gn_scale", "gn_bias", "b_in", "ln_scale", "ln_bias", "bo",
                                 "b1", "b2", "b_out")}
     if dtype == torch.float32:
-        w["w"] = weight_matrices_f32(p)
+        w["w"] = weight_blocks_f32(p)
     elif dtype == torch.bfloat16:
         w["w"] = weight_blocks(p)
     else:
@@ -330,7 +413,7 @@ def _launch_args(x, gna, gnb, w, cfg, heads):
             f"the APE table; got heads={heads}, C={c}, T={t}")
     if cfg.num_attention_blocks != 2 or cfg.num_transformer_blocks != 1:
         raise NotImplementedError("motion_module kernel takes one block of two attentions")
-    if w["w"].numel() != 22 * c * c:
+    if w["w"].numel() != (22 * c * c if x.dtype == torch.bfloat16 else 4096 * f32_weight_blocks(c)):
         raise ValueError(f"motion_module weights are not kernel_weights of a C = {c} module")
     x = x.contiguous()
     if x.data_ptr() % 16:

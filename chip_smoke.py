@@ -250,6 +250,14 @@ QK_STD = 1.6  # q, k ~ N(0, 1.6^2), v ~ N(0, 1): scores q.k.d^-0.5 spread
 ATTN_TOL = 1e-2  # Kernels A and B, relative to max|plain|: probabilities and
 # outputs are rounded to bf16 at different points (~2.5 bf16 ulps of the
 # largest output).  mutant_errors shows that wrong kernels miss by far more.
+# Kernel C's rows in phases kernels and fp32: (label, C, S, T)
+MOTION_ROWS = tuple((label, c, s, 32) for label, c, s in (
+    ("m3 518x518", 64, 5476), ("m0 518x924", 192, 2442), ("m2 518x924", 64, 2442),
+    ("m3 518x924", 64, 9768), ("vitl m3 518x518", 256, 5476), ("vitl m2 518x924", 256, 2442),
+    ("vitl m3 518x924", 256, 9768), ("vitb m3 518x518", 128, 5476),
+    ("vitb m0 518x924", 384, 2442))) + tuple(
+    (label, c, 5476, t) for label, c in (("m3 518x518", 64), ("vitl m3 518x518", 256))
+    for t in (12, 16, 20, 24))
 MOTION_TOL = 5e-2  # Kernel C, relative to max|plain - x| (the module's own
 # contribution): the plain version rounds each GEMM output and each bias add
 # to bf16 separately, the kernel once per fused epilogue, through ~10
@@ -357,10 +365,13 @@ def motion_mutant_errors(x, p: dict, cfg, heads: int) -> dict:
     whose frame attention is uniform (the mean of v over the frames), one
     that adds no APE rows, one that projects k with q's weights (a ring
     block read for the wrong product), and one that drops the last quarter
-    of the feed-forward's hidden units (a short feed-forward loop)."""
+    of the feed-forward's hidden units (a short feed-forward loop).  Where
+    T is not 8, 16 or 32, a fifth: the frame attention over T padded up to
+    the kernel's Tp with zero keys and values left unmasked."""
     from unittest import mock
 
     import numpy as np
+    import torch.nn.functional as F
 
     from video_depth_anything_torch.ops import motion_module as mm
     from video_depth_anything_torch.ops import temporal_attention as ta
@@ -381,10 +392,23 @@ def motion_mutant_errors(x, p: dict, cfg, heads: int) -> dict:
     w2 = p["w2"].clone()
     w2[-x.shape[-1]:] = 0  # the last C of the 4C hidden units contribute nothing
     got_short_ff = mm.motion_module_plain(x, {**p, "w2": w2}, cfg, heads)
-    return {"uniform": max_err(got_uniform, want) / base,
-            "no_ape": max_err(got_no_ape, want) / base,
-            "k_from_q_weights": max_err(got_k_from_q, want) / base,
-            "last_ff_chunk_dropped": max_err(got_short_ff, want) / base}
+    out = {"uniform": max_err(got_uniform, want) / base,
+           "no_ape": max_err(got_no_ape, want) / base,
+           "k_from_q_weights": max_err(got_k_from_q, want) / base,
+           "last_ff_chunk_dropped": max_err(got_short_ff, want) / base}
+    t = x.shape[1]
+    tp = mm.padded_frames(t)
+    if tp > t:
+        plain = ta.temporal_attention_plain
+
+        def unmasked(q, k, v, heads, scale):  # zero frames t..tp-1 of k and v, as keys
+            pad = (0, 0, 0, 0, 0, tp - t)
+            return plain(q, F.pad(k, pad), F.pad(v, pad), heads, scale)
+
+        with mock.patch.object(ta, "temporal_attention_plain", unmasked):
+            out["unmasked_padded_keys"] = max_err(mm.motion_module_plain(x, p, cfg, heads),
+                                                  want) / base
+    return out
 
 
 def bwd_rel_err(got, want) -> float:
@@ -728,15 +752,14 @@ def phase_kernels(dev):
     # (``kernel_weights``, as TemporalModule caches them) and a GroupNorm
     # fold done before; the fold is timed on its own.  The first shape of
     # each width in mm.SPLIT_C also prints the split by stage; every row
-    # prints the PR 1-6 kernel's ms (PARENT_MS) beside its own.
+    # prints the earlier kernel's ms (PARENT_MS) beside its own.  vits and
+    # vitl m3 at 518x518 also at T = 12, 16, 20 and 24 (the feature cache's
+    # --inference_length; T = 12, 20, 24 padded to 16, 32, 32 rows a
+    # location, with the unmasked-padded-keys mutant).
     cfg = MotionModuleConfig()
     split_done = set()
-    for label, c, s in (("m3 518x518", 64, 5476), ("m0 518x924", 192, 2442),
-                        ("m2 518x924", 64, 2442), ("m3 518x924", 64, 9768),
-                        ("vitl m3 518x518", 256, 5476), ("vitl m2 518x924", 256, 2442),
-                        ("vitl m3 518x924", 256, 9768), ("vitb m3 518x518", 128, 5476),
-                        ("vitb m0 518x924", 384, 2442)):
-        b, t = 1, 32
+    for label, c, s, t in MOTION_ROWS:
+        b = 1
         x = (torch.randn(b, t, s, c, device=dev, generator=g)).to(torch.bfloat16)
         p = motion_params(c, seed=c, device=dev)
         w = mm.kernel_weights(p, cfg)
@@ -758,11 +781,13 @@ def phase_kernels(dev):
         flops = tokens * (44.0 * c * c + 2 * 4.0 * t * c)
         nbytes = 2 * tokens * c * 2 + (22 * c * c) * 2 + 2 * b * t * c * 4
         b_ms, b_by = bound(flops, nbytes)
-        rows.append(dict(kernel="motion_module", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
-                         max_abs_err=err, rel_err=rel, tol=MOTION_TOL, mutants=mutants, ms=ms,
-                         gn_fold_ms=fold_ms, parent_ms=PARENT_MS[("motion_module", label)],
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         extra=extra))
+        row = dict(kernel="motion_module", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
+                   max_abs_err=err, rel_err=rel, tol=MOTION_TOL, mutants=mutants, ms=ms,
+                   gn_fold_ms=fold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, extra=extra)
+        if t == 32:  # the earlier kernel was timed at T = 32
+            row["parent_ms"] = PARENT_MS[("motion_module", label)]
+        rows.append(row)
 
     # The output tail at vitl's map sizes; 518x924 is beyond the JAX gate's
     # VMEM term, so only this phase runs the kernel there.  ``plain_ms`` is
@@ -1589,8 +1614,83 @@ def phase_cli(smi: str) -> dict:
                 f"{bool(np.isfinite(depth).all())} launches {delta} {'OK' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"cli run of {encoder} on the {name} clip failed")
+        # the window mode's options: a shape bucket (518x518 -> 504x504),
+        # fp16 copies to the host and the extra outputs
+        out = os.path.join(tmp, "options")
+        zero_counts()
+        rc = run.main(["--input_video", os.path.join(tmp, "square.mp4"), "--output_dir", out,
+                       "--encoder", "vits", "--random_init", "--save_npz", "--shape_bucket", "56",
+                       "--transfer_dtype", "fp16", "--save_vis", "--save_stats", "--save_orig"])
+        delta = main_path_launches()
+        totals = {k: totals[k] + delta[k] for k in totals}
+        depth = np.load(os.path.join(out, "square_depth.npz"))["depth"]
+        files = sorted(os.listdir(out))
+        with open(os.path.join(out, "inference_log.txt")) as f:
+            record = json.loads(f.read().splitlines()[-1])
+        ok = (rc == 0 and depth.shape == (76, 480, 480) and bool(np.isfinite(depth).all())
+              and files == ["inference_log.txt", "square_depth.mp4", "square_depth.npz",
+                            "square_orig.mp4", "square_vis.mp4"]
+              and all(os.path.getsize(os.path.join(out, f)) > 0 for f in files)
+              and record["frames_predicted"] == 76 and "cuda:0" in record["device_memory"]
+              and record["args"]["shape_bucket"] == 56
+              and all(delta[k] > 0 for k in ("flash_attention", "temporal_attention",
+                                             "fused_motion_module")))
+        log(f"[cli] vits square --shape_bucket 56 --transfer_dtype fp16 --save_vis --save_stats "
+            f"--save_orig: rc={rc} depth {depth.shape} finite={bool(np.isfinite(depth).all())} "
+            f"files {files} device_memory {record['device_memory']} launches {delta} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("cli run with the window mode's options failed")
     log(f"[cli] launches over the main path: {totals} ({smi})")
+    window_overlap_fps(smi)
     return totals
+
+
+def window_overlap_fps(smi: str) -> None:
+    """End-to-end frames/s of the window pipeline (vits, 76-frame clips):
+    with the host work overlapped (preprocessing in the producer thread,
+    each batch's copy to the host read one batch late) and without (every
+    frame preprocessed first, each copy waited for at once), in turns on,
+    off, off, on after a warm-up run; the two depths must agree."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch.inference import pipeline as vp
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.utils.transform import model_size_for, preprocess_frames
+
+    model = VDAModel("vits", device=torch.device("cuda"))
+    model.init_params(seed=0)
+    pipe = vp.VideoDepthPipeline(model)
+
+    def serial(frames):
+        n, fh, fw = frames.shape[:3]
+        pre = np.empty((vp.padded_length(n),) + model_size_for(fh, fw) + (3,), np.float32)
+        pre[:n] = preprocess_frames(frames)
+        pre[n:] = pre[n - 1]
+        with mock.patch.object(vp, "D2H_OVERLAP_BYTES", 0):
+            depths = pipe.compute_window_depths(pre, vp.window_frame_indices(n), fh, fw)
+        return vp.stitch_windows(depths, n)
+
+    runs = {True: lambda f: pipe.infer_video_depth(f)[0], False: serial}
+    for h, w in ((480, 480), (480, 854)):
+        frames = clip_frames(h, w)
+        fps, out = {True: [], False: []}, {}
+        runs[True](frames)
+        for overlap in (True, False, False, True):
+            t = time.time()
+            out[overlap] = runs[overlap](frames)
+            fps[overlap].append(len(frames) / (time.time() - t))
+        diff = float(np.abs(out[True] - out[False]).max() / np.abs(out[False]).max())
+        log(f"[cli] window pipeline vits {w}x{h}, {len(frames)} frames, end to end: overlap on "
+            f"{fps[True]} frames/s, off {fps[False]} frames/s; max |on - off| / max |off| "
+            f"{diff:.3e} ({smi})")
+        if diff > 1e-3:  # the same launches on the same inputs (bit for bit on the CPU)
+            raise SystemExit("the overlapped window pipeline gives other depths than the serial one")
+    del model, pipe
+    torch.cuda.empty_cache()
 
 
 STREAM_TOL = 5e-2  # relative to max|plain depth|, as WINDOW_TOL: each step
@@ -1682,6 +1782,22 @@ def phase_stream(dev, smi: str) -> dict:
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"streaming parity ({'aligned' if align else 'plain'}) failed")
+    # --inference_length 24: the motion modules run over 24 frames, Kernel C
+    # on 32 rows a location
+    square = clip_frames(480, 480)
+    pipe = StreamingDepthPipeline(models["auto"], **{**STREAM, "inference_length": 24})
+    zero_counts()
+    got, _ = pipe.infer(square)
+    counts = launch_counts()
+    with plain_reference():
+        want, _ = pipe.infer(square)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    ok = (got.shape == want.shape == (len(square) - 23, 480, 480) and bool(np.isfinite(got).all())
+          and rel <= STREAM_TOL and counts["fused_motion_module"] > 0)
+    log(f"[stream] vits 480x480 plain auto --inference_length 24: depth {got.shape}, rel err "
+        f"kernels vs plain {rel:.3e} (tol {STREAM_TOL}), launches {counts} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("streaming parity at --inference_length 24 failed")
 
     clips = {"square": (480, 480), "wide": (480, 854)}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1704,6 +1820,20 @@ def phase_stream(dev, smi: str) -> dict:
                 f"finite={bool(np.isfinite(depth).all())} launches {delta} {'OK' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"streaming cli run of {encoder} on the {name} clip failed")
+        zero_counts()
+        rc = run.main(["--input_video", os.path.join(tmp, "square.mp4"), "--output_dir", tmp,
+                       "--encoder", "vits", "--random_init", "--save_npz",
+                       "--process_single_image", "--inference_length", "24"])
+        delta = main_path_launches()
+        totals = {k: totals[k] + delta[k] for k in totals}
+        depth = np.load(os.path.join(tmp, "square_depth.npz"))["depth"]
+        ok = (rc == 0 and depth.shape == (76 - 23, 480, 480) and bool(np.isfinite(depth).all())
+              and all(delta[k] > 0 for k in ("flash_attention", "temporal_attention",
+                                             "fused_motion_module")))
+        log(f"[stream] cli vits square 480x480 --inference_length 24: rc={rc} depth {depth.shape} "
+            f"finite={bool(np.isfinite(depth).all())} launches {delta} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("streaming cli run at --inference_length 24 failed")
     log(f"[stream] launches over the streaming CLI runs: {totals} ({smi})")
 
     for key, (h, w) in (("auto", (480, 854)), ("vitb", (480, 480))):
@@ -1983,12 +2113,8 @@ def fp32_kernel_rows(dev) -> list:
         del q, k, v, got, want, q5, k5, v5
 
     cfg = MotionModuleConfig()
-    for label, c, s in (("m3 518x518", 64, 5476), ("m0 518x924", 192, 2442),
-                        ("m2 518x924", 64, 2442), ("m3 518x924", 64, 9768),
-                        ("vitl m3 518x518", 256, 5476), ("vitl m2 518x924", 256, 2442),
-                        ("vitl m3 518x924", 256, 9768), ("vitb m3 518x518", 128, 5476),
-                        ("vitb m0 518x924", 384, 2442)):
-        b, t = 1, 32
+    for label, c, s, t in MOTION_ROWS:
+        b = 1
         x = torch.randn(b, t, s, c, device=dev, generator=g)
         p = motion_params(c, seed=c, device=dev)
         w = mm.kernel_weights(p, cfg, torch.float32)
@@ -2009,7 +2135,7 @@ def fp32_kernel_rows(dev) -> list:
         flops = b * t * s * (44.0 * c * c + 8.0 * t * c)
         ffma_ms, _ = bound_f32(flops, 2 * b * t * s * c * 4 + w["w"].numel() * 4)
         b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
-        l2_gb = b * -(-s // (mm.F32_ROWS // t)) * w["w"].numel() * 4 / 1e9
+        l2_gb = b * -(-s // (mm.F32_ROWS // mm.padded_frames(t))) * w["w"].numel() * 4 / 1e9
         rows.append(dict(kernel="motion_module_f32", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
                          max_abs_err=max_err(got, want), rel_err=max_err(got, want) / base,
                          tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,

@@ -20,6 +20,9 @@ import chip_smoke
 from video_depth_anything_torch.ops import attention_variants as av
 from tests.torch_port_helpers import chain_kern
 from video_depth_anything_tpu.ops.pallas_attention import _exp2_poly
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 BF16_ULP = 2.0**-8

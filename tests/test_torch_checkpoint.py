@@ -13,6 +13,9 @@ from video_depth_anything_torch.io.checkpoint import from_jax_params, load_pth
 from video_depth_anything_torch.models.vda import VDAModel
 from video_depth_anything_tpu.io.checkpoint import convert_torch_state_dict
 from video_depth_anything_tpu.models.vda import VideoDepthAnything as JaxModule
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @functools.lru_cache(maxsize=None)

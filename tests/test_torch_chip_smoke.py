@@ -7,6 +7,9 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 

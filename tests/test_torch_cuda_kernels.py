@@ -231,7 +231,10 @@ def test_temporal_attention_split(dev, c):
                                    (384, 32, 9), (384, 16, 5),     # vitb m0 on 16:9
                                    # every width at every T, S leaving a ragged last CTA
                                    (64, 16, 13), (128, 16, 11), (192, 8, 13), (256, 16, 7),
-                                   (384, 8, 11)])
+                                   (384, 8, 11),
+                                   # T padded up to 16 or 32 rows a location
+                                   (64, 12, 13), (64, 20, 9), (128, 20, 11), (192, 24, 5),
+                                   (256, 24, 5), (384, 12, 7)])
 def test_motion_module_kernel(dev, c, t, s):
     g = torch.Generator().manual_seed(c)
     n = lambda *sh, std: (torch.randn(*sh, generator=g) * std).to(dev)  # noqa: E731
@@ -458,7 +461,10 @@ def test_temporal_attention_f32_kernel(dev, no_tf32, c, t, s):
 
 
 @pytest.mark.parametrize("c,t,s", [(64, 32, 70), (64, 8, 50), (128, 16, 11), (192, 32, 33),
-                                   (192, 8, 13), (256, 16, 7), (384, 32, 9), (384, 8, 11)])
+                                   (192, 8, 13), (256, 16, 7), (384, 32, 9), (384, 8, 11),
+                                   # T padded up to 16 or 32 rows a location
+                                   (64, 12, 13), (128, 20, 11), (192, 12, 7), (256, 24, 5),
+                                   (384, 20, 3)])
 def test_motion_module_f32_kernel(dev, no_tf32, c, t, s):
     """fp32 operands at every width and T, S leaving a ragged last CTA,
     against the plain module (erf GELU), relative to max|plain - x|; the

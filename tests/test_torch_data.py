@@ -13,6 +13,9 @@ from video_depth_anything_torch.data import clips as t_clips
 from video_depth_anything_tpu import data as j_data
 from video_depth_anything_tpu.data import augment as j_augment
 from video_depth_anything_tpu.data import clips as j_clips
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,9 @@ from video_depth_anything_tpu.ops import (
     pallas_output_stack,
     pallas_temporal,
 )
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 class _Tag(str):
@@ -163,3 +166,73 @@ def test_dispatch_plan_matches_jax_gates(encoder, h, w, expected, monkeypatch):
 def test_dispatch_plan_under_pallas_matches_jax_gates(encoder, h, w, expected, monkeypatch):
     assert jax_plan(encoder, h, w, monkeypatch, "pallas") == expected
     assert port_plan(encoder, h, w, "pallas") == expected
+
+
+def _forced_plan(encoder, h, w, mode, impl="auto"):
+    """The port's Kernel C decision per motion module under
+    ``VDA_FUSED_MOTION=mode`` (``TemporalModule.fused``)."""
+    from video_depth_anything_torch.models.temporal import TemporalModule
+
+    cfg = get_model_config(encoder)
+    out = {}
+    for name, mh, mw, c in _module_shapes(encoder, h, w):
+        mod = TemporalModule.__new__(TemporalModule)  # the gate reads these alone
+        mod.cfg, mod.inner, mod.use_kernels = cfg.motion, c, impl.partition(":")[0] != "xla"
+        out[name] = mod.fused(32, mh, mw, c)
+    return out
+
+
+def _jax_forced_plan(encoder, h, w, mode, impl, monkeypatch):
+    """JAX ``models/temporal.py:400-422`` under ``VDA_FUSED_MOTION=mode``:
+    ``0`` off; ``1`` past the h·w and d rule and the ``xla`` check; then
+    ``try_fused_motion_module``'s own terms."""
+    monkeypatch.setattr(pallas_motion, "fused_motion_module", lambda *a, **k: _Tag("fused"))
+    cfg, heads = JCfg(), JCfg().num_heads
+    out = {}
+    for name, mh, mw, c in _module_shapes(encoder, h, w):
+        x = np.empty((1, 32, mh * mw, c), np.uint8)
+        d = c // heads
+        on = mode != "0" and (impl.partition(":")[0] != "xla" or mode == "1")
+        if on and mode != "1":
+            on = mh * mw >= 2048 and d <= 64
+        out[name] = bool(on and pallas_motion.try_fused_motion_module(
+            x, {}, heads=heads, cfg=cfg, interpret=True))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["0", "1", "auto"])
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+@pytest.mark.parametrize("encoder,h,w", [(e, h, w) for e in ("vits", "vitb", "vitl")
+                                         for h, w in ((518, 518), (518, 924))])
+def test_fused_motion_switch_matches_jax(encoder, h, w, impl, mode, monkeypatch):
+    """``VDA_FUSED_MOTION``: ``0`` sends no module to Kernel C, ``1`` every
+    module the JAX gate's other terms admit (all four on every encoder,
+    under ``xla`` too), anything else the plan of
+    ``test_dispatch_plan_matches_jax_gates``."""
+    monkeypatch.setenv("VDA_FUSED_MOTION", mode)
+    want = _jax_forced_plan(encoder, h, w, mode, impl, monkeypatch)
+    assert _forced_plan(encoder, h, w, mode, impl) == want
+    if mode == "0":
+        assert not any(want.values())
+    if mode == "1":
+        assert all(want.values())
+
+
+def test_forced_widths_kernel_c_lacks_raise_naming_the_queue(monkeypatch):
+    """``VDA_FUSED_MOTION=1`` reaches C = 768 (vitb m1) and 1024 (vitl m0,
+    m1), which Kernel C has no instantiation for: its launch raises, naming
+    ROADMAP Queue 2 B, and never falls back (checked on CPU tensors with the
+    stream lookup stubbed: the checks run before any launch)."""
+    from video_depth_anything_torch.config import MotionModuleConfig
+    from video_depth_anything_torch.ops import motion_module as mm
+
+    monkeypatch.setattr(mm.cuda_build, "stream_of", lambda t: None)
+    reached = {c for e in ("vitb", "vitl") for _, _, _, c in _module_shapes(e, 518, 518)}
+    lacking = sorted(reached - set(mm._SUPPORTED_C))
+    assert lacking == [768, 1024]
+    cfg = MotionModuleConfig()
+    for c in lacking:
+        x = torch.zeros(1, 32, 2, c, dtype=torch.bfloat16)
+        w = {"w": torch.zeros(8, dtype=torch.bfloat16), "pe": torch.zeros(32, c, dtype=torch.bfloat16)}
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 B"):
+            mm._launch_args(x, None, None, w, cfg, 8)

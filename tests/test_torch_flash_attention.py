@@ -14,6 +14,9 @@ from video_depth_anything_tpu.ops.pallas_attention import (
     flash_attention_native,
     spatial_flash_attention,
 )
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # Same bound as the JAX package's own kernel tests (tests/test_pallas_kernels.py):
 # the Pallas kernels round q·scale·log2(e) to the input dtype and use a

@@ -12,6 +12,9 @@ import torch
 import chip_smoke
 from video_depth_anything_torch.ops import flash_attention as t_flash
 from video_depth_anything_tpu.ops.pallas_attention import flash_attention_native
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # fp32: the Pallas kernel rounds nothing in fp32 but sums in another order
 # and uses its polynomial exp2 (tests/test_pallas_kernels.py's forward bound

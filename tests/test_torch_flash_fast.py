@@ -16,6 +16,9 @@ from video_depth_anything_tpu.ops.pallas_attention import (
     flash_attention_native,
     spatial_flash_attention,
 )
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # The JAX package's own bound for its kernels (tests/test_pallas_kernels.py):
 # the Pallas kernels round q·scale·log2(e) to the input dtype and use a

@@ -24,6 +24,9 @@ from video_depth_anything_tpu.ops.pallas_attention import (
     flash_attention_native,
     spatial_flash_attention,
 )
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FWD_TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_torch_flash_attention.py's bound
 BWD_FP32_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_torch_flash_attention_bwd.py's
@@ -48,28 +51,26 @@ def tiled_forward(q, k, v, scale, fast=False, mask=True):
     qp = _pad_rows(q, n_pad)
     kp, vp = (_pad_rows(x, k_pad) for x in (k, v))
     sl2 = scale * t_flash.LOG2E
-    out = torch.zeros(b, h, n_pad, d)
-    lse = torch.zeros(b, h, n_pad)
-    for i in range(0, n_pad, ROWS):  # one CTA: 128 queries
-        qi = qp[:, :, i:i + ROWS]
-        m = torch.full((b, h, ROWS), 0.0 if fast else -math.inf)
-        l = torch.zeros(b, h, ROWS)
-        acc = torch.zeros(b, h, ROWS, d)
-        for j in range(0, k_pad, keys):
-            kj = kp[:, :, j:j + keys]
-            s = sum(qi[..., c:c + 64] @ kj[..., c:c + 64].transpose(-1, -2)  # 64-column panels
-                    for c in range(0, d, 64)) * sl2
-            if mask and n - j < keys:  # the ragged last tile only
-                s[..., n - j:] = -math.inf
-            if not fast:
-                m_new = torch.maximum(m, s.amax(-1))
-                alpha = torch.exp2(m - m_new)
-                acc, l, m = acc * alpha[..., None], l * alpha, m_new
-            p = torch.exp2(s - m[..., None])
-            l = l + p.sum(-1)
-            acc = acc + p.to(torch.bfloat16).float() @ vp[:, :, j:j + keys]
-        out[:, :, i:i + ROWS] = acc / l[..., None]
-        lse[:, :, i:i + ROWS] = m + torch.log2(l)
+    # The CTAs (128 queries each) are independent: all of them in one tensor
+    # op, each row over the same key tiles in the kernel's order.
+    m = torch.full((b, h, n_pad), 0.0 if fast else -math.inf)
+    l = torch.zeros(b, h, n_pad)
+    acc = torch.zeros(b, h, n_pad, d)
+    for j in range(0, k_pad, keys):
+        kj = kp[:, :, j:j + keys]
+        s = sum(qp[..., c:c + 64] @ kj[..., c:c + 64].transpose(-1, -2)  # 64-column panels
+                for c in range(0, d, 64)) * sl2
+        if mask and n - j < keys:  # the ragged last tile only
+            s[..., n - j:] = -math.inf
+        if not fast:
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            acc, l, m = acc * alpha[..., None], l * alpha, m_new
+        p = torch.exp2(s - m[..., None])
+        l = l + p.sum(-1)
+        acc = acc + p.to(torch.bfloat16).float() @ vp[:, :, j:j + keys]
+    out = acc / l[..., None]
+    lse = m + torch.log2(l)
     return out[:, :, :n].permute(0, 2, 1, 3).to(q.dtype), lse[:, :, :n]
 
 

@@ -45,6 +45,9 @@ from video_depth_anything_tpu.ops.pallas_attention import (
 )
 from video_depth_anything_tpu.ops.pallas_motion import fused_motion_module
 from video_depth_anything_tpu.ops.pallas_temporal import temporal_attention_window
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FP32_TOL = 1e-5  # the emulation against the JAX kernel in fp32, relative
 # Two bf16 evaluations of a 2-block vits on 28x28 frames, one in each
@@ -431,20 +434,25 @@ def emulate_motion_f32(x, p, cfg, heads, mutant=None):
     + x.  Mutants: those of ``product_3xtf32``; ``wrong_block`` (the
     feed-forward's h and gate products each read the other's blocks);
     ``stats_wrong_block`` (each row's LayerNorm statistics from the same
-    row of the next CTA's 64-row block)."""
+    row of the next CTA's 64-row block); ``unmasked_keys`` (the padded
+    frames' keys let into the frame attention).  T pads up to Tp = 8, 16
+    or 32 rows a location: rows t ≥ T zero, masked as keys, without APE,
+    never stored."""
     b, t, s, c = x.shape
+    tp = t_motion.padded_frames(t)
     w = t_motion.kernel_weights(p, cfg, torch.float32)
-    gna, gnb = t_motion.gn_fold(x, w, cfg)
+    gna, gnb = (torch.cat([g, torch.zeros(b, tp - t, c)], 1) for g in t_motion.gn_fold(x, w, cfg))
+    pe = torch.cat([w["pe"][:t], torch.zeros(tp - t, c)])
     ring = MotionRing(w["w"], c, heads)
     ns, d = ring.ns, c // heads
     nch = t_motion.chunk_channels(c, heads)
-    locs = 64 // t
+    locs = 64 // tp
     ncta = -(-s // locs)
     rows = b * ncta * 64
-    xs = torch.zeros(b, ncta * locs, t, c)
-    xs[:, :s] = x.permute(0, 2, 1, 3)
+    xs = torch.zeros(b, ncta * locs, tp, c)
+    xs[:, :s, :t] = x.permute(0, 2, 1, 3)
     xr = xs.reshape(b, ncta, 64, c)
-    frame = torch.arange(64) % t
+    frame = torch.arange(64) % tp
     y = (xr * gna[:, None, frame] + gnb[:, None, frame]).reshape(rows, c)
     frames = frame.repeat(b * ncta)
     out_owners = [n % ns for n in range(c // 64)]
@@ -457,7 +465,7 @@ def emulate_motion_f32(x, p, cfg, heads, mutant=None):
         if mutant == "stats_wrong_block":
             mean, rstd = mean.roll(-64, 0), rstd.roll(-64, 0)
         h = (y - mean) * (rstd * w["ln_scale"][i]) + w["ln_bias"][i]
-        return h + w["pe"][frames] if ape else h
+        return h + pe[frames] if ape else h
 
     y = mm(y, c // 32, out_owners) + w["b_in"]
     for i in range(2):
@@ -465,8 +473,10 @@ def emulate_motion_f32(x, p, cfg, heads, mutant=None):
         acc = torch.zeros(rows, c)
         for _ in range(c // nch):
             qkv = mm(h, c // 32, [n % ns for n in range(3)])
-            q, k, v = (qkv[:, 64 * j:64 * j + nch].reshape(-1, t, nch // d, d) for j in range(3))
+            q, k, v = (qkv[:, 64 * j:64 * j + nch].reshape(-1, tp, nch // d, d) for j in range(3))
             sc = torch.einsum("lqhd,lkhd->lhqk", q, k) * (d**-0.5 * LOG2E)
+            if mutant != "unmasked_keys":
+                sc[..., t:] = -math.inf
             pr = torch.exp2(sc - sc.amax(-1, keepdim=True))
             o = torch.einsum("lhqk,lkhd->lqhd", pr, v) / pr.sum(-1).permute(0, 2, 1)[..., None]
             oa = torch.zeros(rows, 64)
@@ -487,7 +497,7 @@ def emulate_motion_f32(x, p, cfg, heads, mutant=None):
     y = y + (acc + w["b2"])
     res = mm(y, c // 32, out_owners) + w["b_out"] + xs.reshape(rows, c)
     assert ring.pos == ring.end, "every warpgroup reads its whole sequence"
-    return res.reshape(b, ncta * locs, t, c)[:, :s].permute(0, 2, 1, 3)
+    return res.reshape(b, ncta * locs, tp, c)[:, :s, :t].permute(0, 2, 1, 3)
 
 
 def _motion_params(c, seed):

@@ -37,6 +37,9 @@ from video_depth_anything_torch import bench_fp32
 from video_depth_anything_torch.ops import flash_attention as t_flash
 from video_depth_anything_torch.ops import temporal_attention as t_temporal
 from video_depth_anything_tpu.ops.pallas_temporal import temporal_attention_window
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MUTANT_TOL = chip_smoke.F32_TOL  # a wrong plan must miss by more than the card's tolerance
 

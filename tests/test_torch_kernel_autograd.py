@@ -24,6 +24,9 @@ from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
 from video_depth_anything_tpu.ops import pallas_output_stack as j_tail
 from video_depth_anything_tpu.ops.pallas_motion import motion_module_reference
 from video_depth_anything_tpu.ops.pallas_temporal import _attention_bwd_math
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # fp32, the same operations in the same order up to the two frameworks'
 # summation order (the port's fp32 bound, docs/PARITY.md:12)

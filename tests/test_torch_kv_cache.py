@@ -20,6 +20,9 @@ from video_depth_anything_torch.ops.dispatch import plain_reference
 from video_depth_anything_torch.ops.temporal_attention import temporal_attention_plain
 from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
 from video_depth_anything_tpu.models.temporal import TemporalModule as JModule
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # fp32 parity bound of the JAX package against the torch reference
 # (docs/PARITY.md:12).

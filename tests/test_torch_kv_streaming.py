@@ -13,6 +13,8 @@ from tests.torch_port_helpers import model_pair, one_torch_thread  # noqa: F401
 from video_depth_anything_torch.inference.kv_streaming import KVStreamingPipeline
 from video_depth_anything_tpu.inference import kv_streaming as j_kv
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 # fp32 parity bound of the JAX package against the torch reference
 # (docs/PARITY.md:12); the aligned modes feed every step's depth into a fit.
 TOL = dict(rtol=1e-3, atol=2e-4)

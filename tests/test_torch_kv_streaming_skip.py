@@ -10,6 +10,9 @@ import numpy as np
 from tests.torch_port_helpers import model_pair, one_torch_thread  # noqa: F401
 from video_depth_anything_torch.inference.kv_streaming import KVStreamingPipeline
 from video_depth_anything_tpu.inference import kv_streaming as j_kv
+import pytest
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(rtol=1e-3, atol=2e-4)  # docs/PARITY.md:12
 KWARGS = dict(input_size=28, inference_length=6, stream_chunk=3)

@@ -8,6 +8,9 @@ import torch
 
 from video_depth_anything_torch.train import losses as t_losses
 from video_depth_anything_tpu.train import losses as j_losses
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # fp32 sums over a few thousand elements, in another order
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -12,6 +12,9 @@ from video_depth_anything_torch.io.checkpoint import from_jax_params
 from video_depth_anything_torch.models.vda import VDAModel
 from video_depth_anything_torch.ops import temporal_attention as t_temporal
 from video_depth_anything_tpu.models.vda import VDAModel as JaxVDA
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # The JAX package's own bound against the torch reference (docs/PARITY.md:12).
 TOL = dict(rtol=1e-3, atol=2e-4)

@@ -8,6 +8,9 @@ import pytest
 
 from tests.torch_port_helpers import model_pair
 from video_depth_anything_torch.ops.motion_module import motion_gate
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # The JAX package's own bound against the torch reference (docs/PARITY.md:12).
 TOL = dict(rtol=1e-3, atol=2e-4)

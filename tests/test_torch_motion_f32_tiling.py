@@ -35,6 +35,9 @@ from video_depth_anything_torch.config import MotionModuleConfig as TCfg
 from video_depth_anything_torch.ops import motion_module as t_motion
 from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
 from video_depth_anything_tpu.ops.pallas_motion import fused_motion_module
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MUTANT_TOL = chip_smoke.F32_TOL  # a wrong plan must miss by more than the card's tolerance
 SOURCE = Path(t_motion.__file__).resolve().parent.parent / "csrc" / "motion_module_f32.cu"
@@ -50,9 +53,11 @@ def _case(c: int, t: int, s: int):
 
 
 @pytest.mark.parametrize("c,t,s", [(64, 16, 9), (64, 32, 3), (128, 8, 19), (128, 32, 5),
-                                   (192, 16, 5), (256, 8, 10), (256, 32, 3), (384, 16, 5)])
+                                   (192, 16, 5), (256, 8, 10), (256, 32, 3), (384, 16, 5),
+                                   (64, 12, 9), (128, 20, 5), (256, 24, 3)])
 def test_motion_f32_plan_matches_plain(c, t, s):
-    """Every width at T = 8, 16 and 32, two or three CTAs, the last ragged."""
+    """Every width at T = 8, 16 and 32, two or three CTAs, the last ragged;
+    T = 12, 20 and 24 padded to Tp = 16, 32 and 32 rows a location."""
     x, p, want = _case(c, t, s)
     assert rel(emulate_motion_f32(x, p, TCfg(), 8), want, x) <= FP32_TOL
 

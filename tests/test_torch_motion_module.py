@@ -19,6 +19,9 @@ from video_depth_anything_torch.ops import motion_module as t_motion
 from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
 from video_depth_anything_tpu.models.temporal import TemporalModule as JModule
 from video_depth_anything_tpu.ops.pallas_motion import motion_module_reference
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # fp32 on the CPU, same operations in the same order up to the GEMM
 # summation order of the two frameworks.
@@ -158,3 +161,31 @@ def test_smoke_check_separates_right_from_wrong(c):
     assert chip_smoke.max_err(got, want) / base <= chip_smoke.MOTION_TOL
     mutants = chip_smoke.motion_mutant_errors(x, p, TCfg(), 8)
     assert min(mutants.values()) > chip_smoke.MOTION_TOL, mutants
+
+
+def test_launch_args_take_every_frame_count_the_gate_admits(monkeypatch):
+    """Kernel C's launch checks pass for every 8 ≤ T ≤ 32 that
+    ``motion_gate`` admits (T padded to 8, 16 or 32 rows a location) and
+    refuse T past the APE table with the same message form.  On CPU
+    tensors, with the stream lookup stubbed: no launch is made."""
+    monkeypatch.setattr(t_motion.cuda_build, "stream_of", lambda t: None)
+    c, cfg = 64, TCfg()
+    g = torch.Generator().manual_seed(0)
+    raw = dict(gn_scale=torch.ones(c), gn_bias=torch.zeros(c), w_in=torch.randn(c, c, generator=g),
+               b_in=torch.zeros(c), ln_scale=torch.ones(3, c), ln_bias=torch.zeros(3, c),
+               wq=torch.randn(2, c, c, generator=g), wk=torch.randn(2, c, c, generator=g),
+               wv=torch.randn(2, c, c, generator=g), wo=torch.randn(2, c, c, generator=g),
+               bo=torch.zeros(2, c), w1=torch.randn(c, 8 * c, generator=g), b1=torch.zeros(8 * c),
+               w2=torch.randn(4 * c, c, generator=g), b2=torch.zeros(c),
+               w_out=torch.randn(c, c, generator=g), b_out=torch.zeros(c))
+    w = t_motion.kernel_weights(raw, cfg)
+    for t in range(8, 33):
+        assert t_motion.motion_gate(cfg, c, c, t, 74, 74)
+        x = torch.zeros(1, t, 3, c, dtype=torch.bfloat16)
+        gna, gnb = t_motion.gn_fold(x, w, cfg)
+        out, _, args = t_motion._launch_args(x, gna, gnb, w, cfg, 8)
+        assert out.shape == x.shape and args[-6] == t  # (…, B, T, S, C, scale, eps, stream)
+        assert t_motion.padded_frames(t) == (8 if t <= 8 else 16 if t <= 16 else 32)
+    x = torch.zeros(1, 33, 3, c, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=r"8 <= T <= 32 within the APE table"):
+        t_motion._launch_args(x, *t_motion.gn_fold(x, w, cfg), w, cfg, 8)

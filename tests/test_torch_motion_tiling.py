@@ -6,11 +6,14 @@ plain version: CTAs of R = 64·NRB location-major rows (whole locations per
 the order of the streamed sequence (``weight_blocks``, un-swizzled here),
 k panel after k panel into fp32 accumulators, the 64-wide output blocks
 taken round robin by the row block's warpgroups (three at C = 192 and 384,
-two at 256), the feed-forward in steps of
+two at 256), T padded up to Tp = 8, 16 or 32 rows a location (rows
+t ≥ T zero, their keys masked, no APE, never stored), the feed-forward in steps of
 64·NSPLIT hidden columns (h product, gate product, then the second
 product, which accumulates in fp32 over all steps), v written over h, the
 attention out over q, and every bf16 rounding point of the kernel.  Also the layout of the tiles against the JAX
 ``(in, out)`` weights."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,9 @@ from video_depth_anything_torch.config import MotionModuleConfig as TCfg
 from video_depth_anything_torch.ops import motion_module as t_motion
 from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
 from video_depth_anything_tpu.ops.pallas_motion import fused_motion_module
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # Relative to max|plain - x|, the module's own contribution, as chip_smoke.py's
 # MOTION_TOL: emulation, JAX kernel and plain version round to bf16 at
@@ -61,21 +67,26 @@ class Stream:
         return torch.cat([acc[ns] for ns in own], dim=1)
 
 
-def emulate(x, p, cfg, heads):
-    """Kernel C's result on bf16 ``x (B, T, S, C)`` (returned as fp32)."""
+def emulate(x, p, cfg, heads, mutant=None):
+    """Kernel C's result on bf16 ``x (B, T, S, C)`` (returned as fp32).
+    ``mutant="unmasked_keys"`` lets the padded frames' keys into the
+    frame attention."""
     b_, t_, s_, c = x.shape
+    tp = t_motion.padded_frames(t_)
     w = t_motion.kernel_weights(p, cfg)
-    gna, gnb = t_motion.gn_fold(x, w, cfg)
+    gna, gnb = t_motion.gn_fold(x, w, cfg)  # over the true T
     nsplit = t_motion.nsplit(c)
     rows = ROWS[c]
-    locs = rows // t_
+    locs = rows // tp
     ns_n, dh = c // 64, c // heads
     pe = w["pe"].float()
     f32 = {k: w[k].float() for k in ("b_in", "ln_scale", "ln_bias", "bo", "b1", "b2", "b_out")}
     s_pad = -(-s_ // locs) * locs
-    xp = torch.zeros(b_, t_, s_pad, c)
-    xp[:, :, :s_] = x.float()
-    out = torch.zeros(b_, t_, s_pad, c)
+    xp = torch.zeros(b_, tp, s_pad, c)
+    xp[:, :t_, :s_] = x.float()
+    out = torch.zeros(b_, tp, s_pad, c)
+    gna, gnb = (torch.cat([g, torch.zeros(b_, tp - t_, c)], 1) for g in (gna, gnb))
+    pe = torch.cat([pe[:t_], torch.zeros(tp - t_, c)])  # no APE on a padded frame
 
     def full_gemm(stream_of_wg, a, kp_n, n_n):
         """Each warpgroup cs of the row block consumes its own blocks of the
@@ -98,12 +109,12 @@ def emulate(x, p, cfg, heads):
 
     for bi in range(b_):
         for s0 in range(0, s_, locs):  # one CTA
-            for r0 in range(0, locs, 64 // t_):  # one 64-row block: whole locations
-                sl = slice(s0 + r0, s0 + r0 + 64 // t_)
-                nl = 64 // t_
-                # rows location major: r = l * T + t; zeros past S
+            for r0 in range(0, locs, 64 // tp):  # one 64-row block: whole locations
+                sl = slice(s0 + r0, s0 + r0 + 64 // tp)
+                nl = 64 // tp
+                # rows location major: r = l * Tp + t; zeros past S and T
                 xr = xp[bi, :, sl].permute(1, 0, 2).reshape(-1, c)
-                t_idx = torch.arange(t_).repeat(nl)
+                t_idx = torch.arange(tp).repeat(nl)
                 h = bf(xr * gna[bi][t_idx] + gnb[bi][t_idx])
                 streams = [Stream(w["w"]) for _ in range(nsplit)]
                 y = bf(full_gemm(streams, h, c // 64, ns_n) + f32["b_in"])
@@ -114,10 +125,12 @@ def emulate(x, p, cfg, heads):
                     v = bf(full_gemm(streams, h, c // 64, ns_n))  # over h
                     o = torch.zeros_like(q)
                     for li in range(nl):
-                        rr = slice(li * t_, (li + 1) * t_)
+                        rr = slice(li * tp, (li + 1) * tp)
                         for hd in range(heads):
                             cc = slice(hd * dh, (hd + 1) * dh)
                             sc = q[rr, cc] @ k[rr, cc].t() * dh**-0.5
+                            if mutant != "unmasked_keys":
+                                sc[:, t_:] = -torch.inf
                             pr = bf(torch.softmax(sc, dim=-1))
                             o[rr, cc] = bf(pr @ v[rr, cc])  # over q
                     y = bf(y + full_gemm(streams, o, c // 64, ns_n) + f32["bo"][i])
@@ -133,8 +146,8 @@ def emulate(x, p, cfg, heads):
                 y = bf(y + ff + f32["b2"])
                 res = full_gemm(streams, y, c // 64, ns_n) + f32["b_out"]
                 assert all(st.j == streams[0].j == w["w"].numel() // 4096 for st in streams)
-                out[bi, :, sl] = bf(res + xr).reshape(nl, t_, c).permute(1, 0, 2)
-    return out[:, :, :s_]
+                out[bi, :, sl] = bf(res + xr).reshape(nl, tp, c).permute(1, 0, 2)
+    return out[:, :t_, :s_]
 
 
 def _params(c, seed):
@@ -158,20 +171,36 @@ def _rel(got, want, x):
         float((want.float() - x.float()).abs().max())
 
 
-# S leaves a ragged last CTA (locations per CTA: 128 / T at C = 64, 128; 64 / T at 384)
-@pytest.mark.parametrize("c,t,s", [(64, 8, 20), (64, 32, 6), (128, 8, 19), (128, 32, 5),
-                                   (384, 8, 10), (384, 32, 3)])
-def test_tiling_matches_plain(c, t, s):
+@functools.lru_cache(maxsize=None)
+def _case(c, t, s):
+    """Parameters, x and the plan's output of a shape, computed once for the
+    plain and the Pallas comparisons."""
     p, x = _params(c, c + t), _x(c, t, s, s)
-    got = emulate(x, p, TCfg(), 8)
+    return p, x, emulate(x, p, TCfg(), 8)
+
+
+# S leaves a ragged last CTA (locations per CTA: 128 / Tp at C = 64, 128;
+# 64 / Tp at 256, 384); T = 12, 20 and 24 take Tp = 16, 32 and 32
+@pytest.mark.parametrize("c,t,s", [(64, 8, 20), (64, 32, 6), (128, 8, 19), (128, 32, 5),
+                                   (384, 8, 10), (384, 32, 3), (64, 12, 12), (64, 20, 5),
+                                   (256, 24, 3)])
+def test_tiling_matches_plain(c, t, s):
+    p, x, got = _case(c, t, s)
     want = t_motion.motion_module_plain(x, p, TCfg(), 8)
     assert _rel(got, want, x) <= TOL
 
 
+def test_unmasked_padded_keys_miss_plain():
+    """The padded-Tp plan with the padded frames' keys let into the frame
+    attention (T = 20 in 32 rows) misses the plain version."""
+    p, x, _ = _case(64, 20, 5)
+    want = t_motion.motion_module_plain(x, p, TCfg(), 8)
+    assert _rel(emulate(x, p, TCfg(), 8, mutant="unmasked_keys"), want, x) > TOL
+
+
 @pytest.mark.parametrize("c,t,s", [(64, 8, 20), (128, 32, 5), (384, 32, 3)])
 def test_tiling_matches_pallas_kernel(c, t, s):
-    p, x = _params(c, c + t), _x(c, t, s, s)
-    got = emulate(x, p, TCfg(), 8)
+    p, x, got = _case(c, t, s)
     want = fused_motion_module(jnp.asarray(x.float().numpy(), jnp.bfloat16),
                                {k: jnp.asarray(v.numpy()) for k, v in p.items()},
                                heads=8, cfg=JCfg(), interpret=True)

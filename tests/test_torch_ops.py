@@ -12,6 +12,9 @@ from video_depth_anything_torch.utils import transform as t_tf
 from video_depth_anything_tpu.ops import resize as j_resize
 from video_depth_anything_tpu.ops import scale_shift as j_ss
 from video_depth_anything_tpu.utils import transform as j_tf
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("src,dst", [((4, 7), (8, 14)), ((37, 66), (74, 132)),

@@ -10,6 +10,9 @@ import torch
 
 from video_depth_anything_torch.train.trainer import make_optimizer as t_make
 from video_depth_anything_tpu.train.trainer import make_optimizer as j_make
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # fp32 elementwise updates; Adam divides by sqrt(v), so a last-bit
 # difference in the gradient's square moves the step by ~1e-7 relative

@@ -12,6 +12,9 @@ import chip_smoke
 from video_depth_anything_torch.config import get_model_config
 from video_depth_anything_torch.ops import output_tail as t_tail
 from video_depth_anything_tpu.ops import pallas_output_stack as j_tail
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # C = 128 (vitl's head width); the second case is the head's 8:14 ratio.
 SHAPES = [((1, 8, 12, 128), (14, 21)), ((2, 32, 32, 128), (56, 56))]

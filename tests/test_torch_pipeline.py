@@ -11,6 +11,9 @@ import pytest
 from tests.torch_port_helpers import model_pair
 from video_depth_anything_torch.inference import pipeline as t_pipe
 from video_depth_anything_tpu.inference import pipeline as j_pipe
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(rtol=1e-3, atol=2e-4)  # docs/PARITY.md:12
 

@@ -51,6 +51,9 @@ from jax.experimental import pallas as pl
 import chip_smoke
 from tests.torch_port_helpers import chain_kern
 from video_depth_anything_torch.ops import attention_variants as av
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 BF16_ULP = 2.0**-8
@@ -335,10 +338,15 @@ MUTANTS = [("chunk2", "p_other_slot"), ("chunk2", "output_other_head"),
            ("chunk2", "q_scaled_after_rounding"), ("ilv", "q_scaled_after_rounding")]
 
 
+_MUTANT_WANT = {}  # (variant, qk_std) → run_variant's output, shared by that variant's mutants
+
+
 def _check_mutant(bsv, variant, mutant, qk_std):
     n, heads = 200, 2
     q, k, v = _inputs(n, heads, seed=7, qk_std=qk_std)
-    want = _run_variant(bsv, variant, q, k, v, heads)
+    if (variant, qk_std) not in _MUTANT_WANT:
+        _MUTANT_WANT[variant, qk_std] = _run_variant(bsv, variant, q, k, v, heads)
+    want = _MUTANT_WANT[variant, qk_std]
     assert _rel(emulate(variant, q, k, v, heads), want) <= TOL
     assert _rel(emulate(variant, q, k, v, heads, mutant), want) > chip_smoke.ATTN_TOL
 

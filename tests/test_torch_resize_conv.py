@@ -19,6 +19,9 @@ import chip_smoke
 from video_depth_anything_torch.ops import output_tail as ot
 from video_depth_anything_torch.ops import resize_conv as rc
 from video_depth_anything_tpu.ops import pallas_resize_conv as jrc
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BF16_ULP = 2.0**-8
 FP32_TOL = 1e-5  # fp32, relative to max|ref|: the two convolutions sum in other orders

@@ -11,6 +11,8 @@ from tests.torch_port_helpers import one_torch_thread  # noqa: F401
 from video_depth_anything_torch import run
 from video_depth_anything_torch.ops.attention import parse_attn_impl
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 N, H, W = 14, 48, 64
 LENGTH = 6
 

@@ -14,6 +14,9 @@ from video_depth_anything_torch.inference import streaming as t_stream
 from video_depth_anything_torch.ops.scale_shift import compute_scale_and_shift_torch
 from video_depth_anything_tpu.inference import streaming as j_stream
 from video_depth_anything_tpu.ops.scale_shift import compute_scale_and_shift_jax
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # The JAX package's own bound against the torch reference (docs/PARITY.md:12).
 TOL = dict(rtol=1e-3, atol=2e-4)

@@ -14,6 +14,8 @@ from tests.torch_port_helpers import model_pair, one_torch_thread  # noqa: F401
 from video_depth_anything_torch.inference import streaming as t_stream
 from video_depth_anything_tpu.inference import streaming as j_stream
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 # fp32 parity bound of the JAX package against the torch reference
 # (docs/PARITY.md:12).  The aligned modes feed each emitted depth into later
 # fits; on this clip the compounded drift stays inside the same bound.

@@ -17,6 +17,9 @@ import torch
 
 from video_depth_anything_torch.ops import output_tail as t_tail
 from video_depth_anything_tpu.ops import pallas_output_stack as j_tail
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TH, TW, PH, PW, C = 8, 16, 8, 12, 128
 BF16_ULP = 2.0**-8  # 2.5 ulps of max|ref|: the JAX tail test's bound (tests/test_output_stack.py:56)

@@ -22,6 +22,9 @@ import torch
 import chip_smoke
 from video_depth_anything_torch.ops import temporal_attention as t_temporal
 from video_depth_anything_tpu.ops.pallas_temporal import temporal_attention_window
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # The JAX package's own bound for this kernel (tests/test_pallas_kernels.py).
 TOL = dict(rtol=2e-3, atol=2e-3)

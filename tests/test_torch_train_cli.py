@@ -13,6 +13,9 @@ import torch
 import chip_smoke
 from video_depth_anything_torch.io.checkpoint import load_pth
 from video_depth_anything_torch.train.__main__ import main
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _args(root, out, steps, *extra):

@@ -24,6 +24,9 @@ from video_depth_anything_torch.train.trainer import make_optimizer as t_make
 from video_depth_anything_tpu.train.losses import video_depth_loss as j_loss
 from video_depth_anything_tpu.train.trainer import Trainer as JTrainer
 from video_depth_anything_tpu.train.trainer import make_optimizer as j_make
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LR = 1e-4
 STEPS = 3

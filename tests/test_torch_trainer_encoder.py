@@ -6,6 +6,9 @@ and off, and the first step's gradient of every parameter against
 import pytest
 
 from tests.test_torch_trainer import check_first_gradients, check_trainer_steps
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("remat", [False, True])

@@ -12,6 +12,9 @@ import pytest
 from video_depth_anything_torch.io import colormaps
 from video_depth_anything_torch.io import video as t_video
 from video_depth_anything_tpu.io import video as j_video
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MODES = {"inferno": {}, "spectral": {"spectral": True}, "grayscale": {"grayscale": True}}
 
@@ -95,3 +98,27 @@ def test_save_video_writes_jax_depth_video(tmp_path, monkeypatch, spectral):
     got, want = (t_video.read_video_frames(p)[0] for p in paths)
     assert got.shape == (4, 16, 24, 3)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["seeded", "constant"])
+def test_tiff_stack_round_trip_bit_for_bit_and_read_by_jax(tmp_path, kind):
+    """``write_tiff_stack`` → ``read_tiff_stack`` gives the stack back bit
+    for bit (NaN, ±inf, subnormals and -0.0 too), and each package reads
+    the other's file to the same bits."""
+    depths = _depths(kind)
+    depths[0, 0, :5] = [np.nan, np.inf, -np.inf, np.float32(1e-45), -0.0]
+    paths = {}
+    for name, mod in (("port", t_video), ("jax", j_video)):
+        paths[name] = str(tmp_path / f"{name}.tiff")
+        mod.write_tiff_stack(paths[name], depths)
+    for path in paths.values():
+        for mod in (t_video, j_video):
+            back = mod.read_tiff_stack(path)
+            assert back.dtype == np.float32 and back.shape == depths.shape
+            np.testing.assert_array_equal(back.view(np.uint32), depths.view(np.uint32))
+
+
+def test_tiff_stack_refuses_an_empty_stack(tmp_path):
+    for mod in (t_video, j_video):
+        with pytest.raises(ValueError, match="empty depth stack"):
+            mod.write_tiff_stack(str(tmp_path / "empty.tiff"), np.zeros((0, 4, 4), np.float32))

@@ -3,10 +3,14 @@
 // motion_module_split.cu (the split by stage), which build in parallel.
 //
 // Replaces video_depth_anything_tpu/ops/pallas_motion.py:_motion_kernel
-// (via fused_motion_module).  Per CTA: one batch element and L = R / T
+// (via fused_motion_module).  Per CTA: one batch element and L = R / TP
 // consecutive spatial locations, R = 64 * NRB rows of C channels, location
-// major (row r = l * T + t), so that every 64-row block holds whole
-// locations.  The CTA computes
+// major (row r = l * TP + t), so that every 64-row block holds whole
+// locations.  TP in {8, 16, 32} is the frame count T (8 <= T <= 32) padded
+// up: a location's rows t >= T are zero on load, their keys masked out of
+// the frame attention, no APE row added to them, and never stored (the
+// GroupNorm statistics are folded outside over the true T).  The CTA
+// computes
 //   GroupNorm apply (statistics folded outside, as _gn_fold does) -> proj_in
 //   -> 2 x [LayerNorm, +APE, q/k/v, attention over the T frames per
 //           (location, head), out proj, residual]
@@ -45,7 +49,7 @@
 //   K-major in shared memory with the 128-byte swizzle (hopper.cuh).  Each
 //   activation buffer is C / 64 panels of R rows x 64 channels, swizzled as
 //   a TMA box would be (swz below); epilogues, LayerNorm and attention
-//   write that layout.  A 64-row block (64 / T whole locations) belongs to
+//   write that layout.  A 64-row block (64 / TP whole locations) belongs to
 //   NSPLIT consumer warpgroups (one at C = 64 and 128, three at C = 192
 //   and 384, two at C = 256) that take its 64-wide n blocks round robin,
 //   so no warpgroup holds more than 64 accumulator floats per thread (more
@@ -152,8 +156,14 @@ struct Params {
   const float* b_out;
   bf16* out;
   int B, T, S;
+  int TP;  // T padded up to 8, 16 or 32: the rows a location takes
   float scale, ln_eps;
 };
+
+// the padded frame count of T (0 outside 8..32)
+__host__ __device__ constexpr int padded_frames(int T) {
+  return T < 8 || T > 32 ? 0 : T <= 8 ? 8 : T <= 16 ? 16 : 32;
+}
 
 // element offset of (row, col) in a buffer of C / 64 panels of R x 64,
 // each 8-row group's 16-byte chunks XOR-swizzled by row % 8
@@ -286,11 +296,12 @@ __device__ __forceinline__ void for_acc(const float (&acc)[NSW][32], int row0, i
             acc[u][4 * t + 2 * h], acc[u][4 * t + 2 * h + 1]);
 }
 
-// dst = bf16(LN(src)) (+ APE row of the frame, rounded again) on the row
-// block's 64 rows, warp per row (`wrb` = warp within the row block)
+// dst = bf16(LN(src)) (+ APE row of the frame where t < T, rounded again)
+// on the row block's 64 rows, warp per row (`wrb` = warp within the row
+// block)
 template <int C, int R>
 __device__ __forceinline__ void layer_norm(const bf16* src, bf16* dst, int row0, int wrb, int nwarps, int T,
-                           const float* sc, const float* bi, const bf16* pe, float eps) {
+                           int TP, const float* sc, const float* bi, const bf16* pe, float eps) {
   constexpr int NP = C / 64;
   const int lane = threadIdx.x & 31;
   for (int r = row0 + wrb; r < row0 + 64; r += nwarps) {
@@ -310,13 +321,13 @@ __device__ __forceinline__ void layer_norm(const bf16* src, bf16* dst, int row0,
     constexpr float kInvC = 1.f / C;
     const float mean = s1 * kInvC;
     const float inv = rsqrtf(fmaxf(s2 * kInvC - mean * mean, 0.f) + eps);
-    const int t = r % T;
+    const int t = r % TP;
 #pragma unroll
     for (int j = 0; j < NP; ++j) {
       const int c = j * 64 + lane * 2;
       float a = bf16_round((v[j].x - mean) * (inv * sc[c]) + bi[c]);
       float b = bf16_round((v[j].y - mean) * (inv * sc[c + 1]) + bi[c + 1]);
-      if (pe != nullptr) {
+      if (pe != nullptr && t < T) {
         const float2 p = ld2(pe + t * C + c);
         a += p.x;
         b += p.y;
@@ -343,23 +354,25 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, co
 // over T) on mma.sync m16n8k16 with fp32 accumulate, the max-subtracted
 // softmax on the S fragments in registers (a row's values sit in one lane
 // quad), P rounded to bf16 once normalised, as the PR-1 kernel rounds it.
-// DH = 8 or 24 fills the last k16 step's upper half, T = 8 the P V step's,
-// with zeros; rows past T are clamped to row T - 1 and never stored.  The
-// out overwrites the query's own slots (the warp has read them all).
-template <int C, int R, int T>
+// DH = 8 or 24 fills the last k16 step's upper half, TP = 8 the P V step's,
+// with zeros; fragment rows past TP are clamped to row TP - 1 and never
+// stored.  Key frames t >= T (the padding of a location's TP rows) score
+// -inf before the max, so they get p = 0.  The out overwrites the query's
+// own slots (the warp has read them all).
+template <int C, int R, int TP>
 __device__ __forceinline__ void frame_attention(bf16* sQ, const bf16* sK, const bf16* sV, int row0, int wrb,
-                                int nwarps, float scale) {
+                                int nwarps, float scale, int T) {
   constexpr int DH = C / HEADS;
   constexpr int KS = (DH + 15) / 16;  // k16 steps of S
   constexpr int DN = DH / 8;          // n8 tiles of O
-  constexpr int MT = (T + 15) / 16;   // m16 tiles (query frames), = k16 steps of P V
-  constexpr int NT = T / 8;           // n8 tiles of S (key frames)
-  constexpr int LOCS = 64 / T;
+  constexpr int MT = (TP + 15) / 16;  // m16 tiles (query frames), = k16 steps of P V
+  constexpr int NT = TP / 8;          // n8 tiles of S (key frames)
+  constexpr int LOCS = 64 / TP;
   const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
   const int r16 = lane & 15, r8 = lane & 7;
   for (int task = wrb; task < LOCS * HEADS; task += nwarps) {
-    const int base = row0 + (task / HEADS) * T, col = (task % HEADS) * DH;
-    auto row = [&](int r) { return base + (r < T ? r : T - 1); };
+    const int base = row0 + (task / HEADS) * TP, col = (task % HEADS) * DH;
+    auto row = [&](int r) { return base + (r < TP ? r : TP - 1); };
     float s[MT][NT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -397,7 +410,8 @@ __device__ __forceinline__ void frame_attention(bf16* sQ, const bf16* sK, const 
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[mt][nt][e] *= scale;
+          const bool key_past_t = nt * 8 + 2 * c4 + (e & 1) >= T;
+          s[mt][nt][e] = key_past_t ? -INFINITY : s[mt][nt][e] * scale;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][nt][e]);
         }
 #pragma unroll
@@ -453,7 +467,7 @@ __device__ __forceinline__ void frame_attention(bf16* sQ, const bf16* sK, const 
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = mt * 16 + g + 8 * h;
-        if (r < T) {
+        if (r < TP) {
 #pragma unroll
           for (int dn = 0; dn < DN; ++dn)
             st2(sQ + swz<R>(base + r, col + dn * 8 + 2 * c4), o[mt][dn][2 * h], o[mt][dn][2 * h + 1]);
@@ -468,8 +482,8 @@ __device__ __forceinline__ void store_rows(const Params& p, const bf16* src, int
                                            int nthr, int b, int s0) {
   for (int i = rtid; i < 64 * (C / 8); i += nthr) {
     const int r = row0 + i / (C / 8), cc = (i % (C / 8)) * 8;
-    const int t = r % p.T, s = s0 + r / p.T;
-    if (s < p.S)
+    const int t = r % p.TP, s = s0 + r / p.TP;
+    if (s < p.S && t < p.T)
       *reinterpret_cast<uint4*>(p.out + ((long long)(b * p.T + t) * p.S + s) * C + cc) =
           *reinterpret_cast<const uint4*>(src + swz<R>(r, cc));
   }
@@ -490,8 +504,8 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_hop
   uint64_t* full = reinterpret_cast<uint64_t*>(ring_buf + NSTAGE * BLK);
   uint64_t* empty = full + NSTAGE;
 
-  const int T = p.T, S = p.S;
-  const int b = blockIdx.y, s0 = blockIdx.x * (R / T);
+  const int T = p.T, TP = p.TP, S = p.S;
+  const int b = blockIdx.y, s0 = blockIdx.x * (R / TP);
   if (threadIdx.x == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(&full[s], 1);
@@ -528,10 +542,15 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_hop
   // wgmma of a product reads them (scale_d = 0 ignores the values), which
   // would otherwise keep a dead accumulator alive across the next stages.
 
-  // GroupNorm apply with the folded per-(b, t, c) scale and shift
+  // GroupNorm apply with the folded per-(b, t, c) scale and shift; a
+  // padded frame's rows are zero
   for (int i = rtid; i < 64 * (C / 8); i += NSPLIT * 128) {
     const int r = row0 + i / (C / 8), cc = (i % (C / 8)) * 8;
-    const int t = r % T, s = s0 + r / T;
+    const int t = r % TP, s = s0 + r / TP;
+    if (t >= T) {
+      *reinterpret_cast<uint4*>(sH + swz<R>(r, cc)) = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
     uint4 xv = make_uint4(0u, 0u, 0u, 0u);
     if (s < S) xv = *reinterpret_cast<const uint4*>(p.x + ((long long)(b * T + t) * S + s) * C + cc);
     const bf16* xe = reinterpret_cast<const bf16*>(&xv);
@@ -564,7 +583,8 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_hop
 
 #pragma unroll 1
   for (int i = 0; i < 2; ++i) {
-    layer_norm<C, R>(sY, sH, row0, wrb, nwarps, T, p.ln_s + i * C, p.ln_b + i * C, p.pe, p.ln_eps);
+    layer_norm<C, R>(sY, sH, row0, wrb, nwarps, T, TP, p.ln_s + i * C, p.ln_b + i * C, p.pe,
+                     p.ln_eps);
     fence_async_smem();
     sync_rows();
     {
@@ -585,9 +605,9 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_hop
     }
     sync_rows();
     if constexpr (STOP == 2) return store_rows<C, R>(p, sH, row0, rtid, NSPLIT * 128, b, s0);
-    if (T == 32) frame_attention<C, R, 32>(sQ, sK, sH, row0, wrb, nwarps, p.scale);
-    else if (T == 16) frame_attention<C, R, 16>(sQ, sK, sH, row0, wrb, nwarps, p.scale);
-    else frame_attention<C, R, 8>(sQ, sK, sH, row0, wrb, nwarps, p.scale);
+    if (TP == 32) frame_attention<C, R, 32>(sQ, sK, sH, row0, wrb, nwarps, p.scale, T);
+    else if (TP == 16) frame_attention<C, R, 16>(sQ, sK, sH, row0, wrb, nwarps, p.scale, T);
+    else frame_attention<C, R, 8>(sQ, sK, sH, row0, wrb, nwarps, p.scale, T);
     fence_async_smem();
     sync_rows();
     if constexpr (STOP == 3) return store_rows<C, R>(p, sQ, row0, rtid, NSPLIT * 128, b, s0);
@@ -611,7 +631,7 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_hop
   // goes to panel cs of q's space, where the gate's epilogue (the same
   // thread) turns it into the activation; the second product accumulates
   // over all steps in registers.
-  layer_norm<C, R>(sY, sH, row0, wrb, nwarps, T, p.ln_s + 2 * C, p.ln_b + 2 * C, nullptr,
+  layer_norm<C, R>(sY, sH, row0, wrb, nwarps, T, TP, p.ln_s + 2 * C, p.ln_b + 2 * C, nullptr,
                    p.ln_eps);
   fence_async_smem();
   sync_rows();
@@ -654,8 +674,8 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_hop
   float acc[NSW][32];
   gemm<R, KP, NS, NSW, NSPLIT>(acc, aY, cs, ring, 0);
   for_acc<NSPLIT>(acc, row0, cs, [&](int r, int c, float v0, float v1) {
-    const int t = r % T, s = s0 + r / T;
-    if (s >= S) return;
+    const int t = r % TP, s = s0 + r / TP;
+    if (s >= S || t >= T) return;
     const long long g = ((long long)(b * T + t) * S + s) * C + c;
     const float2 x = ld2(p.x + g);
     st2(p.out + g, v0 + p.b_out[c] + x.x, v1 + p.b_out[c + 1] + x.y);
@@ -665,11 +685,11 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_hop
 template <int C, int STOP = 7>
 int launch(const Params& p, cudaStream_t stream) {
   using SH = Shape<C>;
-  if (SH::R % p.T) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.TP == 0 || SH::R % p.TP) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(motion_hopper<C, STOP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SH::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int L = SH::R / p.T;
+  const int L = SH::R / p.TP;
   dim3 grid((p.S + L - 1) / L, p.B);
   motion_hopper<C, STOP><<<grid, SH::NTHREADS, SH::SMEM, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -695,6 +715,7 @@ inline Params make_params(const void* x, const void* gna, const void* gnb, const
   p.out = static_cast<bf16*>(out);
   p.B = B;
   p.T = T;
+  p.TP = padded_frames(T);
   p.S = S;
   p.scale = scale;
   p.ln_eps = ln_eps;
@@ -706,7 +727,7 @@ inline Params make_params(const void* x, const void* gna, const void* gnb, const
 // The C entry points' arguments: x, out contiguous (B, T, S, C) bf16;
 // gna/gnb (B, T, C) fp32; pe (T', C) bf16, T' >= T; w the weight blocks
 // (ops/motion_module.weight_blocks for this C); biases and LayerNorm
-// parameters fp32.  T in {8, 16, 32}; 8 heads; C in {64, 128, 192, 256,
+// parameters fp32.  8 <= T <= 32; 8 heads; C in {64, 128, 192, 256,
 // 384}.
 #define VDA_MM_ARGS                                                                         \
   const void *x, const void *gna, const void *gnb, const void *pe, const void *w,           \

@@ -6,9 +6,14 @@
 // (via fused_motion_module) where the JAX package runs it on fp32 inputs:
 // its gate and plan (_plan_s_blk) look at shapes alone, and its body
 // computes in x's dtype (bt = x_ref.dtype), with the erf GELU where bt is
-// not bf16.  Per CTA: one batch element and L = 64 / T consecutive
-// locations, 64 rows of C channels, location major (row r = l * T + t);
-// locations past S are zero rows, never stored.  The CTA computes
+// not bf16.  Per CTA: one batch element and L = 64 / TP consecutive
+// locations, 64 rows of C channels, location major (row r = l * TP + t);
+// locations past S are zero rows, never stored.  TP in {8, 16, 32} is the
+// frame count T (8 <= T <= 32) padded up: a location's rows t >= T are zero
+// on load, their keys masked out of the frame attention, no APE row added
+// to them, and neither their y nor their output is ever written to device
+// memory (their residual reads 0, as a row past S does), so they cannot
+// land on another frame's output.  The CTA computes
 //   GroupNorm apply (statistics folded outside, as _gn_fold does) -> proj_in
 //   -> 2 x [LayerNorm, +APE, q/k/v, attention over the T frames per
 //           (location, head), out proj + bias, residual]
@@ -17,7 +22,7 @@
 // with the activations in shared memory: only x (read twice: at the start
 // and for the outer residual), the folded GroupNorm, the weights and the
 // output (which holds y's rows while a block reads their LayerNorm) touch
-// device memory.  C in {64, 128, 192, 256, 384}, 8 heads, T in {8, 16, 32}.
+// device memory.  C in {64, 128, 192, 256, 384}, 8 heads, 8 <= T <= 32.
 //
 // Bound on the H100: operations.  44 * C^2 + 8 * T * C FLOP a token; the
 // products (44 C^2) fp32-accurate on the tensor cores are three TF32
@@ -190,6 +195,7 @@ struct Params {
   const float* b_out;
   float* out;
   int B, T, S;
+  int TP;  // T padded up to 8, 16 or 32: the rows a location takes
   float scale_log2, ln_eps;
 };
 
@@ -322,13 +328,13 @@ __device__ __forceinline__ void for_acc(const float (&acc)[32], int n0, Epi epi)
 
 // LayerNorm i of the rows in place (+ the APE row of the row's frame), warp
 // per row: fp32 mean and E[x^2] - mean^2 clamped at 0, as
-// ops/motion_module._ln; y itself to the row's place in out (rows past S:
-// nowhere).
+// ops/motion_module._ln; y itself to the row's place in out (rows past S
+// and padded frames: nowhere).  The APE row only where t < T.
 template <int C>
 __device__ __forceinline__ void norm_rows(float* sY, const Params& p, int i, bool ape, int ctid,
                                           int b, int s0) {
   constexpr int SY = Shape<C>::SY, NV = C / 32;
-  const int lane = ctid & 31, T = p.T;
+  const int lane = ctid & 31, T = p.T, TP = p.TP;
   const float* g = p.ln_s + i * C;
   const float* bi = p.ln_b + i * C;
   for (int r = ctid >> 5; r < kRows; r += Shape<C>::NCONS / 32) {
@@ -347,34 +353,37 @@ __device__ __forceinline__ void norm_rows(float* sY, const Params& p, int i, boo
     }
     const float mean = sum / C;
     const float rstd = rsqrtf(fmaxf(sq / C - mean * mean, 0.f) + p.ln_eps);
-    const int t = r % T, s = s0 + r / T;
+    const int t = r % TP, s = s0 + r / TP;
+    const bool real = s < p.S && t < T;
     float* yo = p.out + ((long long)(b * T + t) * p.S + s) * C;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int c = lane + 32 * j;
-      if (s < p.S) yo[c] = v[j];
+      if (real) yo[c] = v[j];
       float h = fmaf(v[j] - mean, rstd * g[c], bi[c]);
-      if (ape) h += p.pe[t * C + c];
+      if (ape && t < T) h += p.pe[t * C + c];
       sY[r * SY + c] = h;
     }
   }
 }
 
-// y + (v + bias) at (row, col..col + 1), y from the row's place in out (0 past S)
+// y + (v + bias) at (row, col..col + 1), y from the row's place in out (0
+// past S and on padded frames)
 __device__ __forceinline__ float2 residual(const Params& p, int b, int s0, int r, int c, float v0,
                                            float v1, const float* bias, int C) {
-  const int t = r % p.T, s = s0 + r / p.T;
+  const int t = r % p.TP, s = s0 + r / p.TP;
   float2 y = make_float2(0.f, 0.f);
-  if (s < p.S)
+  if (s < p.S && t < p.T)
     y = *reinterpret_cast<const float2*>(p.out + ((long long)(b * p.T + t) * p.S + s) * C + c);
   return make_float2(y.x + (v0 + bias[c]), y.y + (v1 + bias[c + 1]));
 }
 
 // The chunk's frame attention: SPL adjacent lanes per (query row, head),
 // each over DS = D / SPL of its channels; q, k and v at columns 0, 64 and
-// 128 of the scratch; the output over the row's q.
-template <int C, int T>
-__device__ __forceinline__ void frame_attention(float* sX, int ctid, float scale_log2) {
+// 128 of the scratch; the output over the row's q.  A location's TP rows;
+// key frames t >= T score -inf before the max (p = 0).
+template <int C, int TP>
+__device__ __forceinline__ void frame_attention(float* sX, int ctid, float scale_log2, int T) {
   using SH = Shape<C>;
   constexpr int D = SH::D, SX = SH::SX, NCONS = SH::NCONS, UNITS = kRows * SH::HC;
   constexpr int SPL = NCONS >= 4 * UNITS && D % 16 == 0   ? 4
@@ -382,15 +391,15 @@ __device__ __forceinline__ void frame_attention(float* sX, int ctid, float scale
                                                          : 1;
   constexpr int DS = D / SPL;
   for (int i = ctid; i < UNITS * SPL; i += NCONS) {
-    const int u = i / SPL, hh = u / kRows, r = u % kRows, base = (r / T) * T;
+    const int u = i / SPL, hh = u / kRows, r = u % kRows, base = (r / TP) * TP;
     const int col = hh * D + (i % SPL) * DS;
     float* qr = sX + r * SX + col;
     float4 q[DS / 4];
 #pragma unroll
     for (int e = 0; e < DS / 4; ++e) q[e] = ld4(qr + 4 * e);
-    float s[T];
+    float s[TP];
 #pragma unroll
-    for (int kf = 0; kf < T; ++kf) {
+    for (int kf = 0; kf < TP; ++kf) {
       const float* kr = sX + (base + kf) * SX + 64 + col;
       float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -404,17 +413,17 @@ __device__ __forceinline__ void frame_attention(float* sX, int ctid, float scale
       s[kf] = (d.x + d.y) + (d.z + d.w);
     }
 #pragma unroll
-    for (int kf = 0; kf < T; ++kf) {
+    for (int kf = 0; kf < TP; ++kf) {
       if (SPL > 1) s[kf] += __shfl_xor_sync(0xffffffffu, s[kf], 1);
       if (SPL > 2) s[kf] += __shfl_xor_sync(0xffffffffu, s[kf], 2);
-      s[kf] *= scale_log2;
+      s[kf] = kf < T ? s[kf] * scale_log2 : -INFINITY;
     }
     float m = s[0];
 #pragma unroll
-    for (int kf = 1; kf < T; ++kf) m = fmaxf(m, s[kf]);
+    for (int kf = 1; kf < TP; ++kf) m = fmaxf(m, s[kf]);
     float l = 0.f;
 #pragma unroll
-    for (int kf = 0; kf < T; ++kf) {
+    for (int kf = 0; kf < TP; ++kf) {
       s[kf] = exp2f(s[kf] - m);
       l += s[kf];
     }
@@ -423,7 +432,7 @@ __device__ __forceinline__ void frame_attention(float* sX, int ctid, float scale
     for (int e = 0; e < DS / 4; ++e) {
       float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int kf = 0; kf < T; ++kf) {
+      for (int kf = 0; kf < TP; ++kf) {
         const float4 vv = ld4(sX + (base + kf) * SX + 128 + col + 4 * e);
         o.x = fmaf(s[kf], vv.x, o.x);
         o.y = fmaf(s[kf], vv.y, o.y);
@@ -448,8 +457,8 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_f32
   float* sX = sY + kRows * SY;                   // a chunk's q | k | v; the FF activation
   uint64_t* full = reinterpret_cast<uint64_t*>(sX + kRows * SX);
   uint64_t* empty = full + NSPLIT * NST;
-  const int T = p.T, S = p.S;
-  const int b = blockIdx.y, s0 = blockIdx.x * (kRows / T);
+  const int T = p.T, TP = p.TP, S = p.S;
+  const int b = blockIdx.y, s0 = blockIdx.x * (kRows / TP);
   if (threadIdx.x == 0) {
     for (int i = 0; i < NSPLIT * NST; ++i) {
       mbar_init(&full[i], 1);
@@ -474,10 +483,15 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_f32
   const float* aY = sY + r0 * SY + c4;  // this thread's A rows and columns
   const float* aX = sX + r0 * SX + c4;
 
-  // GroupNorm apply with the folded per-(b, t, c) scale and shift
+  // GroupNorm apply with the folded per-(b, t, c) scale and shift; a
+  // padded frame's rows are zero
   for (int i = ctid; i < kRows * C / 4; i += NCONS) {
     const int r = i / (C / 4), c = (i % (C / 4)) * 4;
-    const int t = r % T, s = s0 + r / T;
+    const int t = r % TP, s = s0 + r / TP;
+    if (t >= T) {
+      *reinterpret_cast<float4*>(sY + r * SY + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
     float4 xv = make_float4(0.f, 0.f, 0.f, 0.f);
     if (s < S) xv = ld4(p.x + ((long long)(b * T + t) * S + s) * C + c);
     const float4 ga = ld4(p.gna + (long long)(b * T + t) * C + c);
@@ -522,12 +536,12 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_f32
       }
       sync_all();
       if (MF32_NOATTN) {
-      } else if (T == 32) {
-        frame_attention<C, 32>(sX, ctid, p.scale_log2);
-      } else if (T == 16) {
-        frame_attention<C, 16>(sX, ctid, p.scale_log2);
+      } else if (TP == 32) {
+        frame_attention<C, 32>(sX, ctid, p.scale_log2, T);
+      } else if (TP == 16) {
+        frame_attention<C, 16>(sX, ctid, p.scale_log2, T);
       } else {
-        frame_attention<C, 8>(sX, ctid, p.scale_log2);
+        frame_attention<C, 8>(sX, ctid, p.scale_log2, T);
       }
       sync_all();
       // the chunk's rows of the out projection (64 inputs: q's columns,
@@ -596,8 +610,8 @@ __global__ void __launch_bounds__(Shape<C>::NTHREADS, Shape<C>::MINB) motion_f32
 #pragma unroll
   for (int u = 0; u < NSW; ++u)
     for_acc(acc[u], (cs + u * NSPLIT) * 64, [&](int r, int c, float v0, float v1) {
-      const int t = r % T, s = s0 + r / T;
-      if (s >= S) return;
+      const int t = r % TP, s = s0 + r / TP;
+      if (s >= S || t >= T) return;
       const long long o = ((long long)(b * T + t) * S + s) * C + c;
       const float2 xv = *reinterpret_cast<const float2*>(p.x + o);
       *reinterpret_cast<float2*>(p.out + o) =
@@ -611,7 +625,7 @@ int launch(const Params& p, cudaStream_t st) {
   const cudaError_t err =
       cudaFuncSetAttribute(motion_f32<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, SH::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int L = kRows / p.T;
+  const int L = kRows / p.TP;
   dim3 grid((p.S + L - 1) / L, p.B);
   motion_f32<C><<<grid, SH::NTHREADS, SH::SMEM, st>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -628,7 +642,7 @@ extern "C" int vda_motion_module_f32(const void* x, const void* gna, const void*
                                      const void* b1, const void* b2, const void* b_out, void* out,
                                      int B, int T, int S, int C, float scale, float ln_eps,
                                      void* stream) {
-  if (T != 8 && T != 16 && T != 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 8 || T > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return 0;
   Params p;
   p.x = static_cast<const float*>(x);
@@ -646,6 +660,7 @@ extern "C" int vda_motion_module_f32(const void* x, const void* gna, const void*
   p.out = static_cast<float*>(out);
   p.B = B;
   p.T = T;
+  p.TP = T <= 8 ? 8 : T <= 16 ? 16 : 32;
   p.S = S;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.ln_eps = ln_eps;

@@ -35,7 +35,7 @@ it on the host.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,10 +43,12 @@ import torch
 from video_depth_anything_torch.ops.resize import bilinear_resize, bilinear_resize_np
 from video_depth_anything_torch.ops.scale_shift import compute_scale_and_shift_torch
 from video_depth_anything_torch.utils.device import (
-    TRANSFER_DTYPES,
+    env_switch,
+    resolve_transfer_dtype,
     start_host_transfer,
     transfer_cast,
 )
+from video_depth_anything_torch.utils.stats import Progress
 from video_depth_anything_torch.utils.transform import preprocess_frames
 
 
@@ -71,11 +73,12 @@ def resize_out(depth: torch.Tensor, out_hw) -> torch.Tensor:
 
 class KVStreamingPipeline:
     """KV-cache streaming around a ``VDAModel``; ``infer(frames)`` as the
-    JAX pipeline (without its progress bar)."""
+    JAX pipeline.  ``host_upsample=None`` reads ``VDA_HOST_UPSAMPLE`` and
+    ``transfer_dtype=None`` ``VDA_TRANSFER_DTYPE``, as there."""
 
     def __init__(self, model, input_size: int = 518, inference_length: int = 32,
                  align_each_new_frame: bool = False, stream_chunk: int = 1,
-                 host_upsample: bool = False, transfer_dtype: str = "fp32",
+                 host_upsample: Optional[bool] = None, transfer_dtype: Optional[str] = None,
                  model_parallel: int = 1):
         if int(model_parallel) > 1:
             raise NotImplementedError(
@@ -84,15 +87,14 @@ class KVStreamingPipeline:
         if not 1 <= inference_length <= max_len:
             raise ValueError(f"KV streaming needs 1 <= inference_length <= temporal_max_len "
                              f"({max_len}), got {inference_length}")
-        if transfer_dtype not in TRANSFER_DTYPES:
-            raise ValueError(f"transfer_dtype must be fp32|fp16, got {transfer_dtype!r}")
         self.model = model
         self.input_size = input_size
         self.L = inference_length
         self.align = bool(align_each_new_frame)
-        self.host_upsample = bool(host_upsample) and not self.align
+        self.host_upsample = env_switch(host_upsample, "VDA_HOST_UPSAMPLE", default=False) \
+            and not self.align
         self.chunk = max(1, int(stream_chunk))
-        self.transfer_dtype = TRANSFER_DTYPES[transfer_dtype]
+        self.transfer_dtype = resolve_transfer_dtype(transfer_dtype)
 
     # -- device steps -------------------------------------------------------------
 
@@ -142,8 +144,9 @@ class KVStreamingPipeline:
 
     @torch.inference_mode()
     def infer(self, frames: np.ndarray, target_fps: float = -1,
-              skip_tmp_block: bool = False) -> Tuple[np.ndarray, float]:
-        """uint8 RGB ``(N, H, W, 3)`` → (depth ``(N, H, W)`` fp32, fps)."""
+              skip_tmp_block: bool = False, progress: bool = False) -> Tuple[np.ndarray, float]:
+        """uint8 RGB ``(N, H, W, 3)`` → (depth ``(N, H, W)`` fp32, fps);
+        ``progress`` counts the frames past the warm-up window on stderr."""
         org_len, fh, fw = frames.shape[:3]
         L = self.L
         dev, dtype = self.model.device, self.model.dtype
@@ -176,6 +179,7 @@ class KVStreamingPipeline:
                 d = to_host_res(pending.pop(0).numpy())
                 depth_list.extend(d)
 
+        bar = Progress(max(0, org_len - L), "frames (kv)", enabled=progress)
         i = L
         while i < org_len:
             if self.chunk > 1 and org_len - i >= self.chunk:
@@ -196,5 +200,7 @@ class KVStreamingPipeline:
             pending.append(start_host_transfer(transfer_cast(depth, self.transfer_dtype)))
             drain()
             i += n_done
+            bar.update(n_done)
         drain(force=True)
+        bar.close()
         return np.stack(depth_list, axis=0).astype(np.float32), target_fps

@@ -29,7 +29,11 @@ Steady-state modes, as in JAX:
   previous one wrote (the JAX ``lax.scan``).
 
 Depth leaves the device one step late (``utils/device.start_host_transfer``)
-in ``transfer_dtype``, so that its copy overlaps the next step.
+in ``transfer_dtype``, so that its copy overlaps the next step.  Options
+left at ``None`` read the JAX package's switches: ``ring_dtype``
+``VDA_RING_DTYPE``, ``host_upsample`` ``VDA_HOST_UPSAMPLE``,
+``device_align`` ``VDA_DEVICE_ALIGN`` (on unless ``0``) and
+``transfer_dtype`` ``VDA_TRANSFER_DTYPE``.
 
 Reference quirks kept: without ``align_each_new_frame`` the first ``L − 1``
 frames get no depth; with it frame 0 serves the alignment only and is
@@ -39,6 +43,7 @@ refused (the reference crashes on it).
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,10 +55,12 @@ from video_depth_anything_torch.ops.scale_shift import (
     compute_scale_and_shift_torch,
 )
 from video_depth_anything_torch.utils.device import (
-    TRANSFER_DTYPES,
+    env_switch,
+    resolve_transfer_dtype,
     start_host_transfer,
     transfer_cast,
 )
+from video_depth_anything_torch.utils.stats import Progress
 from video_depth_anything_torch.utils.transform import preprocess_frames
 
 RING_DTYPES = {"fp32": torch.float32, "fp16": torch.float16, "bf16": torch.bfloat16}
@@ -99,7 +106,8 @@ def streaming_schedule(
 class StreamingDepthPipeline:
     """Streaming inference around a ``VDAModel``; ``infer(frames)`` as the
     JAX pipeline.  ``device_align=False`` fits every aligned frame on the
-    host (the JAX ``VDA_DEVICE_ALIGN=0``)."""
+    host (the JAX ``VDA_DEVICE_ALIGN=0``); options left at ``None`` read
+    the environment (module docstring)."""
 
     def __init__(
         self,
@@ -109,10 +117,10 @@ class StreamingDepthPipeline:
         keyframe_list: Tuple[int, ...] = (0, 12),
         align_each_new_frame: bool = False,
         chunk_size: int = 8,
-        ring_dtype: str = "fp32",
-        host_upsample: bool = False,
-        transfer_dtype: str = "fp32",
-        device_align: bool = True,
+        ring_dtype: Optional[str] = None,
+        host_upsample: Optional[bool] = None,
+        transfer_dtype: Optional[str] = None,
+        device_align: Optional[bool] = None,
         model_parallel: int = 1,
     ):
         if int(model_parallel) > 1:
@@ -120,10 +128,10 @@ class StreamingDepthPipeline:
                 "tensor-parallel streaming is not ported (ROADMAP Queue 1 item 12)")
         if inference_length <= len(keyframe_list) + 2:
             raise ValueError("inference_length too small for the keyframe list")
+        ring_dtype = ring_dtype or os.environ.get("VDA_RING_DTYPE", "fp32")
         if ring_dtype not in RING_DTYPES:
             raise ValueError(f"ring_dtype must be fp32|fp16|bf16, got {ring_dtype!r}")
-        if transfer_dtype not in TRANSFER_DTYPES:
-            raise ValueError(f"transfer_dtype must be fp32|fp16, got {transfer_dtype!r}")
+        self.transfer_dtype = resolve_transfer_dtype(transfer_dtype)
         self.model = model
         self.input_size = input_size
         self.L = inference_length
@@ -133,10 +141,10 @@ class StreamingDepthPipeline:
         self.align = bool(align_each_new_frame)
         # the aligned fits consume output-resolution depth, so align keeps
         # the device resize
-        self.host_upsample = bool(host_upsample) and not self.align
+        self.host_upsample = env_switch(host_upsample, "VDA_HOST_UPSAMPLE", default=False) \
+            and not self.align
         self.ring_dtype = RING_DTYPES[ring_dtype]
-        self.transfer_dtype = TRANSFER_DTYPES[transfer_dtype]
-        self.device_align = bool(device_align)
+        self.device_align = env_switch(device_align, "VDA_DEVICE_ALIGN", default=True)
         # past cache_len − 2 the freed slots of one chunk repeat, and two
         # writes of one index_copy_ to one slot have no defined winner
         self.chunk = min(max(1, int(chunk_size)), self.cache_len - 2)
@@ -255,8 +263,9 @@ class StreamingDepthPipeline:
 
     @torch.inference_mode()
     def infer(self, frames: np.ndarray, target_fps: float = -1, skip_tmp_block: bool = False,
-              warmup: bool = True) -> Tuple[np.ndarray, float]:
-        """uint8 RGB ``(N, H, W, 3)`` → (depth ``(M, H, W)`` fp32, fps)."""
+              warmup: bool = True, progress: bool = False) -> Tuple[np.ndarray, float]:
+        """uint8 RGB ``(N, H, W, 3)`` → (depth ``(M, H, W)`` fp32, fps);
+        ``progress`` counts the frames on stderr."""
         if not warmup:
             raise NotImplementedError("warmup=False is not implemented")
         org_len, fh, fw = frames.shape[:3]
@@ -293,8 +302,10 @@ class StreamingDepthPipeline:
         # the reference's whole-cache shift frees
         phys = list(range(self.cache_len))
         steady_from = L + max_kf
+        bar = Progress(org_len, "frames", enabled=progress)
         i = 0
         while i < org_len:
+            bar.update(i - bar.done)
             steady_chunk = i >= steady_from and self.chunk > 1 and org_len - i >= self.chunk
             if steady_chunk and device_align:
                 k = self.chunk
@@ -386,6 +397,8 @@ class StreamingDepthPipeline:
             i += 1
 
         emit(None, force=True)
+        bar.update(org_len - bar.done)
+        bar.close()
         depth_list = depth_list[1:org_len] if self.align else depth_list[:org_len]
         if not depth_list:
             # fewer frames than the window: nothing predicted

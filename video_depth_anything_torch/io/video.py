@@ -76,3 +76,29 @@ def save_video(frames: np.ndarray, output_path: str, fps: float = 10, is_depths:
     for frame in frames:
         writer.write(cv2.cvtColor(np.ascontiguousarray(frame), cv2.COLOR_RGB2BGR))
     writer.release()
+
+
+def write_tiff_stack(path: str, frames: np.ndarray) -> None:
+    """A float32 ``(N, H, W)`` stack as a multi-page TIFF of mode-"F" pages,
+    which round-trip float32 bit for bit (``run --save_tiff``).  Refuses an
+    empty stack (a streaming run shorter than its window emits none).  PIL
+    is imported here: the port needs it for this output only."""
+    from PIL import Image
+
+    frames = np.ascontiguousarray(frames, dtype=np.float32)
+    if frames.shape[0] == 0:
+        raise ValueError("write_tiff_stack: empty depth stack (0 frames)")
+    pages = [Image.fromarray(f) for f in frames]  # float32 → mode "F"
+    pages[0].save(path, save_all=True, append_images=pages[1:])
+
+
+def read_tiff_stack(path: str) -> np.ndarray:
+    """A multi-page float TIFF back as float32 ``(N, H, W)``."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        pages = []
+        for i in range(im.n_frames):
+            im.seek(i)
+            pages.append(np.array(im, dtype=np.float32))
+        return np.stack(pages)

@@ -22,6 +22,8 @@ before ``:``, so ``:fast`` never reaches these kernels) turns both Kernel B
 and Kernel C off, as ``temporal.py:125-126`` and ``:408-409`` there; its
 base ``pallas`` gives Kernel B's gate ``auto=False`` (``:131-134``), which
 drops the head_dim ≤ 24 rule, and leaves Kernel C's gate as it is.
+``VDA_FUSED_MOTION`` is read as JAX ``temporal.py:400-422`` reads it
+(``TemporalModule.fused``).
 
 Besides the window forward (sliding window and feature-cache streaming),
 the KV-streaming methods are ported (``collect``, ``kv_step``;
@@ -35,6 +37,7 @@ whose q has fewer frames than k, takes the plain attention.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -301,9 +304,19 @@ class TemporalModule(nn.Module):
                 cache[dtype] = (key, kernel_weights(self.raw_params(), self.cfg, dtype))
         return cache[dtype][1]
 
+    def fused(self, t: int, h: int, w: int, c: int) -> bool:
+        """Whether the module takes Kernel C, as the JAX ``_try_fused``
+        decides: ``VDA_FUSED_MOTION=0`` turns it off, ``=1`` forces it past
+        the gate's size rule and under an ``xla`` ``attn_impl`` (the gate's
+        other terms still apply), anything else leaves the gate as it is."""
+        mode = os.environ.get("VDA_FUSED_MOTION", "auto")
+        if mode == "0" or not kernels_enabled() or not (self.use_kernels or mode == "1"):
+            return False
+        return motion_gate(self.cfg, c, self.inner, t, h, w, force=mode == "1")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
-        if self.use_kernels and kernels_enabled() and motion_gate(self.cfg, c, self.inner, t, h, w):
+        if self.fused(t, h, w, c):
             p = self.raw_params()
             weights = self.kernel_weights(x.dtype) if x.device.type == "cuda" else None
             out = FusedMotionModuleFn.apply(x.reshape(b, t, h * w, c), self.cfg,

@@ -107,8 +107,11 @@ def _tpu_plan_fits(t: int, pack: int, c: int, ff_mult: int, d: int, n_attn: int)
     return False
 
 
-def motion_gate(cfg: MotionModuleConfig, channels: int, inner: int, t: int, h: int, w: int) -> bool:
-    """True where the JAX package runs the fused Pallas motion module."""
+def motion_gate(cfg: MotionModuleConfig, channels: int, inner: int, t: int, h: int, w: int,
+                force: bool = False) -> bool:
+    """True where the JAX package runs the fused Pallas motion module;
+    ``force`` (``VDA_FUSED_MOTION=1``) drops its h·w ≥ 2048 and d ≤ 64
+    rule, as JAX ``models/temporal.py:410-418`` does, and keeps the rest."""
     heads = cfg.num_heads
     if channels != inner or cfg.num_transformer_blocks != 1:
         return False
@@ -118,7 +121,7 @@ def motion_gate(cfg: MotionModuleConfig, channels: int, inner: int, t: int, h: i
     if c % heads or t < 8:
         return False
     d = c // heads
-    if not (h * w >= 2048 and d <= 64):
+    if not force and not (h * w >= 2048 and d <= 64):
         return False
     pack, gunit = _auto_pack(c, heads), _gunit(c)
     if pack < gunit or (pack * c) % _LANES or pack % gunit:
@@ -401,15 +404,29 @@ def fused_motion_module(x: torch.Tensor, p: Optional[Dict], cfg: MotionModuleCon
     return motion_module_launch(x, gna, gnb, w, cfg, heads)
 
 
+def padded_frames(t: int) -> int:
+    """The rows a location takes in Kernel C: T padded up to 8, 16 or 32
+    (``padded_frames`` of ``csrc/motion_module.cuh``); its rows t >= T are
+    zero, masked as keys and never stored."""
+    if not 8 <= t <= 32:
+        raise ValueError(f"Kernel C takes 8 <= T <= 32, got {t}")
+    return 8 if t <= 8 else 16 if t <= 16 else 32
+
+
 def _launch_args(x, gna, gnb, w, cfg, heads):
     b, t, s, c = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"motion_module kernel takes bf16 or fp32, got {x.dtype}")
     if w["w"].dtype != x.dtype or w["pe"].dtype != x.dtype:
         raise ValueError(f"motion_module weights are not kernel_weights for {x.dtype}")
-    if heads != 8 or c not in _SUPPORTED_C or t not in (8, 16, 32) or t > w["pe"].shape[0]:
+    if c not in _SUPPORTED_C:
         raise NotImplementedError(
-            f"motion_module kernel takes 8 heads, C in {_SUPPORTED_C}, T in 8/16/32 within "
+            f"motion_module kernel has no instantiation at C = {c} (it takes C in "
+            f"{_SUPPORTED_C}); VDA_FUSED_MOTION=1 sends vitb m1 (768) and vitl m0/m1 (1024) "
+            f"here: their widths are queued in ROADMAP Queue 2 B")
+    if heads != 8 or not 8 <= t <= 32 or t > w["pe"].shape[0]:
+        raise NotImplementedError(
+            f"motion_module kernel takes 8 heads, C in {_SUPPORTED_C}, 8 <= T <= 32 within "
             f"the APE table; got heads={heads}, C={c}, T={t}")
     if cfg.num_attention_blocks != 2 or cfg.num_transformer_blocks != 1:
         raise NotImplementedError("motion_module kernel takes one block of two attentions")

@@ -8,8 +8,12 @@ KV-cache streaming mode.
     python -m video_depth_anything_torch.run --input_video clip.mp4 --random_init \\
         --process_single_image --kv_cache [--align_each_new_frame] [--stream_chunk 8]
 
-Writes ``<name>_depth.mp4`` (and ``<name>_depth.npz`` with ``--save_npz``)
-and prints the frames/s and how often each CUDA kernel was launched, the
+Writes ``<name>_depth.mp4`` and, as the JAX ``run.py``'s ``_save_outputs``
+names them, ``<name>_orig.mp4`` (``--save_orig``), ``<name>_depth.npz``
+(``--save_npz``), ``<name>_depths.tiff`` (``--save_tiff``), ``<name>_exr/
+NNNNN.exr`` (``--save_exr``), ``<name>_vis.mp4`` (``--save_vis``, Spectral)
+and a record appended to ``inference_log.txt`` (``--save_stats``), and
+prints the frames/s and how often each CUDA kernel was launched, the
 exact and the fast variant of Kernel A apart, the fp32 kernels (``--fp32``)
 under names of their own.  Runs on the card; ``--device cpu`` runs the
 plain PyTorch path.  ``--fp32_island`` (bf16 only, as the JAX
@@ -18,7 +22,11 @@ plain PyTorch path.  ``--fp32_island`` (bf16 only, as the JAX
 (``normalize_args``).  ``--kv_cache`` takes ``--inference_length``,
 ``--align_each_new_frame``, ``--stream_chunk``, ``--host_upsample`` and
 ``--transfer_dtype``, as the JAX ``run.py:297-305`` does, and ignores
-``--keyframe_list`` and ``--ring_dtype``.
+``--keyframe_list`` and ``--ring_dtype``.  ``--transfer_dtype``,
+``--ring_dtype`` and ``--host_upsample`` default to ``VDA_TRANSFER_DTYPE``,
+``VDA_RING_DTYPE`` and ``VDA_HOST_UPSAMPLE`` (then fp32, fp32, off), and
+``--shape_bucket`` snaps the window mode's model resolution
+(``utils/transform.bucket_model_size``).
 """
 
 from __future__ import annotations
@@ -62,10 +70,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream_chunk", type=int, default=8,
                    help="steady streaming frames per batch (1: one at a time; clamped to "
                         "inference_length + max(keyframes) - 3)")
-    p.add_argument("--ring_dtype", choices=["fp32", "fp16", "bf16"], default="fp32",
-                   help="storage dtype of the aligned mode's ring of emitted depths")
-    p.add_argument("--transfer_dtype", choices=["fp32", "fp16"], default="fp32",
-                   help="dtype of streamed depth maps on their way to the host")
+    p.add_argument("--ring_dtype", choices=["fp32", "fp16", "bf16"], default=None,
+                   help="storage dtype of the aligned mode's ring of emitted depths; env "
+                        "VDA_RING_DTYPE, else fp32")
+    p.add_argument("--transfer_dtype", choices=["fp32", "fp16"], default=None,
+                   help="dtype of emitted depth maps on their way to the host (window and "
+                        "streaming modes; fp16 halves the copy, the stitch and the fits stay "
+                        "fp32); env VDA_TRANSFER_DTYPE, else fp32")
     p.add_argument("--kv_cache", action="store_true",
                    help="with --process_single_image: KV-cache streaming, O(1) work per frame "
                         "(each motion module attends the new frame over its K/V caches); "
@@ -79,11 +90,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "temporal kernel's domain (head widths 8 to 128) to it")
     p.add_argument("--window_batch", type=int, default=None,
                    help="windows per model call (default 4 for vits/vitb, 1 for vitl)")
-    p.add_argument("--host_upsample", action="store_true",
-                   help="upsample depth to the source resolution on the host")
+    p.add_argument("--host_upsample", action="store_true", default=None,
+                   help="upsample depth to the source resolution on the host; env "
+                        "VDA_HOST_UPSAMPLE=1")
+    p.add_argument("--shape_bucket", type=int, default=None,
+                   help="snap the window mode's model resolution to multiples of this (a "
+                        "multiple of 14), so that clips of many aspect ratios share shapes")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--grayscale", action="store_true")
     p.add_argument("--save_npz", action="store_true")
+    p.add_argument("--save_exr", action="store_true",
+                   help="depth frames as EXR files (needs a cv2 with an OpenEXR writer)")
+    p.add_argument("--save_tiff", action="store_true",
+                   help="depths as a multi-page float32 TIFF stack (needs PIL)")
+    p.add_argument("--save_orig", action="store_true", help="the decoded frames as a video")
+    p.add_argument("--save_vis", action="store_true", help="depths in the Spectral colormap")
+    p.add_argument("--save_stats", action="store_true",
+                   help="append a JSON record of the run to inference_log.txt")
     return p
 
 
@@ -119,7 +142,7 @@ def main(argv=None) -> int:
     from video_depth_anything_torch.inference.kv_streaming import KVStreamingPipeline
     from video_depth_anything_torch.inference.pipeline import VideoDepthPipeline
     from video_depth_anything_torch.inference.streaming import StreamingDepthPipeline
-    from video_depth_anything_torch.io.video import read_video_frames, save_video
+    from video_depth_anything_torch.io.video import read_video_frames
     from video_depth_anything_torch.models.vda import VDAModel
 
     os.makedirs(args.output_dir, exist_ok=True)
@@ -146,30 +169,61 @@ def main(argv=None) -> int:
             model, input_size=args.input_size, inference_length=args.inference_length,
             align_each_new_frame=args.align_each_new_frame, stream_chunk=args.stream_chunk,
             host_upsample=args.host_upsample, transfer_dtype=args.transfer_dtype)
-        depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block)
+        depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block, progress=True)
     elif args.process_single_image:
         pipe = StreamingDepthPipeline(
             model, input_size=args.input_size, inference_length=args.inference_length,
             keyframe_list=tuple(args.keyframe_list), align_each_new_frame=args.align_each_new_frame,
             chunk_size=args.stream_chunk, ring_dtype=args.ring_dtype,
             host_upsample=args.host_upsample, transfer_dtype=args.transfer_dtype)
-        depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block)
+        depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block, progress=True)
     else:
         pipe = VideoDepthPipeline(model, input_size=args.input_size,
-                                  window_batch=args.window_batch, host_upsample=args.host_upsample)
-        depths, fps = pipe.infer_video_depth(frames, fps, skip_tmp_block=args.skip_tmp_block)
+                                  shape_bucket=args.shape_bucket, window_batch=args.window_batch,
+                                  host_upsample=args.host_upsample,
+                                  transfer_dtype=args.transfer_dtype)
+        depths, fps = pipe.infer_video_depth(frames, fps, skip_tmp_block=args.skip_tmp_block,
+                                             progress=True)
     wall = time.time() - t0
+    after = kernel_launches()
+    _save_outputs(args, frames, depths, fps, wall, model.device)
+    print("kernel launches: " + json.dumps({k: after[k] - before[k] for k in after}))
+    return 0
+
+
+def _save_outputs(args, frames, depths, fps, wall, device) -> None:
+    """The outputs the flags ask for, under the JAX ``run.py``'s names."""
+    from video_depth_anything_torch.io.video import colorize_depth, save_video
 
     base = os.path.splitext(os.path.basename(args.input_video))[0]
     out_video = os.path.join(args.output_dir, f"{base}_depth.mp4")
     save_video(depths, out_video, fps=fps, is_depths=True, grayscale=args.grayscale)
     print(f"wrote {out_video}")
+    if args.save_orig:
+        save_video(frames, os.path.join(args.output_dir, f"{base}_orig.mp4"), fps=fps)
     if args.save_npz:
         np.savez_compressed(os.path.join(args.output_dir, f"{base}_depth.npz"), depth=depths)
-    after = kernel_launches()
+    if args.save_tiff:
+        from video_depth_anything_torch.io.video import write_tiff_stack
+
+        write_tiff_stack(os.path.join(args.output_dir, f"{base}_depths.tiff"), depths)
+    if args.save_exr:
+        import cv2
+
+        exr_dir = os.path.join(args.output_dir, f"{base}_exr")
+        os.makedirs(exr_dir, exist_ok=True)
+        for i, d in enumerate(depths):
+            cv2.imwrite(os.path.join(exr_dir, f"{i:05d}.exr"), d)
+    if args.save_vis:
+        save_video(colorize_depth(depths, spectral=True),
+                   os.path.join(args.output_dir, f"{base}_vis.mp4"), fps=fps)
+    if args.save_stats:
+        from video_depth_anything_torch.utils.stats import append_run_log
+
+        append_run_log(os.path.join(args.output_dir, "inference_log.txt"), args=vars(args),
+                       n_frames=len(frames) or len(depths), n_depths=len(depths), wall_s=wall,
+                       device=device)
     print(f"{len(depths)} frames in {wall:.2f}s = {len(depths) / wall:.2f} FPS end-to-end")
-    print("kernel launches: " + json.dumps({k: after[k] - before[k] for k in after}))
-    return 0
 
 
 if __name__ == "__main__":

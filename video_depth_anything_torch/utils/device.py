@@ -1,21 +1,49 @@
 """Device selection, device→host transfers and kernel timing.
 
 The port runs on the card unless the caller asks for the CPU, and never
-drops to the CPU on its own.  ``transfer_cast`` and ``start_host_transfer``
-serve the streaming pipeline's one-step-lag emit: a depth map's copy to the
-host starts as soon as it is enqueued and overlaps the next step.
+drops to the CPU on its own.  ``resolve_transfer_dtype``, ``transfer_cast``
+and ``start_host_transfer`` serve the pipelines' lagged emit: a depth map's
+copy to the host starts as soon as it is enqueued and overlaps the next
+step (the next window batch, in the window pipeline).  ``env_switch`` reads
+the ``VDA_*`` switches as the JAX package does.
 ``card_line``, ``event_ms``, ``graph_ms`` and ``mem`` serve the bench
 modules and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
+from typing import Optional
 
 import numpy as np
 import torch
 
 TRANSFER_DTYPES = {"fp32": torch.float32, "fp16": torch.float16}
+
+
+def resolve_transfer_dtype(name: Optional[str] = None) -> torch.dtype:
+    """The dtype of emitted depth maps on their way to the host: ``name``
+    (``fp32`` or ``fp16``) where given, else ``VDA_TRANSFER_DTYPE``
+    (``fp16`` or ``float16`` → fp16), else fp32, as the JAX package reads
+    it."""
+    if name is None:
+        env = os.environ.get("VDA_TRANSFER_DTYPE", "fp32")
+        return torch.float16 if env in ("fp16", "float16") else torch.float32
+    if name not in TRANSFER_DTYPES:
+        raise ValueError(f"transfer_dtype must be fp32|fp16, got {name!r}")
+    return TRANSFER_DTYPES[name]
+
+
+def env_switch(value: Optional[bool], name: str, default: bool) -> bool:
+    """``value`` where given, else the environment variable ``name`` read as
+    the JAX package reads its switches: a switch on by ``default`` is off
+    only at ``"0"`` (``VDA_DEVICE_ALIGN``), one off by default is on only
+    at ``"1"`` (``VDA_HOST_UPSAMPLE``)."""
+    if value is not None:
+        return bool(value)
+    env = os.environ.get(name)
+    return env != "0" if default else env == "1"
 
 
 def resolve_device(device=None) -> torch.device:

@@ -37,6 +37,20 @@ def model_size_for(height: int, width: int, input_size: int = 518) -> Tuple[int,
             constrain_to_multiple_of(scale * width, 14, min_val=size))
 
 
+def bucket_model_size(height: int, width: int, input_size: int = 518,
+                      bucket: int = 56) -> Tuple[int, int]:
+    """The model resolution snapped to the nearest multiples of ``bucket``
+    (itself a multiple of the 14-pixel patch), at least one bucket a side:
+    videos of many aspect ratios then share a few window shapes.  Off by
+    default (``run --shape_bucket``): it departs from the reference's
+    multiple-of-14 sizing by up to ``bucket / 2`` pixels a side."""
+    if bucket % 14:
+        raise ValueError("bucket must be a multiple of the 14-pixel patch")
+    h, w = model_size_for(height, width, input_size)
+    return (max(bucket, int(np.round(h / bucket) * bucket)),
+            max(bucket, int(np.round(w / bucket) * bucket)))
+
+
 def preprocess_frames(frames: np.ndarray, input_size: int = 518,
                       target_hw: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """uint8 RGB ``(N, H, W, 3)`` → normalized float32 ``(N, h, w, 3)``."""

@@ -13,7 +13,9 @@ Phases (each failure ends the run with a non-zero exit):
    frame and a chunk of 8; Kernel A at D = 192 (exact and fast, and
    ragged at N = 2443) and at 3 heads on synthetic shapes; Kernel B at
    every head width of its domain, d = 8 to 128, and at T = 17 on a
-   ragged S), on inputs whose attention is peaked, and
+   ragged S; Kernels A, B and C also at phase eval's native sizes,
+   EVAL_ATTN, EVAL_TEMPORAL and EVAL_MOTION), on inputs whose attention is
+   peaked, and
    Kernel A also on flat ones (q scaled by FLAT_Q); Kernel A's probe
    kernels (every spatial
    variant at the vitl and vits probe shapes, the seven softmax-chain
@@ -88,16 +90,32 @@ Phases (each failure ends the run with a non-zero exit):
    6 steps and a resume for 2 more; the losses must be finite, the steps
    continue, and Kernels A (forward and backward), B and C must all run.
    The main path of training: counts zeroed before, read after.
-8. probes: ``python -m video_depth_anything_torch.bench_spatial_variants``
+8. eval: ``python -m video_depth_anything_torch.eval`` (``main``,
+   in-process, ``--random_init``) on synthetic KITTI (two scenes of 40
+   frames at 375x1242, sparse GT; the model runs at 280x924) and Sintel
+   (one scene of 40 frames at 436x1024 with cameras; 392x924) trees: vits
+   windows on KITTI, the feature cache and the KV cache on Sintel, a vitl
+   window and a vits --fp32 window on one KITTI scene, each with its launch
+   plan (the main path: counts zeroed before, read after), finite metrics
+   in its CSV, frames/s and peak device memory; the first scene's raw
+   predictions of every run (noised weights) against the plain path, within
+   WINDOW_TOL (``rounding_tol``) in bf16 and F32_WINDOW_TOL (TF32 off) for
+   --fp32; then ``video_depth_anything_torch.compare``'s two ``--run``
+   subprocesses (one checkpoint of noised weights, with and without
+   --skip_tmp_block) on a 40-frame 375x1242 mp4, their alignment and
+   ``comparison.json`` (``run_methods``, ``score_methods``: the card has no
+   matplotlib for the renderings).
+9. probes: ``python -m video_depth_anything_torch.bench_spatial_variants``
    and ``bench_softmax_chain`` (their ``main``, in-process) at full shapes
    with their default lists, and ``ResizeConvFn`` forward and backward at
    the vitl junction against autograd through the plain chain: the path of
    the probe kernels and of the resize -> conv kernel (counts zeroed
    before, read after).
-9. fp32 (``--fp32``, TF32 off in matrix products and convolutions): each
+10. fp32 (``--fp32``, TF32 off in matrix products and convolutions): each
    fp32 kernel (Kernel A at vits 32x1370 and 32x2443, exact and fast, and
    D = 192; Kernel B at every shape of ``bench_temporal``; Kernel C at
-   phase kernels' nine shapes) against its plain fp32 version within
+   phase kernels' nine shapes; each also at phase eval's --fp32 KITTI
+   shapes, 280x924) against its plain fp32 version within
    F32_TOL, the mutants of phase kernels at fp32 and the plain version in
    one TF32 pass missing by more, with ms, bound, plain and library ms and
    the bf16 kernel's error on the same inputs; fp32 vits, vitb and vitl
@@ -107,14 +125,15 @@ Phases (each failure ends the run with a non-zero exit):
    the main path of the fp32 kernels, each must launch, but Kernel C in the
    KV mode, and no bf16 kernel may) and vitl with ``--fp32_island`` (the
    tail kernel never launches).
-10. bench: ``python -m video_depth_anything_torch.bench`` with
+11. bench: ``python -m video_depth_anything_torch.bench`` with
    VDA_BENCH_FAST=1 (the card line, then the headline line), then each of
    its row functions once at iters=2, their fields checked.
 The card's line (``nvidia-smi``'s name and power limit) comes first and
 stands beside every time.  The last two lines are the kernels JSON object
-(launches summed over the main-path runs of phases cli, stream and
-train-cli, for the probe kernels and the resize -> conv those of phase
-probes, for the fp32 kernels those of phase fp32's ``--fp32`` runs; Kernel
+(launches summed over the main-path runs of phases cli, stream, train-cli
+and eval, for the probe kernels and the resize -> conv those of phase
+probes, for the fp32 kernels those of phase fp32's ``--fp32`` runs and
+phase eval's; Kernel
 A's fast variant and each fp32 kernel are entries of their own) and the
 contract line
 ``{"ok": true, "device": {...}}``.
@@ -258,6 +277,17 @@ MOTION_ROWS = tuple((label, c, s, 32) for label, c, s in (
     ("vitb m0 518x924", 384, 2442))) + tuple(
     (label, c, 5476, t) for label, c in (("m3 518x518", 64), ("vitl m3 518x518", 256))
     for t in (12, 16, 20, 24))
+# The kernels' shapes at phase eval's native sizes (KITTI 375x1242 -> 280x924,
+# 1320 tokens; Sintel 436x1024 -> 392x924, 1848): Kernel A's vits token
+# counts (N = 1321 is ragged), Kernel B's vits m0 (d = 24) and m2 (d = 8)
+# calls, Kernel C's vits m3 (and vitl m3 at 280x924).  The KITTI rows come
+# first: phase fp32 takes them for the --fp32 run.
+EVAL_ATTN = (("KITTI 280x924", 1321), ("Sintel 392x924", 1849))
+EVAL_TEMPORAL = tuple((f"vits {m} {size}", 1, 32, s, c)
+                      for size, s in (("280x924", 1320), ("392x924", 1848))
+                      for m, c in (("m0", 192), ("m2", 64)))
+EVAL_MOTION = (("m3 280x924", 64, 5280, 32), ("m3 392x924", 64, 7392, 32),
+               ("vitl m3 280x924", 256, 5280, 32))
 MOTION_TOL = 5e-2  # Kernel C, relative to max|plain - x| (the module's own
 # contribution): the plain version rounds each GEMM output and each bias add
 # to bf16 separately, the kernel once per fused epilogue, through ~10
@@ -653,7 +683,8 @@ def phase_kernels(dev):
             ("flash_attention_fast", "518x924", 32, 2443, 6, 64),
             ("flash_attention_fast", "518x518", 32, 1370, 6, 64),
             ("flash_attention_fast", "stream 518x924 frame", 1, 2443, 6, 64),
-            ("flash_attention_fast", "stream 518x924 chunk", 8, 2443, 6, 64)):
+            ("flash_attention_fast", "stream 518x924 chunk", 8, 2443, 6, 64),
+            *(("flash_attention", label, 32, n, 6, 64) for label, n in EVAL_ATTN)):
         fast = kernel == "flash_attention_fast"
         qkv = attention_inputs((bt, n, h * d), g, dev)
         q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
@@ -723,7 +754,7 @@ def phase_kernels(dev):
     # graph_ms): the kernel's launch path outlasts its few microseconds on
     # the host.
     for n_row, (label, b, t, s, c) in enumerate(bench_temporal.SHAPES
-                                                + bench_temporal.WINDOW_SHAPES):
+                                                + bench_temporal.WINDOW_SHAPES + EVAL_TEMPORAL):
         heads = bench_temporal.HEADS
         copies = bench_temporal.inputs(b, t, s, c, 100 + n_row, dev)
         q, k, v = copies[0]
@@ -743,7 +774,8 @@ def phase_kernels(dev):
                    max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=ATTN_TOL,
                    mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=lib_ms, extra=f" ms/bound_ms={ms / b_ms:.2f}")
-        if b == 1:  # the parent was timed at B = 1 only
+        # the parent was timed at B = 1 only, and not at phase eval's shapes
+        if b == 1 and (label, b, t, s, c) not in EVAL_TEMPORAL:
             row["parent_ms"] = PARENT_MS.get(("temporal_attention", label))
         rows.append(row)
         del copies, q, k, v, got, want, q5, k5, v5
@@ -758,7 +790,7 @@ def phase_kernels(dev):
     # location, with the unmasked-padded-keys mutant).
     cfg = MotionModuleConfig()
     split_done = set()
-    for label, c, s, t in MOTION_ROWS:
+    for label, c, s, t in MOTION_ROWS + EVAL_MOTION:
         b = 1
         x = (torch.randn(b, t, s, c, device=dev, generator=g)).to(torch.bfloat16)
         p = motion_params(c, seed=c, device=dev)
@@ -785,7 +817,8 @@ def phase_kernels(dev):
                    max_abs_err=err, rel_err=rel, tol=MOTION_TOL, mutants=mutants, ms=ms,
                    gn_fold_ms=fold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=None, extra=extra)
-        if t == 32:  # the earlier kernel was timed at T = 32
+        # the earlier kernel was timed at T = 32, and not at phase eval's shapes
+        if t == 32 and (label, c, s, t) not in EVAL_MOTION:
             row["parent_ms"] = PARENT_MS[("motion_module", label)]
         rows.append(row)
 
@@ -999,6 +1032,7 @@ def main() -> int:
     stream_launches = timed("stream", phase_stream, dev, smi)
     timed("train", phase_train_check, dev, smi)
     train_launches = timed("train-cli", phase_train_cli, smi)
+    eval_launches = timed("eval", phase_eval, smi)
     probe_launches = timed("probes", phase_probes, dev, smi)
     f32_rows, f32_launches = timed("fp32", phase_fp32, dev, smi)
     timed("bench", phase_bench, smi)
@@ -1043,9 +1077,10 @@ def main() -> int:
         if wrapper in probe_launches:
             count = probe_launches[wrapper]
         elif wrapper in f32_launches:
-            count = f32_launches[wrapper]
+            count = f32_launches[wrapper] + eval_launches[wrapper]
         else:
-            count = launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper]
+            count = (launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper]
+                     + eval_launches[wrapper])
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
             "replaces": replaces, "launches": count,
@@ -1055,7 +1090,7 @@ def main() -> int:
     if any(k["launches"] == 0 for k in kernels):
         raise SystemExit(f"a kernel of the main path never launched: {kernels}")
     log(f"[done] Kernel B's launches by head width over the main path (phases cli, stream, "
-        f"train-cli): {dict(sorted(MAIN_PATH_WIDTHS.items()))}")
+        f"train-cli, eval): {dict(sorted(MAIN_PATH_WIDTHS.items()))}")
     log(f"[done] every phase passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1554,32 +1589,378 @@ def phase_train_cli(smi: str) -> dict:
 def write_pointodyssey(root: str, scenes: int = 2, frames: int = 40, h: int = 360, w: int = 640,
                        seed: int = 0) -> None:
     """A synthetic PointOdyssey tree (``train/<scene>/rgbs/rgb_*.jpg``,
-    ``depths/depth_*.png`` 16-bit at meters·65.535, ``anno.npz``): a
-    tilted depth ramp with a disc that moves nearer over the clip, and
-    frames whose brightness follows the depth."""
+    ``depths/depth_*.png`` 16-bit at meters·65.535, ``anno.npz``): the
+    frames of ``scene_frame``."""
     import cv2
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     for s in range(scenes):
         base = os.path.join(root, "train", f"scene_{s:02d}")
         os.makedirs(os.path.join(base, "rgbs"))
         os.makedirs(os.path.join(base, "depths"))
         tilt = rng.uniform(0.5, 2.0, size=2)
         for i in range(frames):
-            depth = 2.0 + tilt[0] * xx / w + tilt[1] * yy / h
-            cx, cy = w * (0.2 + 0.6 * i / frames), h * (0.5 + 0.1 * s)
-            disc = (xx - cx) ** 2 + (yy - cy) ** 2 < (h / 5) ** 2
-            depth = np.where(disc, 1.0 + 0.5 * i / frames, depth)
-            shade = (255 * (1.2 - depth / 5.0)).clip(0, 255)
-            rgb = np.stack([shade, shade * 0.8, 255 - shade], -1) + rng.randint(0, 8, (h, w, 1))
-            cv2.imwrite(os.path.join(base, "rgbs", f"rgb_{i:05d}.jpg"), rgb.clip(0, 255).astype(np.uint8))
+            depth, rgb = scene_frame(i, frames, h, w, tilt, 0.5 + 0.1 * s, rng)
+            cv2.imwrite(os.path.join(base, "rgbs", f"rgb_{i:05d}.jpg"), rgb)
             cv2.imwrite(os.path.join(base, "depths", f"depth_{i:05d}.png"),
                         np.round(depth / 1000.0 * 65535.0).astype(np.uint16))
         np.savez(os.path.join(base, "anno.npz"),
                  intrinsics=np.tile(np.eye(3, dtype=np.float32) * 300, (frames, 1, 1)),
                  extrinsics=np.tile(np.eye(4, dtype=np.float32), (frames, 1, 1)))
+
+
+def scene_frame(i: int, frames: int, h: int, w: int, tilt, row: float, rng):
+    """One synthetic frame: metric depth ``(h, w)`` (a tilted ramp, 2-6 m,
+    with a disc that moves across and nearer over the scene) and uint8 RGB
+    whose brightness follows the depth."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    depth = 2.0 + tilt[0] * xx / w + tilt[1] * yy / h
+    cx, cy = w * (0.2 + 0.6 * i / frames), h * row
+    disc = (xx - cx) ** 2 + (yy - cy) ** 2 < (h / 5) ** 2
+    depth = np.where(disc, 1.0 + 0.5 * i / frames, depth)
+    shade = (255 * (1.2 - depth / 5.0)).clip(0, 255)
+    rgb = np.stack([shade, shade * 0.8, 255 - shade], -1) + rng.randint(0, 8, (h, w, 1))
+    return depth, rgb.clip(0, 255).astype(np.uint8)
+
+
+FAST_PNG = (16, 1)  # cv2.IMWRITE_PNG_COMPRESSION, level 1: the synthetic trees write fast
+
+
+def write_kitti(root: str, drives: int = 1, frames: int = 40, h: int = 375, w: int = 1242,
+                split: str = "train", seed: int = 0) -> None:
+    """A synthetic KITTI tree in the loader's layout: per drive, both
+    cameras' raw frames (``kitti_raw/<date>/<drive>/image_0{2,3}/data``,
+    ``frames + 10`` of them) and annotated depth for frames 5 .. frames + 4
+    only (``kitti_depth/data_depth_annotated/<split>/<drive>/proj_depth/
+    groundtruth/image_0x``, 16-bit PNG at meters·256), valid on a sparse
+    lidar-like pattern (every third row of the lower two thirds, 60 % of
+    its pixels) and 0 elsewhere; ``calib_cam_to_cam.txt`` with every
+    camera's ``P_rect``."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    date = "2011_09_26"
+    os.makedirs(os.path.join(root, "kitti_raw", date), exist_ok=True)
+    with open(os.path.join(root, "kitti_raw", date, "calib_cam_to_cam.txt"), "w") as f:
+        f.write("calib_time: 09-Jan-2012 13:57:47\ncorner_dist: 9.950000e-02\n")
+        for cam in range(4):
+            p = [721.5377 + cam, 0.0, w / 2 - 0.5, 44.857 * cam, 0.0, 721.5377, h / 2 - 0.5, 0.2,
+                 0.0, 0.0, 1.0, 2.7e-3]
+            f.write(f"P_rect_0{cam}: " + " ".join(f"{x:.6e}" for x in p) + "\n")
+    rows = np.zeros((h, 1), bool)
+    rows[h // 3::3] = True
+    for d in range(drives):
+        drive = f"{date}_drive_{d + 1:04d}_sync"
+        for c, cam in enumerate(("image_02", "image_03")):
+            img_dir = os.path.join(root, "kitti_raw", date, drive, cam, "data")
+            gt_dir = os.path.join(root, "kitti_depth", "data_depth_annotated", split, drive,
+                                  "proj_depth", "groundtruth", cam)
+            os.makedirs(img_dir, exist_ok=True)  # the splits share the raw frames
+            os.makedirs(gt_dir)
+            tilt = rng.uniform(0.5, 2.0, size=2)
+            for i in range(frames + 10):
+                depth, rgb = scene_frame(i, frames + 10, h, w, tilt, 0.5 + 0.1 * c, rng)
+                cv2.imwrite(os.path.join(img_dir, f"{i:010d}.png"), rgb[..., ::-1], FAST_PNG)
+                if 5 <= i < frames + 5:
+                    valid = rows & (rng.rand(h, w) < 0.6)
+                    cv2.imwrite(os.path.join(gt_dir, f"{i:010d}.png"),
+                                np.where(valid, np.round(depth * 256.0), 0).astype(np.uint16),
+                                FAST_PNG)
+
+
+def write_sintel(root: str, scenes: int = 1, frames: int = 40, h: int = 436, w: int = 1024,
+                 split: str = "training", seed: int = 0) -> None:
+    """A synthetic MPI Sintel tree in the loader's layout: ``<split>/final/
+    <scene>/frame_NNNN.png``, ``depth/<scene>/frame_NNNN.dpt`` (metres) and
+    ``camdata_left/<scene>/frame_NNNN.cam`` (K and a 3×4 world→camera
+    matrix: the camera slides along x and turns slowly about y), frames
+    numbered from 1."""
+    import cv2
+    import numpy as np
+
+    from video_depth_anything_torch.data.sintel import write_cam, write_dpt
+
+    rng = np.random.RandomState(seed)
+    k = np.array([[1120.0, 0.0, w / 2 - 0.5], [0.0, 1120.0, h / 2 - 0.5], [0.0, 0.0, 1.0]])
+    for s in range(scenes):
+        name = f"alley_{s + 1}"
+        dirs = [os.path.join(root, split, sub, name) for sub in ("final", "depth", "camdata_left")]
+        for x in dirs:
+            os.makedirs(x)
+        tilt = rng.uniform(0.5, 2.0, size=2)
+        for i in range(frames):
+            depth, rgb = scene_frame(i, frames, h, w, tilt, 0.5 + 0.1 * s, rng)
+            stem = f"frame_{i + 1:04d}"
+            cv2.imwrite(os.path.join(dirs[0], stem + ".png"), rgb[..., ::-1], FAST_PNG)
+            write_dpt(os.path.join(dirs[1], stem + ".dpt"), depth)
+            a = 0.002 * i
+            rt = np.array([[np.cos(a), 0.0, np.sin(a), -0.01 * i], [0.0, 1.0, 0.0, 0.0],
+                           [-np.sin(a), 0.0, np.cos(a), 0.0]])
+            write_cam(os.path.join(dirs[2], stem + ".cam"), k, rt)
+
+
+# -- phase eval: python -m video_depth_anything_torch.eval and .compare ---------
+
+BF16_KERNELS = ("flash_attention", "flash_attention_fast", "flash_attention_bwd",
+                "temporal_attention", "fused_motion_module", "output_tail")
+F32_KERNELS = ("flash_attention_f32", "temporal_attention_f32", "fused_motion_module_f32")
+# The eval runs at the benchmarks' native sizes: KITTI 375x1242 -> 280x924
+# (1320 tokens), Sintel 436x1024 -> 392x924 (1848).  Below 2048 locations the
+# gate leaves m0-m2 to the motion modules' attention (Kernel B where d <= 24:
+# vits m0 d = 24 and m2 d = 8) and m3 (5280 / 7392 locations) to Kernel C.
+# (label, dataset, eval flags, kernels that must launch, kernels that must
+# not).  The KV mode never reaches Kernel C (its warm-up bypasses the fused
+# module, phase stream); vitl's widths (d = 128, 32) leave Kernel B to
+# --attn_impl pallas, so its Kernel B and tail counts are printed, not held.
+EVAL_RUNS = (
+    ("vits window", "kitti", [],
+     ("flash_attention", "temporal_attention", "fused_motion_module"),
+     ("flash_attention_fast", "flash_attention_bwd", "output_tail") + F32_KERNELS),
+    ("vits feature cache", "sintel", ["--streaming"],
+     ("flash_attention", "temporal_attention", "fused_motion_module"),
+     ("flash_attention_fast", "flash_attention_bwd", "output_tail") + F32_KERNELS),
+    ("vits kv cache", "sintel", ["--streaming", "--kv_cache"],
+     ("flash_attention", "temporal_attention"),
+     ("fused_motion_module", "flash_attention_fast", "flash_attention_bwd", "output_tail")
+     + F32_KERNELS),
+    ("vitl window", "kitti", ["--encoder", "vitl", "--max_scenes", "1"],
+     ("flash_attention", "fused_motion_module"),
+     ("flash_attention_fast", "flash_attention_bwd") + F32_KERNELS),
+    ("vits fp32 window", "kitti", ["--fp32", "--max_scenes", "1"], F32_KERNELS, BF16_KERNELS),
+)
+METRIC_RTOL = 1e-4  # compute_all_torch's fp32 where-sums on the card against numpy's masked
+# means over the same 2-18 M pixels (the two reductions sum in other orders),
+# relative where a metric exceeds 1, absolute below (the deltas lie in [0, 1])
+
+
+class Recorder:
+    """A pipeline that keeps the frames and predictions of every call and
+    sums the seconds spent in them."""
+
+    def __init__(self, inner):
+        self.inner, self.calls, self.seconds = inner, [], 0.0
+
+    def infer_video_depth(self, frames, *a, **k):
+        t0 = time.time()
+        out = self.inner.infer_video_depth(frames, *a, **k)
+        self.seconds += time.time() - t0
+        self.calls.append((frames, out[0]))
+        return out
+
+
+class TimedDataset:
+    """A dataset whose ``seconds`` sums the time of its scene loads;
+    ``last`` is the last scene loaded."""
+
+    def __init__(self, inner):
+        self.inner, self.seconds, self.last = inner, 0.0, None
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __getitem__(self, i):
+        t0 = time.time()
+        self.last = self.inner[i]
+        self.seconds += time.time() - t0
+        return self.last
+
+
+def csv_summary(path: str):
+    """``(per-scene rows, {total_frames, wall_s, fps, host_rss_mb})`` of an
+    eval CSV."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    scenes = rows[1:rows.index([])]
+    return scenes, dict(zip(rows[-2], map(float, rows[-1])))
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off in matrix products and convolutions, as phase fp32 runs."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def eval_prediction_check(args, dataset, tmp: str, label: str, smi: str) -> None:
+    """``evaluate_dataset``'s raw predictions of the first scene on the
+    kernel path (noised weights) against the plain path on the card for
+    the same frames: in bf16 within phase window's tolerance
+    (``rounding_tol``); with ``--fp32`` within F32_WINDOW_TOL, and TF32
+    off around both paths, as phase fp32 holds its windows.  Prints where
+    the kernel-path evaluation's wall time went."""
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch import eval as vda_eval
+    from video_depth_anything_torch.evals.evaluate import evaluate_dataset
+    from video_depth_anything_torch.evals.metrics import compute_all, compute_all_torch
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+
+    model = vda_eval.load_model(args)
+    noise_weights(model.module, seed=1)
+    rec, data = Recorder(vda_eval.build_pipeline(args, model)), TimedDataset(dataset)
+    with no_tf32() if args.fp32 else contextlib.nullcontext():
+        t0 = time.time()
+        evaluate_dataset(rec, data, os.path.join(tmp, f"check_{label.replace(' ', '_')}.csv"),
+                         max_scenes=1, compute_tae=False, progress=False)
+        wall = time.time() - t0
+        (frames, got), = rec.calls
+        with plain_reference():
+            want = rec.inner.infer_video_depth(frames)[0]
+    if args.fp32:
+        tol, yardstick = F32_WINDOW_TOL, "fp32, TF32 off"
+    else:
+        with fp32_plain(model):
+            ref32 = rec.inner.infer_video_depth(frames)[0]
+        tol, noise = rounding_tol(WINDOW_TOL, want, ref32)
+        yardstick = f"plain bf16 vs fp32 activations {noise:.3e}"
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    # the metrics' torch backend on the card against the numpy one, on the
+    # raw prediction and the GT frames it is scored against
+    n = len(got)
+    gt = np.asarray(data.last["depth"])[: len(frames)][-n:]
+    valid = np.asarray(data.last["valid_depth"]).astype(bool)[: len(frames)][-n:]
+    host = compute_all(got, gt, valid)
+    card = compute_all_torch(torch.from_numpy(got).cuda(), gt, valid)
+    metric_rel = max(abs(float(card[k]) - v) / max(abs(v), 1.0) for k, v in host.items())
+    ok = (got.shape == want.shape and bool(np.isfinite(got).all()) and rel <= tol
+          and metric_rel <= METRIC_RTOL)
+    log(f"[eval] {label}: raw predictions {got.shape}, rel err kernels vs plain {rel:.3e} (tol "
+        f"{tol:.3e}: {yardstick}); compute_all_torch on the card "
+        f"vs compute_all on the host, max diff {metric_rel:.3e} (relative above 1; tol "
+        f"{METRIC_RTOL}) "
+        f"{'OK' if ok else 'FAIL'}")
+    log(f"[eval] {label}: one scene of {len(frames)} frames, evaluate_dataset without TAE "
+        f"{wall:.3f} s: loading {data.seconds:.3f} s, the pipeline's call {rec.seconds:.3f} s "
+        f"(preprocessing, the model, the stitch, the copies to the host), alignment and "
+        f"metrics {wall - data.seconds - rec.seconds:.3f} s ({smi})")
+    if not ok:
+        raise SystemExit(f"eval {label}: the kernel path disagrees with the plain path")
+    del model
+
+
+def phase_eval(smi: str) -> dict:
+    """``python -m video_depth_anything_torch.eval`` (``main``, in-process,
+    ``--random_init``) on synthetic trees at the benchmarks' native sizes:
+    KITTI (two scenes, both cameras of a drive, 40 frames at 375x1242,
+    sparse lidar-like GT) and Sintel (one scene of 40 frames at 436x1024
+    with cameras, so TAE).  Each run of EVAL_RUNS with its launch plan (the
+    main path: counts zeroed before, read after), finite metrics for every
+    scene in its CSV, frames/s (the CSV's fps) and peak device memory; the
+    raw predictions of every run on the kernel path against the plain path
+    (``eval_prediction_check``), with the split of one scene's evaluation
+    (loading, the pipeline, alignment and metrics);
+    ``video_depth_anything_torch.compare``'s steps before the renderings
+    (the card has no matplotlib) on a 40-frame 375x1242 mp4: two ``--run``
+    subprocesses over one checkpoint of noised weights, with and without
+    --skip_tmp_block, which must differ, and ``comparison.json``, whose
+    rows must be the first-frame alignment of the two npz files computed
+    here.  Returns the launches summed over the eval runs."""
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch import compare as vda_compare
+    from video_depth_anything_torch import eval as vda_eval
+    from video_depth_anything_torch.data import get_dataset
+    from video_depth_anything_torch.evals.metrics import abs_diff
+    from video_depth_anything_torch.io.checkpoint import save_pth
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.temporal_attention import temporal_attention
+
+    totals = dict.fromkeys(launch_counts(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {"kitti": os.path.join(tmp, "kitti"), "sintel": os.path.join(tmp, "sintel")}
+        t0 = time.time()
+        write_kitti(roots["kitti"])
+        write_sintel(roots["sintel"])
+        log(f"[eval] synthetic KITTI (2 scenes x 40 frames, 375x1242) and Sintel (1 x 40, "
+            f"436x1024) trees written in {time.time() - t0:.1f} s")
+        for label, dataset, flags, needed, absent in EVAL_RUNS:
+            path = os.path.join(tmp, label.replace(" ", "_") + ".csv")
+            argv = ["--dataset", dataset, "--root", roots[dataset], "--csv", path,
+                    "--random_init", *flags]
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.time()
+            rc = vda_eval.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            delta = main_path_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            totals = {k: totals[k] + delta[k] for k in totals}
+            scenes, stats = csv_summary(path)
+            finite = bool(scenes) and all(np.isfinite(float(x)) for r in scenes for x in r[2:11])
+            tae = [r[11] for r in scenes]
+            n_scenes = 2 if dataset == "kitti" and "--max_scenes" not in flags else 1
+            ok = (rc == 0 and finite and len(scenes) == n_scenes
+                  and all((t == "") == (dataset == "kitti") for t in tae)
+                  and all(delta[k] > 0 for k in needed) and all(delta[k] == 0 for k in absent))
+            log(f"[eval] {label} {dataset}: rc={rc} scenes {[(r[0], r[1]) for r in scenes]} "
+                f"AbsRel {[round(float(r[9]), 4) for r in scenes]} delta1 "
+                f"{[round(float(r[4]), 4) for r in scenes]} TAE {tae} finite={finite} launches "
+                f"{delta} (tail {delta['output_tail']}, Kernel B by head width "
+                f"{dict(temporal_attention.width_launches)}) {'OK' if ok else 'FAIL'}")
+            log(f"[eval] {label} {dataset}: {stats['total_frames']:.0f} frames, {stats['fps']} "
+                f"frames/s end to end (the CSV's fps: loading, inference, alignment, metrics, "
+                f"TAE), the CLI {wall:.2f} s (model set-up included), peak device memory "
+                f"{peak:.2f} GiB ({smi})")
+            if not ok:
+                raise SystemExit(f"eval run {label} failed")
+            args = vda_eval.normalize_args(vda_eval.build_parser().parse_args(argv))
+            eval_prediction_check(args, get_dataset(dataset, roots[dataset]), tmp, label, smi)
+            torch.cuda.empty_cache()
+
+        clip, out = os.path.join(tmp, "kitti.mp4"), os.path.join(tmp, "compare")
+        write_clip(clip, 375, 1242, 40)
+        model = VDAModel("vits", device="cpu", dtype=torch.float32)
+        model.init_params(seed=0)
+        noise_weights(model.module, seed=1)
+        ckpt = os.path.join(tmp, "noised_vits.pth")
+        save_pth(ckpt, model.module.state_dict())
+        del model
+        t0 = time.time()
+        os.makedirs(out)
+        methods = vda_compare.run_methods(
+            clip, [f"base:--checkpoint {ckpt}", f"skip:--checkpoint {ckpt} --skip_tmp_block"],
+            out, "cuda")
+        _, rows = vda_compare.score_methods(methods, None, out)
+        with open(os.path.join(out, "comparison.json")) as f:
+            report = json.load(f)
+        base, skip = (np.load(os.path.join(out, f"run_{m}", "kitti_depth.npz"))["depth"]
+                      for m in ("base", "skip"))
+        scale = float(np.abs(base).mean())
+        ok = (report == {"reference": "base", "methods": rows} and list(rows) == ["base", "skip"]
+              and all(r["frames"] == 40 for r in rows.values())
+              and base.shape == skip.shape and len(base) == 40
+              and rows["base"]["abs_vs_ref"] < 1e-6 * scale
+              and rows["skip"]["abs_vs_ref"] == abs_diff(vda_compare.first_frame_align(skip, base),
+                                                        base)
+              and rows["skip"]["abs_vs_ref"] > 1e-2 * scale
+              and all(np.isfinite(r[k]) for r in rows.values() for k in ("abs_vs_ref",
+                                                                           "mse_vs_ref"))
+              and sorted(os.listdir(out)) == ["comparison.json", "run_base", "run_skip"])
+        log(f"[eval] compare on a 40-frame 375x1242 clip, runs base and skip (--skip_tmp_block) "
+            f"over one checkpoint of noised weights: {json.dumps(rows)}, mean |base depth| "
+            f"{scale:.4f}, in {time.time() - t0:.1f} s {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the compare run failed")
+    log(f"[eval] launches over the eval runs: {totals} ({smi})")
+    return totals
 
 
 def phase_cli(smi: str) -> dict:
@@ -1924,7 +2305,6 @@ F32_WINDOW_PLANS = {
     "vitb": dict(flash_attention_f32=12, temporal_attention_f32=2, fused_motion_module_f32=1),
     "vitl": dict(flash_attention_f32=24, temporal_attention_f32=0, fused_motion_module_f32=1),
 }
-F32_KERNELS = ("flash_attention_f32", "temporal_attention_f32", "fused_motion_module_f32")
 # and under --attn_impl pallas (the gates of PALLAS_WINDOW_PLANS): Kernel B's
 # fp32 launches of one window by head width
 F32_PALLAS_WIDTHS = {"vits": {24: 2, 48: 2, 8: 2}, "vitl": {128: 4, 32: 2}}
@@ -2052,7 +2432,8 @@ def fp32_kernel_rows(dev) -> list:
                                      ("518x518 fast", 32, 1370, 6, 64, True),
                                      ("518x924 fast", 32, 2443, 6, 64, True),
                                      ("synthetic D=192", 32, 1370, 2, 192, False),
-                                     ("synthetic D=192 ragged fast", 32, 2443, 2, 192, True)):
+                                     ("synthetic D=192 ragged fast", 32, 2443, 2, 192, True),
+                                     (EVAL_ATTN[0][0], 32, EVAL_ATTN[0][1], 6, 64, False)):
         qkv = f32_inputs((bt, n, h * d), g, dev)
         q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
         scale = d**-0.5
@@ -2088,7 +2469,8 @@ def fp32_kernel_rows(dev) -> list:
         del qkv, q, k, v, qf, got, want, qt, kt, vt
 
     heads = bench_temporal.HEADS
-    for label, b, t, s, c in bench_temporal.SHAPES + bench_temporal.WINDOW_SHAPES:
+    for label, b, t, s, c in (bench_temporal.SHAPES + bench_temporal.WINDOW_SHAPES
+                              + EVAL_TEMPORAL[:2]):
         q, k, v = (x.contiguous() for x in f32_inputs((b, t, s, c), g, dev).split(c, dim=-1))
         d = c // heads
         scale = d**-0.5
@@ -2113,7 +2495,7 @@ def fp32_kernel_rows(dev) -> list:
         del q, k, v, got, want, q5, k5, v5
 
     cfg = MotionModuleConfig()
-    for label, c, s, t in MOTION_ROWS:
+    for label, c, s, t in MOTION_ROWS + EVAL_MOTION[:1]:
         b = 1
         x = torch.randn(b, t, s, c, device=dev, generator=g)
         p = motion_params(c, seed=c, device=dev)

@@ -1,5 +1,6 @@
 """The port's data pipeline against the JAX package's on the same seeds:
-the PointOdyssey loader on a synthesised tree, ``augment_clip``,
+the PointOdyssey loader on a synthesised tree (the other seven loaders:
+``tests/test_torch_datasets.py``), ``augment_clip``,
 ``ClipSampler`` (with and without augmentation) and ``Prefetcher``.  The
 copies are numpy code, so the arrays must be equal."""
 
@@ -35,13 +36,6 @@ def test_pointodyssey_loader_matches_jax(po_root):
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
     # the writer's depth survives the 16-bit round trip to within one step
     assert 0.9 < float(got[0]["depth"].min()) and float(got[0]["depth"].max()) < 5.0
-
-
-@pytest.mark.parametrize("name", ["kitti", "vkitti", "sintel", "tartanair", "dynamicreplica",
-                                  "sceneflow", "irs"])
-def test_unported_loaders_name_the_roadmap(name, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        t_data.get_dataset(name, str(tmp_path))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -23,7 +23,8 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Video Depth Anything training (PyTorch/CUDA)")
     p.add_argument("--dataset", action="append", required=True,
-                   help="dataset name (repeatable); pointodyssey is ported so far")
+                   help="dataset name (repeatable): kitti, vkitti, sintel, tartanair, "
+                        "pointodyssey, dynamicreplica, sceneflow or irs")
     p.add_argument("--root", action="append", required=True,
                    help="dataset root, one per --dataset")
     p.add_argument("--encoder", default="vits", choices=["vits", "vitb", "vitl"])

@@ -128,10 +128,26 @@ Phases (each failure ends the run with a non-zero exit):
 11. bench: ``python -m video_depth_anything_torch.bench`` with
    VDA_BENCH_FAST=1 (the card line, then the headline line), then each of
    its row functions once at iters=2, their fields checked.
+12. parallel: the multi-GPU layer (``video_depth_anything_torch/parallel``),
+   ranks started as subprocesses (``torch.distributed.run`` or the
+   multi-host flags), each printing its rank, device, backend, peak
+   memory and launch counts: ``run --data_parallel`` vits at world size 1
+   over NCCL (bit for bit the single-process depth); over gloo, two ranks
+   sharing the card: ``run --data_parallel`` and the multi-host CLI
+   (``--coordinator 127.0.0.1:<port> --num_hosts 2 --host_id i``; each
+   rank decodes its span only), ``run --pipeline_parallel 2
+   --pp_microbatches 8`` (bit for bit) and ``run --model_parallel 2`` on a
+   vitl 518x518 window of noised weights (Kernels A and C and the tail on
+   both ranks), ``--process_single_image`` with and without ``--kv_cache``
+   at ``--model_parallel 2``, each against the single-process run; then
+   ``train`` and ``train --zero1`` at world size 2 against ``train`` in one
+   process on the same global batch, parameter by parameter (with two
+   ZeRO-1 mutants that must miss).  Its times are two ranks sharing one
+   card.
 The card's line (``nvidia-smi``'s name and power limit) comes first and
 stands beside every time.  The last two lines are the kernels JSON object
-(launches summed over the main-path runs of phases cli, stream, train-cli
-and eval, for the probe kernels and the resize -> conv those of phase
+(launches summed over the main-path runs of phases cli, stream, train-cli,
+eval and the ranks of phase parallel, for the probe kernels and the resize -> conv those of phase
 probes, for the fp32 kernels those of phase fp32's ``--fp32`` runs and
 phase eval's; Kernel
 A's fast variant and each fp32 kernel are entries of their own) and the
@@ -1036,6 +1052,7 @@ def main() -> int:
     probe_launches = timed("probes", phase_probes, dev, smi)
     f32_rows, f32_launches = timed("fp32", phase_fp32, dev, smi)
     timed("bench", phase_bench, smi)
+    par_launches = timed("parallel", phase_parallel, smi)
     rows = rows + f32_rows
 
     info = {
@@ -1080,7 +1097,7 @@ def main() -> int:
             count = f32_launches[wrapper] + eval_launches[wrapper]
         else:
             count = (launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper]
-                     + eval_launches[wrapper])
+                     + eval_launches[wrapper] + par_launches.get(wrapper, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
             "replaces": replaces, "launches": count,
@@ -1230,6 +1247,21 @@ def noise_weights(module, seed: int) -> None:
             else:
                 val = 0.1 * n
             p.copy_(val)
+
+
+def write_noised_pth(encoder: str, path: str) -> None:
+    """A ``.pth`` of the model's seeded parameters under ``noise_weights``,
+    in the fp32 that the module holds (what ``run --checkpoint`` and
+    ``train --init_checkpoint`` load)."""
+    import torch
+
+    from video_depth_anything_torch.io.checkpoint import save_pth
+    from video_depth_anything_torch.models.vda import VDAModel
+
+    model = VDAModel(encoder, device="cpu", dtype=torch.float32)
+    model.init_params(seed=0)
+    noise_weights(model.module, seed=1)
+    save_pth(path, model.module.state_dict())
 
 
 WINDOW_TOL = 5e-2  # relative to max|plain|: bf16 rounding differs at every
@@ -1878,8 +1910,6 @@ def phase_eval(smi: str) -> dict:
     from video_depth_anything_torch import eval as vda_eval
     from video_depth_anything_torch.data import get_dataset
     from video_depth_anything_torch.evals.metrics import abs_diff
-    from video_depth_anything_torch.io.checkpoint import save_pth
-    from video_depth_anything_torch.models.vda import VDAModel
     from video_depth_anything_torch.ops.temporal_attention import temporal_attention
 
     totals = dict.fromkeys(launch_counts(), 0)
@@ -1927,12 +1957,8 @@ def phase_eval(smi: str) -> dict:
 
         clip, out = os.path.join(tmp, "kitti.mp4"), os.path.join(tmp, "compare")
         write_clip(clip, 375, 1242, 40)
-        model = VDAModel("vits", device="cpu", dtype=torch.float32)
-        model.init_params(seed=0)
-        noise_weights(model.module, seed=1)
         ckpt = os.path.join(tmp, "noised_vits.pth")
-        save_pth(ckpt, model.module.state_dict())
-        del model
+        write_noised_pth("vits", ckpt)
         t0 = time.time()
         os.makedirs(out)
         methods = vda_compare.run_methods(
@@ -2284,6 +2310,340 @@ def phase_stream(dev, smi: str) -> dict:
             del step
     del models
     torch.cuda.empty_cache()
+    return totals
+
+
+# -- phase parallel: the multi-GPU layer (parallel/) on the one card ------------
+#
+# NCCL refuses two ranks on one device, so the card checks world size 1 over
+# NCCL and two ranks sharing the card over gloo (parallel/comm.py stages the
+# collectives through pinned host buffers; every rank's compute and kernels
+# stay on the card).  Times and memory here are two ranks sharing one card:
+# no scaling result.
+
+PARALLEL_STREAM_FRAMES = 40  # --max_len of the TP streaming runs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def rank_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("OMP_NUM_THREADS", "4")
+    return env
+
+
+def launch(cmds, label: str, timeout: float = 300.0) -> list:
+    """Run each command (one process a command, all started together) from
+    the repo root; returns their stdout.  A non-zero exit or a timeout
+    fails the phase; every process is stopped before it returns."""
+    import subprocess
+
+    t0 = time.time()
+    procs = [subprocess.Popen(c, cwd=REPO, env=rank_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"[parallel] {label}: timed out after {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            log(out[-6000:])
+            raise SystemExit(f"[parallel] {label}: exit code {p.returncode}")
+    log(f"[parallel] {label}: {len(cmds)} launch(es) at once, {time.time() - t0:.1f} s wall")
+    return outs
+
+
+def torchrun_cmd(nproc: int, args: list) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            str(nproc)] + args
+
+
+def torchrun(nproc: int, args: list, label: str, timeout: float = 300.0) -> str:
+    return launch([torchrun_cmd(nproc, args)], label, timeout)[0]
+
+
+def rank_report(out: str, label: str, world: int, backend: str, needed=()) -> dict:
+    """The ranks' ``comm.rank_line`` lines: every rank of the world on the
+    card under ``backend``, each with a launch of every ``needed`` kernel.
+    Logs them; returns the launches summed over the ranks."""
+    import re
+
+    lines = [ln for ln in out.splitlines() if re.match(r"^rank \d+/\d+ device ", ln)]
+    ranks = sorted({int(ln.split()[1].split("/")[0]) for ln in lines})
+    total = {}
+    for ln in lines:
+        log(f"[parallel] {label}: {ln}")
+        counts = json.loads(ln.split("kernel launches: ", 1)[1])
+        if (f"backend {backend}" not in ln or "device cuda" not in ln
+                or any(counts[k] == 0 for k in needed)):
+            raise SystemExit(f"[parallel] {label}: rank line fails its plan: {ln}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    if ranks != list(range(world)):
+        raise SystemExit(f"[parallel] {label}: ranks {ranks} reported, want {world}")
+    for ln in out.splitlines():
+        if "FPS end-to-end" in ln or "decoded frames" in ln or ln.startswith("[parallel]"):
+            log(f"[parallel] {label}: {ln}")
+    return total
+
+
+def depth_check(got, want, label: str, tol: float) -> bool:
+    """``got`` against ``want`` within ``tol`` of max|want|; returns
+    whether the two are bit for bit equal."""
+    import numpy as np
+
+    same = bool(np.array_equal(got, want))
+    rel = float(np.abs(got - want).max() / np.abs(want).max()) if got.shape == want.shape \
+        else float("inf")
+    ok = got.shape == want.shape and bool(np.isfinite(got).all()) and rel <= tol
+    log(f"[parallel] {label}: depth {got.shape} vs single process: rel err {rel:.3e} (tol {tol}), "
+        f"bit for bit {same} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[parallel] {label} disagrees with the single-process run")
+    return same
+
+
+UPDATE_TOL = 0.2  # training at world size 2 against a reference run: the
+# share of a parameter's elements whose change over two steps (p_2 - p_0)
+# differs in sign from the reference's change, at the worst leaf.  AdamW
+# moves almost every element by about lr a step whatever its gradient's
+# size, so bf16 noise in the gradients flips only the elements whose
+# gradient is near zero; a ZeRO-1 that drops rank 1's shard of the update
+# differs in half of every leaf that it splits, one that drops the update
+# in all of them.  (A norm of the difference cannot tell these apart: the
+# flipped elements move by 2 lr each.)  On an H100 (700 W): data-parallel
+# against one process 0.0625, ZeRO-1 against data-parallel 0.0443, the
+# mutants 1.0 and 0.5165; in bf16 on the CPU 0.0616 and 0.
+
+
+def update_check(got: tuple, ref: tuple, label: str, mutants: bool = False) -> None:
+    """``(losses, {name: p_2 - p_0})`` of a training run against a
+    reference run's: the losses within ``LOSS_TOL``, and each parameter's
+    change within ``UPDATE_TOL`` of the reference's, leaf by leaf (a leaf
+    that the reference left unchanged must stay unchanged).  With
+    ``mutants`` the same measure is also taken of the run's changes with
+    the update dropped and with rank 1's ZeRO-1 shard of every leaf that
+    ``zero1_spec`` splits dropped: each must miss."""
+    import torch
+
+    from video_depth_anything_torch.train.trainer import zero1_spec
+
+    (losses, delta), (ref_losses, ref_delta) = got, ref
+
+    def worst(d):
+        share, leaf = 0.0, None
+        for k, r in ref_delta.items():
+            x = float((torch.sign(d[k]) != torch.sign(r)).float().mean()) if r.numel() else 0.0
+            if leaf is None or x > share:
+                share, leaf = x, k
+        return share, leaf
+
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    share, leaf = worst(delta)
+    whole = float(sum((delta[k] - r).pow(2).sum() for k, r in ref_delta.items()) ** 0.5
+                  / sum(r.pow(2).sum() for r in ref_delta.values()) ** 0.5)
+    moved = sum(1 for r in ref_delta.values() if bool(r.any()))
+    ok = loss_rel <= LOSS_TOL and share <= UPDATE_TOL and len(losses) == len(ref_losses)
+    log(f"[parallel] {label}: loss rel {loss_rel:.3e} (tol {LOSS_TOL}); parameter change over two "
+        f"steps: {share:.4f} of the elements of its worst leaf {leaf} differ in sign (tol "
+        f"{UPDATE_TOL}; {moved} of {len(ref_delta)} leaves changed), the change's norm rel "
+        f"{whole:.3e} over all leaves {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[parallel] {label}: the runs disagree")
+    if not mutants:
+        return
+
+    def drop_shard(d):
+        spec = zero1_spec((), tuple(d.shape), 2)
+        if "data" not in spec:
+            return d
+        dim = spec.index("data")
+        d = d.clone()
+        d.narrow(dim, d.shape[dim] // 2, d.shape[dim] // 2).zero_()
+        return d
+
+    for name, mutant in (("update dropped", {k: torch.zeros_like(v) for k, v in delta.items()}),
+                         ("rank 1's shard dropped", {k: drop_shard(v) for k, v in delta.items()})):
+        m_share, m_leaf = worst(mutant)
+        log(f"[parallel] {label}, mutant {name}: {m_share:.4f} at {m_leaf} "
+            f"{'misses' if m_share > UPDATE_TOL else 'PASSES'}")
+        if m_share <= UPDATE_TOL:
+            raise SystemExit(f"[parallel] {label}: the check cannot see the {name} mutant")
+
+
+def phase_parallel(smi: str) -> dict:
+    """The multi-GPU layer on the one card; returns the launches of the
+    ranks' main-path runs, summed."""
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch import run
+    from video_depth_anything_torch.parallel.multihost import host_window_spans
+
+    torch.cuda.empty_cache()
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    runner = ["-m", "video_depth_anything_torch.run", "--encoder", "vits", "--random_init",
+              "--save_npz"]
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "square.mp4")
+        write_clip(clip, 480, 480)
+
+        def depth_of(out_dir):
+            return np.load(os.path.join(out_dir, "square_depth.npz"))["depth"]
+
+        # the single-process runs the parallel ones are held to
+        single = {}
+        for key, extra in (("window", []),
+                           ("stream", ["--process_single_image"]),
+                           ("kv", ["--process_single_image", "--kv_cache"])):
+            out = os.path.join(tmp, f"single_{key}")
+            limit = [] if key == "window" else ["--max_len", str(PARALLEL_STREAM_FRAMES)]
+            run.main(runner[2:] + ["--input_video", clip, "--output_dir", out] + extra + limit)
+            single[key] = depth_of(out)
+
+        torch.cuda.empty_cache()
+        # The runs start in two groups, each all at once (about 55 and 45 GB
+        # of the card at their peaks).  First: world size 1 over NCCL
+        # (torchrun, one rank); over gloo, two ranks sharing the card: the
+        # data-parallel CLI, the multi-host CLI (two processes, one a host)
+        # and tensor-parallel streaming with the feature cache
+        dp_dir, mh_dir = os.path.join(tmp, "dp2"), os.path.join(tmp, "mh2")
+        port = free_port()
+        modes = (("stream", ["--process_single_image"]),
+                 ("kv", ["--process_single_image", "--kv_cache"]))
+
+        def tp_stream(key, extra):
+            return torchrun_cmd(2, runner + [
+                "--input_video", clip, "--output_dir", os.path.join(tmp, f"tp_{key}"),
+                "--model_parallel", "2", "--max_len", str(PARALLEL_STREAM_FRAMES)] + extra)
+
+        nccl_out, dp_out, mh_out_0, mh_out_1, fc_out = launch(
+            [torchrun_cmd(1, runner + ["--input_video", clip, "--output_dir",
+                                       os.path.join(tmp, "nccl1"), "--data_parallel"]),
+             torchrun_cmd(2, runner + ["--input_video", clip, "--output_dir", dp_dir,
+                                       "--data_parallel"])]
+            + [[sys.executable] + runner + [
+                "--input_video", clip, "--output_dir", mh_dir, "--coordinator",
+                f"127.0.0.1:{port}", "--num_hosts", "2", "--host_id", str(i)] for i in range(2)]
+            + [tp_stream(*modes[0])],
+            "run --data_parallel world 1 and 2 / --coordinator --num_hosts 2 / "
+            "--process_single_image --model_parallel 2")
+        mh_outs = [mh_out_0, mh_out_1]
+
+        # 1. world size 1 over NCCL
+        add(rank_report(nccl_out, "run --data_parallel vits world 1", 1, "nccl",
+                        ("flash_attention", "fused_motion_module")))
+        if not depth_check(depth_of(os.path.join(tmp, "nccl1")), single["window"],
+                           "world 1 nccl", WINDOW_TOL):
+            raise SystemExit("[parallel] world size 1 is not bit for bit the single process")
+
+        # 2. the data-parallel and multi-host CLIs over two ranks, each rank
+        # decoding its span only
+        add(rank_report(dp_out, "run --data_parallel vits world 2", 2, "gloo",
+                        ("flash_attention", "fused_motion_module")))
+        depth_check(depth_of(dp_dir), single["window"], "run --data_parallel world 2", WINDOW_TOL)
+        add(rank_report("\n".join(mh_outs), "multi-host vits 2 hosts", 2, "gloo",
+                        ("flash_attention", "fused_motion_module")))
+        spans = host_window_spans(76, 2)
+        for i, span in enumerate(spans):
+            want = f"rank {i} decoded frames [{span.frame_start}, {min(span.frame_stop, 76)}) of 76"
+            for label, o in (("run --data_parallel", dp_out), ("multi-host", mh_outs[i])):
+                if want not in o:
+                    raise SystemExit(f"[parallel] {label} rank {i} did not decode its span only: "
+                                     f"{want!r}")
+            log(f"[parallel] run --data_parallel and multi-host: {want} (span {span})")
+        depth_check(depth_of(mh_dir), single["window"], "multi-host world 2", WINDOW_TOL)
+
+        # Then: vitl at full width, 518x518, one window (22 frames, padded
+        # to 32) through the CLI, pipeline-parallel and tensor-parallel over
+        # two ranks, against the single-process CLI on one .pth of noised
+        # weights; training at world size 2, data-parallel and ZeRO-1,
+        # beside the single process on the same global batch; and
+        # tensor-parallel streaming with the KV cache
+        vitl_clip, vitl_ckpt = os.path.join(tmp, "vitl.mp4"), os.path.join(tmp, "noised_vitl.pth")
+        write_clip(vitl_clip, 518, 518, 22)
+        write_noised_pth("vitl", vitl_ckpt)
+        vitl = ["--encoder", "vitl", "--checkpoint", vitl_ckpt, "--input_size", "518",
+                "--save_npz", "--input_video", vitl_clip]
+        run.main(vitl + ["--output_dir", os.path.join(tmp, "vitl_single")])
+        torch.cuda.empty_cache()
+        want = np.load(os.path.join(tmp, "vitl_single", "vitl_depth.npz"))["depth"]
+        vitl_runs = (("pp", ["--pipeline_parallel", "2", "--pp_microbatches", "8"]),
+                     ("tp", ["--model_parallel", "2"]))
+        root, vits_ckpt = os.path.join(tmp, "po"), os.path.join(tmp, "noised_vits.pth")
+        write_pointodyssey(root, scenes=1, frames=24, h=270, w=480)
+        write_noised_pth("vits", vits_ckpt)
+        train = ["-m", "video_depth_anything_torch.train", "--dataset", "pointodyssey", "--root",
+                 root, "--encoder", "vits", "--init_checkpoint", vits_ckpt, "--train_encoder",
+                 "--input_size", "266", "--clip_len", "8", "--batch_size", "2", "--steps", "2",
+                 "--log_every", "1"]
+        train_runs = (("single", [sys.executable] + train, []),
+                      ("data-parallel", torchrun_cmd(2, train), []),
+                      ("--zero1", torchrun_cmd(2, train), ["--zero1"]))
+        outs = launch(
+            [torchrun_cmd(2, ["-m", "video_depth_anything_torch.run"] + vitl + [
+                "--output_dir", os.path.join(tmp, f"vitl_{key}")] + extra)
+             for key, extra in vitl_runs]
+            + [cmd + ["--out", os.path.join(tmp, f"train_{i}")] + extra
+               for i, (_, cmd, extra) in enumerate(train_runs)]
+            + [tp_stream(*modes[1])],
+            "run vitl --pipeline_parallel 2 / --model_parallel 2 / train (one process), train and "
+            "train --zero1 (world 2) / --kv_cache --model_parallel 2", timeout=400)
+
+        # 3. tensor-parallel streaming
+        for (key, extra), out in zip(modes, (fc_out, outs[-1])):
+            label = f"run {' '.join(extra)} --model_parallel 2"
+            add(rank_report(out, label, 2, "gloo", ("flash_attention",)))
+            depth_check(depth_of(os.path.join(tmp, f"tp_{key}")), single[key], label, STREAM_TOL)
+
+        # 4. the vitl windows: PP bit for bit, TP within the window tolerance
+        for (key, extra), out in zip(vitl_runs, outs):
+            label = f"run vitl 518x518 {' '.join(extra)}"
+            add(rank_report(out, label, 2, "gloo",
+                            ("flash_attention", "fused_motion_module", "output_tail")))
+            got = np.load(os.path.join(tmp, f"vitl_{key}", "vitl_depth.npz"))["depth"]
+            same = depth_check(got, want, label, WINDOW_TOL)
+            if key == "pp" and not same:
+                raise SystemExit(f"[parallel] {label} is not bit for bit the single process")
+
+        # 5. training, held leaf by leaf on what two steps changed
+        init = torch.load(vits_ckpt, weights_only=True)
+        trained = {}
+        for i, ((name, _, _), out) in enumerate(zip(train_runs, outs[len(vitl_runs):-1])):
+            if name != "single":
+                add(rank_report(out, f"train {name} world 2", 2, "gloo",
+                                ("flash_attention", "flash_attention_bwd")))
+            out_dir = os.path.join(tmp, f"train_{i}")
+            lines = [json.loads(x) for x in open(os.path.join(out_dir, "train_log.jsonl"))]
+            final = torch.load(os.path.join(out_dir, "step_0000002.pth"), weights_only=True)
+            trained[name] = ([x["loss"] for x in lines],
+                             {k: final[k].float() - init[k].float() for k in init})
+            log(f"[parallel] train {name} vits 2 clips x 8 x 266x266: losses {trained[name][0]}, "
+                f"steps/s {lines[-1]['sps']} (beside the vitl runs on the card, {smi})")
+        for got, ref in (("data-parallel", "single"), ("--zero1", "data-parallel")):
+            update_check(trained[got], trained[ref], f"train {got} vs {ref}",
+                         mutants=got == "--zero1")
+    log(f"[parallel] launches over the ranks' main-path runs: {totals} ({smi}; two ranks share "
+        f"the one card: no scaling result)")
     return totals
 
 
@@ -2659,6 +3019,8 @@ BENCH_KEYS = {  # the JAX bench.py rows' fields, without mem_static
                      "frames_per_s", "mem"],
     "train": ["encoder", "size", "frames", "clips_per_step", "compile_s", "step_s",
               "clip_frames_per_s_per_chip", "loss", "mem"],
+    "data_parallel": ["encoder", "devices", "compile_s", "frames_per_s_total",
+                      "frames_per_s_per_chip", "mem", "detail"],
 }
 
 
@@ -2666,7 +3028,8 @@ def phase_bench(smi: str) -> None:
     """``python -m video_depth_anything_torch.bench`` as a subprocess with
     VDA_BENCH_FAST=1 (the card line, then the headline line), then each row
     function once at iters=2 (warmup=1): vitl's window, the feature-cache
-    chunk, the aligned KV chunk and the vits training step."""
+    chunk, the aligned KV chunk, the vits training step and ``dp_vits``'s
+    data-parallel window (one rank here)."""
     import subprocess
 
     from video_depth_anything_torch import bench
@@ -2690,9 +3053,12 @@ def phase_bench(smi: str) -> None:
                      ("streaming", lambda: bench.bench_streaming("vits", iters=2, warmup=1)),
                      ("kv_streaming", lambda: bench.bench_kv_streaming("vits", iters=2, warmup=1,
                                                                        chunk=8, aligned=True)),
-                     ("train", lambda: bench.bench_train("vits", iters=2))):
+                     ("train", lambda: bench.bench_train("vits", iters=2)),
+                     ("data_parallel", lambda: bench.bench_data_parallel("vits", iters=2,
+                                                                         warmup=1))):
         row = fn()
-        rate = row.get("frames_per_s", row.get("clip_frames_per_s_per_chip", 0))
+        rate = row.get("frames_per_s", row.get("clip_frames_per_s_per_chip",
+                                               row.get("frames_per_s_total", 0)))
         ok = (list(row) == BENCH_KEYS[kind] and rate > 0 and row["mem"].get("peak_mb", 0) > 0)
         log(f"[bench] {kind}: {json.dumps(row)} ({smi}) {'OK' if ok else 'FAIL'}")
         if not ok:

@@ -61,6 +61,20 @@ def test_bench_kv_streaming_row(few_threads, chunk, aligned):
     assert _timings_ok(row, "median_step_s", "frames_per_s")
 
 
+# JAX bench.py:437-444, with the port's detail (how many ranks ran)
+DP_KEYS = ["encoder", "devices", "compile_s", "frames_per_s_total", "frames_per_s_per_chip",
+           "mem", "detail"]
+
+
+def test_bench_data_parallel_row(few_threads):
+    row = bench.bench_data_parallel("vits", size=70, frames=4, iters=1, warmup=0, device="cpu")
+    assert list(row) == DP_KEYS
+    assert (row["encoder"], row["devices"]) == ("vits", 1)
+    assert _timings_ok(row, "frames_per_s_total", "frames_per_s_per_chip")
+    assert row["frames_per_s_total"] == row["frames_per_s_per_chip"]
+    assert row["detail"].startswith("world size 1, backend none: one rank")
+
+
 def test_bench_train_row(few_threads):
     row = bench.bench_train("vits", size=28, frames=8, iters=1, device="cpu")
     assert list(row) == TRAIN_KEYS
@@ -84,6 +98,7 @@ def stubbed(monkeypatch):
     monkeypatch.setattr(bench, "bench_streaming", lambda *a, **k: {"frames_per_s": 1.0})
     monkeypatch.setattr(bench, "bench_kv_streaming", lambda *a, **k: {"frames_per_s": 2.0})
     monkeypatch.setattr(bench, "bench_train", lambda *a, **k: {"step_s": 3.0})
+    monkeypatch.setattr(bench, "bench_data_parallel", lambda *a, **k: {"devices": 1})
     monkeypatch.delenv("VDA_BENCH_FAST", raising=False)
     monkeypatch.delenv("VDA_BENCH_BUDGET_S", raising=False)
     return printed
@@ -104,7 +119,7 @@ def test_main_prints_card_headline_then_full_line(stubbed):
     assert head["metric"] == "frames/sec/chip vits 1x32x518x518 bf16"
     assert head["vs_baseline"] == round(100.0 / (1000.0 / 7.5), 3)
     assert list(full["detail"]) == ["window_vits"] + ROW_KEYS + ["elapsed_s"]
-    assert full["detail"]["dp_vits"] == "SKIPPED: multi-GPU is ROADMAP Queue 1 item 8"
+    assert full["detail"]["dp_vits"] == {"devices": 1}
     assert full["detail"]["train_vits"] == {"step_s": 3.0}
 
 

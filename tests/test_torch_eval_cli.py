@@ -3,7 +3,7 @@ in-process, ``--device cpu --random_init --input_size 28``) over synthetic
 KITTI and Sintel trees in the window, ``--streaming`` and ``--streaming
 --kv_cache`` modes: the CSV has the JAX CSV's header and summary rows, a
 finite row for every scene, and TAE where the dataset has cameras.  Also
-the JAX ``eval.py``'s flags (less the multi-device ones), ``normalize_args``
+the JAX ``eval.py``'s flags, ``normalize_args``
 against the root ``eval.normalize_args``, the mode and ``skip_tmp_block``
 binding, ``--checkpoint`` against ``--random_init`` on the same weights and
 the refusal without a card."""
@@ -94,8 +94,7 @@ def test_eval_flags_match_jax(capsys):
     jax_flags = set(re.findall(r"--\w+", capsys.readouterr().out))
     port_flags = {a for act in t_eval.build_parser()._actions for a in act.option_strings
                   if a.startswith("--")}
-    assert jax_flags - {"--data_parallel", "--model_parallel", "--pipeline_parallel"} == \
-        port_flags - {"--device"}
+    assert jax_flags == port_flags - {"--device"}
     jax_defaults = {"--inference_length": 32, "--keyframe_list": [20], "--stream_chunk": 8,
                     "--input_size": 518, "--encoder": "vits", "--device": "cuda"}
     args = t_eval.build_parser().parse_args(["--dataset", "sintel", "--root", "r", "--csv", "c"])

@@ -67,7 +67,5 @@ def test_refusals(runs):
     tm = runs[0]
     with pytest.raises(ValueError, match="temporal_max_len"):
         KVStreamingPipeline(tm, inference_length=33)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        KVStreamingPipeline(tm, model_parallel=2)
     with pytest.raises(ValueError, match="transfer_dtype"):
         KVStreamingPipeline(tm, transfer_dtype="bf16")

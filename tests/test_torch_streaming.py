@@ -86,7 +86,6 @@ def test_align_with_a_zero_keyframe_is_refused():
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(model_parallel=2), NotImplementedError),
     (dict(ring_dtype="fp8"), ValueError),
     (dict(transfer_dtype="bf16"), ValueError),
 ])

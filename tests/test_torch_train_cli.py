@@ -43,12 +43,6 @@ def test_train_then_resume(tmp_path):
                                state["params"]["head.scratch.output_conv1.weight"])
 
 
-@pytest.mark.parametrize("flag", [["--zero1"], ["--model_parallel", "2"]])
-def test_multi_gpu_flags_refuse(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        main(_args(str(tmp_path), str(tmp_path / "out"), 1, *flag))
-
-
 def test_orbax_directory_refused(tmp_path):
     root = str(tmp_path / "po")
     chip_smoke.write_pointodyssey(root, scenes=1, frames=3, h=36, w=64)

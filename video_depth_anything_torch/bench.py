@@ -25,7 +25,9 @@ and fields, except:
 - ``mem_static`` is left out (eager PyTorch has no compiler byte
   accounting); ``mem`` is ``utils/device.mem``: the row's own peak, where
   JAX's is the process's high-water mark;
-- ``dp_vits`` is ``DP_SKIP``: multi-GPU data parallelism is not ported.
+- ``dp_vits`` runs the data-parallel window forward over the ranks the
+  process has (``parallel/``; one rank, on one card, when the bench is run
+  as a single process), and its ``detail`` says how many.
 
 Inputs are seeded noise from an explicit ``torch.Generator`` (seed 0) and
 the weights ``init_params(seed=0)``, as JAX's; the train row is
@@ -47,7 +49,6 @@ import torch
 from video_depth_anything_torch.utils.device import card_line, mem, resolve_device
 
 BASELINE_FPS_A100_FP16_SMALL = 1000.0 / 7.5  # per-frame ms -> frames/s
-DP_SKIP = "SKIPPED: multi-GPU is ROADMAP Queue 1 item 8"
 
 
 def _sync(device) -> None:
@@ -106,6 +107,42 @@ def bench_window(encoder: str = "vits", size: int = 518, frames: int = 32,
         "frames_per_s": round(total / med, 2),
         "ms_per_frame": round(1000.0 * med / total, 3),
         "mem": mem(dev),
+    }
+
+
+def bench_data_parallel(encoder: str = "vits", size: int = 518, frames: int = 32,
+                        iters: int = 5, warmup: int = 2, device=None) -> dict:
+    """Per-rank window throughput under the data-parallel window split
+    (the JAX ``bench_data_parallel``): each rank of the started world (one
+    when none was started) runs one ``frames``-frame window a call, and a
+    call ends when every rank's has (a barrier), so ``frames_per_s_total``
+    is the world's."""
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.parallel import comm
+
+    world = comm.world()
+    dev = _start(device if device is not None or world.backend is None else world.device)
+    model = VDAModel(encoder, device=dev)
+    model.init_params(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(world.rank)
+    x = torch.randn(1, frames, size, size, 3, device=dev, generator=gen).to(torch.bfloat16)
+
+    def call():
+        model.infer_window(x)
+        comm.barrier()
+
+    compile_s, med = _timed(call, iters, warmup, dev)
+    total = world.size * frames
+    return {
+        "encoder": encoder,
+        "devices": world.size,
+        "compile_s": round(compile_s, 2),
+        "frames_per_s_total": round(total / med, 2),
+        "frames_per_s_per_chip": round(total / med / world.size, 2),
+        "mem": mem(dev),
+        "detail": (f"world size {world.size}, backend {world.backend or 'none'}: "
+                   + ("one rank on one card, no collective" if world.size == 1 else
+                      f"{world.size} ranks, one window each a call")),
     }
 
 
@@ -215,7 +252,7 @@ EXTRA_ROWS = (
     ("kv_streaming_vitb", lambda: bench_kv_streaming("vitb")),
     ("kv_streaming_vitl", lambda: bench_kv_streaming("vitl")),
     ("kv_streaming_vitl_chunked", lambda: bench_kv_streaming("vitl", chunk=8)),
-    ("dp_vits", lambda: DP_SKIP),
+    ("dp_vits", lambda: bench_data_parallel("vits")),
     ("train_vits", lambda: bench_train("vits")),
 )
 

@@ -10,9 +10,13 @@ Runs every scene of a dataset through the window pipeline, or with
 KV-cache one), aligns each scene's prediction to its metric ground truth
 and writes the per-scene metrics (and TAE where the dataset has cameras) to
 ``--csv`` (``evals/evaluate.evaluate_dataset``).  The JAX ``eval.py``'s
-flags and defaults, without its multi-device ones, plus ``--device``: the
-card unless ``cpu``, which runs the plain PyTorch path.  Prints the result
-as JSON and how often each CUDA kernel was launched.
+flags and defaults, plus ``--device``: the card unless ``cpu``, which runs
+the plain PyTorch path.  Prints the result as JSON and how often each CUDA
+kernel was launched.  Across GPUs (ranks started by ``python -m
+torch.distributed.run``): ``--data_parallel`` splits each scene's windows
+over the ranks, ``--model_parallel N`` splits the encoder over groups of N
+ranks (the window and both streaming modes), ``--pipeline_parallel N``
+stages it (the window mode only); rank 0 writes ``--csv``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 
 from video_depth_anything_torch.data import DATASETS
 
@@ -62,8 +67,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv_cache", action="store_true",
                    help="with --streaming: KV-cache streaming (O(1) work per frame); combines "
                         "with --align_each_new_frame")
+    p.add_argument("--data_parallel", action="store_true")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel: split the ViT weights over N ranks (sliding-window "
+                        "and both streaming modes)")
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="stage the encoder block chain over N ranks (sliding-window mode; see "
+                        "run)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
+
+
+def check_parallel_args(args) -> None:
+    """The JAX ``eval.py:82-90`` refusal, with its message."""
+    if args.pipeline_parallel > 1 and (args.streaming or args.kv_cache or args.data_parallel
+                                       or args.model_parallel > 1):
+        raise SystemExit(
+            "--pipeline_parallel applies to the sliding-window mode only "
+            "and is exclusive with --streaming/--kv_cache/--data_parallel/"
+            "--model_parallel")
 
 
 def normalize_args(args):
@@ -117,8 +139,8 @@ def build_pipeline(args, model):
 
         return StreamAdapter(KVStreamingPipeline(
             model, input_size=args.input_size, inference_length=args.inference_length,
-            align_each_new_frame=args.align_each_new_frame, stream_chunk=args.stream_chunk),
-            args.skip_tmp_block)
+            align_each_new_frame=args.align_each_new_frame, stream_chunk=args.stream_chunk,
+            model_parallel=args.model_parallel), args.skip_tmp_block)
     if args.streaming:
         from video_depth_anything_torch.inference.streaming import StreamingDepthPipeline
 
@@ -126,10 +148,25 @@ def build_pipeline(args, model):
             model, input_size=args.input_size, inference_length=args.inference_length,
             keyframe_list=tuple(args.keyframe_list),
             align_each_new_frame=args.align_each_new_frame, chunk_size=args.stream_chunk,
-            ring_dtype=args.ring_dtype), args.skip_tmp_block)
-    from video_depth_anything_torch.inference.pipeline import VideoDepthPipeline
+            ring_dtype=args.ring_dtype, model_parallel=args.model_parallel), args.skip_tmp_block)
+    if args.pipeline_parallel > 1:
+        from video_depth_anything_torch.parallel.pipeline_parallel import (
+            PipelineParallelVideoDepthPipeline,
+        )
 
-    pipeline = VideoDepthPipeline(model, input_size=args.input_size)
+        pipeline = PipelineParallelVideoDepthPipeline(
+            model, pipeline_parallel=args.pipeline_parallel, input_size=args.input_size)
+    elif args.data_parallel or args.model_parallel > 1:
+        from video_depth_anything_torch.parallel.data_parallel import (
+            DataParallelVideoDepthPipeline,
+        )
+
+        pipeline = DataParallelVideoDepthPipeline(model, input_size=args.input_size,
+                                                  model_parallel=args.model_parallel)
+    else:
+        from video_depth_anything_torch.inference.pipeline import VideoDepthPipeline
+
+        pipeline = VideoDepthPipeline(model, input_size=args.input_size)
     if args.skip_tmp_block:
         pipeline.infer_video_depth = functools.partial(pipeline.infer_video_depth,
                                                        skip_tmp_block=True)
@@ -137,19 +174,29 @@ def build_pipeline(args, model):
 
 
 def main(argv=None) -> int:
-    args = normalize_args(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    check_parallel_args(args)
+    args = normalize_args(args)
+    import tempfile
+
     from video_depth_anything_torch.data import get_dataset
     from video_depth_anything_torch.evals.evaluate import evaluate_dataset
+    from video_depth_anything_torch.parallel import comm
     from video_depth_anything_torch.run import kernel_launches
 
+    if args.data_parallel or args.model_parallel > 1 or args.pipeline_parallel > 1:
+        args.device = str(comm.init_distributed(device=args.device).device)
     kwargs = {"is_val": args.is_val} if args.dataset == "kitti" else {}
     dataset = get_dataset(args.dataset, args.root, **kwargs)
     pipeline = build_pipeline(args, load_model(args))
     before = kernel_launches()
-    result = evaluate_dataset(
-        pipeline, dataset, args.csv, max_scenes=args.max_scenes,
-        max_frames_per_scene=args.max_frames_per_scene, compute_tae=not args.no_tae,
-        align_only_first_frame=args.align_only_first_frame)
+    with tempfile.TemporaryDirectory() as tmp:
+        # every rank holds every scene's depth; rank 0 writes the CSV
+        csv = args.csv if comm.world().rank == 0 else os.path.join(tmp, "rank.csv")
+        result = evaluate_dataset(
+            pipeline, dataset, csv, max_scenes=args.max_scenes,
+            max_frames_per_scene=args.max_frames_per_scene, compute_tae=not args.no_tae,
+            align_only_first_frame=args.align_only_first_frame)
     after = kernel_launches()
     print(json.dumps(result, default=str))
     print("kernel launches: " + json.dumps({k: after[k] - before[k] for k in after}))

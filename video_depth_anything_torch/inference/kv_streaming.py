@@ -80,9 +80,6 @@ class KVStreamingPipeline:
                  align_each_new_frame: bool = False, stream_chunk: int = 1,
                  host_upsample: Optional[bool] = None, transfer_dtype: Optional[str] = None,
                  model_parallel: int = 1):
-        if int(model_parallel) > 1:
-            raise NotImplementedError(
-                "tensor-parallel streaming is not ported (ROADMAP Queue 1 item 8)")
         max_len = model.cfg.motion.temporal_max_len
         if not 1 <= inference_length <= max_len:
             raise ValueError(f"KV streaming needs 1 <= inference_length <= temporal_max_len "
@@ -95,6 +92,14 @@ class KVStreamingPipeline:
             and not self.align
         self.chunk = max(1, int(stream_chunk))
         self.transfer_dtype = resolve_transfer_dtype(transfer_dtype)
+        # tensor-parallel streaming: the encoder split over a model group of
+        # model_parallel ranks (parallel/mesh.py); the K/V rings stay whole
+        # (to_q/k/v match no rule), inputs replicated
+        self.model_parallel = int(model_parallel)
+        if self.model_parallel > 1:
+            from video_depth_anything_torch.parallel.mesh import create_grid, shard_module
+
+            shard_module(model.module, create_grid(model=self.model_parallel))
 
     # -- device steps -------------------------------------------------------------
 

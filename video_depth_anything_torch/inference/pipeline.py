@@ -172,6 +172,11 @@ class VideoDepthPipeline:
 
         return pre, wait_until, thread
 
+    def _window_forward(self, frames: np.ndarray, skip_tmp_block: bool):
+        """The model-resolution depth of a batch of windows on the device
+        (the pipeline-parallel pipeline stages it over ranks)."""
+        return self.model.infer_window(frames, skip_tmp_block=skip_tmp_block)
+
     def compute_window_depths(self, pre: np.ndarray, idx: np.ndarray, fh: int, fw: int,
                               skip_tmp_block: bool = False, progress: bool = False,
                               wait_until=None, desc: str = "windows") -> List[np.ndarray]:
@@ -201,7 +206,7 @@ class VideoDepthPipeline:
             chunk = idx[s:s + wb]
             if wait_until is not None:
                 wait_until(int(chunk.max()) + 1)
-            depth = self.model.infer_window(pre[chunk], skip_tmp_block=skip_tmp_block)
+            depth = self._window_forward(pre[chunk], skip_tmp_block)
             b, t, h, w = depth.shape
             depth = depth.float()
             if not self.host_upsample:

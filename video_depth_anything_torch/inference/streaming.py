@@ -123,9 +123,6 @@ class StreamingDepthPipeline:
         device_align: Optional[bool] = None,
         model_parallel: int = 1,
     ):
-        if int(model_parallel) > 1:
-            raise NotImplementedError(
-                "tensor-parallel streaming is not ported (ROADMAP Queue 1 item 12)")
         if inference_length <= len(keyframe_list) + 2:
             raise ValueError("inference_length too small for the keyframe list")
         ring_dtype = ring_dtype or os.environ.get("VDA_RING_DTYPE", "fp32")
@@ -148,6 +145,13 @@ class StreamingDepthPipeline:
         # past cache_len − 2 the freed slots of one chunk repeat, and two
         # writes of one index_copy_ to one slot have no defined winner
         self.chunk = min(max(1, int(chunk_size)), self.cache_len - 2)
+        # tensor-parallel streaming: the encoder split over a model group of
+        # model_parallel ranks (parallel/mesh.py), inputs replicated
+        self.model_parallel = int(model_parallel)
+        if self.model_parallel > 1:
+            from video_depth_anything_torch.parallel.mesh import create_grid, shard_module
+
+            shard_module(model.module, create_grid(model=self.model_parallel))
         self.static_kf, self.use_feature_idx, self.align_idx = streaming_schedule(
             inference_length, keyframe_list)
         if self.align and max(self.use_feature_idx[0]) > self.L - 2:

@@ -32,16 +32,21 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.attn_impl = attn_impl
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        q, k, v = self.qkv(x).split(c, dim=-1)
-        shape = (b, n, self.num_heads, c // self.num_heads)
+        """Split and reshape by this rank's width, ``num_heads · head_dim``:
+        under tensor parallelism (``parallel/mesh.shard_module``) the qkv
+        projection holds this rank's heads of each of q, k and v."""
+        b, n, _ = x.shape
+        width = self.num_heads * self.head_dim
+        q, k, v = self.qkv(x).split(width, dim=-1)
+        shape = (b, n, self.num_heads, self.head_dim)
         out = multi_head_attention(q.view(shape), k.view(shape), v.view(shape), self.attn_impl)
-        return self.proj(out.reshape(b, n, c))
+        return self.proj(out.reshape(b, n, width))
 
 
 class Mlp(nn.Module):
@@ -136,7 +141,10 @@ class DinoViT(nn.Module):
         ).reshape(1, ph * pw, cfg.embed_dim)
         return torch.cat([cls_pos, patch_pos], dim=1)
 
-    def forward(self, x: torch.Tensor, layer_idx: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """``(N, H, W, 3)`` → ``(N, ph·pw + 1, D)`` tokens: patches, the cls
+        token and the positional embedding (the first pipeline stage's
+        work, ``parallel/pipeline_parallel.py``)."""
         n, h, w, _ = x.shape
         p = self.cfg.patch_size
         ph, pw = h // p, w // p
@@ -144,7 +152,10 @@ class DinoViT(nn.Module):
         tokens = self.patch_embed(x)
         cls = self.cls_token.to(dtype).expand(n, 1, -1)
         tokens = torch.cat([cls, tokens], dim=1)
-        tokens = tokens + self.interpolate_pos_encoding(ph, pw).to(dtype)
+        return tokens + self.interpolate_pos_encoding(ph, pw).to(dtype)
+
+    def forward(self, x: torch.Tensor, layer_idx: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+        tokens = self.embed(x)
         want = set(int(i) for i in layer_idx)
         taps = {}
         for i, blk in enumerate(self.blocks):

@@ -27,6 +27,18 @@ plain PyTorch path.  ``--fp32_island`` (bf16 only, as the JAX
 ``VDA_RING_DTYPE`` and ``VDA_HOST_UPSAMPLE`` (then fp32, fp32, off), and
 ``--shape_bucket`` snaps the window mode's model resolution
 (``utils/transform.bucket_model_size``).
+
+Across GPUs, one rank a GPU (``parallel/``), with the JAX ``run.py``'s
+flags: ranks started by ``python -m torch.distributed.run --nproc_per_node
+N -m video_depth_anything_torch.run ...``, or one a host by ``--coordinator
+host:port --num_hosts N --host_id i``.  ``--data_parallel`` splits the
+windows over the ranks, ``--model_parallel N`` splits the encoder over
+groups of N ranks (also in both streaming modes), ``--pipeline_parallel N``
+stages the encoder's blocks over N ranks (sliding-window only), and the
+multi-host flags make each host a data group (sliding-window only).  In
+the window mode every data group decodes only its span of frames, counted
+from the container's header.  Every rank holds the whole result; rank 0
+writes the outputs, and every rank prints its launch counts.
 """
 
 from __future__ import annotations
@@ -96,6 +108,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shape_bucket", type=int, default=None,
                    help="snap the window mode's model resolution to multiples of this (a "
                         "multiple of 14), so that clips of many aspect ratios share shapes")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard frame windows over the ranks (one a GPU)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel group size: shard the ViT qkv/proj/fc1/fc2 weights "
+                        "Megatron-style over N ranks (windows shard over the remaining ranks; "
+                        "implies the data-parallel pipeline; also the streaming modes)")
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="pipeline-parallel stage count: stage the ViT encoder's block chain over "
+                        "N ranks (GPipe over frame microbatches, point-to-point hops); "
+                        "sliding-window mode only, exclusive with "
+                        "--data_parallel/--model_parallel")
+    p.add_argument("--pp_microbatches", type=int, default=None,
+                   help="pipeline-parallel microbatch count (must divide windows*32 frames per "
+                        "call; default: the divisor of that nearest 2*stages)")
+    p.add_argument("--coordinator", type=str, default=os.environ.get("VDA_COORDINATOR"),
+                   help="multi-host: coordinator address host:port (the process group's TCP "
+                        "rendezvous); env VDA_COORDINATOR")
+    p.add_argument("--num_hosts", type=int,
+                   default=int(os.environ.get("VDA_NUM_HOSTS", "0")) or None,
+                   help="multi-host: total process count; env VDA_NUM_HOSTS.  Window spans are "
+                        "partitioned from the container's frame-count header before any "
+                        "decode; for VFR or estimated-header containers set "
+                        "VDA_VALIDATE_FRAME_COUNT=1 (fail fast on bad headers) and "
+                        "VDA_SEEK_MODE=grab (frame-exact range seeks)")
+    p.add_argument("--host_id", type=int,
+                   default=(int(os.environ["VDA_HOST_ID"]) if "VDA_HOST_ID" in os.environ
+                            else None),
+                   help="multi-host: this process's id; env VDA_HOST_ID")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--grayscale", action="store_true")
     p.add_argument("--save_npz", action="store_true")
@@ -134,8 +174,24 @@ def normalize_args(args):
     return args
 
 
+def check_parallel_args(args, multihost: bool) -> None:
+    """The JAX ``run.py``'s refusals (``:185-198``), with its messages."""
+    if multihost and args.process_single_image:
+        raise SystemExit("--coordinator/--num_hosts is sliding-window only "
+                         "(windows shard across hosts; streaming is sequential)")
+    if args.pipeline_parallel > 1:
+        if args.data_parallel or args.model_parallel > 1:
+            raise SystemExit("--pipeline_parallel is exclusive with "
+                             "--data_parallel/--model_parallel")
+        if args.process_single_image or multihost:
+            raise SystemExit("--pipeline_parallel applies to the sliding-window mode "
+                             "only (not --process_single_image/--kv_cache/--coordinator)")
+
+
 def main(argv=None) -> int:
     args = normalize_args(build_parser().parse_args(argv))
+    multihost = args.coordinator is not None or (args.num_hosts or 1) > 1
+    check_parallel_args(args, multihost)
     import torch
 
     from video_depth_anything_torch.config import get_model_config
@@ -144,12 +200,21 @@ def main(argv=None) -> int:
     from video_depth_anything_torch.inference.streaming import StreamingDepthPipeline
     from video_depth_anything_torch.io.video import read_video_frames
     from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.parallel import comm
 
+    parallel = (multihost or args.data_parallel or args.model_parallel > 1
+                or args.pipeline_parallel > 1)
+    device = args.device
+    if parallel:
+        world = comm.init_distributed(args.coordinator, args.num_hosts, args.host_id,
+                                      device=args.device)
+        device = world.device
+    world = comm.world()
     os.makedirs(args.output_dir, exist_ok=True)
     cfg = None
     if args.fp32_island and not args.fp32:
         cfg = dataclasses.replace(get_model_config(args.encoder), fp32_head_island=True)
-    model = VDAModel(args.encoder, device=args.device,
+    model = VDAModel(args.encoder, device=device,
                      dtype=torch.float32 if args.fp32 else torch.bfloat16,
                      cfg=cfg, attn_impl=args.attn_impl)
     if args.random_init:
@@ -160,34 +225,84 @@ def main(argv=None) -> int:
         ckpt = args.checkpoint or f"./checkpoints/video_depth_anything_{args.encoder}.pth"
         model.load_state_dict(load_pth(ckpt), strict=True)
 
-    frames, fps = read_video_frames(args.input_video, args.max_len, args.target_fps, args.max_res)
-    print(f"decoded {len(frames)} frames @ {fps:.2f} fps, {frames.shape[2]}x{frames.shape[1]}")
     before = kernel_launches()
-    t0 = time.time()
-    if args.process_single_image and args.kv_cache:
-        pipe = KVStreamingPipeline(
-            model, input_size=args.input_size, inference_length=args.inference_length,
-            align_each_new_frame=args.align_each_new_frame, stream_chunk=args.stream_chunk,
-            host_upsample=args.host_upsample, transfer_dtype=args.transfer_dtype)
-        depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block, progress=True)
-    elif args.process_single_image:
-        pipe = StreamingDepthPipeline(
-            model, input_size=args.input_size, inference_length=args.inference_length,
-            keyframe_list=tuple(args.keyframe_list), align_each_new_frame=args.align_each_new_frame,
-            chunk_size=args.stream_chunk, ring_dtype=args.ring_dtype,
-            host_upsample=args.host_upsample, transfer_dtype=args.transfer_dtype)
-        depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block, progress=True)
+    window = dict(input_size=args.input_size, shape_bucket=args.shape_bucket,
+                  window_batch=args.window_batch, host_upsample=args.host_upsample,
+                  transfer_dtype=args.transfer_dtype)
+    if parallel and not args.process_single_image:
+        # the windows split over the data groups: each decodes its span only
+        from video_depth_anything_torch.io.video import count_video_frames, read_video_frame_range
+        from video_depth_anything_torch.parallel.data_parallel import (
+            DataParallelVideoDepthPipeline,
+        )
+
+        n_frames, fps = count_video_frames(args.input_video, args.max_len, args.target_fps)
+        if args.target_fps > 0:
+            fps = args.target_fps
+        print(f"{n_frames} sampled frames @ {fps:.2f} fps (from the container's header)")
+        if args.pipeline_parallel > 1:
+            from video_depth_anything_torch.parallel.pipeline_parallel import (
+                PipelineParallelVideoDepthPipeline,
+            )
+
+            pipe = PipelineParallelVideoDepthPipeline(
+                model, pipeline_parallel=args.pipeline_parallel,
+                num_microbatches=args.pp_microbatches, **window)
+        else:
+            pipe = DataParallelVideoDepthPipeline(model, model_parallel=args.model_parallel,
+                                                  **window)
+        t0 = time.time()
+        depths, fps = pipe.infer_frame_range(
+            n_frames, lambda a, b: read_video_frame_range(args.input_video, a, b,
+                                                          args.target_fps, args.max_res),
+            fps, skip_tmp_block=args.skip_tmp_block, progress=True)
+        wall = time.time() - t0
+        print(f"rank {world.rank} decoded frames [{pipe.decoded[0]}, {pipe.decoded[1]}) "
+              f"of {n_frames}")
+        frames = None
     else:
-        pipe = VideoDepthPipeline(model, input_size=args.input_size,
-                                  shape_bucket=args.shape_bucket, window_batch=args.window_batch,
-                                  host_upsample=args.host_upsample,
-                                  transfer_dtype=args.transfer_dtype)
-        depths, fps = pipe.infer_video_depth(frames, fps, skip_tmp_block=args.skip_tmp_block,
-                                             progress=True)
-    wall = time.time() - t0
+        frames, fps = read_video_frames(args.input_video, args.max_len, args.target_fps,
+                                        args.max_res)
+        print(f"decoded {len(frames)} frames @ {fps:.2f} fps, "
+              f"{frames.shape[2]}x{frames.shape[1]}")
+        t0 = time.time()
+        if args.process_single_image and args.kv_cache:
+            pipe = KVStreamingPipeline(
+                model, input_size=args.input_size, inference_length=args.inference_length,
+                align_each_new_frame=args.align_each_new_frame, stream_chunk=args.stream_chunk,
+                host_upsample=args.host_upsample, transfer_dtype=args.transfer_dtype,
+                model_parallel=args.model_parallel)
+            depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block,
+                                     progress=True)
+        elif args.process_single_image:
+            pipe = StreamingDepthPipeline(
+                model, input_size=args.input_size, inference_length=args.inference_length,
+                keyframe_list=tuple(args.keyframe_list),
+                align_each_new_frame=args.align_each_new_frame, chunk_size=args.stream_chunk,
+                ring_dtype=args.ring_dtype, host_upsample=args.host_upsample,
+                transfer_dtype=args.transfer_dtype, model_parallel=args.model_parallel)
+            depths, fps = pipe.infer(frames, fps, skip_tmp_block=args.skip_tmp_block,
+                                     progress=True)
+        else:
+            pipe = VideoDepthPipeline(model, **window)
+            depths, fps = pipe.infer_video_depth(frames, fps, skip_tmp_block=args.skip_tmp_block,
+                                                 progress=True)
+        wall = time.time() - t0
     after = kernel_launches()
-    _save_outputs(args, frames, depths, fps, wall, model.device)
-    print("kernel launches: " + json.dumps({k: after[k] - before[k] for k in after}))
+    launches = json.dumps({k: after[k] - before[k] for k in after})
+    if world.rank == 0:  # every rank holds the whole result; rank 0 writes
+        if frames is None:  # decoded by span: only --save_orig decodes the whole clip here
+            frames = read_video_frame_range(args.input_video, 0, n_frames, args.target_fps,
+                                            args.max_res) if args.save_orig else \
+                np.zeros((0,) + depths.shape[1:] + (3,), np.uint8)
+        _save_outputs(args, frames, depths, fps, wall, model.device)
+    else:
+        print(f"rank {world.rank}: {len(depths)} frames in {wall:.2f}s (outputs written by "
+              "rank 0)")
+    if world.backend is None:
+        print("kernel launches: " + launches)
+    else:
+        print(comm.rank_line(json.loads(launches)), flush=True)
     return 0
 
 

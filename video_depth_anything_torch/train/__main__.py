@@ -8,8 +8,19 @@ Same flags and defaults as ``train.py``, plus ``--device`` (the card unless
 PyTorch path.  Writes ``train_log.jsonl`` (the JAX CLI's lines), a
 resumable ``state_latest.pt`` (parameters, optimizer state, step) and
 reference-keyed ``step_<n>.pth`` weights, which this package and the JAX
-package both load.  One device: ``--model_parallel > 1`` and ``--zero1``
-raise (multi-GPU is ROADMAP Queue 1 item 12).
+package both load.
+
+Across GPUs, one rank a GPU:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m video_depth_anything_torch.train ... [--model_parallel 2] [--zero1]
+
+A world of more than one rank trains over a ``data × model`` grid
+(``--model_parallel`` ranks a model group), as the JAX CLI builds a mesh
+when it has more than one device: every rank draws the same seeded global
+batch and takes its slice, ``--zero1`` shards the optimizer moments over
+the data group (``train/trainer.py``), and rank 0 logs and writes the
+checkpoints (gathered whole).
 """
 
 from __future__ import annotations
@@ -44,10 +55,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--augment", action="store_true",
                    help="per-clip geometric and photometric augmentation (data/augment.py)")
     p.add_argument("--train_encoder", action="store_true")
-    p.add_argument("--zero1", action="store_true", help="not yet ported (multi-GPU)")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard optimizer state over the data group (ZeRO-1; Adam moments are 2x "
+                        "params in fp32)")
     p.add_argument("--remat_motion", action="store_true",
                    help="recompute the motion modules in the backward")
-    p.add_argument("--model_parallel", type=int, default=1, help="1 only (multi-GPU not yet ported)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel ranks a model group (a world of more than one rank)")
     p.add_argument("--log_every", type=int, default=20)
     p.add_argument("--eval_every", type=int, default=0,
                    help="validate every N steps on held-out clips: scale/shift-aligned AbsRel "
@@ -64,10 +78,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.model_parallel > 1 or args.zero1:
-        from video_depth_anything_torch.train.trainer import _MULTI_GPU
-
-        raise NotImplementedError(_MULTI_GPU)
     if len(args.dataset) != len(args.root):
         raise ValueError("give one --root per --dataset")
     import dataclasses
@@ -82,14 +92,21 @@ def main(argv=None) -> int:
     from video_depth_anything_torch.io.checkpoint import load_init_checkpoint, save_pth
     from video_depth_anything_torch.models.vda import VDAModel
     from video_depth_anything_torch.ops.scale_shift import compute_scale_and_shift
+    from video_depth_anything_torch.parallel.comm import init_distributed, rank_line
+    from video_depth_anything_torch.run import kernel_launches
+    from video_depth_anything_torch.parallel.mesh import create_grid, full_state_dict
     from video_depth_anything_torch.train.trainer import Trainer, make_optimizer
+
+    world = init_distributed(device=args.device)
+    mesh = create_grid(model=args.model_parallel) if world.size > 1 else None
+    lead = world.rank == 0
 
     datasets = [get_dataset(name, root) for name, root in zip(args.dataset, args.root)]
     sampler = ClipSampler(datasets, clip_len=args.clip_len, batch_size=args.batch_size,
                           input_size=args.input_size,
                           augment=AugmentConfig() if args.augment else None)
     cfg = dataclasses.replace(get_model_config(args.encoder), remat_motion=args.remat_motion)
-    model = VDAModel(args.encoder, device=args.device, cfg=cfg)
+    model = VDAModel(args.encoder, device=world.device, cfg=cfg)
     if args.init_checkpoint:
         model.load_state_dict(load_init_checkpoint(args.init_checkpoint), strict=True)
     else:
@@ -99,13 +116,15 @@ def main(argv=None) -> int:
         optimizer=make_optimizer(args.lr, train_encoder=args.train_encoder,
                                  warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
                                  accum_steps=args.accum_steps),
-        tgm_weight=args.tgm_weight, compute_dtype=model.dtype, train_encoder=args.train_encoder,
+        mesh=mesh, tgm_weight=args.tgm_weight, compute_dtype=model.dtype,
+        train_encoder=args.train_encoder, zero1=args.zero1,
     )
     os.makedirs(args.out, exist_ok=True)
     state_path = os.path.join(args.out, "state_latest.pt")
     if args.resume and os.path.exists(state_path):
         trainer.restore_state(state_path)
-        print(f"resumed from {state_path} at step {trainer.global_step}")
+        if lead:
+            print(f"resumed from {state_path} at step {trainer.global_step}")
 
     eval_batches = []
     if args.eval_every:
@@ -137,6 +156,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     # host-side clip sampling overlaps the device work in a background thread
     start_step = trainer.global_step
+    before = kernel_launches()
     with Prefetcher(iter(sampler), depth=2) as it:
         for step in range(start_step + 1, args.steps + 1):
             metrics = trainer.step(next(it))
@@ -147,15 +167,21 @@ def main(argv=None) -> int:
                 m.update(step=step, sps=round((step - start_step) / (time.time() - t0), 3))
                 if is_eval:
                     m.update(validate())
-                line = json.dumps(m)
-                print(line)
-                with open(log_path, "a") as fh:
-                    fh.write(line + "\n")
+                if lead:
+                    line = json.dumps(m)
+                    print(line)
+                    with open(log_path, "a") as fh:
+                        fh.write(line + "\n")
             if step % args.save_every == 0 or step == args.steps:
                 trainer.save_state(state_path)
                 path = os.path.join(args.out, f"step_{step:07d}.pth")
-                save_pth(path, model.module.state_dict())
-                print(f"saved {path} (+ resumable state_latest.pt)")
+                weights = full_state_dict(model.module)
+                if lead:
+                    save_pth(path, weights)
+                    print(f"saved {path} (+ resumable state_latest.pt)")
+    if world.size > 1:
+        after = kernel_launches()
+        print(rank_line({k: after[k] - before[k] for k in after}), flush=True)
     return 0
 
 

@@ -2,7 +2,9 @@
 ``train/losses.py``): a scale-shift-invariant disparity loss plus temporal
 gradient matching (TGM), which penalises frame-to-frame disparity changes
 that disagree with the ground truth.  All reductions are mask-weighted and
-fp32."""
+fp32.  ``total`` (data-parallel training) sums each mask-weight
+denominator over the ranks, so that each rank's loss is its share of the
+loss of the whole batch."""
 
 from __future__ import annotations
 
@@ -31,16 +33,21 @@ def masked_scale_shift(pred, target, mask, eps: float = 1e-6):
     return s, t
 
 
-def ssi_loss(pred, target, mask) -> torch.Tensor:
+def _den(weights: torch.Tensor, total) -> torch.Tensor:
+    den = weights.sum()
+    return (den if total is None else total(den)).clamp(min=1.0)
+
+
+def ssi_loss(pred, target, mask, total=None) -> torch.Tensor:
     """Scale-shift-invariant MAE on disparity: per-frame align, then
     mask-weighted L1.  ``pred, target, mask: (B, T, H, W)``."""
     s, t = masked_scale_shift(pred, target, mask)
     m = mask.float()
     err = (pred.float() * s + t - target.float()).abs() * m
-    return err.sum() / m.sum().clamp(min=1.0)
+    return err.sum() / _den(m, total)
 
 
-def tgm_loss(pred, target, mask) -> torch.Tensor:
+def tgm_loss(pred, target, mask, total=None) -> torch.Tensor:
     """Temporal gradient matching: L1 between consecutive-frame disparity
     deltas of the (per-frame aligned) prediction and the target, on pixels
     valid in both frames."""
@@ -50,12 +57,12 @@ def tgm_loss(pred, target, mask) -> torch.Tensor:
     dp = aligned[:, 1:] - aligned[:, :-1]
     dg = tgt[:, 1:] - tgt[:, :-1]
     mm = m[:, 1:] * m[:, :-1]
-    return ((dp - dg).abs() * mm).sum() / mm.sum().clamp(min=1.0)
+    return ((dp - dg).abs() * mm).sum() / _den(mm, total)
 
 
-def video_depth_loss(pred, target, mask,
-                     tgm_weight: float = 10.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    l_ssi = ssi_loss(pred, target, mask)
-    l_tgm = tgm_loss(pred, target, mask)
+def video_depth_loss(pred, target, mask, tgm_weight: float = 10.0,
+                     total=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    l_ssi = ssi_loss(pred, target, mask, total)
+    l_tgm = tgm_loss(pred, target, mask, total)
     total = l_ssi + tgm_weight * l_tgm
     return total, {"loss": total, "ssi": l_ssi, "tgm": l_tgm}

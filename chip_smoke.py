@@ -143,13 +143,37 @@ Phases (each failure ends the run with a non-zero exit):
    ``train`` and ``train --zero1`` at world size 2 against ``train`` in one
    process on the same global batch, parameter by parameter (with two
    ZeRO-1 mutants that must miss).  Its times are two ranks sharing one
-   card.
+   card.  Every run of this phase decodes with cv2 (``VDA_NATIVE_DECODE=0``),
+   as the data-parallel ranks' ranged decode does.
+13. vitg: Kernel A at 24 heads of 64 (1370 and 2443 tokens) and Kernel C
+   at C = 384 over 5476 and 9768 locations, bf16 and fp32, against their
+   plain versions with phase kernels' mutants; a seeded vitg, every
+   parameter noised, through ``VideoDepthPipeline`` on 32-frame 480x480 and
+   854x480 clips (518x518 and 518x924) under ``--attn_impl auto`` and
+   ``pallas`` against the plain path (WINDOW_TOL, ``rounding_tol``) with
+   exact launch plans (VITG_PLANS, from the gates that
+   tests/test_torch_dispatch.py holds to JAX's), and an fp32 518x518 window
+   (F32_WINDOW_TOL, TF32 off); ms of a window on either path (the main path
+   of vitg: counts zeroed before each pipeline run, read after).
+14. tooling: the native host libraries built from ``native/*.cpp`` on the
+   card's host (preprocessing within 2e-3 of cv2, the gather bit for bit,
+   the decoder's pixels cv2's on a 848-wide clip in JAX's four cases, the
+   854-wide one refused and decoded by cv2, a 76-frame 854x480 window CLI
+   with the native switches off and on in turns, frames/s and host paths);
+   ``python -m video_depth_anything_torch.app`` twice (seeded init: uploads
+   for vits, vitb and vitl; a .pth of noised vits weights: one), each
+   request's depth video against ``run``'s on the same clip and weights,
+   its launches (Kernels A and C) from the server's line; ``profile_model``
+   for vits and vitl at 518x518x32 and ``examples.quickstart`` at once
+   (``param_counts`` against the port's module); ``examples.feature_pca``'s
+   level features on the card against the CPU's; ``tools.stress`` for 5 s.
 The card's line (``nvidia-smi``'s name and power limit) comes first and
 stands beside every time.  The last two lines are the kernels JSON object
 (launches summed over the main-path runs of phases cli, stream, train-cli,
-eval and the ranks of phase parallel, for the probe kernels and the resize -> conv those of phase
+eval, the ranks of phase parallel, phase vitg's pipeline runs and the demo
+server's requests, for the probe kernels and the resize -> conv those of phase
 probes, for the fp32 kernels those of phase fp32's ``--fp32`` runs and
-phase eval's; Kernel
+phases eval's and vitg's; Kernel
 A's fast variant and each fp32 kernel are entries of their own) and the
 contract line
 ``{"ok": true, "device": {...}}``.
@@ -663,11 +687,86 @@ def resize_conv_mutant_errors(x, w, b, out_h: int, out_w: int) -> dict:
     return errors
 
 
+def attention_row(kernel: str, label: str, bt: int, n: int, h: int, d: int, g, dev) -> dict:
+    """Kernel A (``kernel`` names the exact or the fast variant) against its
+    plain version in bf16 on peaked and on flat inputs, with the mutants,
+    kernel, plain and SDPA ms and the bound."""
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops import flash_attention as fa
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    fast = kernel == "flash_attention_fast"
+    qkv = attention_inputs((bt, n, h * d), g, dev)
+    q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
+    scale = d**-0.5
+    tile = 128 if d == 64 else 64  # the key tile of the Hopper kernel, of D = 192's
+    plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
+    got = fa.flash_attention(q, k, v, scale, fast=fast)
+    want = plain(q, k, v, scale)
+    mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=tile)
+    qf = flat_inputs(q)  # the second check: near-uniform rows
+    flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
+    mutants["unmasked_zero_pad"] = zero_pad_error(plain, qf, k, v, scale, tile)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast))
+    plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
+    b_ms, b_by = bound(4.0 * bt * h * n * n * d, 4.0 * bt * n * h * d * 2)
+    row = dict(kernel=kernel, shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
+               max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
+               tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms,
+               extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e})")
+    if (kernel, label) in PARENT_MS:
+        row["parent_ms"] = PARENT_MS[(kernel, label)]
+    return row
+
+
+def motion_row(label: str, c: int, s: int, t: int, g, dev, split: bool = False) -> dict:
+    """Kernel C on one bf16 module of width ``c`` over ``s`` locations and
+    ``t`` frames, with the kernel's own weight layout (``kernel_weights``,
+    as TemporalModule caches them) and a GroupNorm fold done before (timed
+    on its own), against its plain version, with the mutants, the bound and
+    (``split``) the split by stage."""
+    import torch
+
+    from video_depth_anything_torch.config import MotionModuleConfig
+    from video_depth_anything_torch.ops import motion_module as mm
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    cfg = MotionModuleConfig()
+    b = 1
+    x = (torch.randn(b, t, s, c, device=dev, generator=g)).to(torch.bfloat16)
+    p = motion_params(c, seed=c, device=dev)
+    w = mm.kernel_weights(p, cfg)
+    gna, gnb = mm.gn_fold(x, w, cfg)
+    got = mm.motion_module_launch(x, gna, gnb, w, cfg, 8)
+    want = mm.motion_module_plain(x, p, cfg, 8)
+    err = max_err(got, want)
+    rel = err / float((want.float() - x.float()).abs().max())
+    mutants = motion_mutant_errors(x, p, cfg, 8)
+    ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, 8))
+    extra = ""
+    if split:
+        parts = mm.motion_module_split(x, gna, gnb, w, cfg, 8)
+        extra = " split_ms " + " ".join(f"{k}={v:.4f}" for k, v in parts.items())
+    fold_ms = time_ms(lambda: mm.gn_fold(x, w, cfg))
+    plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, 8), iters=5)
+    tokens = b * t * s
+    flops = tokens * (44.0 * c * c + 2 * 4.0 * t * c)
+    nbytes = 2 * tokens * c * 2 + (22 * c * c) * 2 + 2 * b * t * c * 4
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(kernel="motion_module", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
+                max_abs_err=err, rel_err=rel, tol=MOTION_TOL, mutants=mutants, ms=ms,
+                gn_fold_ms=fold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, extra=extra)
+
+
 def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
 
-    from video_depth_anything_torch.config import MotionModuleConfig
     from video_depth_anything_torch.ops import attention_variants as av
     from video_depth_anything_torch.ops import cuda_build
     from video_depth_anything_torch.ops import flash_attention as fa
@@ -701,32 +800,7 @@ def phase_kernels(dev):
             ("flash_attention_fast", "stream 518x924 frame", 1, 2443, 6, 64),
             ("flash_attention_fast", "stream 518x924 chunk", 8, 2443, 6, 64),
             *(("flash_attention", label, 32, n, 6, 64) for label, n in EVAL_ATTN)):
-        fast = kernel == "flash_attention_fast"
-        qkv = attention_inputs((bt, n, h * d), g, dev)
-        q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
-        scale = d**-0.5
-        tile = 128 if d == 64 else 64  # the key tile of the Hopper kernel, of D = 192's
-        plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
-        got = fa.flash_attention(q, k, v, scale, fast=fast)
-        want = plain(q, k, v, scale)
-        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=tile)
-        qf = flat_inputs(q)  # the second check: near-uniform rows
-        flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
-        mutants["unmasked_zero_pad"] = zero_pad_error(plain, qf, k, v, scale, tile)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast))
-        plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
-        b_ms, b_by = bound(4.0 * bt * h * n * n * d, 4.0 * bt * n * h * d * 2)
-        row = dict(kernel=kernel, shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
-                   max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
-                   tol=ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms,
-                   extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e})")
-        if (kernel, label) in PARENT_MS:
-            row["parent_ms"] = PARENT_MS[(kernel, label)]
-        rows.append(row)
-        del qkv, q, k, v, qf, got, want, qt, kt, vt
+        rows.append(attention_row(kernel, label, bt, n, h, d, g, dev))
 
     # Kernel A's backward at the training shapes: a 518² window of 32
     # frames and the CLI's default clip (8 frames at 266², 362 tokens) for
@@ -804,35 +878,10 @@ def phase_kernels(dev):
     # vitl m3 at 518x518 also at T = 12, 16, 20 and 24 (the feature cache's
     # --inference_length; T = 12, 20, 24 padded to 16, 32, 32 rows a
     # location, with the unmasked-padded-keys mutant).
-    cfg = MotionModuleConfig()
     split_done = set()
     for label, c, s, t in MOTION_ROWS + EVAL_MOTION:
-        b = 1
-        x = (torch.randn(b, t, s, c, device=dev, generator=g)).to(torch.bfloat16)
-        p = motion_params(c, seed=c, device=dev)
-        w = mm.kernel_weights(p, cfg)
-        gna, gnb = mm.gn_fold(x, w, cfg)
-        got = mm.motion_module_launch(x, gna, gnb, w, cfg, 8)
-        want = mm.motion_module_plain(x, p, cfg, 8)
-        err = max_err(got, want)
-        rel = err / float((want.float() - x.float()).abs().max())
-        mutants = motion_mutant_errors(x, p, cfg, 8)
-        ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, 8))
-        extra = ""
-        if c in mm.SPLIT_C and c not in split_done:
-            split_done.add(c)
-            split = mm.motion_module_split(x, gna, gnb, w, cfg, 8)
-            extra = " split_ms " + " ".join(f"{k}={v:.4f}" for k, v in split.items())
-        fold_ms = time_ms(lambda: mm.gn_fold(x, w, cfg))
-        plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, 8), iters=5)
-        tokens = b * t * s
-        flops = tokens * (44.0 * c * c + 2 * 4.0 * t * c)
-        nbytes = 2 * tokens * c * 2 + (22 * c * c) * 2 + 2 * b * t * c * 4
-        b_ms, b_by = bound(flops, nbytes)
-        row = dict(kernel="motion_module", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
-                   max_abs_err=err, rel_err=rel, tol=MOTION_TOL, mutants=mutants, ms=ms,
-                   gn_fold_ms=fold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None, extra=extra)
+        row = motion_row(label, c, s, t, g, dev, split=c in mm.SPLIT_C and c not in split_done)
+        split_done.add(c)
         # the earlier kernel was timed at T = 32, and not at phase eval's shapes
         if t == 32 and (label, c, s, t) not in EVAL_MOTION:
             row["parent_ms"] = PARENT_MS[("motion_module", label)]
@@ -1053,6 +1102,8 @@ def main() -> int:
     f32_rows, f32_launches = timed("fp32", phase_fp32, dev, smi)
     timed("bench", phase_bench, smi)
     par_launches = timed("parallel", phase_parallel, smi)
+    vitg_launches = timed("vitg", phase_vitg, dev, smi)
+    demo_launches = timed("tooling", phase_tooling, dev, smi)
     rows = rows + f32_rows
 
     info = {
@@ -1094,10 +1145,11 @@ def main() -> int:
         if wrapper in probe_launches:
             count = probe_launches[wrapper]
         elif wrapper in f32_launches:
-            count = f32_launches[wrapper] + eval_launches[wrapper]
+            count = f32_launches[wrapper] + eval_launches[wrapper] + vitg_launches[wrapper]
         else:
             count = (launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper]
-                     + eval_launches[wrapper] + par_launches.get(wrapper, 0))
+                     + eval_launches[wrapper] + par_launches.get(wrapper, 0)
+                     + vitg_launches[wrapper] + demo_launches[wrapper])
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
             "replaces": replaces, "launches": count,
@@ -1230,16 +1282,18 @@ def phase_probes(dev, smi: str) -> dict:
     return counts
 
 
-def noise_weights(module, seed: int) -> None:
+def noise_weights(module, seed: int, device=None) -> None:
     """Seeded noise on every parameter (weights ~ N(0, 1/fan_in), norm
     scales ~ 1 + N(0, 0.1²), the rest ~ N(0, 0.1²)), so that no motion
-    module is the identity that its zero proj_out would make it."""
+    module is the identity that its zero proj_out would make it.  Drawn on
+    the CPU, or on ``device`` (faster for vitg's 1.37 B parameters; other
+    values than the CPU's)."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device=device or "cpu").manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            n = torch.randn(p.shape, generator=g)
+            n = torch.randn(p.shape, generator=g, device=device or "cpu")
             if p.dim() >= 2:
                 val = n / float(p[0].numel()) ** 0.5
             elif name.endswith("weight") or name.endswith("gamma"):
@@ -1435,6 +1489,170 @@ def phase_window(dev, smi: str):
         del model
         torch.cuda.empty_cache()
 
+
+# vitg (24 heads of 64 in 40 blocks; features 384, out_channels 1536), a
+# window of 32 frames: the launches its gates plan (tests/test_torch_dispatch.py
+# derives them from JAX's gates), every other count 0.  Kernel A in each of
+# the 40 blocks; Kernel C on m3 (74² locations at 518x518, 74x132 at
+# 518x924) and on m2 at 518x924 (37x66 = 2442 >= 2048 locations); Kernel B
+# on m2 under pallas at 518x518 only (d = 48, its two attentions; auto keeps
+# the einsum at d > 24 there); m0 and m1 (C = 1536, d = 192) plain; the tail
+# refused (C = 192).
+VITG_PLANS = {
+    (518, 518, "auto"): (dict(flash_attention=40, fused_motion_module=1), {}),
+    (518, 518, "pallas"): (dict(flash_attention=40, temporal_attention=2, fused_motion_module=1),
+                           {48: 2}),
+    (518, 924, "auto"): (dict(flash_attention=40, fused_motion_module=2), {}),
+    (518, 924, "pallas"): (dict(flash_attention=40, fused_motion_module=2), {}),
+}
+VITG_F32_PLAN = dict(flash_attention_f32=40, fused_motion_module_f32=1)
+# (source clip h, w) -> the model's 518x518 and 518x924; 32 frames make two
+# windows (the second holds the 10 keyframe slots and the tail's padding)
+VITG_CLIPS = ((480, 480), (480, 854))
+VITG_FRAMES = 32
+VITG_ATTN = (("vitg 518x518", 1370), ("vitg 518x924", 2443))
+VITG_MOTION = (("vitg m3 518x518", 384, 5476, 32), ("vitg m3 518x924", 384, 9768, 32))
+
+
+def per_windows(plan: dict, windows: int) -> dict:
+    """A window's launch plan over ``windows`` windows."""
+    return {k: n * windows for k, n in plan.items()}
+
+
+def plan_ok(counts: dict, plan: dict) -> bool:
+    """Every kernel's launches exactly ``plan``'s (0 where it names none)."""
+    return all(n == plan.get(k, 0) for k, n in counts.items())
+
+
+def vitg_pipeline(model, frames, plain: bool = False):
+    """``VideoDepthPipeline`` over ``frames`` (counts zeroed just before):
+    ``(depth, launches, Kernel B's launches by head width, wall s)``."""
+    import torch
+
+    from video_depth_anything_torch.inference.pipeline import VideoDepthPipeline
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+    from video_depth_anything_torch.ops.temporal_attention import temporal_attention
+
+    zero_counts()
+    with plain_reference() if plain else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        depth, _ = VideoDepthPipeline(model).infer_video_depth(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    widths = temporal_attention.f32_width_launches if model.dtype == torch.float32 \
+        else temporal_attention.width_launches
+    return depth, launch_counts(), dict(widths), wall
+
+
+def window_ms(model, x, plain: bool) -> float:
+    """ms of one ``infer_window`` on the kernel or the plain path; called
+    right after a pipeline run of the same path and dtype, which warms it."""
+    import torch
+
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+
+    with plain_reference() if plain else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.infer_window(x)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_vitg(dev, smi: str) -> dict:
+    """vitg on the card: Kernels A and C alone at the shapes a vitg window
+    gives them (24 heads of 64 at 1370 and 2443 tokens; C = 384 at 5476
+    and 9768 locations; bf16 and fp32, with phase kernels' mutants); then a
+    seeded vitg with every parameter noised (``noise_weights``: its zero
+    proj_out would make every motion module the identity), run through
+    ``VideoDepthPipeline`` on 32-frame clips at 518x518 and 518x924 under
+    ``--attn_impl auto`` and ``pallas``, each against the plain path within
+    WINDOW_TOL (``rounding_tol``) with its launch plan (VITG_PLANS), and an
+    fp32 518x518 window within F32_WINDOW_TOL (TF32 off; VITG_F32_PLAN);
+    ms of a window, kernel and plain path, and the plain path's peak
+    device memory.  Returns the launches summed over the kernel-path
+    pipeline runs (the main path of vitg)."""
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch.inference.pipeline import num_windows
+    from video_depth_anything_torch.models.vda import VDAModel
+
+    windows = num_windows(VITG_FRAMES)
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = [attention_row("flash_attention", label, 32, n, 24, 64, g, dev)
+            for label, n in VITG_ATTN]
+    rows += [motion_row(*m, g, dev) for m in VITG_MOTION]
+    with no_tf32():
+        rows += [attention_f32_row(VITG_ATTN[0][0], 32, VITG_ATTN[0][1], 24, 64, False, g, dev)]
+        rows += [motion_f32_row(*m, g, dev) for m in VITG_MOTION]
+    check_rows(rows, "vitg")
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    with torch.device(dev):  # parameters made on the card, not on the host and copied
+        model = VDAModel("vitg", device=dev)
+        noise_weights(model.module, seed=1, device=dev)  # every parameter: no init needed
+        pal = VDAModel("vitg", device=dev, attn_impl="pallas")
+    pal.module.load_state_dict(model.module.state_dict())
+    n_params = sum(p.numel() for p in model.module.parameters())
+    log(f"[vitg] {n_params / 1e9:.3f} B parameters, built and noised in {time.time() - t0:.1f} s")
+    total = {}
+    for h, w in VITG_CLIPS:
+        frames = clip_frames(h, w, VITG_FRAMES)
+        x = torch.randn(1, 32, 518, 518 if w == h else 924, 3, device=dev, generator=g)
+        torch.cuda.reset_peak_memory_stats()
+        want, _, _, plain_wall = vitg_pipeline(model, frames, plain=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        plain_ms = window_ms(model, x, True)
+        with fp32_plain(model):
+            ref32, _, _, _ = vitg_pipeline(model, frames, plain=True)
+        tol, noise = rounding_tol(WINDOW_TOL, want, ref32)
+        for impl, m in (("auto", model), ("pallas", pal)):
+            got, counts, widths, wall = vitg_pipeline(m, frames)
+            mh, mw = 518, 518 if w == h else 924
+            plan, want_widths = (per_windows(p, windows) for p in VITG_PLANS[(mh, mw, impl)])
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            ok = bool(np.isfinite(got).all()) and rel <= tol and plan_ok(counts, plan) \
+                and widths == want_widths
+            log(f"[vitg] pipeline {h}x{w} -> {mh}x{mw} {impl}: rel err kernels vs plain "
+                f"{rel:.3e} (tol {tol:.3e}: plain bf16 vs fp32 activations {noise:.3e}), "
+                f"launches {counts}, Kernel B by head width {widths}, {32 / wall:.2f} frames/s "
+                f"(plain path {32 / plain_wall:.2f}; plain peak device memory {peak:.2f} GiB) "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"vitg pipeline {h}x{w} {impl} failed")
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        log(f"[vitg] window 1x32x{x.shape[2]}x{x.shape[3]} bf16: kernel path "
+            f"{window_ms(model, x, False):.2f} ms, plain path {plain_ms:.2f} ms ({smi})")
+        del x, want, ref32, got
+    del pal
+    torch.cuda.empty_cache()
+
+    with torch.device(dev):
+        f32 = VDAModel("vitg", device=dev, dtype=torch.float32)
+    f32.module.load_state_dict(model.module.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    frames = clip_frames(*VITG_CLIPS[0], VITG_FRAMES)
+    x = torch.randn(1, 32, 518, 518, 3, device=dev, generator=g)
+    with no_tf32():
+        want, _, _, _ = vitg_pipeline(f32, frames, plain=True)
+        plain_ms = window_ms(f32, x, True)
+        got, counts, _, wall = vitg_pipeline(f32, frames)
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        ok = bool(np.isfinite(got).all()) and rel <= F32_WINDOW_TOL and plan_ok(
+            counts, per_windows(VITG_F32_PLAN, windows))
+        log(f"[vitg] pipeline 480x480 -> 518x518 fp32 (TF32 off): rel err kernels vs plain "
+            f"{rel:.3e} (tol {F32_WINDOW_TOL}), launches {counts} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("vitg fp32 pipeline failed")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        log(f"[vitg] window 1x32x518x518 fp32: kernel path {window_ms(f32, x, False):.2f} ms, "
+            f"plain path {plain_ms:.2f} ms ({smi})")
+    del f32, x
+    torch.cuda.empty_cache()
+    return total
 
 def clip_frames(h: int, w: int, n: int = 76):
     """uint8 ``(n, h, w, 3)``: colour ramps with a white disc moving across."""
@@ -2082,7 +2300,7 @@ def window_overlap_fps(smi: str) -> None:
         return vp.stitch_windows(depths, n)
 
     runs = {True: lambda f: pipe.infer_video_depth(f)[0], False: serial}
-    for h, w in ((480, 480), (480, 854)):
+    for h, w in ((480, 854),):  # the 16:9 clip (480x480 gave the same picture)
         frames = clip_frames(h, w)
         fps, out = {True: [], False: []}, {}
         runs[True](frames)
@@ -2339,7 +2557,7 @@ def rank_env() -> dict:
     return env
 
 
-def launch(cmds, label: str, timeout: float = 300.0) -> list:
+def launch(cmds, label: str, timeout: float = 300.0, tag: str = "parallel") -> list:
     """Run each command (one process a command, all started together) from
     the repo root; returns their stdout.  A non-zero exit or a timeout
     fails the phase; every process is stopped before it returns."""
@@ -2354,7 +2572,7 @@ def launch(cmds, label: str, timeout: float = 300.0) -> list:
             out, _ = p.communicate(timeout=timeout)
             outs.append(out)
     except subprocess.TimeoutExpired:
-        raise SystemExit(f"[parallel] {label}: timed out after {timeout} s")
+        raise SystemExit(f"[{tag}] {label}: timed out after {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2363,8 +2581,8 @@ def launch(cmds, label: str, timeout: float = 300.0) -> list:
     for p, out in zip(procs, outs):
         if p.returncode != 0:
             log(out[-6000:])
-            raise SystemExit(f"[parallel] {label}: exit code {p.returncode}")
-    log(f"[parallel] {label}: {len(cmds)} launch(es) at once, {time.time() - t0:.1f} s wall")
+            raise SystemExit(f"[{tag}] {label}: exit code {p.returncode}")
+    log(f"[{tag}] {label}: {len(cmds)} launch(es) at once, {time.time() - t0:.1f} s wall")
     return outs
 
 
@@ -2487,7 +2705,23 @@ def update_check(got: tuple, ref: tuple, label: str, mutants: bool = False) -> N
 
 def phase_parallel(smi: str) -> dict:
     """The multi-GPU layer on the one card; returns the launches of the
-    ranks' main-path runs, summed."""
+    ranks' main-path runs, summed.  Every run decodes with cv2
+    (``VDA_NATIVE_DECODE=0``, as the JAX package's multi-host tests pin it):
+    the data-parallel ranks decode their spans with cv2
+    (``read_video_frame_range``, as in JAX), so the single-process runs that
+    they are held to bit for bit decode with cv2 too."""
+    prev = os.environ.get("VDA_NATIVE_DECODE")
+    os.environ["VDA_NATIVE_DECODE"] = "0"
+    try:
+        return _phase_parallel(smi)
+    finally:
+        if prev is None:
+            os.environ.pop("VDA_NATIVE_DECODE")
+        else:
+            os.environ["VDA_NATIVE_DECODE"] = prev
+
+
+def _phase_parallel(smi: str) -> dict:
     import numpy as np
     import torch
 
@@ -2647,6 +2881,337 @@ def phase_parallel(smi: str) -> dict:
     return totals
 
 
+# -- phase tooling: native host libraries, demo server, profiling, examples ----
+
+PREPROC_TOL = 2e-3  # the native preprocessing against the cv2 path, max abs
+# over the normalised frames: the JAX package's own bound
+# (tests/test_native_preproc.py:20-24; the same bicubic taps, summed in
+# another order)
+DEMO_PIXEL_TOL = 0.5  # a served depth video against run's on the same clip
+# and weights, mean abs over the decoded pixels (0-255): the same pipeline on
+# the same card gives the same depth, and each video is written by the same
+# save_video; only a different cuBLAS choice between two processes could
+# move a colour by a level
+DECODE_CASES = ((12, -1, -1), (8, 10, -1), (6, -1, 400), (5, 8, 320))  # JAX's four
+DEMO_UPLOADS = (("init", "vits"), ("init", "vitb"), ("init", "vitl"), ("vits.pth", "vits"))
+
+
+def native_checks(tmp: str, smi: str) -> dict:
+    """The native libraries built from ``native/*.cpp`` on this host:
+    preprocessing within PREPROC_TOL of the cv2 path, the gather bit for
+    bit, the decoder's pixels those of cv2 in JAX's four cases (on a
+    848-wide clip; on an 854-wide one the binding refuses the library and
+    cv2 decodes); then a 76-frame 854x480 vits window CLI run with both
+    switches off and on, in turns (off, on, on, off), its frames/s and the
+    host paths it printed, and the CLI on the 848-wide clip, whose decode
+    must be native.  Returns whether each library built."""
+    import io
+
+    import numpy as np
+
+    from video_depth_anything_torch import run
+    from video_depth_anything_torch.io import native_build
+    from video_depth_anything_torch.io.native_preproc import gather_windows_native
+    from video_depth_anything_torch.io.video import last_decoder, read_video_frames, save_video
+    from video_depth_anything_torch.utils.transform import preprocess_frames
+
+    status = native_build.status()
+    built = {name: native_build.load(name) is not None for name in native_build.LIBS}
+    for name, line in status.items():
+        log(f"[tooling] native {name}: {line}")
+    env = {k: os.environ.get(k) for k in ("VDA_NATIVE_PREPROC", "VDA_NATIVE_DECODE")}
+
+    def switch(on: bool) -> None:
+        os.environ["VDA_NATIVE_PREPROC"] = os.environ["VDA_NATIVE_DECODE"] = "1" if on else "0"
+
+    try:
+        if built["preproc"]:
+            frames = (np.random.RandomState(7).rand(16, 480, 854, 3) * 255).astype(np.uint8)
+            switch(False)
+            want = preprocess_frames(frames)
+            switch(True)
+            t0 = time.perf_counter()
+            got = preprocess_frames(frames)
+            native_s = time.perf_counter() - t0
+            err = float(np.abs(got - want).max())
+            idx = np.stack([np.arange(16), np.arange(16)[::-1]])
+            same = bool(np.array_equal(gather_windows_native(got, idx), got[idx]))
+            ok = got.shape == want.shape and err < PREPROC_TOL and same
+            log(f"[tooling] native preprocessing 16x480x854 -> {got.shape[1]}x{got.shape[2]}: "
+                f"max abs err vs cv2 {err:.3e} (tol {PREPROC_TOL}), {16 / native_s:.1f} "
+                f"frames/s; gather bit for bit {same} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("the native preprocessing misses the cv2 path")
+        if built["decode"]:
+            # 848 = 53 * 16: the decoder runs; 854 (DAVIS): it is refused
+            # (io/native_video.py: wrong last columns there) and cv2 decodes
+            for width, path in ((848, "native"), (854, "cv2")):
+                clip = os.path.join(tmp, f"decode{width}.mp4")
+                save_video(clip_frames(480, width, 40), clip, fps=24)
+                for case in DECODE_CASES:
+                    switch(True)
+                    got, fps = read_video_frames(clip, *case)
+                    ran = last_decoder()
+                    switch(False)
+                    want, want_fps = read_video_frames(clip, *case)
+                    same = got.shape == want.shape and bool(np.array_equal(got, want))
+                    ok = same and fps == want_fps and ran == path
+                    log(f"[tooling] decode 480x{width} {case} with the native switch on: "
+                        f"{ran}, {got.shape}, fps {fps}, pixels equal to cv2's {same} "
+                        f"{'OK' if ok else 'FAIL'}")
+                    if not ok:
+                        raise SystemExit("the native decoder disagrees with cv2")
+        clip = os.path.join(tmp, "cli76.mp4")
+        write_clip(clip, 480, 854)
+        depths = {}
+        for i, on in enumerate((False, True, True, False)):
+            switch(on)
+            out_dir = os.path.join(tmp, f"cli76_{i}")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):  # the depths of the first off and on runs
+                run.main(["--input_video", clip, "--output_dir", out_dir, "--random_init"]
+                         + ["--save_npz"] * (i < 2))
+            text = buf.getvalue()
+            fps_line = next(ln for ln in text.splitlines() if "FPS end-to-end" in ln)
+            paths = json.loads(text.split("host paths: ", 1)[1].splitlines()[0])
+            want = {"decode": "cv2",  # 854 wide: the native decoder refuses it
+                    "preprocess": "native" if on and built["preproc"] else "cv2"}
+            if i < 2:
+                depths[on] = np.load(os.path.join(out_dir, "cli76_depth.npz"))["depth"]
+            log(f"[tooling] window CLI vits 854x480 76 frames, native {'on' if on else 'off'}: "
+                f"{fps_line.strip()}; host paths {paths} ({smi})")
+            if paths != want:
+                raise SystemExit(f"the CLI ran host paths {paths}, want {want}")
+        rel = float(np.abs(depths[True] - depths[False]).max() / np.abs(depths[False]).max())
+        log(f"[tooling] window CLI depth, native on against off: rel {rel:.3e} (tol {WINDOW_TOL})")
+        if not rel <= WINDOW_TOL:
+            raise SystemExit("the native host path moves the CLI's depth")
+        if built["decode"]:
+            switch(True)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                run.main(["--input_video", os.path.join(tmp, "decode848.mp4"), "--output_dir",
+                          os.path.join(tmp, "cli848"), "--random_init", "--max_len", "32"])
+            paths = json.loads(buf.getvalue().split("host paths: ", 1)[1].splitlines()[0])
+            log(f"[tooling] window CLI vits 848x480 32 frames, native on: host paths {paths}")
+            if paths != {"decode": "native", "preprocess": "native" if built["preproc"] else "cv2"}:
+                raise SystemExit(f"the CLI ran host paths {paths} on a 848-wide clip")
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return built
+
+
+def upload(base: str, path: str, fields: dict) -> str:
+    """POST ``path`` to the demo server's ``/process`` as its form does;
+    returns the result page."""
+    import urllib.request
+
+    boundary = "----vdaboundary"
+    parts = [f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n{v}\r\n"
+             .encode() for k, v in fields.items()]
+    with open(path, "rb") as f:
+        parts.append(f"--{boundary}\r\nContent-Disposition: form-data; name=\"video\"; "
+                     f"filename=\"{os.path.basename(path)}\"\r\nContent-Type: video/mp4\r\n\r\n"
+                     .encode() + f.read() + b"\r\n")
+    req = urllib.request.Request(
+        base + "/process", data=b"".join(parts) + f"--{boundary}--\r\n".encode(),
+        headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read().decode()
+
+
+def demo_server_check(tmp: str, smi: str) -> dict:
+    """``python -m video_depth_anything_torch.app`` twice, at once: with the
+    seeded init (uploads for vits, vitb and vitl) and with a ``.pth`` of
+    noised vits weights (one upload); each request's depth video, fetched
+    from ``/files/``, against ``run``'s on the same clip and weights
+    (DEMO_PIXEL_TOL), and its launches, read from the server's printed line
+    (Kernels A and C in every request).  Returns the launches summed over
+    the requests."""
+    import io
+    import subprocess
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from video_depth_anything_torch import run
+    from video_depth_anything_torch.io.video import read_video_frames, save_video
+
+    clip = os.path.join(tmp, "demo.mp4")
+    save_video(clip_frames(480, 480, 32), clip, fps=24)
+    ckpt = os.path.join(tmp, "vits.pth")
+    write_noised_pth("vits", ckpt)
+    servers = {}
+    for name, extra in (("init", []), ("vits.pth", ["--checkpoint", ckpt])):
+        port = free_port()
+        logf = open(os.path.join(tmp, f"server_{name}.log"), "w")
+        proc = subprocess.Popen([sys.executable, "-m", "video_depth_anything_torch.app", "--port",
+                                 str(port), *extra], cwd=REPO, env=rank_env(), stdout=logf,
+                                stderr=subprocess.STDOUT, text=True)
+        servers[name] = (proc, f"http://127.0.0.1:{port}", logf)
+    results, errors = {}, []
+
+    def client(name: str, uploads: list) -> None:
+        proc, base, _ = servers[name]
+        try:
+            for _ in range(600):  # the server binds within seconds of its start
+                try:
+                    with urllib.request.urlopen(base + "/", timeout=5) as r:
+                        assert "Generate depth" in r.read().decode()
+                    break
+                except OSError:
+                    if proc.poll() is not None:
+                        raise RuntimeError(f"server {name} exited {proc.returncode}")
+                    time.sleep(0.2)
+            for encoder in uploads:
+                t0 = time.perf_counter()
+                page = upload(base, clip, {"encoder": encoder, "max_len": "32",
+                                           "target_fps": "-1", "max_res": "1280",
+                                           "input_size": "518"})
+                depth = page.split('src="/files/')[2].split('"')[0]
+                with urllib.request.urlopen(f"{base}/files/{depth}", timeout=60) as r:
+                    data = r.read()
+                path = os.path.join(tmp, f"served_{name}_{encoder}.mp4")
+                with open(path, "wb") as f:
+                    f.write(data)
+                results[(name, encoder)] = (path, time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors.append(f"{name}: {e!r}")
+
+    t0 = time.time()
+    try:
+        clients = [threading.Thread(target=client, args=(name, [e for n, e in DEMO_UPLOADS
+                                                               if n == name]))
+                   for name in servers]
+        for c in clients:
+            c.start()
+        refs = {}
+        for name, encoder in DEMO_UPLOADS:  # run beside the servers, on the same clip
+            out_dir = os.path.join(tmp, f"run_{name}_{encoder}")
+            weights = ["--random_init"] if name == "init" else ["--checkpoint", ckpt]
+            with contextlib.redirect_stdout(io.StringIO()):
+                run.main(["--input_video", clip, "--output_dir", out_dir, "--encoder", encoder,
+                          "--max_len", "32", *weights])
+            refs[(name, encoder)] = os.path.join(out_dir, "demo_depth.mp4")
+        for c in clients:
+            c.join(timeout=600)
+    finally:
+        for proc, _, logf in servers.values():
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    if errors or len(results) != len(DEMO_UPLOADS):
+        for name in servers:
+            log(open(os.path.join(tmp, f"server_{name}.log")).read()[-4000:])
+        raise SystemExit(f"[tooling] demo server failed: {errors}")
+    total = {}
+    lines = {name: [ln for ln in open(os.path.join(tmp, f"server_{name}.log")).read().splitlines()
+                    if ln.startswith("[app] request ")] for name in servers}
+    for name, encoder in DEMO_UPLOADS:
+        i = [e for n, e in DEMO_UPLOADS if n == name].index(encoder)
+        line = lines[name][i]
+        counts = json.loads(line.split("kernel launches ", 1)[1].split(" host paths ", 1)[0])
+        got = read_video_frames(results[(name, encoder)][0])[0].astype(np.float32)
+        want = read_video_frames(refs[(name, encoder)])[0].astype(np.float32)
+        diff = float(np.abs(got - want).mean()) if got.shape == want.shape else float("inf")
+        ok = (f" {encoder}: " in line and diff <= DEMO_PIXEL_TOL and got.shape == (32, 480, 480, 3)
+              and counts["flash_attention"] > 0 and counts["fused_motion_module"] > 0)
+        log(f"[tooling] demo server ({name}) {encoder}: depth video vs run's mean abs pixel diff "
+            f"{diff:.4f} (tol {DEMO_PIXEL_TOL}), request {results[(name, encoder)][1]:.1f} s; "
+            f"{line} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[tooling] demo server request {name} {encoder} failed")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    log(f"[tooling] demo server: {len(DEMO_UPLOADS)} requests on 2 servers in "
+        f"{time.time() - t0:.1f} s ({smi})")
+    return total
+
+
+def phase_tooling(dev, smi: str) -> dict:
+    """The tooling on the card: ``native_checks``; the demo server
+    (``demo_server_check``), with ``profile_model`` for vits at 518x518x32
+    and ``examples.quickstart`` started beside it (their times are then
+    shared ones), then ``profile_model`` for vitl, ``param_counts`` held to
+    the port's own module;
+    ``examples.feature_pca``'s level features on the card against the CPU's
+    (fp32, TF32 off); ``tools.stress`` alone for 5 s.  Returns the demo
+    requests' launches."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.examples import feature_pca
+    from video_depth_anything_torch.models.vda import VideoDepthAnything
+    from video_depth_anything_torch.utils.profiling import param_counts
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmp = tempfile.mkdtemp(prefix="vda_tooling_")
+    try:
+        native_checks(tmp, smi)
+        clip = os.path.join(tmp, "quick.mp4")
+        write_clip(clip, 480, 854, 40)
+        quick_out = os.path.join(tmp, "quick_depth.mp4")
+        m = "video_depth_anything_torch"
+        profile = [[sys.executable, "-m", f"{m}.profile_model", "--encoder", e, "--frames", "32",
+                    "--size", "518"] for e in ("vits", "vitl")]
+        quick = [sys.executable, "-m", f"{m}.examples.quickstart", clip, "--output", quick_out]
+        with ThreadPoolExecutor(1) as pool:
+            # vits's profile and quickstart run beside the demo servers; vitl's
+            # (its plain path peaks at ~35 GB) after them
+            group = pool.submit(launch, [profile[0], quick], "profile_model vits; quickstart",
+                                300.0, "tooling")
+            launches = demo_server_check(tmp, smi)
+            outs = group.result()
+        outs = [outs[0], launch([profile[1]], "profile_model vitl", tag="tooling")[0], outs[1]]
+        for encoder, out in zip(("vits", "vitl"), outs):
+            report = json.loads(out[out.index("{"):])
+            with torch.device("meta"):
+                want = param_counts(VideoDepthAnything(get_model_config(encoder)))
+            got = {k: report[k] for k in want}
+            ok = got == want and report["compiled"]["gflops"] > 0 and report["frames_per_s"] > 0
+            log(f"[tooling] profile_model {encoder} 518x518x32: {json.dumps(report)} "
+                f"({'beside the demo servers; ' if encoder == 'vits' else ''}{smi}) params {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"profile_model {encoder}: {got} against the module's {want}")
+        log(f"[tooling] quickstart: {outs[2].strip().splitlines()[-1]}")
+        if not os.path.exists(quick_out) or "(40 frames)" not in outs[2]:
+            raise SystemExit("examples.quickstart wrote no depth of the clip's 40 frames")
+
+        with no_tf32():
+            frames, card = feature_pca.level_features(clip, "cuda")
+        _, cpu = feature_pca.level_features(clip, "cpu")
+        rel = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(card, cpu))
+        ok = rel <= F32_WINDOW_TOL and [a.shape for a in card] == [b.shape for b in cpu]
+        log(f"[tooling] feature_pca level features on the card: "
+            f"{', '.join('x'.join(map(str, a.shape)) for a in card)}, rel err vs the CPU "
+            f"{rel:.3e} (tol {F32_WINDOW_TOL}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("feature_pca's features on the card miss the CPU's")
+
+        out = launch([[sys.executable, "-m", f"{m}.tools.stress", "--gb", "16", "--seconds",
+                       "5"]], "tools.stress", tag="tooling")[0]
+        spun = next(ln for ln in out.splitlines() if ln.startswith("spun "))
+        log(f"[tooling] stress: {out.splitlines()[0]}; {spun} ({smi})")
+        if not re.search(r"finite True$", spun):
+            raise SystemExit("tools.stress ended with non-finite products")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 # -- phase fp32: the fp32 kernels and --fp32 / --fp32_island ------------------
 
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
@@ -2765,6 +3330,88 @@ def f32_inputs(shape, gen, device):
     return x
 
 
+def attention_f32_row(label: str, bt: int, n: int, h: int, d: int, fast: bool, g, dev) -> dict:
+    """The fp32 Kernel A against its plain fp32 version (``fp32_kernel_rows``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops import flash_attention as fa
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    qkv = f32_inputs((bt, n, h * d), g, dev)
+    q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
+    scale = d**-0.5
+    plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
+    got = fa.flash_attention(q, k, v, scale, fast=fast)
+    want = plain(q, k, v, scale)
+    key_tile = 64 if d == 64 else 32  # the fp32 kernel's
+    mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=key_tile)
+    qf = flat_inputs(q)
+    flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
+    mutants["unmasked_zero_pad"] = zero_pad_error(plain, qf, k, v, scale, key_tile)
+    mutants["tf32_plain"] = rel_err(tf32_plain(lambda *t: plain(*t, scale), q, k, v), want)
+    for wrong in ("two_pass", "truncating_split"):
+        mutants[wrong] = rel_err(tf32_split_plain(q, k, v, scale, fast, wrong), want)
+    bf16_err = rel_err(fa.flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)), scale,
+                                          fast=fast), want)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=5,
+                     warmup=1)
+    flops = 4.0 * bt * h * n * n * d
+    ffma_ms, _ = bound_f32(flops, 4.0 * bt * n * h * d * 4)
+    b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
+    return dict(kernel="flash_attention_f32", shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
+                 max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
+                 tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by="operations", library_ms=lib_ms,
+                 extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e}) "
+                       f"bf16_kernel_rel_err={bf16_err:.3e} bound_3xtf32_ms={b_ms:.4f} "
+                       f"ms/bound_3xtf32={ms / b_ms:.2f} bound_ffma_ms={ffma_ms:.4f} "
+                       f"ms/bound_ffma={ms / ffma_ms:.2f}")
+
+
+def motion_f32_row(label: str, c: int, s: int, t: int, g, dev) -> dict:
+    """The fp32 Kernel C against its plain fp32 version (``fp32_kernel_rows``)."""
+    import torch
+
+    from video_depth_anything_torch.config import MotionModuleConfig
+    from video_depth_anything_torch.ops import motion_module as mm
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    cfg = MotionModuleConfig()
+    b = 1
+    x = torch.randn(b, t, s, c, device=dev, generator=g)
+    p = motion_params(c, seed=c, device=dev)
+    w = mm.kernel_weights(p, cfg, torch.float32)
+    gna, gnb = mm.gn_fold(x, w, cfg)
+    got = mm.motion_module_launch(x, gna, gnb, w, cfg, 8)
+    want = mm.motion_module_plain(x, p, cfg, 8)
+    base = float((want - x).abs().max())
+    mutants = motion_mutant_errors(x, p, cfg, 8)
+    names = tuple(p)
+    mutants["tf32_plain"] = max_err(tf32_plain(
+        lambda x_, *v: mm.motion_module_plain(x_, dict(zip(names, v)), cfg, 8), x,
+        *p.values()), want) / base
+    for wrong in ("two_pass", "truncating_split"):
+        mutants[wrong] = max_err(motion_split_plain(x, p, cfg, 8, wrong), want) / base
+    bf16_err = max_err(mm.fused_motion_module(x.to(torch.bfloat16), p, cfg, 8), want) / base
+    ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, 8), iters=3, warmup=1)
+    plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, 8), iters=3, warmup=1)
+    flops = b * t * s * (44.0 * c * c + 8.0 * t * c)
+    ffma_ms, _ = bound_f32(flops, 2 * b * t * s * c * 4 + w["w"].numel() * 4)
+    b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
+    l2_gb = b * -(-s // (mm.F32_ROWS // mm.padded_frames(t))) * w["w"].numel() * 4 / 1e9
+    return dict(kernel="motion_module_f32", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
+                 max_abs_err=max_err(got, want), rel_err=max_err(got, want) / base,
+                 tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by="operations", library_ms=None,
+                 extra=f" bf16_kernel_rel_err={bf16_err:.3e} bound_3xtf32_ms={b_ms:.4f} "
+                       f"ms/bound_3xtf32={ms / b_ms:.2f} bound_ffma_ms={ffma_ms:.4f} "
+                       f"ms/bound_ffma={ms / ffma_ms:.2f} l2_weight_gb={l2_gb:.2f}")
+
+
 def fp32_kernel_rows(dev) -> list:
     """Each fp32 kernel against its plain fp32 version at phase kernels'
     shapes, with the mutants of phase kernels at fp32 and the plain version
@@ -2779,9 +3426,6 @@ def fp32_kernel_rows(dev) -> list:
     import torch.nn.functional as F
 
     from video_depth_anything_torch import bench_temporal
-    from video_depth_anything_torch.config import MotionModuleConfig
-    from video_depth_anything_torch.ops import flash_attention as fa
-    from video_depth_anything_torch.ops import motion_module as mm
     from video_depth_anything_torch.ops import temporal_attention as ta
     from video_depth_anything_torch.utils.device import event_ms as time_ms
 
@@ -2794,39 +3438,7 @@ def fp32_kernel_rows(dev) -> list:
                                      ("synthetic D=192", 32, 1370, 2, 192, False),
                                      ("synthetic D=192 ragged fast", 32, 2443, 2, 192, True),
                                      (EVAL_ATTN[0][0], 32, EVAL_ATTN[0][1], 6, 64, False)):
-        qkv = f32_inputs((bt, n, h * d), g, dev)
-        q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
-        scale = d**-0.5
-        plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
-        got = fa.flash_attention(q, k, v, scale, fast=fast)
-        want = plain(q, k, v, scale)
-        key_tile = 64 if d == 64 else 32  # the fp32 kernel's
-        mutants = mutant_errors(plain, q, k, v, scale, axis=1, tile=key_tile)
-        qf = flat_inputs(q)
-        flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
-        mutants["unmasked_zero_pad"] = zero_pad_error(plain, qf, k, v, scale, key_tile)
-        mutants["tf32_plain"] = rel_err(tf32_plain(lambda *t: plain(*t, scale), q, k, v), want)
-        for wrong in ("two_pass", "truncating_split"):
-            mutants[wrong] = rel_err(tf32_split_plain(q, k, v, scale, fast, wrong), want)
-        bf16_err = rel_err(fa.flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)), scale,
-                                              fast=fast), want)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast), iters=5, warmup=1)
-        plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=5,
-                         warmup=1)
-        flops = 4.0 * bt * h * n * n * d
-        ffma_ms, _ = bound_f32(flops, 4.0 * bt * n * h * d * 4)
-        b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
-        rows.append(dict(kernel="flash_attention_f32", shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d})",
-                         max_abs_err=max_err(got, want), rel_err=max(rel_err(got, want), flat_err),
-                         tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by="operations", library_ms=lib_ms,
-                         extra=f" (peaked {rel_err(got, want):.3e}, flat {flat_err:.3e}) "
-                               f"bf16_kernel_rel_err={bf16_err:.3e} bound_3xtf32_ms={b_ms:.4f} "
-                               f"ms/bound_3xtf32={ms / b_ms:.2f} bound_ffma_ms={ffma_ms:.4f} "
-                               f"ms/bound_ffma={ms / ffma_ms:.2f}"))
-        del qkv, q, k, v, qf, got, want, qt, kt, vt
+        rows.append(attention_f32_row(label, bt, n, h, d, fast, g, dev))
 
     heads = bench_temporal.HEADS
     for label, b, t, s, c in (bench_temporal.SHAPES + bench_temporal.WINDOW_SHAPES
@@ -2854,38 +3466,8 @@ def fp32_kernel_rows(dev) -> list:
                          library_ms=lib_ms, extra=f" bf16_kernel_rel_err={bf16_err:.3e}"))
         del q, k, v, got, want, q5, k5, v5
 
-    cfg = MotionModuleConfig()
     for label, c, s, t in MOTION_ROWS + EVAL_MOTION[:1]:
-        b = 1
-        x = torch.randn(b, t, s, c, device=dev, generator=g)
-        p = motion_params(c, seed=c, device=dev)
-        w = mm.kernel_weights(p, cfg, torch.float32)
-        gna, gnb = mm.gn_fold(x, w, cfg)
-        got = mm.motion_module_launch(x, gna, gnb, w, cfg, 8)
-        want = mm.motion_module_plain(x, p, cfg, 8)
-        base = float((want - x).abs().max())
-        mutants = motion_mutant_errors(x, p, cfg, 8)
-        names = tuple(p)
-        mutants["tf32_plain"] = max_err(tf32_plain(
-            lambda x_, *v: mm.motion_module_plain(x_, dict(zip(names, v)), cfg, 8), x,
-            *p.values()), want) / base
-        for wrong in ("two_pass", "truncating_split"):
-            mutants[wrong] = max_err(motion_split_plain(x, p, cfg, 8, wrong), want) / base
-        bf16_err = max_err(mm.fused_motion_module(x.to(torch.bfloat16), p, cfg, 8), want) / base
-        ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, 8), iters=3, warmup=1)
-        plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, 8), iters=3, warmup=1)
-        flops = b * t * s * (44.0 * c * c + 8.0 * t * c)
-        ffma_ms, _ = bound_f32(flops, 2 * b * t * s * c * 4 + w["w"].numel() * 4)
-        b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
-        l2_gb = b * -(-s // (mm.F32_ROWS // mm.padded_frames(t))) * w["w"].numel() * 4 / 1e9
-        rows.append(dict(kernel="motion_module_f32", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
-                         max_abs_err=max_err(got, want), rel_err=max_err(got, want) / base,
-                         tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by="operations", library_ms=None,
-                         extra=f" bf16_kernel_rel_err={bf16_err:.3e} bound_3xtf32_ms={b_ms:.4f} "
-                               f"ms/bound_3xtf32={ms / b_ms:.2f} bound_ffma_ms={ffma_ms:.4f} "
-                               f"ms/bound_ffma={ms / ffma_ms:.2f} l2_weight_gb={l2_gb:.2f}"))
-        del x, got, want
+        rows.append(motion_f32_row(label, c, s, t, g, dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows

@@ -1,6 +1,6 @@
-"""Which module takes which kernel on the vits, vitb and vitl main paths, at
-518×518 and 518×924, in the port and in the JAX package, under
-``--attn_impl auto`` and ``pallas``.
+"""Which module takes which kernel on the vits, vitb, vitl and vitg main
+paths, at 518×518 and 518×924, in the port and in the JAX package, under
+``--attn_impl auto`` and ``pallas`` (vitg also in fp32).
 
 The JAX side runs the JAX package's own gate functions with the kernels
 they would launch replaced by tags (and, for the temporal gate and the
@@ -168,6 +168,24 @@ def test_dispatch_plan_under_pallas_matches_jax_gates(encoder, h, w, expected, m
     assert port_plan(encoder, h, w, "pallas") == expected
 
 
+# vitg (24 heads of 64, features 384, out_channels 1536): Kernel A at D = 64;
+# m0 and m1 (C = 1536, d = 192) plain under both impls; m2 (C = 384, d = 48)
+# the einsum under auto at 37² < 2048 locations, Kernel B under pallas,
+# Kernel C at 37×66; m3 Kernel C; the tail refused (C = 192).  The gates read
+# the dtype only in the tail's, so fp32 plans are bf16's.
+_VITG = dict(vit="flash_attention", m0="plain", m1="plain", m3="motion_module", tail="plain")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("h,w,impl,m2", [
+    (518, 518, "auto", "plain"), (518, 518, "pallas", "temporal_attention"),
+    (518, 924, "auto", "motion_module"), (518, 924, "pallas", "motion_module")])
+def test_vitg_dispatch_plan_matches_jax_gates(h, w, impl, m2, dtype, monkeypatch):
+    expected = dict(_VITG, m2=m2)
+    assert jax_plan("vitg", h, w, monkeypatch, impl, dtype) == expected
+    assert port_plan("vitg", h, w, impl, dtype) == expected
+
+
 def _forced_plan(encoder, h, w, mode, impl="auto"):
     """The port's Kernel C decision per motion module under
     ``VDA_FUSED_MOTION=mode`` (``TemporalModule.fused``)."""
@@ -202,12 +220,13 @@ def _jax_forced_plan(encoder, h, w, mode, impl, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["0", "1", "auto"])
 @pytest.mark.parametrize("impl", ["auto", "xla"])
-@pytest.mark.parametrize("encoder,h,w", [(e, h, w) for e in ("vits", "vitb", "vitl")
+@pytest.mark.parametrize("encoder,h,w", [(e, h, w) for e in ("vits", "vitb", "vitl", "vitg")
                                          for h, w in ((518, 518), (518, 924))])
 def test_fused_motion_switch_matches_jax(encoder, h, w, impl, mode, monkeypatch):
     """``VDA_FUSED_MOTION``: ``0`` sends no module to Kernel C, ``1`` every
-    module the JAX gate's other terms admit (all four on every encoder,
-    under ``xla`` too), anything else the plan of
+    module the JAX gate's other terms admit (all four on vits, vitb and
+    vitl, under ``xla`` too; on vitg m2 and m3 only: the gate's plan term
+    refuses C = 1536), anything else the plan of
     ``test_dispatch_plan_matches_jax_gates``."""
     monkeypatch.setenv("VDA_FUSED_MOTION", mode)
     want = _jax_forced_plan(encoder, h, w, mode, impl, monkeypatch)
@@ -215,24 +234,31 @@ def test_fused_motion_switch_matches_jax(encoder, h, w, impl, mode, monkeypatch)
     if mode == "0":
         assert not any(want.values())
     if mode == "1":
-        assert all(want.values())
+        if encoder == "vitg":
+            assert want == dict(m0=False, m1=False, m2=True, m3=True)
+        else:
+            assert all(want.values())
 
 
 def test_forced_widths_kernel_c_lacks_raise_naming_the_queue(monkeypatch):
     """``VDA_FUSED_MOTION=1`` reaches C = 768 (vitb m1) and 1024 (vitl m0,
     m1), which Kernel C has no instantiation for: its launch raises, naming
-    ROADMAP Queue 2 B, and never falls back (checked on CPU tensors with the
-    stream lookup stubbed: the checks run before any launch)."""
+    ROADMAP Queue 2 B5, and never falls back (checked on CPU tensors with
+    the stream lookup stubbed: the checks run before any launch).  vitg's
+    m0 and m1 (C = 1536) are not reached: the gate refuses them, in JAX
+    too (``test_fused_motion_switch_matches_jax``)."""
     from video_depth_anything_torch.config import MotionModuleConfig
     from video_depth_anything_torch.ops import motion_module as mm
 
     monkeypatch.setattr(mm.cuda_build, "stream_of", lambda t: None)
-    reached = {c for e in ("vitb", "vitl") for _, _, _, c in _module_shapes(e, 518, 518)}
+    monkeypatch.setenv("VDA_FUSED_MOTION", "1")
+    reached = {c for e in ("vitb", "vitl", "vitg") for h, w in ((518, 518), (518, 924))
+               for (name, _, _, c) in _module_shapes(e, h, w) if _forced_plan(e, h, w, "1")[name]}
     lacking = sorted(reached - set(mm._SUPPORTED_C))
     assert lacking == [768, 1024]
     cfg = MotionModuleConfig()
     for c in lacking:
         x = torch.zeros(1, 32, 2, c, dtype=torch.bfloat16)
         w = {"w": torch.zeros(8, dtype=torch.bfloat16), "pe": torch.zeros(32, c, dtype=torch.bfloat16)}
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 B"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 B5"):
             mm._launch_args(x, None, None, w, cfg, 8)

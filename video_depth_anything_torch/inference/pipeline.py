@@ -172,6 +172,10 @@ class VideoDepthPipeline:
 
         return pre, wait_until, thread
 
+    def _gather(self, pre: np.ndarray, chunk: np.ndarray) -> np.ndarray:
+        """The input of one window batch, ``pre[chunk]``."""
+        return pre[chunk]
+
     def _window_forward(self, frames: np.ndarray, skip_tmp_block: bool):
         """The model-resolution depth of a batch of windows on the device
         (the pipeline-parallel pipeline stages it over ranks)."""
@@ -206,7 +210,7 @@ class VideoDepthPipeline:
             chunk = idx[s:s + wb]
             if wait_until is not None:
                 wait_until(int(chunk.max()) + 1)
-            depth = self._window_forward(pre[chunk], skip_tmp_block)
+            depth = self._window_forward(self._gather(pre, chunk), skip_tmp_block)
             b, t, h, w = depth.shape
             depth = depth.float()
             if not self.host_upsample:

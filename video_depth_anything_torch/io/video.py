@@ -4,7 +4,10 @@ frame count from the header, for the multi-host pipeline), and depth video
 writing with a global min-max
 normalization and matplotlib's inferno or Spectral colormap, as the JAX
 package writes them (``video_depth_anything_tpu/io/video.py``), from the
-port's own tables (``io/colormaps.py``)."""
+port's own tables (``io/colormaps.py``).  As in JAX, ``read_video_frames``
+decodes through the native library (``io/native_video.py``) unless
+``VDA_NATIVE_DECODE=0``, and with cv2 where that library cannot be built or
+the container cannot be opened; ``last_decoder()`` says which ran last."""
 
 from __future__ import annotations
 
@@ -17,13 +20,33 @@ import numpy as np
 from video_depth_anything_torch.io.colormaps import INFERNO, SPECTRAL
 
 
+_last = {"decode": None}
+
+
+def last_decoder() -> "str | None":
+    """``"native"`` or ``"cv2"``: the decoder of the last
+    ``read_video_frames`` call (``None`` before the first)."""
+    return _last["decode"]
+
+
 def ensure_even(value: int) -> int:
     return value if value % 2 == 0 else value + 1
 
 
 def read_video_frames(video_path: str, process_length: int = -1, target_fps: float = -1,
                       max_res: int = -1) -> Tuple[np.ndarray, float]:
-    """RGB frames ``(N, H, W, 3)`` uint8 and the fps they are sampled at."""
+    """RGB frames ``(N, H, W, 3)`` uint8 and the fps they are sampled at.
+    ``process_length`` limits the sampled frames, ``target_fps`` takes
+    every ``round(src_fps / target_fps)``-th frame, ``max_res`` bounds the
+    longer side (even sizes)."""
+    if os.environ.get("VDA_NATIVE_DECODE", "1") != "0":
+        from video_depth_anything_torch.io.native_video import read_video_frames_native
+
+        out = read_video_frames_native(video_path, process_length, target_fps, max_res)
+        if out is not None:
+            _last["decode"] = "native"
+            return out
+    _last["decode"] = "cv2"
     cap = cv2.VideoCapture(video_path)
     if not cap.isOpened():
         raise FileNotFoundError(f"cannot open video: {video_path}")
@@ -107,6 +130,7 @@ def read_video_frame_range(video_path: str, start: int, stop: int, target_fps: f
     else skips from the head with ``grab()`` (no colour conversion of the
     skipped frames); ``VDA_SEEK_MODE=grab`` forces the frame-exact skip for
     containers whose seeks are only keyframe-approximate."""
+    _last["decode"] = "cv2"
     cap, _, stride = _open_sampling(video_path, target_fps)
     height = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
     width = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))

@@ -167,11 +167,6 @@ class VDAModel:
         self.cfg = cfg or get_model_config(encoder)
         self.device = resolve_device(device)
         parse_attn_impl(attn_impl, self.device.type)
-        if self.device.type == "cuda" and self.cfg.encoder == "vitg":
-            # no released video checkpoint and no slice of its own; the CPU
-            # runs it plain.
-            raise NotImplementedError(
-                "encoder 'vitg' on the card is not ported (vits, vitb and vitl are)")
         self.dtype = dtype
         self.attn_impl = attn_impl
         self.module = VideoDepthAnything(self.cfg, attn_impl).to(self.device).eval()

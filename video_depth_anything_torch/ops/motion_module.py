@@ -423,7 +423,7 @@ def _launch_args(x, gna, gnb, w, cfg, heads):
         raise NotImplementedError(
             f"motion_module kernel has no instantiation at C = {c} (it takes C in "
             f"{_SUPPORTED_C}); VDA_FUSED_MOTION=1 sends vitb m1 (768) and vitl m0/m1 (1024) "
-            f"here: their widths are queued in ROADMAP Queue 2 B")
+            f"here: their widths are queued in ROADMAP Queue 2 B5")
     if heads != 8 or not 8 <= t <= 32 or t > w["pe"].shape[0]:
         raise NotImplementedError(
             f"motion_module kernel takes 8 heads, C in {_SUPPORTED_C}, 8 <= T <= 32 within "

@@ -8,7 +8,8 @@ has resolved the keyframe splice, so the windows split over the grid's
 (``decode_range``) and preprocesses only the frames its windows read, pads
 the global tail as the single process does, runs its windows through the
 base pipeline's window loop (producer-thread preprocessing, lagged copies,
-``host_upsample`` and the transfer dtype kept), and the groups exchange
+``host_upsample`` and the transfer dtype kept; each batch gathered by the
+native library's threaded copy, as in JAX), and the groups exchange
 their depths (``exchange_windows``).  Every rank then stitches and returns
 the whole result, which is the single-process one: each window's forward
 is the single process's.  With ``model_parallel > 1`` the encoder of each
@@ -29,9 +30,11 @@ from video_depth_anything_torch.inference.pipeline import (
     stitch_windows,
     window_frame_indices,
 )
+from video_depth_anything_torch.io.native_preproc import gather_windows_native
 from video_depth_anything_torch.parallel import comm
 from video_depth_anything_torch.parallel.mesh import Grid, create_grid, shard_module
 from video_depth_anything_torch.parallel.multihost import HostWindowSpan, host_window_spans
+from video_depth_anything_torch.utils.transform import native_preproc_enabled
 
 
 def exchange_windows(local: List[np.ndarray], spans: Sequence[HostWindowSpan], shape: tuple,
@@ -67,6 +70,20 @@ class DataParallelVideoDepthPipeline(VideoDepthPipeline):
                          host_upsample=host_upsample, transfer_dtype=transfer_dtype)
         self.grid = grid if grid is not None else create_grid(model=model_parallel)
         self.decoded = None
+        self.gather_path = None
+
+    def _gather(self, pre: np.ndarray, chunk: np.ndarray) -> np.ndarray:
+        """``pre[chunk]`` through the native library's threaded copy unless
+        ``VDA_NATIVE_PREPROC=0`` or it is unavailable (JAX
+        ``parallel/data_parallel.py:110-128``); ``gather_path`` says which
+        ran."""
+        if native_preproc_enabled() and pre.dtype == np.float32:
+            xs = gather_windows_native(pre, chunk)
+            if xs is not None:
+                self.gather_path = "native"
+                return xs
+        self.gather_path = "numpy"
+        return pre[chunk]
 
     def _prepare_model(self) -> None:
         """Split the encoder over the model group (once)."""

@@ -165,6 +165,19 @@ def kernel_launches() -> dict:
     return counts
 
 
+def host_paths(pipe=None) -> dict:
+    """Which host path ran last: the decoder (``native`` or ``cv2``), the
+    preprocessing (``native`` or ``cv2``) and, in the data-parallel window
+    pipeline, the window gather (``native`` or ``numpy``)."""
+    from video_depth_anything_torch.io.video import last_decoder
+    from video_depth_anything_torch.utils.transform import last_preprocessor
+
+    paths = {"decode": last_decoder(), "preprocess": last_preprocessor()}
+    if getattr(pipe, "gather_path", None) is not None:
+        paths["gather"] = pipe.gather_path
+    return paths
+
+
 def normalize_args(args):
     """``--original`` runs the plain sliding-window mode of the reference,
     without ``--skip_tmp_block`` (JAX ``run.py:149-163``)."""
@@ -290,6 +303,7 @@ def main(argv=None) -> int:
         wall = time.time() - t0
     after = kernel_launches()
     launches = json.dumps({k: after[k] - before[k] for k in after})
+    print("host paths: " + json.dumps(host_paths(pipe)))
     if world.rank == 0:  # every rank holds the whole result; rank 0 writes
         if frames is None:  # decoded by span: only --save_orig decodes the whole clip here
             frames = read_video_frame_range(args.input_video, 0, n_frames, args.target_fps,

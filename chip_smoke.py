@@ -14,7 +14,8 @@ Phases (each failure ends the run with a non-zero exit):
    ragged at N = 2443) and at 3 heads on synthetic shapes; Kernel B at
    every head width of its domain, d = 8 to 128, and at T = 17 on a
    ragged S; Kernels A, B and C also at phase eval's native sizes,
-   EVAL_ATTN, EVAL_TEMPORAL and EVAL_MOTION), on inputs whose attention is
+   EVAL_ATTN, EVAL_TEMPORAL and EVAL_MOTION; Kernel C's wide chain at
+   C = 768 and 1024, WIDE_MOTION_ROWS), on inputs whose attention is
    peaked, and
    Kernel A also on flat ones (q scaled by FLAT_Q); Kernel A's probe
    kernels (every spatial
@@ -59,6 +60,13 @@ Phases (each failure ends the run with a non-zero exit):
    under ``--attn_impl pallas`` (Kernel B also at d = 48, and at d = 32
    and 128 on vitl, with exact launch counts by width), timed beside
    ``auto``.
+   Under ``VDA_FUSED_MOTION=1`` (phase ``fused_switch``, run after it):
+   vitb and vitl windows at 518x518 and 518x924 against the plain path
+   with the exact launch plans of SWITCH_PLANS (Kernel C's wide chain at C
+   = 768 once a vitb window, at 1024 twice a vitl window), each timed with
+   and without the switch; a vitl --fp32 518x518 window; and
+   ``python -m video_depth_anything_torch.run --encoder vitl`` as a
+   subprocess.
 4. cli: ``python -m video_depth_anything_torch.run --random_init`` (called
    in-process through ``run.main``) on synthetic 480x480 and 854x480 mp4s
    of 76 frames with vits, and on the 480x480 one with vitl and vitb, and
@@ -114,7 +122,7 @@ Phases (each failure ends the run with a non-zero exit):
 10. fp32 (``--fp32``, TF32 off in matrix products and convolutions): each
    fp32 kernel (Kernel A at vits 32x1370 and 32x2443, exact and fast, and
    D = 192; Kernel B at every shape of ``bench_temporal``; Kernel C at
-   phase kernels' nine shapes; each also at phase eval's --fp32 KITTI
+   phase kernels' nine shapes and the wide chain's six; each also at phase eval's --fp32 KITTI
    shapes, 280x924) against its plain fp32 version within
    F32_TOL, the mutants of phase kernels at fp32 and the plain version in
    one TF32 pass missing by more, with ms, bound, plain and library ms and
@@ -170,7 +178,7 @@ Phases (each failure ends the run with a non-zero exit):
 The card's line (``nvidia-smi``'s name and power limit) comes first and
 stands beside every time.  The last two lines are the kernels JSON object
 (launches summed over the main-path runs of phases cli, stream, train-cli,
-eval, the ranks of phase parallel, phase vitg's pipeline runs and the demo
+eval, fused_switch, the ranks of phase parallel, phase vitg's pipeline runs and the demo
 server's requests, for the probe kernels and the resize -> conv those of phase
 probes, for the fp32 kernels those of phase fp32's ``--fp32`` runs and
 phases eval's and vitg's; Kernel
@@ -328,6 +336,13 @@ EVAL_TEMPORAL = tuple((f"vits {m} {size}", 1, 32, s, c)
                       for m, c in (("m0", 192), ("m2", 64)))
 EVAL_MOTION = (("m3 280x924", 64, 5280, 32), ("m3 392x924", 64, 7392, 32),
                ("vitl m3 280x924", 256, 5280, 32))
+# Kernel C at the widths VDA_FUSED_MOTION=1 sends to the wide chain
+# (csrc/motion_module_wide.cu): vitb m1 (C = 768) and vitl m0 and m1 (1024)
+# of one 32-frame window at 518x518 (19x19 and 37x37 locations) and 518x924
+# (19x33, 37x66).  Phase kernels holds them in bf16, phase fp32 in fp32.
+WIDE_MOTION_ROWS = (("vitb m1 518x518", 768, 361, 32), ("vitb m1 518x924", 768, 627, 32),
+                    ("vitl m0 518x518", 1024, 1369, 32), ("vitl m0 518x924", 1024, 2442, 32),
+                    ("vitl m1 518x518", 1024, 361, 32), ("vitl m1 518x924", 1024, 627, 32))
 MOTION_TOL = 5e-2  # Kernel C, relative to max|plain - x| (the module's own
 # contribution): the plain version rounds each GEMM output and each bias add
 # to bf16 separately, the kernel once per fused epilogue, through ~10
@@ -757,7 +772,8 @@ def motion_row(label: str, c: int, s: int, t: int, g, dev, split: bool = False) 
     flops = tokens * (44.0 * c * c + 2 * 4.0 * t * c)
     nbytes = 2 * tokens * c * 2 + (22 * c * c) * 2 + 2 * b * t * c * 4
     b_ms, b_by = bound(flops, nbytes)
-    return dict(kernel="motion_module", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
+    name = "motion_module_wide" if c in mm.WIDE_C else "motion_module"
+    return dict(kernel=name, shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
                 max_abs_err=err, rel_err=rel, tol=MOTION_TOL, mutants=mutants, ms=ms,
                 gn_fold_ms=fold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, extra=extra)
@@ -879,11 +895,12 @@ def phase_kernels(dev):
     # --inference_length; T = 12, 20, 24 padded to 16, 32, 32 rows a
     # location, with the unmasked-padded-keys mutant).
     split_done = set()
-    for label, c, s, t in MOTION_ROWS + EVAL_MOTION:
+    for label, c, s, t in MOTION_ROWS + EVAL_MOTION + WIDE_MOTION_ROWS:
         row = motion_row(label, c, s, t, g, dev, split=c in mm.SPLIT_C and c not in split_done)
         split_done.add(c)
         # the earlier kernel was timed at T = 32, and not at phase eval's shapes
-        if t == 32 and (label, c, s, t) not in EVAL_MOTION:
+        # (nor at the wide chain's widths, which it could not hold)
+        if t == 32 and (label, c, s, t) in MOTION_ROWS:
             row["parent_ms"] = PARENT_MS[("motion_module", label)]
         rows.append(row)
 
@@ -1093,6 +1110,7 @@ def main() -> int:
 
     rows = timed("kernels", phase_kernels, dev)
     timed("window", phase_window, dev, smi)
+    switch_launches = timed("fused_switch", phase_fused_switch, dev, smi)
     launches = timed("cli", phase_cli, smi)
     stream_launches = timed("stream", phase_stream, dev, smi)
     timed("train", phase_train_check, dev, smi)
@@ -1137,6 +1155,11 @@ def main() -> int:
                                    "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
         "motion_module_f32": ("fused_motion_module_f32", "csrc/motion_module_f32.cu",
                               "video_depth_anything_tpu/ops/pallas_motion.py:107"),
+        # Kernel C at C = 768 and 1024 (VDA_FUSED_MOTION=1): phase fused_switch
+        "motion_module_wide": ("fused_motion_module_wide", "csrc/motion_module_wide.cu",
+                               "video_depth_anything_tpu/ops/pallas_motion.py:107"),
+        "motion_module_wide_f32": ("fused_motion_module_wide_f32", "csrc/motion_module_wide.cu",
+                                   "video_depth_anything_tpu/ops/pallas_motion.py:107"),
     }
     kernels = []
     for name, (wrapper, src, replaces) in info.items():
@@ -1147,9 +1170,10 @@ def main() -> int:
         elif wrapper in f32_launches:
             count = f32_launches[wrapper] + eval_launches[wrapper] + vitg_launches[wrapper]
         else:
-            count = (launches[wrapper] + stream_launches[wrapper] + train_launches[wrapper]
-                     + eval_launches[wrapper] + par_launches.get(wrapper, 0)
-                     + vitg_launches[wrapper] + demo_launches[wrapper])
+            count = sum(d.get(wrapper, 0) for d in (
+                launches, stream_launches, train_launches, eval_launches, par_launches,
+                vitg_launches, demo_launches))
+        count += switch_launches.get(wrapper, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
             "replaces": replaces, "launches": count,
@@ -1208,6 +1232,7 @@ def zero_counts() -> None:
     flash_attention.fast_launches = 0
     for f in (flash_attention, temporal_attention, fused_motion_module):
         f.f32_launches = 0
+    fused_motion_module.wide_launches = fused_motion_module.wide_f32_launches = 0
     temporal_attention.width_launches = {}
     temporal_attention.f32_width_launches = {}
 
@@ -1488,6 +1513,130 @@ def phase_window(dev, smi: str):
             del xb
         del model
         torch.cuda.empty_cache()
+
+
+# VDA_FUSED_MOTION=1 (JAX models/temporal.py:400-422): every motion module
+# that the gate's other terms admit takes Kernel C, so one window of vitb
+# runs it at C = 384 (m0), 128 (m2, m3) and, on the wide chain, 768 (m1);
+# one of vitl at 256 (m2, m3) and, wide, 1024 (m0, m1).  Kernel B never
+# runs (every module is fused).  Exact launches of one window; every other
+# count 0.
+SWITCH_PLANS = {
+    ("vitb", 518, 518): dict(flash_attention=12, fused_motion_module=3, fused_motion_module_wide=1),
+    ("vitb", 518, 924): dict(flash_attention=12, fused_motion_module=3, fused_motion_module_wide=1),
+    ("vitl", 518, 518): dict(flash_attention=24, fused_motion_module=2, fused_motion_module_wide=2,
+                             output_tail=1),
+    ("vitl", 518, 924): dict(flash_attention=24, fused_motion_module=2, fused_motion_module_wide=2),
+}
+SWITCH_F32_PLAN = dict(flash_attention_f32=24, fused_motion_module_f32=2,
+                       fused_motion_module_wide_f32=2)  # vitl --fp32 518x518
+
+
+@contextlib.contextmanager
+def fused_switch(mode: str = "1"):
+    """``VDA_FUSED_MOTION=mode`` in this process and the processes it starts."""
+    prev = os.environ.get("VDA_FUSED_MOTION")
+    os.environ["VDA_FUSED_MOTION"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["VDA_FUSED_MOTION"]
+        else:
+            os.environ["VDA_FUSED_MOTION"] = prev
+
+
+def phase_fused_switch(dev, smi: str) -> dict:
+    """Under ``VDA_FUSED_MOTION=1``: vitb and vitl windows (noised seeded
+    weights) at 518x518 and 518x924, kernel path against plain path within
+    WINDOW_TOL (``rounding_tol``), with the exact launch plans of
+    SWITCH_PLANS (Kernel C's wide chain once a vitb window at C = 768, twice
+    a vitl window at 1024); ms of a window at the pipeline's window batch
+    with the switch and without it, in turns (on, off, off, on); a vitl
+    --fp32 518x518 window within F32_WINDOW_TOL (TF32 off; SWITCH_F32_PLAN);
+    ``python -m video_depth_anything_torch.run --encoder vitl`` on a
+    76-frame 480x480 clip (a subprocess, its printed launches: both wide
+    widths run).  Returns the launches of the main-path runs (the windows
+    and the CLI run; counts zeroed before each, read after)."""
+    import numpy as np
+    import torch
+
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+
+    totals = dict.fromkeys(launch_counts(), 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for encoder in ("vitb", "vitl"):
+        model = VDAModel(encoder, device=dev)
+        model.init_params(seed=0)
+        noise_weights(model.module, seed=1)
+        for (enc, h, w), plan in SWITCH_PLANS.items():
+            if enc != encoder:
+                continue
+            x = torch.randn(1, 32, h, w, 3, device=dev, generator=g)
+            absent = tuple(k for k in totals if k not in plan)
+            with fused_switch():
+                check_window(model, x, f"{encoder} 1x32x{h}x{w} VDA_FUSED_MOTION=1", plan, absent)
+            counts = launch_counts()
+            totals = {k: totals[k] + counts[k] for k in totals}
+            xb = torch.randn(WINDOW_BATCH[encoder], 32, h, w, 3, device=dev, generator=g)
+            for mode in ("1", "auto", "auto", "1"):
+                with fused_switch(mode):
+                    time_window(model, xb, f"{encoder} {h}x{w} VDA_FUSED_MOTION={mode}", smi)
+            del x, xb
+        if encoder == "vitl":
+            prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            try:
+                m32 = VDAModel(encoder, device=dev, dtype=torch.float32)
+                m32.module.load_state_dict(model.module.state_dict())
+                del model
+                torch.cuda.empty_cache()
+                x = torch.randn(1, 32, 518, 518, 3, device=dev, generator=g)
+                with fused_switch():
+                    zero_counts()
+                    got = m32.infer_window(x)
+                    torch.cuda.synchronize()
+                    counts = launch_counts()
+                    with plain_reference():
+                        want = m32.infer_window(x)
+                rel = float((got - want).abs().max() / want.abs().max())
+                finite = bool(torch.isfinite(got).all())
+                ok = (finite and rel <= F32_WINDOW_TOL
+                      and all(counts[k] == SWITCH_F32_PLAN.get(k, 0) for k in counts))
+                log(f"[fused_switch] window vitl 1x32x518x518 fp32 VDA_FUSED_MOTION=1: rel err "
+                    f"kernels vs plain {rel:.3e} (tol {F32_WINDOW_TOL}), finite={finite}, "
+                    f"launches {counts} ({smi}) {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("fp32 window of vitl under VDA_FUSED_MOTION=1 failed")
+                totals = {k: totals[k] + counts[k] for k in totals}
+                del m32, x, got, want
+            finally:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        else:
+            del model
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp, fused_switch():
+        clip = os.path.join(tmp, "square.mp4")
+        write_clip(clip, 480, 480)
+        out = launch([[sys.executable, "-m", "video_depth_anything_torch.run", "--input_video",
+                       clip, "--output_dir", tmp, "--encoder", "vitl", "--random_init",
+                       "--save_npz"]], "run --encoder vitl VDA_FUSED_MOTION=1", timeout=300.0,
+                     tag="fused_switch")[0]
+        line = next((ln for ln in out.splitlines() if ln.startswith("kernel launches: ")), None)
+        counts = json.loads(line[len("kernel launches: "):]) if line else {}
+        depth = np.load(os.path.join(tmp, "square_depth.npz"))["depth"]
+        finite = bool(np.isfinite(depth).all())
+        ok = (depth.shape == (76, 480, 480) and finite and counts.get("fused_motion_module_wide", 0) > 0
+              and counts.get("fused_motion_module", 0) > 0 and counts.get("temporal_attention", 1) == 0)
+        log(f"[fused_switch] cli vitl 480x480 VDA_FUSED_MOTION=1: depth {depth.shape} "
+            f"finite={finite} launches {counts} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("run --encoder vitl under VDA_FUSED_MOTION=1 failed")
+        totals = {k: totals[k] + counts.get(k, 0) for k in totals}
+    log(f"[fused_switch] launches over the main path: {totals} ({smi})")
+    return totals
 
 
 # vitg (24 heads of 64 in 40 blocks; features 384, out_channels 1536), a
@@ -3402,8 +3551,12 @@ def motion_f32_row(label: str, c: int, s: int, t: int, g, dev) -> dict:
     flops = b * t * s * (44.0 * c * c + 8.0 * t * c)
     ffma_ms, _ = bound_f32(flops, 2 * b * t * s * c * 4 + w["w"].numel() * 4)
     b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
-    l2_gb = b * -(-s // (mm.F32_ROWS // mm.padded_frames(t))) * w["w"].numel() * 4 / 1e9
-    return dict(kernel="motion_module_f32", shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
+    if c in mm.WIDE_C:  # each 128-row GEMM tile reads every product's weights once
+        l2_gb = -(-b * t * s // mm.WIDE_BM) * w["w"].numel() * 4 / 1e9
+    else:
+        l2_gb = b * -(-s // (mm.F32_ROWS // mm.padded_frames(t))) * w["w"].numel() * 4 / 1e9
+    name = "motion_module_wide_f32" if c in mm.WIDE_C else "motion_module_f32"
+    return dict(kernel=name, shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
                  max_abs_err=max_err(got, want), rel_err=max_err(got, want) / base,
                  tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by="operations", library_ms=None,
@@ -3466,7 +3619,7 @@ def fp32_kernel_rows(dev) -> list:
                          library_ms=lib_ms, extra=f" bf16_kernel_rel_err={bf16_err:.3e}"))
         del q, k, v, got, want, q5, k5, v5
 
-    for label, c, s, t in MOTION_ROWS + EVAL_MOTION[:1]:
+    for label, c, s, t in MOTION_ROWS + EVAL_MOTION[:1] + WIDE_MOTION_ROWS:
         rows.append(motion_f32_row(label, c, s, t, g, dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

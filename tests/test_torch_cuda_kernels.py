@@ -484,6 +484,30 @@ def test_motion_module_f32_kernel(dev, no_tf32, c, t, s):
         mm.motion_module_launch(x, gna, gnb, w, cfg, 8)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,t,s", [(768, 32, 9), (768, 8, 21), (768, 12, 13), (1024, 32, 5),
+                                   (1024, 16, 11), (1024, 20, 9), (1024, 32, 41)])
+def test_motion_module_wide_kernel(dev, no_tf32, dtype, c, t, s):
+    """Kernel C's wide chain (C = 768 and 1024, the widths VDA_FUSED_MOTION=1
+    reaches) in bf16 and fp32: B·T·S leaving a ragged last 128-row GEMM
+    tile, T padded up to 16 or 32 key frames, against the plain module
+    relative to max|plain - x| (MOTION_TOL in bf16, F32_TOL in fp32); one
+    launch on its own counter, none on the resident kernel's."""
+    p = chip_smoke.motion_params(c, seed=c, device=dev)
+    x = torch.randn(2, t, s, c, device=dev, generator=torch.Generator(device=dev).manual_seed(s))
+    x = x.to(dtype)
+    cfg = MotionModuleConfig()
+    f = mm.fused_motion_module
+    before = (f.launches, f.f32_launches, f.wide_launches, f.wide_f32_launches)
+    got = f(x, p, cfg, 8).float()
+    f32 = dtype == torch.float32
+    assert (f.launches, f.f32_launches, f.wide_launches, f.wide_f32_launches) == \
+        (before[0], before[1], before[2] + (not f32), before[3] + f32)
+    want = mm.motion_module_plain(x, p, cfg, 8).float()
+    tol = chip_smoke.F32_TOL if f32 else chip_smoke.MOTION_TOL
+    assert float((got - want).abs().max()) <= tol * float((want - x.float()).abs().max())
+
+
 def test_fp32_window_through_the_fp32_kernels(dev, no_tf32):
     """A small fp32 window on the card (vits, 4 encoder blocks, 322x322, T =
     8: Kernel A at 529 tokens, Kernel C at m3) against the plain path."""

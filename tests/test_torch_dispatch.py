@@ -240,13 +240,15 @@ def test_fused_motion_switch_matches_jax(encoder, h, w, impl, mode, monkeypatch)
             assert all(want.values())
 
 
-def test_forced_widths_kernel_c_lacks_raise_naming_the_queue(monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forced_widths_take_the_wide_kernel_c(dtype, monkeypatch):
     """``VDA_FUSED_MOTION=1`` reaches C = 768 (vitb m1) and 1024 (vitl m0,
-    m1), which Kernel C has no instantiation for: its launch raises, naming
-    ROADMAP Queue 2 B5, and never falls back (checked on CPU tensors with
-    the stream lookup stubbed: the checks run before any launch).  vitg's
-    m0 and m1 (C = 1536) are not reached: the gate refuses them, in JAX
-    too (``test_fused_motion_switch_matches_jax``)."""
+    m1): Kernel C takes both in bf16 and in fp32 (``_launch_args`` accepts
+    their ``kernel_weights``; checked on CPU tensors with the stream lookup
+    stubbed: the checks run before any launch), and still refuses a width
+    outside its domain (C = 512) without naming a queue.  vitg's m0 and m1
+    (C = 1536) are not reached: the gate refuses them, in JAX too
+    (``test_fused_motion_switch_matches_jax``)."""
     from video_depth_anything_torch.config import MotionModuleConfig
     from video_depth_anything_torch.ops import motion_module as mm
 
@@ -254,11 +256,24 @@ def test_forced_widths_kernel_c_lacks_raise_naming_the_queue(monkeypatch):
     monkeypatch.setenv("VDA_FUSED_MOTION", "1")
     reached = {c for e in ("vitb", "vitl", "vitg") for h, w in ((518, 518), (518, 924))
                for (name, _, _, c) in _module_shapes(e, h, w) if _forced_plan(e, h, w, "1")[name]}
-    lacking = sorted(reached - set(mm._SUPPORTED_C))
-    assert lacking == [768, 1024]
+    assert {768, 1024} <= reached <= set(mm._SUPPORTED_C)
     cfg = MotionModuleConfig()
-    for c in lacking:
-        x = torch.zeros(1, 32, 2, c, dtype=torch.bfloat16)
-        w = {"w": torch.zeros(8, dtype=torch.bfloat16), "pe": torch.zeros(32, c, dtype=torch.bfloat16)}
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 B5"):
-            mm._launch_args(x, None, None, w, cfg, 8)
+
+    def zeros(c):
+        shapes = dict(gn_scale=(c,), gn_bias=(c,), w_in=(c, c), b_in=(c,), ln_scale=(3, c),
+                      ln_bias=(3, c), wq=(2, c, c), wk=(2, c, c), wv=(2, c, c), wo=(2, c, c),
+                      bo=(2, c), w1=(c, 8 * c), b1=(8 * c,), w2=(4 * c, c), b2=(c,),
+                      w_out=(c, c), b_out=(c,))
+        return {k: torch.zeros(v) for k, v in shapes.items()}
+
+    for c in (768, 1024):
+        x = torch.zeros(1, 32, 2, c, dtype=dtype)
+        w = mm.kernel_weights(zeros(c), cfg, dtype)
+        gna = gnb = torch.zeros(1, 32, c)
+        out, _, args = mm._launch_args(x, gna, gnb, w, cfg, 8)
+        assert out.shape == x.shape and out.dtype == dtype and args[-5:-3] == (2, c)
+    x = torch.zeros(1, 32, 2, 512, dtype=dtype)
+    w = {"w": torch.zeros(8, dtype=dtype), "pe": torch.zeros(32, 512, dtype=dtype)}
+    with pytest.raises(NotImplementedError, match="C in") as err:
+        mm._launch_args(x, None, None, w, cfg, 8)
+    assert "Queue" not in str(err.value) and "B5" not in str(err.value)

@@ -31,6 +31,14 @@ GELU), its products in 3xTF32 on the tensor cores, on its own weight layout
 ``kernel_weights(p, cfg, torch.float32)``); ``fused_motion_module.launches``
 counts the bf16 kernel's launches, ``f32_launches`` the fp32 kernel's.
 
+At C = 768 and 1024 (``WIDE_C``: vitb m1, vitl m0/m1 under
+``VDA_FUSED_MOTION=1``) the module takes ``csrc/motion_module_wide.cu``
+instead, in either dtype: a chain of hand-written launches (row norms,
+``wgmma`` products with fused epilogues, the frame attention) with the
+activations in a scratch that the wrapper allocates, on its own weight
+layout (``weight_blocks_wide``, bf16 tiles or fp32 hi/lo tiles); it counts on
+``fused_motion_module.wide_launches`` and ``wide_f32_launches``.
+
 Bound on the H100: tensor-core FLOPs (~44·C² per token); the fp32
 kernel's, three times the FLOPs at the tensor cores' TF32 rate; see the
 sources.
@@ -338,28 +346,85 @@ def chunk_channels(c: int, heads: int = 8) -> int:
     return d * (64 // d)
 
 
+# The chain of csrc/motion_module_wide.cu (both dtypes): its widths, the
+# rows and the output columns of a GEMM tile.
+WIDE_C = (768, 1024)
+WIDE_BM, WIDE_BN = 128, 128
+
+
+def wide_products(p: Dict) -> list:
+    """The eight ``(K, N)`` JAX-layout weights of the wide chain's products,
+    in launch order: proj_in; per attention block ``[wq | wk | wv]`` (one
+    product of 3C columns) and wo; w1 with each 64 hidden units' h columns
+    followed by their 64 gate columns (so that a 128-column tile holds both
+    halves of 64 activations); w2; proj_out."""
+    c = p["w_in"].shape[0]
+    out = [p["w_in"]]
+    for i in range(p["wq"].shape[0]):
+        out += [torch.cat([p["wq"][i], p["wk"][i], p["wv"][i]], dim=1), p["wo"][i]]
+    w1 = p["w1"].reshape(c, 2, 4 * c // 64, 64).permute(0, 2, 1, 3).reshape(c, 8 * c)
+    return out + [w1, p["w2"], p["w_out"]]
+
+
+def wide_tiles(w_in_out: torch.Tensor) -> torch.Tensor:
+    """``(K, N)`` weight → bf16 ``(N/128, K/64, 128, 64)``: for each 128-wide
+    column block and 64-input panel, the K-major tile (output column n's
+    inputs in a 128-byte row, its 16-byte chunk j at chunk ``j ^ (n % 8)``)
+    that one bulk copy lands as a wgmma B operand."""
+    k, n = w_in_out.shape
+    t = sw128_tiles(w_in_out, rows=WIDE_BN).reshape(k // 64, n // WIDE_BN, WIDE_BN, 64)
+    return t.transpose(0, 1).contiguous()
+
+
+def wide_tiles_f32(w_in_out: torch.Tensor) -> torch.Tensor:
+    """``(K, N)`` weight → fp32 ``(N/128, K/32, 2, 128, 32)``: per column block
+    and 32-input panel the 3xTF32 split (hi = rna(w), lo = rna(w − hi)) as
+    two K-major tiles in natural input order, output column n's 16-byte
+    chunk j at chunk ``j ^ (n % 8)``."""
+    k, n = w_in_out.shape
+    t = w_in_out.to(torch.float32).t().reshape(n // WIDE_BN, WIDE_BN, k // 32, 32).permute(0, 2, 1, 3)
+    hi = tf32_rna(t.contiguous())
+    tiles = torch.stack([hi, tf32_rna(t - hi)], 2).reshape(n // WIDE_BN, k // 32, 2, WIDE_BN, 8, 4)
+    rows = torch.arange(WIDE_BN, device=t.device)
+    src = torch.arange(8, device=t.device)[None, :] ^ (rows % 8)[:, None]
+    return tiles[:, :, :, rows[:, None], src].reshape(n // WIDE_BN, k // 32, 2, WIDE_BN, 32).contiguous()
+
+
+def weight_blocks_wide(p: Dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The wide chain's weights: every product's ``wide_tiles`` (bf16) or
+    ``wide_tiles_f32`` (fp32), in launch order, one flat sequence (22 C²
+    bf16 values, or 44 C² floats: hi and lo)."""
+    tiles = wide_tiles if dtype == torch.bfloat16 else wide_tiles_f32
+    return torch.cat([tiles(w).reshape(-1) for w in wide_products(p)])
+
+
 _fns = {}
 
 
-def _kernel(name: str = "motion_module"):
-    """``vda_<name>`` of ``csrc/<name>.cu``: the launch (``motion_module``),
-    the split (``motion_module_split``) or the fp32 launch
-    (``motion_module_f32``)."""
-    if name not in _fns:
-        fn = getattr(cuda_build.library(name), f"vda_{name}")
+def _kernel(name: str = "motion_module", symbol: Optional[str] = None):
+    """``vda_<symbol>`` (``symbol`` = name unless given) of
+    ``csrc/<name>.cu``: the launch (``motion_module``), the split
+    (``motion_module_split``), the fp32 launch (``motion_module_f32``) or the
+    wide chain (``motion_module_wide``: ``motion_module_wide`` and
+    ``motion_module_wide_f32``)."""
+    symbol = symbol or name
+    if symbol not in _fns:
+        fn = getattr(cuda_build.library(name), f"vda_{symbol}")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [vp] * 13 + [i, i, i, i, f, f, vp]
         if name == "motion_module_split":
             fn.argtypes += [i, vp]
+        if name == "motion_module_wide":
+            fn.argtypes += [vp]
         fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+        _fns[symbol] = fn
+    return _fns[symbol]
 
 
-# The instantiations of csrc/motion_module.cu: the widths the gate sends
-# here on vits (m0 192, m1-m3 64), vitb (m2/m3 128, m0 on 16:9 frames 384)
-# and vitl (m2/m3 256).
-_SUPPORTED_C = (64, 128, 192, 256, 384)
+# The widths of Kernel C: csrc/motion_module.cu's instantiations (vits m0
+# 192, m1-m3 64; vitb m2/m3 128, m0 on 16:9 frames 384; vitl m2/m3 256) and
+# the wide chain's (vitb m1 768, vitl m0/m1 1024 under VDA_FUSED_MOTION=1).
+_SUPPORTED_C = (64, 128, 192, 256, 384) + WIDE_C
 # Kernel operands after x, gna and gnb, in the C entry point's order.
 _OPERANDS = ("pe", "w", "b_in", "ln_scale", "ln_bias", "bo", "b1", "b2", "b_out")
 
@@ -368,8 +433,9 @@ def kernel_weights(p: Dict, cfg: MotionModuleConfig,
                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """Kernel C's operands that depend only on the parameters, for inputs of
     ``dtype``: in bf16 the weight tiles in the order the kernel streams
-    them (``weight_blocks``) and the bf16 APE table, in fp32 the fp32
-    kernel's hi and lo blocks (``weight_blocks_f32``) and the fp32 table (both
+    them (``weight_blocks``; ``weight_blocks_wide`` at C in ``WIDE_C``) and
+    the bf16 APE table, in fp32 the fp32 kernel's hi and lo blocks
+    (``weight_blocks_f32``; ``weight_blocks_wide`` in fp32) and the fp32 table (both
     under ``"w"`` and ``"pe"``, ``temporal_max_len`` rows); fp32 biases and
     norm parameters; on the parameters' device.  A caller that runs the
     module more than once builds this once (``TemporalModule`` caches it
@@ -378,12 +444,12 @@ def kernel_weights(p: Dict, cfg: MotionModuleConfig,
     f32 = lambda v: v.to(torch.float32).contiguous()  # noqa: E731
     w = {k: f32(p[k]) for k in ("gn_scale", "gn_bias", "b_in", "ln_scale", "ln_bias", "bo",
                                 "b1", "b2", "b_out")}
-    if dtype == torch.float32:
-        w["w"] = weight_blocks_f32(p)
-    elif dtype == torch.bfloat16:
-        w["w"] = weight_blocks(p)
-    else:
+    if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"motion_module kernels take bf16 or fp32, got {dtype}")
+    if c in WIDE_C:
+        w["w"] = weight_blocks_wide(p, dtype)
+    else:
+        w["w"] = weight_blocks(p) if dtype == torch.bfloat16 else weight_blocks_f32(p)
     w["pe"] = torch.from_numpy(sinusoidal_position_table(cfg.temporal_max_len, c)).to(
         p["w_in"].device, dtype)
     return w
@@ -419,18 +485,17 @@ def _launch_args(x, gna, gnb, w, cfg, heads):
         raise TypeError(f"motion_module kernel takes bf16 or fp32, got {x.dtype}")
     if w["w"].dtype != x.dtype or w["pe"].dtype != x.dtype:
         raise ValueError(f"motion_module weights are not kernel_weights for {x.dtype}")
-    if c not in _SUPPORTED_C:
-        raise NotImplementedError(
-            f"motion_module kernel has no instantiation at C = {c} (it takes C in "
-            f"{_SUPPORTED_C}); VDA_FUSED_MOTION=1 sends vitb m1 (768) and vitl m0/m1 (1024) "
-            f"here: their widths are queued in ROADMAP Queue 2 B5")
-    if heads != 8 or not 8 <= t <= 32 or t > w["pe"].shape[0]:
+    if heads != 8 or c not in _SUPPORTED_C or not 8 <= t <= 32 or t > w["pe"].shape[0]:
         raise NotImplementedError(
             f"motion_module kernel takes 8 heads, C in {_SUPPORTED_C}, 8 <= T <= 32 within "
             f"the APE table; got heads={heads}, C={c}, T={t}")
     if cfg.num_attention_blocks != 2 or cfg.num_transformer_blocks != 1:
         raise NotImplementedError("motion_module kernel takes one block of two attentions")
-    if w["w"].numel() != (22 * c * c if x.dtype == torch.bfloat16 else 4096 * f32_weight_blocks(c)):
+    if x.dtype == torch.bfloat16 or c in WIDE_C:
+        n_w = 22 * c * c * (1 if x.dtype == torch.bfloat16 else 2)
+    else:
+        n_w = 4096 * f32_weight_blocks(c)
+    if w["w"].numel() != n_w:
         raise ValueError(f"motion_module weights are not kernel_weights of a C = {c} module")
     x = x.contiguous()
     if x.data_ptr() % 16:
@@ -448,8 +513,22 @@ def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
                          w: Dict[str, torch.Tensor], cfg: MotionModuleConfig, heads: int):
     """Kernel C's launch alone, given the folded GroupNorm (``gn_fold``) and
     ``kernel_weights`` for x's dtype; counts on
-    ``fused_motion_module.launches`` (bf16) or ``f32_launches`` (fp32)."""
+    ``fused_motion_module.launches`` (bf16) or ``f32_launches`` (fp32), at C
+    in ``WIDE_C`` on ``wide_launches`` or ``wide_f32_launches`` (the chain:
+    one count a module)."""
     out, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)  # _x: alive until enqueued
+    if x.shape[-1] in WIDE_C:
+        # y, h (M x C) and q|k|v / the FF activation (M x 4C) of the chain
+        scratch = torch.empty(6 * x.numel(), dtype=x.dtype, device=x.device)
+        f32 = x.dtype == torch.float32
+        symbol = "motion_module_wide_f32" if f32 else "motion_module_wide"
+        cuda_build.check(_kernel("motion_module_wide", symbol)(*args, cuda_build.ptr(scratch)),
+                         symbol)
+        if f32:
+            fused_motion_module.wide_f32_launches += 1
+        else:
+            fused_motion_module.wide_launches += 1
+        return out
     if x.dtype == torch.float32:
         cuda_build.check(_kernel("motion_module_f32")(*args), "motion_module (fp32)")
         fused_motion_module.f32_launches += 1
@@ -472,6 +551,8 @@ def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
     plus ``whole``.  C in ``SPLIT_C``, bf16; not counted as launches."""
     if x.dtype != torch.bfloat16:
         raise TypeError("the split instantiations are the bf16 kernel's")
+    if x.shape[-1] not in SPLIT_C:
+        raise NotImplementedError(f"the split instantiations take C in {SPLIT_C}")
     _, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)
     ms = (ctypes.c_float * 8)()
     cuda_build.check(_kernel("motion_module_split")(*args, iters, ms), "motion_module_split")
@@ -482,6 +563,8 @@ def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
 
 fused_motion_module.launches = 0
 fused_motion_module.f32_launches = 0
+fused_motion_module.wide_launches = 0
+fused_motion_module.wide_f32_launches = 0
 
 
 class FusedMotionModuleFn(torch.autograd.Function):

@@ -162,6 +162,8 @@ def kernel_launches() -> dict:
     counts["flash_attention_fast"] = flash_attention.fast_launches
     for f in (flash_attention, temporal_attention, fused_motion_module):
         counts[f"{f.__name__}_f32"] = f.f32_launches
+    counts["fused_motion_module_wide"] = fused_motion_module.wide_launches
+    counts["fused_motion_module_wide_f32"] = fused_motion_module.wide_f32_launches
     return counts
 
 

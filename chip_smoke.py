@@ -67,6 +67,24 @@ Phases (each failure ends the run with a non-zero exit):
    and without the switch; a vitl --fp32 518x518 window; and
    ``python -m video_depth_anything_torch.run --encoder vitl`` as a
    subprocess.
+   Phase ``domain`` (after ``fused_switch``) runs the configurations that
+   reach the rest of the JAX gates' domains: (a) vits and vitb 4x32x518x518
+   windows with ``packed_output_stack=False`` (the tail kernel at C = 32
+   and 64), timed against the shipped config in turns; (b) vits 518x518
+   windows with 4 heads and one attention block under ``auto`` (Kernel B
+   at d = 16, Kernel C's wide chain at 4 heads), ``pallas`` (Kernel B also
+   at d = 48 and, on the run-time-d kernel, 96), ``VDA_FUSED_MOTION=1``
+   (the wide chain on all four modules) and fp32 ``pallas``; each against
+   the plain path with the exact launches of DOMAIN_WINDOWS (Kernel B's by
+   head width, the tail's by C); then (c): Kernel B at every width the
+   gate admits at 4, 8 and 16 heads, Kernel C at every width it admits at
+   8 heads, two blocks and ff_mult 4 (forced) and at 4 and 16 heads, 1
+   and 3 blocks and ff_mult 2 at C = 64, 96, 320 and 512, each in bf16
+   and fp32 against its plain version with its mutants (Kernel B: d
+   rounded up to the next instantiated width; Kernel C: 8 heads whatever
+   the config says, the last attention block dropped; the tail: the map
+   read at half its channels), and the kernels whose domains did not change
+   re-timed beside PERF.md's times (PERF_MS).
 4. cli: ``python -m video_depth_anything_torch.run --random_init`` (called
    in-process through ``run.main``) on synthetic 480x480 and 854x480 mp4s
    of 76 frames with vits, and on the 480x480 one with vitl and vitb, and
@@ -178,11 +196,12 @@ Phases (each failure ends the run with a non-zero exit):
 The card's line (``nvidia-smi``'s name and power limit) comes first and
 stands beside every time.  The last two lines are the kernels JSON object
 (launches summed over the main-path runs of phases cli, stream, train-cli,
-eval, fused_switch, the ranks of phase parallel, phase vitg's pipeline runs and the demo
-server's requests, for the probe kernels and the resize -> conv those of phase
+eval, fused_switch, domain, the ranks of phase parallel, phase vitg's pipeline runs and the
+demo server's requests, for the probe kernels and the resize -> conv those of phase
 probes, for the fp32 kernels those of phase fp32's ``--fp32`` runs and
 phases eval's and vitg's; Kernel
-A's fast variant and each fp32 kernel are entries of their own) and the
+A's fast variant, each fp32 kernel and Kernel B's run-time-d kernel, whose
+launches come from phase domain, are entries of their own) and the
 contract line
 ``{"ok": true, "device": {...}}``.
 """
@@ -444,6 +463,27 @@ def temporal_mutant_errors(plain, q, k, v, scale, locs: int) -> dict:
     return out
 
 
+def rounded_width_plain(q, k, v, heads: int, scale: float):
+    """Kernel B built for the next instantiated head width above d (8, 16,
+    24, 32, 48 or 128): each head's scores over that many columns from its
+    own first one (the next heads' columns, zeros past C), its out from its
+    own d columns of v; plain PyTorch on ``(B, T, S, C)``."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops import temporal_attention as ta
+
+    b, t, s, c = q.shape
+    d = c // heads
+    dr = next((w for w in ta._SUPPORTED_D if w >= d), d)
+    cols = (torch.arange(heads)[:, None] * d + torch.arange(dr)[None]).to(q.device)
+    qh, kh = (F.pad(x.float(), (0, dr))[..., cols] for x in (q, k))
+    probs = torch.softmax(torch.einsum("bqshd,bkshd->bshqk", qh, kh) * scale, dim=-1)
+    v5 = v.reshape(b, t, s, heads, d).float()
+    out = torch.einsum("bshqk,bkshd->bqshd", probs.to(q.dtype).float(), v5)
+    return out.to(q.dtype).reshape(b, t, s, c)
+
+
 def motion_mutant_errors(x, p: dict, cfg, heads: int) -> dict:
     """How far four wrong motion modules miss the plain version on the same
     inputs, relative to max|plain - x| (Kernel C's tolerance base): one
@@ -543,11 +583,12 @@ def tail_inputs(n: int, h: int, w: int, gen, device):
 
 
 def tail_mutant_errors(x, w1, b1, w2, b2, out_h: int, out_w: int) -> dict:
-    """How far three wrong tails miss the plain version on the same inputs,
+    """How far four wrong tails miss the plain version on the same inputs,
     relative to max|plain|: align_corners=False taps, a conv3x3 that keeps
-    only its centre tap, and one whose every tap reads one pixel further
-    right (a tap's dx off by one: the conv's output shifted left by a
-    column, zeros past the right edge)."""
+    only its centre tap, one whose every tap reads one pixel further right
+    (a tap's dx off by one: the conv's output shifted left by a column,
+    zeros past the right edge), and one that reads only the first C / 2
+    channels of the map (a kernel built for half the width)."""
     import torch
     import torch.nn.functional as F
 
@@ -566,9 +607,12 @@ def tail_mutant_errors(x, w1, b1, w2, b2, out_h: int, out_w: int) -> dict:
     y = F.pad(bilinear_resize(x, out_h, out_w).permute(0, 3, 1, 2), (0, 1))
     y = torch.relu(F.conv2d(y, w1.to(dt), b1.to(dt), padding=1)[..., 1:])
     dx_shifted = torch.relu(F.conv2d(y, w2.to(dt), b2.to(dt))).permute(0, 2, 3, 1)
+    half = x.clone()
+    half[..., x.shape[-1] // 2:] = 0
     return {"align_corners_false": rel_err(shifted, want),
             "centre_tap_only": rel_err(centre_only, want),
-            "tap_dx_shifted": rel_err(dx_shifted, want)}
+            "tap_dx_shifted": rel_err(dx_shifted, want),
+            "half_channels": rel_err(output_tail_plain(half, w1, b1, w2, b2, out_h, out_w), want)}
 
 
 def probe_inputs(b: int, n: int, h: int, gen, device):
@@ -772,7 +816,7 @@ def motion_row(label: str, c: int, s: int, t: int, g, dev, split: bool = False) 
     flops = tokens * (44.0 * c * c + 2 * 4.0 * t * c)
     nbytes = 2 * tokens * c * 2 + (22 * c * c) * 2 + 2 * b * t * c * 4
     b_ms, b_by = bound(flops, nbytes)
-    name = "motion_module_wide" if c in mm.WIDE_C else "motion_module"
+    name = "motion_module" if mm.resident(c, 8, cfg) else "motion_module_wide"
     return dict(kernel=name, shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
                 max_abs_err=err, rel_err=rel, tol=MOTION_TOL, mutants=mutants, ms=ms,
                 gn_fold_ms=fold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1111,6 +1155,7 @@ def main() -> int:
     rows = timed("kernels", phase_kernels, dev)
     timed("window", phase_window, dev, smi)
     switch_launches = timed("fused_switch", phase_fused_switch, dev, smi)
+    domain_launches, domain = timed("domain", phase_domain, dev, smi)
     launches = timed("cli", phase_cli, smi)
     stream_launches = timed("stream", phase_stream, dev, smi)
     timed("train", phase_train_check, dev, smi)
@@ -1122,7 +1167,7 @@ def main() -> int:
     par_launches = timed("parallel", phase_parallel, smi)
     vitg_launches = timed("vitg", phase_vitg, dev, smi)
     demo_launches = timed("tooling", phase_tooling, dev, smi)
-    rows = rows + f32_rows
+    rows = rows + f32_rows + domain
 
     info = {
         "flash_attention": ("flash_attention", "csrc/flash_attention.cu",
@@ -1160,6 +1205,12 @@ def main() -> int:
                                "video_depth_anything_tpu/ops/pallas_motion.py:107"),
         "motion_module_wide_f32": ("fused_motion_module_wide_f32", "csrc/motion_module_wide.cu",
                                    "video_depth_anything_tpu/ops/pallas_motion.py:107"),
+        # Kernel B off its six instantiated widths: phase domain
+        "temporal_attention_any": ("temporal_attention_any", "csrc/temporal_attention_any.cu",
+                                   "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
+        "temporal_attention_any_f32": ("temporal_attention_any_f32",
+                                       "csrc/temporal_attention_any.cu",
+                                       "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
     }
     kernels = []
     for name, (wrapper, src, replaces) in info.items():
@@ -1173,7 +1224,7 @@ def main() -> int:
             count = sum(d.get(wrapper, 0) for d in (
                 launches, stream_launches, train_launches, eval_launches, par_launches,
                 vitg_launches, demo_launches))
-        count += switch_launches.get(wrapper, 0)
+        count += switch_launches.get(wrapper, 0) + domain_launches.get(wrapper, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
             "replaces": replaces, "launches": count,
@@ -1233,8 +1284,10 @@ def zero_counts() -> None:
     for f in (flash_attention, temporal_attention, fused_motion_module):
         f.f32_launches = 0
     fused_motion_module.wide_launches = fused_motion_module.wide_f32_launches = 0
+    temporal_attention.any_launches = temporal_attention.any_f32_launches = 0
     temporal_attention.width_launches = {}
     temporal_attention.f32_width_launches = {}
+    output_tail.width_launches = {}
 
 
 def phase_probes(dev, smi: str) -> dict:
@@ -1637,6 +1690,366 @@ def phase_fused_switch(dev, smi: str) -> dict:
         totals = {k: totals[k] + counts.get(k, 0) for k in totals}
     log(f"[fused_switch] launches over the main path: {totals} ({smi})")
     return totals
+
+
+# -- phase domain: every shape the JAX gates admit -----------------------------
+
+# (c)'s op-level sweeps: one 32-frame window (B = 1) at 74² locations, 19²
+# at C >= 640 (vitl m1's count: a 74² module that wide would hold 1.4 GB a
+# tensor in fp32 for nothing the kernels' plans can see).
+DOMAIN_S, DOMAIN_S_WIDE = 74 * 74, 19 * 19
+DOMAIN_B_HEADS = (4, 8, 16)  # Kernel B: every width the gate admits at these heads
+# Kernel C off the shipped config: (heads, attention blocks, ff_mult) at
+# DOMAIN_C_WIDTHS where the gate admits them; at 8 heads, 2 blocks and
+# ff_mult 4 every width it admits, forced
+DOMAIN_C_CFGS = ((4, 2, 4), (16, 2, 4), (8, 1, 4), (8, 3, 4), (8, 2, 2))
+DOMAIN_C_WIDTHS = (64, 96, 320, 512)
+# PERF.md section 6's times of the kernels whose domains did not change (ms,
+# NVIDIA H100 80GB HBM3, 700 W: rows 6-8, from chip_smoke.py and
+# bench_temporal), re-timed by phase domain beside them
+PERF_MS = {
+    ("temporal_attention", "vits m0 518x518"): 0.0340,
+    ("temporal_attention", "vits m2 518x518"): 0.0180,
+    ("temporal_attention", "vitb m2 518x518"): 0.0242,
+    ("temporal_attention", "vits m1 518x518"): 0.0184,
+    ("temporal_attention", "vitb m0 518x518"): 0.0571,
+    ("temporal_attention", "vitl m2 518x518"): 0.0385,
+    ("temporal_attention", "vitl m0 518x518"): 0.1302,
+    ("temporal_attention", "vitl m0 518x924"): 0.2291,
+    ("motion_module", "m3 518x518"): 0.3154, ("motion_module", "m0 518x924"): 0.6453,
+    ("motion_module", "m2 518x924"): 0.1484, ("motion_module", "m3 518x924"): 0.5386,
+    ("motion_module", "vitl m3 518x518"): 2.4085,
+    ("motion_module", "vitl m2 518x924"): 1.1495,
+    ("motion_module", "vitl m3 518x924"): 4.1916,
+    ("motion_module", "vitb m3 518x518"): 0.8214,
+    ("motion_module", "vitb m0 518x924"): 3.2675,
+    ("motion_module_wide", "vitb m1 518x518"): 1.5851,
+    ("motion_module_wide", "vitb m1 518x924"): 2.7277,
+    ("motion_module_wide", "vitl m0 518x518"): 7.8108,
+    ("motion_module_wide", "vitl m0 518x924"): 13.6975,
+    ("motion_module_wide", "vitl m1 518x518"): 2.2652,
+    ("motion_module_wide", "vitl m1 518x924"): 3.9312,
+    ("output_tail", "vitl 518x518"): 2.7828,
+}
+# (a) and (b): the windows of phase domain, vits (and vitb) 518x518 at the
+# pipeline's window batch of 4 with noised weights, and their exact launches
+# a call (tests/test_torch_dispatch.py holds these plans to the JAX gates);
+# every other count 0.  Kernel B's launches by head width, the tail's by C.
+DOMAIN_WINDOWS = (
+    # (a) packed_output_stack=False: the tail kernel at vits' C = 32, vitb's 64
+    ("unpacked", "vits", "auto", "auto",
+     dict(flash_attention=12, temporal_attention=4, fused_motion_module=1, output_tail=1),
+     {24: 2, 8: 2}, {32: 1}),
+    ("unpacked", "vitb", "auto", "auto",
+     dict(flash_attention=12, temporal_attention=2, fused_motion_module=1, output_tail=1),
+     {16: 2}, {64: 1}),
+    # (b) 4 heads, one attention block: Kernel B at d = 16 (m2), the wide
+    # chain at 4 heads (m3); under pallas Kernel B also at d = 48 (m0) and,
+    # the run-time-d kernel, 96 (m1); under the switch Kernel C everywhere
+    ("kv_motion", "vits", "auto", "auto",
+     dict(flash_attention=12, temporal_attention=1, fused_motion_module_wide=1), {16: 1}, {}),
+    ("kv_motion", "vits", "pallas", "auto",
+     dict(flash_attention=12, temporal_attention=2, temporal_attention_any=1,
+          fused_motion_module_wide=1), {48: 1, 96: 1, 16: 1}, {}),
+    ("kv_motion", "vits", "auto", "1", dict(flash_attention=12, fused_motion_module_wide=4),
+     {}, {}),
+)
+# (b) in fp32 under pallas, B = 1 (the fp32 kernels' main path here)
+DOMAIN_F32_PLAN = dict(flash_attention_f32=12, temporal_attention_f32=2,
+                       temporal_attention_any_f32=1, fused_motion_module_wide_f32=1)
+
+
+def domain_model_config(name: str, encoder: str):
+    """The port's config of (a) ``"unpacked"`` or (b) ``"kv_motion"``."""
+    import dataclasses
+
+    from video_depth_anything_torch.config import MotionModuleConfig, get_model_config
+
+    cfg = get_model_config(encoder)
+    if name == "unpacked":
+        return dataclasses.replace(cfg, packed_output_stack=False)
+    return dataclasses.replace(cfg, motion=MotionModuleConfig(num_heads=4, num_attention_blocks=1))
+
+
+def domain_b_shapes() -> list:
+    """(C, heads) of (c)'s Kernel B sweep: every width, a multiple of 8 up to
+    2048, that the gate admits under ``pallas`` (a superset of ``auto``'s)."""
+    from video_depth_anything_torch.ops import temporal_attention as ta
+
+    return [(c, h) for h in DOMAIN_B_HEADS for c in range(8, 2049, 8)
+            if ta.temporal_gate((1, 32, DOMAIN_S, c), h, auto=False)]
+
+
+def domain_c_shapes() -> list:
+    """(C, heads, blocks, ff_mult) of (c)'s Kernel C sweep, each admitted by
+    the gate forced (``VDA_FUSED_MOTION=1``)."""
+    from video_depth_anything_torch.config import MotionModuleConfig
+    from video_depth_anything_torch.ops import motion_module as mm
+
+    out = [(c, 8, 2, 4) for c in range(8, 2049, 8)
+           if mm.motion_gate(MotionModuleConfig(), c, c, 32, 74, 74, force=True)]
+    for heads, blocks, ff in DOMAIN_C_CFGS:
+        cfg = MotionModuleConfig(num_heads=heads, num_attention_blocks=blocks, ff_mult=ff)
+        out += [(c, heads, blocks, ff) for c in DOMAIN_C_WIDTHS
+                if mm.motion_gate(cfg, c, c, 32, 74, 74, force=True)]
+    return out
+
+
+def domain_temporal_row(c: int, heads: int, dtype, seed: int, dev, s: int = 0,
+                        label: str = "") -> dict:
+    """Kernel B at (C, heads) on a 32-frame window of ``s`` locations (0:
+    DOMAIN_S, or DOMAIN_S_WIDE at C >= 640) against its plain version, with
+    the mutants (uniform attention, the last location tile never stored, and
+    off the instantiated widths d rounded up to the next of them), device ms
+    over inputs rotated past the L2, plain and SDPA ms, the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch import bench_temporal
+    from video_depth_anything_torch.ops import temporal_attention as ta
+    from video_depth_anything_torch.utils.device import graph_ms
+
+    s = s or (DOMAIN_S if c < 640 else DOMAIN_S_WIDE)
+    f32 = dtype == torch.float32
+    copies = bench_temporal.inputs(1, 32, s, c, seed, dev)
+    if f32:
+        copies = [tuple(x.float() for x in cp) for cp in copies]
+    q, k, v = copies[0]
+    d = c // heads
+    scale = d**-0.5
+    got = ta.temporal_attention(q, k, v, heads, scale)
+    want = ta.temporal_attention_plain(q, k, v, heads, scale)
+    uniform = v.float().mean(1, keepdim=True).expand(v.shape)
+    locs = ta.tile_plan(c, heads, q.element_size())[0]
+    dropped = want.clone()
+    dropped[:, :, (s - 1) // locs * locs:] = 0
+    mutants = {"uniform": rel_err(uniform, want), "last_location_tile_dropped": rel_err(dropped, want)}
+    if not ta.instantiated(c, heads) and d < 128:
+        mutants["d_rounded_up"] = rel_err(rounded_width_plain(q, k, v, heads, scale), want)
+    ms = graph_ms([lambda x=x: ta.temporal_attention(*x, heads, scale) for x in copies], reps=10)
+    plain_ms = graph_ms([lambda: ta.temporal_attention_plain(q, k, v, heads, scale)], reps=3)
+    q5, k5, v5 = (x.view(1, 32, s, heads, d).permute(0, 2, 3, 1, 4) for x in (q, k, v))
+    lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=scale)], reps=5)
+    flops, nbytes = 4.0 * s * c * 32 * 32, 4.0 * 32 * s * c * q.element_size()
+    b_ms, b_by = (bound_f32 if f32 else bound)(flops, nbytes)
+    name = ("temporal_attention" if ta.instantiated(c, heads) else "temporal_attention_any") + \
+        ("_f32" if f32 else "")
+    row = dict(kernel=name, shape=f"{label or 'domain'} (B=1, T=32, S={s}, C={c}, heads={heads}, "
+               f"d={d})", max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
+               tol=F32_TOL if f32 else ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, extra=f" ms/bound_ms={ms / b_ms:.2f}")
+    if (name, label) in PERF_MS:
+        row["extra"] += f" perf_md_ms={PERF_MS[(name, label)]:.4f}"
+    return row
+
+
+def domain_motion_params(c: int, blocks: int, ff: int, seed: int, dev) -> dict:
+    """Seeded raw parameters of a motion module of ``blocks`` attention
+    blocks and ff·C hidden units, drawn on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = lambda *s, std=1.0: torch.randn(*s, generator=g, device=dev) * std  # noqa: E731
+    return dict(gn_scale=1 + n(c, std=0.1), gn_bias=n(c, std=0.1), w_in=n(c, c, std=c**-0.5),
+                b_in=n(c, std=0.1), ln_scale=1 + n(blocks + 1, c, std=0.1),
+                ln_bias=n(blocks + 1, c, std=0.1), wq=n(blocks, c, c, std=c**-0.5),
+                wk=n(blocks, c, c, std=c**-0.5), wv=n(blocks, c, c, std=c**-0.5),
+                wo=n(blocks, c, c, std=c**-0.5), bo=n(blocks, c, std=0.1),
+                w1=n(c, 2 * ff * c, std=c**-0.5), b1=n(2 * ff * c, std=0.1),
+                w2=n(ff * c, c, std=(ff * c) ** -0.5), b2=n(c, std=0.1),
+                w_out=n(c, c, std=c**-0.5), b_out=n(c, std=0.1))
+
+
+def domain_motion_row(c: int, heads: int, blocks: int, ff: int, dtype, dev, s: int = 0,
+                      label: str = "") -> dict:
+    """Kernel C at (C, heads, blocks, ff_mult) on a 32-frame window of ``s``
+    locations (0: DOMAIN_S, or DOMAIN_S_WIDE at C >= 640) against its plain
+    version (TF32 off in fp32), with the mutants (the last attention block
+    dropped; 8 heads whatever the config says, or at 8 heads 4), the launch
+    alone timed on prepared weights, plain ms and the tensor-core bound."""
+    import math
+
+    import torch
+
+    from video_depth_anything_torch.config import MotionModuleConfig
+    from video_depth_anything_torch.ops import motion_module as mm
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    s = s or (DOMAIN_S if c < 640 else DOMAIN_S_WIDE)
+    f32 = dtype == torch.float32
+    cfg = MotionModuleConfig(num_heads=heads, num_attention_blocks=blocks, ff_mult=ff,
+                             norm_num_groups=math.gcd(32, c))
+    p = domain_motion_params(c, blocks, ff, c * 7 + heads + blocks + ff, dev)
+    x = torch.randn(1, 32, s, c, device=dev, generator=torch.Generator(device=dev).manual_seed(c))
+    x = x.to(dtype)
+    w = mm.kernel_weights(p, cfg, dtype)
+    gna, gnb = mm.gn_fold(x, w, cfg)
+    got = mm.motion_module_launch(x, gna, gnb, w, cfg, heads)
+    want = mm.motion_module_plain(x, p, cfg, heads)
+    base = float((want.float() - x.float()).abs().max())
+    short = {**p, "wq": p["wq"][:-1], "wk": p["wk"][:-1], "wv": p["wv"][:-1], "wo": p["wo"][:-1],
+             "bo": p["bo"][:-1], "ln_scale": torch.cat([p["ln_scale"][:blocks - 1], p["ln_scale"][-1:]]),
+             "ln_bias": torch.cat([p["ln_bias"][:blocks - 1], p["ln_bias"][-1:]])}
+    short_cfg = MotionModuleConfig(num_heads=heads, num_attention_blocks=blocks - 1, ff_mult=ff,
+                                   norm_num_groups=cfg.norm_num_groups)
+    other = 8 if heads != 8 else 4
+    mutants = {"last_block_dropped": max_err(mm.motion_module_plain(x, short, short_cfg, heads),
+                                             want) / base,
+               f"{other}_heads": max_err(mm.motion_module_plain(x, p, cfg, other), want) / base}
+    ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, heads), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, heads), iters=3, warmup=1)
+    tokens = 32.0 * s
+    flops = tokens * ((2 + 4 * blocks) * c * c + 6 * ff * c * c + 4 * blocks * 32 * c)
+    resident = mm.resident(c, heads, cfg)
+    if f32:
+        b_ms, b_by = 3 * flops / PEAK_TF32 * 1e3, "operations"  # 3xTF32 on the tensor cores
+    else:
+        b_ms, b_by = bound(flops, 2 * tokens * c * 2 + w["w"].numel() * 2)
+    name = ("motion_module" if resident else "motion_module_wide") + ("_f32" if f32 else "")
+    row = dict(kernel=name, shape=f"{label or 'domain'} (B=1, T=32, S={s}, C={c}, heads={heads}, "
+               f"blocks={blocks}, ff_mult={ff})", max_abs_err=max_err(got, want),
+               rel_err=max_err(got, want) / base, tol=F32_TOL if f32 else MOTION_TOL,
+               mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, extra=f" ms/bound_ms={ms / b_ms:.2f}")
+    if (name, label) in PERF_MS:
+        row["extra"] += f" perf_md_ms={PERF_MS[(name, label)]:.4f}"
+    return row
+
+
+def domain_tail_row(c: int, n: int, h: int, w: int, oh: int, ow: int, g, dev,
+                    label: str = "") -> dict:
+    """The output tail at width C on ``(n, h, w, C)`` → ``oh x ow`` against
+    its plain chain, with the mutants (also the map read at half its
+    channels), ms, plain ms and the tensor-core bound."""
+    import torch
+
+    from video_depth_anything_torch.ops import output_tail as ot
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    r = lambda *s, std: torch.randn(*s, generator=g, device=dev) * std  # noqa: E731
+    x = r(n, h, w, c, std=1.0).to(torch.bfloat16)
+    w1, b1, w2, b2 = r(32, c, 3, 3, std=0.1), r(32, std=0.1), r(1, 32, 1, 1, std=0.3), r(1, std=0.1)
+    got = ot.output_tail(x, w1, b1, w2, b2, oh, ow)
+    want = ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow)
+    mutants = tail_mutant_errors(x, w1, b1, w2, b2, oh, ow)
+    ms = time_ms(lambda: ot.output_tail(x, w1, b1, w2, b2, oh, ow))
+    plain_ms = time_ms(lambda: ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow), iters=5)
+    b_ms, b_by = bound(n * oh * ow * (2.0 * 9 * c * 32 + 2.0 * 32),
+                       x.numel() * 2 + n * oh * ow * 2 + (9 * c * 32 + 65) * 2)
+    row = dict(kernel="output_tail", shape=f"{label} ({n}x{h}x{w}x{c} -> {oh}x{ow})",
+               max_abs_err=max_err(got, want), rel_err=rel_err(got, want), tol=TAIL_TOL,
+               mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, extra=f" ms/bound_ms={ms / b_ms:.2f}")
+    if ("output_tail", label) in PERF_MS:
+        row["extra"] += f" perf_md_ms={PERF_MS[('output_tail', label)]:.4f}"
+    return row
+
+
+def domain_rows(dev) -> list:
+    """(c) and the re-timed rows: Kernel B at every (C, heads) of
+    ``domain_b_shapes``, Kernel C at every config of ``domain_c_shapes``,
+    each in bf16 and fp32; the tail at C = 32, 64 and 128; Kernel B's six
+    instantiated widths, the resident Kernel C and the wide chain at C =
+    768 / 1024 and the C = 128 tail at phase kernels' shapes, beside
+    PERF.md's times (PERF_MS)."""
+    import torch
+
+    from video_depth_anything_torch import bench_temporal
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(21)
+    for n_row, (label, b, t, s, c) in enumerate(bench_temporal.SHAPES[:8]):
+        rows.append(domain_temporal_row(c, 8, torch.bfloat16, 100 + n_row, dev, s=s, label=label))
+    for label, c, s, _ in MOTION_ROWS[:9] + WIDE_MOTION_ROWS:
+        rows.append(domain_motion_row(c, 8, 2, 4, torch.bfloat16, dev, s=s, label=label))
+    for c in (32, 64, 128):
+        label = "vitl 518x518" if c == 128 else f"{'vits' if c == 32 else 'vitb'} 518x518 unpacked"
+        rows.append(domain_tail_row(c, 32, 296, 296, 518, 518, g, dev, label=label))
+    rows.append(domain_tail_row(32, 4, 10, 24, 18, 42, g, dev, label="ragged"))
+    with no_tf32():
+        for dtype in (torch.bfloat16, torch.float32):
+            for n_row, (c, heads) in enumerate(domain_b_shapes()):
+                rows.append(domain_temporal_row(c, heads, dtype, 300 + n_row, dev))
+            for c, heads, blocks, ff in domain_c_shapes():
+                rows.append(domain_motion_row(c, heads, blocks, ff, dtype, dev))
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_domain(dev, smi: str) -> tuple:
+    """(a) vits and vitb 518x518 windows with ``packed_output_stack=False``,
+    (b) vits 518x518 windows with 4 heads and one attention block under
+    ``auto``, ``pallas`` and ``VDA_FUSED_MOTION=1`` (and fp32 under
+    ``pallas``), noised weights, at the window batch of 4: kernel path
+    against plain path within ``rounding_tol`` (fp32: F32_WINDOW_TOL, TF32
+    off) with the exact launches of DOMAIN_WINDOWS, Kernel B's by head
+    width and the tail's by C; (a) timed against the shipped config (the
+    tail's plain chain) in turns.  Then (c), ``domain_rows``.  Returns the
+    main-path launches (the windows) and the rows."""
+    import torch
+
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+    from video_depth_anything_torch.ops.output_tail import output_tail
+
+    totals = dict.fromkeys(launch_counts(), 0)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(WINDOW_BATCH["vits"], 32, 518, 518, 3, device=dev, generator=g)
+    for name, encoder, impl, mode, plan, widths, tails in DOMAIN_WINDOWS:
+        model = VDAModel(cfg=domain_model_config(name, encoder), device=dev, attn_impl=impl)
+        model.init_params(seed=0)
+        noise_weights(model.module, seed=1)
+        label = f"{name} {encoder} 4x32x518x518 {impl} VDA_FUSED_MOTION={mode}"
+        with fused_switch(mode):
+            check_window(model, x, label, plan, tuple(k for k in totals if k not in plan), widths)
+            counts = launch_counts()
+            if output_tail.width_launches != tails:
+                raise SystemExit(f"window {label}: tail launches by C {output_tail.width_launches}, "
+                                 f"want {tails}")
+            totals = {k: totals[k] + counts[k] for k in totals}
+            if name == "unpacked":  # the tail kernel against the shipped config's plain tail
+                shipped = VDAModel(encoder, device=dev)
+                shipped.module.load_state_dict(model.module.state_dict())
+                for m, tag in ((model, "unpacked"), (shipped, "shipped"), (shipped, "shipped"),
+                               (model, "unpacked")):
+                    time_window(m, x, f"domain {encoder} 518x518 {tag}", smi)
+                del shipped
+        del model
+        torch.cuda.empty_cache()
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        m32 = VDAModel(cfg=domain_model_config("kv_motion", "vits"), device=dev,
+                       dtype=torch.float32, attn_impl="pallas")
+        m32.init_params(seed=0)
+        noise_weights(m32.module, seed=1)
+        zero_counts()
+        got = m32.infer_window(x[:1])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        with plain_reference():
+            want = m32.infer_window(x[:1])
+        rel = float((got - want).abs().max() / want.abs().max())
+        finite = bool(torch.isfinite(got).all())
+        ok = (finite and rel <= F32_WINDOW_TOL
+              and all(counts[k] == DOMAIN_F32_PLAN.get(k, 0) for k in counts))
+        log(f"[domain] window kv_motion vits 1x32x518x518 fp32 pallas: rel err kernels vs plain "
+            f"{rel:.3e} (tol {F32_WINDOW_TOL}), finite={finite}, launches {counts} ({smi}) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("fp32 window of the 4-head, one-block config failed")
+        totals = {k: totals[k] + counts[k] for k in totals}
+        del m32, got, want
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    del x
+    torch.cuda.empty_cache()
+    log(f"[domain] launches over the main path: {totals} ({smi})")
+    rows = domain_rows(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check_rows(rows, "domain")
+    return totals, rows
 
 
 # vitg (24 heads of 64 in 40 blocks; features 384, out_channels 1536), a
@@ -3551,11 +3964,12 @@ def motion_f32_row(label: str, c: int, s: int, t: int, g, dev) -> dict:
     flops = b * t * s * (44.0 * c * c + 8.0 * t * c)
     ffma_ms, _ = bound_f32(flops, 2 * b * t * s * c * 4 + w["w"].numel() * 4)
     b_ms = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32 on the tensor cores
-    if c in mm.WIDE_C:  # each 128-row GEMM tile reads every product's weights once
+    wide = not mm.resident(c, 8, cfg)
+    if wide:  # each 128-row GEMM tile reads every product's weights once
         l2_gb = -(-b * t * s // mm.WIDE_BM) * w["w"].numel() * 4 / 1e9
     else:
         l2_gb = b * -(-s // (mm.F32_ROWS // mm.padded_frames(t))) * w["w"].numel() * 4 / 1e9
-    name = "motion_module_wide_f32" if c in mm.WIDE_C else "motion_module_f32"
+    name = "motion_module_wide_f32" if wide else "motion_module_f32"
     return dict(kernel=name, shape=f"{label} (B={b}, T={t}, S={s}, C={c})",
                  max_abs_err=max_err(got, want), rel_err=max_err(got, want) / base,
                  tol=F32_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,

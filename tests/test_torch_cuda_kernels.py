@@ -221,8 +221,8 @@ def test_temporal_attention_split(dev, c):
     want = ta.temporal_attention_plain(q, k, v, 8, scale)
     got = ta.temporal_attention(q, k, v, 8, scale)
     assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
-    with pytest.raises(NotImplementedError):
-        ta.temporal_attention(*(x[..., :64].contiguous() for x in (q, k, v)), 1, 0.125)
+    with pytest.raises(NotImplementedError):  # 33 frames: past the kernels' 32-row tiles
+        ta.temporal_attention(*(torch.cat([x, x[:, :1]], 1) for x in (q, k, v)), 8, scale)
 
 
 @pytest.mark.parametrize("c,t,s", [(64, 32, 70), (192, 32, 33), (64, 8, 50), (192, 16, 20),
@@ -506,6 +506,71 @@ def test_motion_module_wide_kernel(dev, no_tf32, dtype, c, t, s):
     want = mm.motion_module_plain(x, p, cfg, 8).float()
     tol = chip_smoke.F32_TOL if f32 else chip_smoke.MOTION_TOL
     assert float((got - want).abs().max()) <= tol * float((want - x.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,c,t,s", [(8, 40, 32, 29), (4, 12, 17, 33), (16, 48, 8, 9),
+                                         (4, 384, 32, 13), (1, 512, 32, 5), (16, 2048, 24, 3),
+                                         (8, 512, 32, 7), (2, 6, 32, 70)])
+def test_temporal_attention_any_kernel(dev, no_tf32, dtype, heads, c, t, s):
+    """Kernel B off its instantiated widths (the run-time-d kernel): packed
+    small heads, odd d, d = 96, 512 and 64, ragged location tiles, against
+    the plain version (ATTN_TOL in bf16, F32_TOL in fp32); one launch on
+    its own counter."""
+    g = torch.Generator(device=dev).manual_seed(c + t)
+    q, k, v = (x.contiguous().to(dtype) for x in
+               chip_smoke.attention_inputs((2, t, s, c), g, dev).split(c, dim=-1))
+    scale = (c // heads) ** -0.5
+    f = ta.temporal_attention
+    f32 = dtype == torch.float32
+    before = (f.launches, f.f32_launches, f.any_launches, f.any_f32_launches)
+    got = f(q, k, v, heads, scale)
+    assert (f.launches, f.f32_launches, f.any_launches, f.any_f32_launches) == \
+        (before[0], before[1], before[2] + (not f32), before[3] + f32)
+    want = ta.temporal_attention_plain(q, k, v, heads, scale)
+    assert chip_smoke.rel_err(got, want) <= (chip_smoke.F32_TOL if f32 else chip_smoke.ATTN_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,blocks,ff,c,t,s", [
+    (4, 1, 4, 64, 32, 37), (16, 3, 2, 96, 12, 13), (8, 2, 4, 40, 20, 9), (8, 2, 4, 512, 8, 21),
+    (8, 1, 4, 1152, 16, 11), (4, 2, 4, 320, 32, 5), (8, 2, 2, 8, 32, 9)])
+def test_motion_module_domain_kernel(dev, no_tf32, dtype, heads, blocks, ff, c, t, s):
+    """Kernel C off the resident kernels' domain (the wide chain with run-time
+    heads, attention blocks and hidden width, ragged panels and column
+    blocks) against the plain module, relative to max|plain - x|."""
+    import math
+
+    cfg = MotionModuleConfig(num_heads=heads, num_attention_blocks=blocks, ff_mult=ff,
+                             norm_num_groups=math.gcd(32, c))
+    p = chip_smoke.domain_motion_params(c, blocks, ff, c + blocks, dev)
+    x = torch.randn(1, t, s, c, device=dev, generator=torch.Generator(device=dev).manual_seed(s))
+    x = x.to(dtype)
+    f = mm.fused_motion_module
+    f32 = dtype == torch.float32
+    before = (f.wide_launches, f.wide_f32_launches)
+    got = f(x, p, cfg, heads).float()
+    assert (f.wide_launches, f.wide_f32_launches) == (before[0] + (not f32), before[1] + f32)
+    want = mm.motion_module_plain(x, p, cfg, heads).float()
+    tol = chip_smoke.F32_TOL if f32 else chip_smoke.MOTION_TOL
+    assert float((got - want).abs().max()) <= tol * float((want - x.float()).abs().max())
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("n,h,w,oh,ow", [(4, 10, 24, 18, 42), (2, 37, 21, 65, 37),
+                                         (8, 40, 40, 70, 70)])
+def test_output_tail_narrow_kernel(dev, c, n, h, w, oh, ow):
+    """The tail at vits' and vitb's head widths, ragged tiles both ways,
+    within TAIL_TOL of the plain chain; counted by width."""
+    g = torch.Generator(device=dev).manual_seed(c + n)
+    r = lambda *s, std: torch.randn(*s, generator=g, device=dev) * std  # noqa: E731
+    x = r(n, h, w, c, std=1.0).to(torch.bfloat16)
+    w1, b1, w2, b2 = r(32, c, 3, 3, std=0.1), r(32, std=0.1), r(1, 32, 1, 1, std=0.3), r(1, std=0.1)
+    before = ot.output_tail.width_launches.get(c, 0)
+    got = ot.output_tail(x, w1, b1, w2, b2, oh, ow)
+    assert ot.output_tail.width_launches[c] == before + 1
+    want = ot.output_tail_plain(x, w1, b1, w2, b2, oh, ow)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.TAIL_TOL
 
 
 def test_fp32_window_through_the_fp32_kernels(dev, no_tf32):

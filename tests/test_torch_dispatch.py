@@ -50,17 +50,18 @@ class _Spec:
 
 def _module_shapes(encoder, h, w):
     """(name, h, w, C) of the four motion modules for one frame size."""
-    cfg = get_model_config(encoder)
+    cfg = get_model_config(encoder)  # the widths alone: no config field moves them
     ph, pw = h // 14, w // 14
     oc, f = cfg.out_channels, cfg.features
     return [("m0", ph, pw, oc[2]), ("m1", (ph + 1) // 2, (pw + 1) // 2, oc[3]),
             ("m2", ph, pw, f), ("m3", 2 * ph, 2 * pw, f)]
 
 
-def port_plan(encoder, h, w, impl="auto", dtype="bfloat16"):
+def port_plan(encoder, h, w, impl="auto", dtype="bfloat16", cfg=None):
     """The port's plan for activations of ``dtype`` ("bfloat16" or
-    "float32"): only the output tail's gate reads the dtype."""
-    cfg = get_model_config(encoder)
+    "float32"): only the output tail's gate reads the dtype.  ``cfg``: a
+    ``ModelConfig`` of the encoder other than the shipped one."""
+    cfg = cfg or get_model_config(encoder)
     heads = cfg.motion.num_heads
     ph, pw = h // 14, w // 14
     n = ph * pw + 1
@@ -78,10 +79,11 @@ def port_plan(encoder, h, w, impl="auto", dtype="bfloat16"):
     return plan
 
 
-def jax_plan(encoder, h, w, monkeypatch, impl="auto", dtype="bfloat16"):
+def jax_plan(encoder, h, w, monkeypatch, impl="auto", dtype="bfloat16", mcfg=None):
     """The JAX gates' plan; with ``dtype="float32"`` the gates see fp32
     arrays (else byte arrays: they read shapes, and the tail's a bf16
-    spec)."""
+    spec).  ``mcfg``: a JAX ``ModelConfig`` of the encoder other than the
+    shipped one."""
     monkeypatch.setattr(pallas_attention, "flash_attention_native",
                         lambda *a, **k: _Tag("flash_attention"))
     monkeypatch.setattr(pallas_attention, "spatial_flash_attention",
@@ -94,8 +96,8 @@ def jax_plan(encoder, h, w, monkeypatch, impl="auto", dtype="bfloat16"):
                         lambda *a, **k: _Tag("output_tail"))
     monkeypatch.setattr(pallas_output_stack, "_on_tpu", lambda: True)
     monkeypatch.setattr(jax, "devices", lambda *a: [_FakeTPU()])
-    mcfg = j_model_config(encoder)
-    cfg, heads = JCfg(), JCfg().num_heads
+    mcfg = mcfg or j_model_config(encoder)
+    cfg, heads = mcfg.motion, mcfg.motion.num_heads
     ph, pw = h // 14, w // 14
     n = ph * pw + 1
     arr = np.float32 if dtype == "float32" else np.uint8
@@ -114,7 +116,9 @@ def jax_plan(encoder, h, w, monkeypatch, impl="auto", dtype="bfloat16"):
     # models/dpt.py:172-233: no packed output stack, then the kernel's gate
     f = mcfg.features
     tail = None
-    if not (_s2d_profitable(f, f // 2) or _s2d_profitable(f // 2, 32)):
+    packed = mcfg.packed_output_stack and (_s2d_profitable(f, f // 2)
+                                           or _s2d_profitable(f // 2, 32))
+    if mcfg.fused_output_tail and not packed:
         x = _Spec((32, 8 * ph, 8 * pw, f // 2), getattr(jnp, dtype))
         k1, k2 = np.empty((3, 3, f // 2, 32), np.float32), np.empty((1, 1, 32, 1), np.float32)
         tail = pallas_output_stack.try_fused_output_tail(x, k1, None, k2, None, 14 * ph, 14 * pw)
@@ -186,12 +190,12 @@ def test_vitg_dispatch_plan_matches_jax_gates(h, w, impl, m2, dtype, monkeypatch
     assert port_plan("vitg", h, w, impl, dtype) == expected
 
 
-def _forced_plan(encoder, h, w, mode, impl="auto"):
+def _forced_plan(encoder, h, w, mode, impl="auto", cfg=None):
     """The port's Kernel C decision per motion module under
     ``VDA_FUSED_MOTION=mode`` (``TemporalModule.fused``)."""
     from video_depth_anything_torch.models.temporal import TemporalModule
 
-    cfg = get_model_config(encoder)
+    cfg = cfg or get_model_config(encoder)
     out = {}
     for name, mh, mw, c in _module_shapes(encoder, h, w):
         mod = TemporalModule.__new__(TemporalModule)  # the gate reads these alone
@@ -200,12 +204,14 @@ def _forced_plan(encoder, h, w, mode, impl="auto"):
     return out
 
 
-def _jax_forced_plan(encoder, h, w, mode, impl, monkeypatch):
+def _jax_forced_plan(encoder, h, w, mode, impl, monkeypatch, cfg=None):
     """JAX ``models/temporal.py:400-422`` under ``VDA_FUSED_MOTION=mode``:
     ``0`` off; ``1`` past the h·w and d rule and the ``xla`` check; then
-    ``try_fused_motion_module``'s own terms."""
+    ``try_fused_motion_module``'s own terms (``cfg``: a JAX
+    ``MotionModuleConfig`` other than the shipped one)."""
     monkeypatch.setattr(pallas_motion, "fused_motion_module", lambda *a, **k: _Tag("fused"))
-    cfg, heads = JCfg(), JCfg().num_heads
+    cfg = cfg or JCfg()
+    heads = cfg.num_heads
     out = {}
     for name, mh, mw, c in _module_shapes(encoder, h, w):
         x = np.empty((1, 32, mh * mw, c), np.uint8)
@@ -245,9 +251,9 @@ def test_forced_widths_take_the_wide_kernel_c(dtype, monkeypatch):
     """``VDA_FUSED_MOTION=1`` reaches C = 768 (vitb m1) and 1024 (vitl m0,
     m1): Kernel C takes both in bf16 and in fp32 (``_launch_args`` accepts
     their ``kernel_weights``; checked on CPU tensors with the stream lookup
-    stubbed: the checks run before any launch), and still refuses a width
-    outside its domain (C = 512) without naming a queue.  vitg's m0 and m1
-    (C = 1536) are not reached: the gate refuses them, in JAX too
+    stubbed: the checks run before any launch), and still refuses a shape
+    outside its domain (T = 40 frames) without naming a queue.  vitg's m0
+    and m1 (C = 1536) are not reached: the gate refuses them, in JAX too
     (``test_fused_motion_switch_matches_jax``)."""
     from video_depth_anything_torch.config import MotionModuleConfig
     from video_depth_anything_torch.ops import motion_module as mm
@@ -256,8 +262,9 @@ def test_forced_widths_take_the_wide_kernel_c(dtype, monkeypatch):
     monkeypatch.setenv("VDA_FUSED_MOTION", "1")
     reached = {c for e in ("vitb", "vitl", "vitg") for h, w in ((518, 518), (518, 924))
                for (name, _, _, c) in _module_shapes(e, h, w) if _forced_plan(e, h, w, "1")[name]}
-    assert {768, 1024} <= reached <= set(mm._SUPPORTED_C)
     cfg = MotionModuleConfig()
+    assert {768, 1024} <= reached
+    assert all(mm.kernel_takes((1, 32, 2, c), cfg, 8, dtype) for c in reached)
 
     def zeros(c):
         shapes = dict(gn_scale=(c,), gn_bias=(c,), w_in=(c, c), b_in=(c,), ln_scale=(3, c),
@@ -272,8 +279,136 @@ def test_forced_widths_take_the_wide_kernel_c(dtype, monkeypatch):
         gna = gnb = torch.zeros(1, 32, c)
         out, _, args = mm._launch_args(x, gna, gnb, w, cfg, 8)
         assert out.shape == x.shape and out.dtype == dtype and args[-5:-3] == (2, c)
-    x = torch.zeros(1, 32, 2, 512, dtype=dtype)
-    w = {"w": torch.zeros(8, dtype=dtype), "pe": torch.zeros(32, 512, dtype=dtype)}
-    with pytest.raises(NotImplementedError, match="C in") as err:
+    x = torch.zeros(1, 40, 2, 512, dtype=dtype)
+    w = {"w": torch.zeros(8, dtype=dtype), "pe": torch.zeros(40, 512, dtype=dtype)}
+    with pytest.raises(NotImplementedError, match="8 <= T <= 32") as err:
         mm._launch_args(x, None, None, w, cfg, 8)
     assert "Queue" not in str(err.value) and "B5" not in str(err.value)
+
+
+# The configurations the port's kernel domains were widened for.  (a) vits and
+# vitb under packed_output_stack=False (JAX tests/test_s2d_conv.py builds it):
+# their tails, C = 32 and 64, take the tail kernel at 518x518 (518x924 is
+# beyond the gate's VMEM term); every module keeps the shipped plan.  (b) vits
+# with JAX's KV-cache test motion config (4 heads, one attention block):
+# under auto, m2 (C = 64, d = 16) takes Kernel B and m3 Kernel C at 4 heads;
+# under pallas, m0 (d = 48) and m1 (d = 96, the run-time-d kernel) take
+# Kernel B too; under VDA_FUSED_MOTION=1 Kernel C takes all four modules.
+def _domain_configs(name, encoder):
+    import dataclasses
+
+    from video_depth_anything_torch.config import MotionModuleConfig as TMCfg
+
+    jc, tc = j_model_config(encoder), get_model_config(encoder)
+    if name == "unpacked":
+        return (dataclasses.replace(jc, packed_output_stack=False),
+                dataclasses.replace(tc, packed_output_stack=False))
+    return (dataclasses.replace(jc, motion=JCfg(num_heads=4, num_attention_blocks=1)),
+            dataclasses.replace(tc, motion=TMCfg(num_heads=4, num_attention_blocks=1)))
+
+
+DOMAIN_PLANS = {
+    ("unpacked", "vits", 518, 924, "auto"): dict(
+        vit="flash_attention", m0="motion_module", m1="plain", m2="motion_module",
+        m3="motion_module", tail="plain"),
+    ("unpacked", "vits", 518, 518, "auto"): dict(
+        vit="flash_attention", m0="temporal_attention", m1="plain", m2="temporal_attention",
+        m3="motion_module", tail="output_tail"),
+    ("unpacked", "vitb", 518, 518, "auto"): dict(
+        vit="flash_attention", m0="plain", m1="plain", m2="temporal_attention",
+        m3="motion_module", tail="output_tail"),
+    ("kv_motion", "vits", 518, 518, "auto"): dict(
+        vit="flash_attention", m0="plain", m1="plain", m2="temporal_attention",
+        m3="motion_module", tail="plain"),
+    ("kv_motion", "vits", 518, 518, "pallas"): dict(
+        vit="flash_attention", m0="temporal_attention", m1="temporal_attention",
+        m2="temporal_attention", m3="motion_module", tail="plain"),
+}
+
+
+@pytest.mark.parametrize("name,encoder,h,w,impl", list(DOMAIN_PLANS))
+def test_domain_config_plans_match_jax_gates(name, encoder, h, w, impl, monkeypatch):
+    jc, tc = _domain_configs(name, encoder)
+    expected = DOMAIN_PLANS[(name, encoder, h, w, impl)]
+    assert jax_plan(encoder, h, w, monkeypatch, impl, mcfg=jc) == expected
+    assert port_plan(encoder, h, w, impl, cfg=tc) == expected
+
+
+def test_kv_motion_config_forced_plan_matches_jax(monkeypatch):
+    """(b) under ``VDA_FUSED_MOTION=1``: Kernel C at 4 heads and one block
+    on all four modules (C = 192, 384, 64, 64), in the port as in JAX; the
+    port's Kernel C and Kernel B take each module the plans send them."""
+    from video_depth_anything_torch.ops import motion_module as mm
+    from video_depth_anything_torch.ops import temporal_attention as ta
+
+    jc, tc = _domain_configs("kv_motion", "vits")
+    monkeypatch.setenv("VDA_FUSED_MOTION", "1")
+    want = _jax_forced_plan("vits", 518, 518, "1", "auto", monkeypatch, cfg=jc.motion)
+    assert _forced_plan("vits", 518, 518, "1", cfg=tc) == want == dict(m0=True, m1=True, m2=True,
+                                                                      m3=True)
+    for _, mh, mw, c in _module_shapes("vits", 518, 518):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert mm.kernel_takes((1, 32, mh * mw, c), tc.motion, 4, dtype)
+            assert not mm.resident(c, 4, tc.motion)
+            assert ta.kernel_takes((1, 32, mh * mw, c), 4, dtype)
+    assert [ta.instantiated(c, 4) for _, _, _, c in _module_shapes("vits", 518, 518)] == \
+        [True, False, True, True]
+
+
+def _plan_launches(encoder, cfg, impl, mode, monkeypatch):
+    """Exact launches of one 518x518 window call of ``cfg`` from the port's
+    plan: Kernel A a ViT block; Kernel B once an attention block, on the
+    instantiated or the run-time-d kernel, by head width; Kernel C once a
+    module, resident or wide; the tail once, by C."""
+    from video_depth_anything_torch.ops import motion_module as mm
+    from video_depth_anything_torch.ops import temporal_attention as ta
+
+    monkeypatch.setenv("VDA_FUSED_MOTION", mode)
+    plan = port_plan(encoder, 518, 518, impl, cfg=cfg)
+    forced = _forced_plan(encoder, 518, 518, mode, impl, cfg=cfg)
+    counts, widths, tails = {"flash_attention": cfg.vit.depth}, {}, {}
+    heads, blocks = cfg.motion.num_heads, cfg.motion.num_attention_blocks
+    for name, _, _, c in _module_shapes(encoder, 518, 518):
+        if forced[name]:
+            key = "fused_motion_module" if mm.resident(c, heads, cfg.motion) else \
+                "fused_motion_module_wide"
+            counts[key] = counts.get(key, 0) + 1
+        elif plan[name] == "temporal_attention":
+            key = "temporal_attention" if ta.instantiated(c, heads) else "temporal_attention_any"
+            counts[key] = counts.get(key, 0) + blocks
+            widths[c // heads] = widths.get(c // heads, 0) + blocks
+    if plan["tail"] == "output_tail":
+        counts["output_tail"] = 1
+        tails[cfg.features // 2] = 1
+    return counts, widths, tails
+
+
+def test_chip_smoke_domain_windows_follow_the_plans(monkeypatch):
+    """chip_smoke.py phase domain's exact launches of (a) and (b) are the
+    port's plans (held to JAX's above), counted launch by launch."""
+    import chip_smoke
+
+    for name, encoder, impl, mode, plan, widths, tails in chip_smoke.DOMAIN_WINDOWS:
+        cfg = chip_smoke.domain_model_config(name, encoder)
+        assert _plan_launches(encoder, cfg, impl, mode, monkeypatch) == (plan, widths, tails)
+
+
+def test_chip_smoke_domain_sweeps_cover_the_gates():
+    """Phase domain's op-level sweeps: every width the gates admit at
+    DOMAIN_B_HEADS (Kernel B, pallas) and at 8 heads, two blocks and
+    ff_mult 4 (Kernel C, forced), and each is a shape the kernels take."""
+    import chip_smoke
+    from video_depth_anything_torch.config import MotionModuleConfig as TMCfg
+    from video_depth_anything_torch.ops import motion_module as mm
+    from video_depth_anything_torch.ops import temporal_attention as ta
+
+    b = chip_smoke.domain_b_shapes()
+    assert {h for _, h in b} == set(chip_smoke.DOMAIN_B_HEADS) and (2048, 16) in b
+    assert all(ta.kernel_takes((1, 32, 1, c), h, dt) for c, h in b
+               for dt in (torch.bfloat16, torch.float32))
+    c_rows = chip_smoke.domain_c_shapes()
+    assert [c for c, h, nb, ff in c_rows if (h, nb, ff) == (8, 2, 4)][-1] == 1280
+    for c, h, nb, ff in c_rows:
+        cfg = TMCfg(num_heads=h, num_attention_blocks=nb, ff_mult=ff)
+        assert mm.kernel_takes((1, 32, 1, c), cfg, h, torch.bfloat16)
+    assert {(h, nb, ff) for _, h, nb, ff in c_rows} == {(8, 2, 4), *chip_smoke.DOMAIN_C_CFGS}

@@ -1,7 +1,8 @@
-"""The plan of Kernel C at C = 768 and 1024 (``csrc/motion_module_wide.cu``),
-emulated in torch on the CPU in bf16, against the port's plain version and
-the JAX Pallas motion kernel run as the JAX package's tests run it
-(interpret mode), with the wrong plans it must tell apart.
+"""The plan of Kernel C's wide chain (``csrc/motion_module_wide.cu``: C = 768
+and 1024, and every module off the resident kernels' domain), emulated in
+torch on the CPU in bf16, against the port's plain version and the JAX
+Pallas motion kernel run as the JAX package's tests run it (interpret
+mode), with the wrong plans it must tell apart.
 
 The plan: a chain of launches over the M = B·T·S token rows in (b, t, s)
 order, the activations in a device-memory scratch between them.  Row norms
@@ -15,9 +16,22 @@ GEGLU from a tile's 64 h and 64 gate columns); q | k | v as one product of
 Tp = 8, 16 or 32 key frames (those past T masked), p rounded to bf16 once
 normalised, its out over h.  ``emulate_wide`` also serves the fp32 plan
 (``tests/test_torch_motion_wide_f32_tiling.py``): every product in 3xTF32
-over ``wide_tiles_f32``'s hi and lo tiles, no rounding, the erf GELU."""
+over ``wide_tiles_f32``'s hi and lo tiles, no rounding, the erf GELU.
+
+Off the shipped config (the domain plan): the heads, the attention blocks
+and the hidden width are run-time values; products whose K is not a whole
+number of 64-input (fp32: 32) panels read the TMA's zero fill past K, their
+weight tiles are zero-padded to whole panels and 128-column blocks, and the
+epilogues store only the product's N columns; the hidden units are padded to
+a multiple of 64 with zero weights and biases.  Held at 4 heads with one
+attention block (JAX's KV-cache test config), 16 heads with three blocks
+at ff_mult 2, and C = 40 (one ragged panel, one ragged column block) against
+the plain version in bf16 and fp32 and against the Pallas kernel on fp32
+inputs (rtol 1e-3), with two wrong plans: 8 heads whatever the config says,
+and the last attention block dropped."""
 
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,7 +63,7 @@ def unswizzle(tiles: torch.Tensor, chunk: int) -> torch.Tensor:
 
 class Tiles:
     """The weight sequence as the chain reads it: product after product, a
-    ``(K, N)`` product's (N/128)·(K/KW) tiles (bf16) or hi/lo tile pairs
+    ``(K, N)`` product's ⌈N/128⌉·⌈K/KW⌉ tiles (bf16) or hi/lo tile pairs
     (fp32), each launch taking the next product's share."""
 
     def __init__(self, flat: torch.Tensor):
@@ -57,9 +71,10 @@ class Tiles:
         self.f32 = flat.dtype == torch.float32
 
     def next(self, k: int, n: int) -> torch.Tensor:
-        """``(N/128, K/KW, [2,] 128, KW)`` un-swizzled tiles of the next product."""
+        """``(⌈N/128⌉, ⌈K/KW⌉, [2,] 128, KW)`` un-swizzled tiles of the next
+        product."""
         kw = 32 if self.f32 else 64
-        shape = (n // BN, k // kw) + ((2,) if self.f32 else ()) + (BN, kw)
+        shape = (-(-n // BN), -(-k // kw)) + ((2,) if self.f32 else ()) + (BN, kw)
         count = int(np.prod(shape))
         t = self.flat[self.off:self.off + count].reshape(shape)
         self.off += count
@@ -70,19 +85,20 @@ def tf32(x):
     return t_motion.tf32_rna(x.contiguous())
 
 
-def gemm(a: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+def gemm(a: torch.Tensor, tiles: torch.Tensor, n: int = 0) -> torch.Tensor:
     """``a (M, K)`` times the product's tiles, as the GEMM launch computes
     it: 128-row tiles (the last padded with zero rows: TMA's fill), one
     fp32 accumulator over the k panels in order (bf16: the panel's exact
-    products; fp32: lo·hi + hi·lo + hi·hi of the split operands); rows past
-    M dropped."""
+    products; fp32: lo·hi + hi·lo + hi·hi of the split operands), columns
+    past K of the last panel zero (TMA's fill); rows past M dropped, and
+    columns past ``n`` (when given: the epilogue stores only those)."""
     m, k = a.shape
     nb, kp = tiles.shape[:2]
     kw = tiles.shape[-1]
     f32 = tiles.dim() == 5
     rows = -(-m // BM) * BM
-    ap = torch.zeros(rows, k)
-    ap[:m] = a
+    ap = torch.zeros(rows, kp * kw)
+    ap[:m, :k] = a
     acc = torch.zeros(rows, nb * BN)
     for p in range(kp):
         ak = ap[:, p * kw:(p + 1) * kw]
@@ -94,7 +110,7 @@ def gemm(a: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
             acc += lo @ wh + hi @ wl + hi @ wh
         else:
             acc += ak @ tiles[:, p].reshape(nb * BN, kw).t()
-    return acc[:m]
+    return acc[:m, :n] if n else acc[:m]
 
 
 def emulate_wide(x, p, cfg, heads, mutant=None):
@@ -102,13 +118,21 @@ def emulate_wide(x, p, cfg, heads, mutant=None):
     fp32).  ``mutant``: ``"unmasked_keys"`` lets the padded frames' zero keys
     into the softmax; ``"k_from_next_head"`` reads each head's keys from the
     next head's columns; ``"residual_not_reread"`` drops y from the out
-    projection's residual epilogue."""
+    projection's residual epilogue; ``"eight_heads"`` attends with 8 heads
+    whatever ``heads`` says; ``"last_block_dropped"`` skips the last
+    attention block (its weights still read)."""
     b_, t_, s_, c = x.shape
     f32 = x.dtype == torch.float32
     rnd = (lambda v: v) if f32 else (lambda v: v.to(torch.bfloat16).float())  # noqa: E731
     tp = t_motion.padded_frames(t_)
+    n_attn, hidden = cfg.num_attention_blocks, t_motion.wide_hidden(p)
     w = t_motion.kernel_weights(p, cfg, x.dtype)
-    assert w["w"].numel() == 22 * c * c * (2 if f32 else 1)
+    assert not t_motion.resident(c, heads, cfg)
+    assert w["w"].numel() == t_motion.wide_weight_elems(c, n_attn, hidden, x.dtype)
+    if (c, n_attn, hidden) in ((768, 2, 3072), (1024, 2, 4096)):
+        assert w["w"].numel() == 22 * c * c * (2 if f32 else 1)
+    if mutant == "eight_heads":
+        heads = 8
     gna, gnb = t_motion.gn_fold(x, w, cfg)
     fw = {k: w[k].float() for k in ("b_in", "ln_scale", "ln_bias", "bo", "b1", "b2", "b_out")}
     pe = w["pe"].float()
@@ -140,26 +164,28 @@ def emulate_wide(x, p, cfg, heads, mutant=None):
         o = rnd(rnd(e / l) @ v) if not f32 else (e @ v) / l
         return o.permute(0, 3, 1, 2, 4)[:, :t_].reshape(m, c)  # query rows past T: not stored
 
-    def act(hh, gg):
+    def act(hh, gg):  # b1 as wide_b1 lays it: h biases, then gate biases, each of F
         if f32:
-            return (hh + fw["b1"][:4 * c]) * torch.nn.functional.gelu(gg + fw["b1"][4 * c:])
-        g = rnd(gg + fw["b1"][4 * c:])
+            return (hh + fw["b1"][:hidden]) * torch.nn.functional.gelu(gg + fw["b1"][hidden:])
+        g = rnd(gg + fw["b1"][hidden:])
         ge = rnd(0.5 * g * (1 + torch.tanh(0.7978845608028654 * (g + 0.044715 * g**3))))
-        return rnd(rnd(hh + fw["b1"][:4 * c]) * ge)
+        return rnd(rnd(hh + fw["b1"][:hidden]) * ge)
 
     h = rnd(xr * gna.reshape(-1, c)[bt] + gnb.reshape(-1, c)[bt])
-    y = rnd(gemm(h, seq.next(c, c)) + fw["b_in"])
-    for i in range(2):
+    y = rnd(gemm(h, seq.next(c, c), c) + fw["b_in"])
+    for i in range(n_attn):
         h = ln(y, i, True)
-        qkv = rnd(gemm(h, seq.next(c, 3 * c)))
+        qkv = rnd(gemm(h, seq.next(c, 3 * c), 3 * c))
         h = attention(qkv)  # over h
-        part = gemm(h, seq.next(c, c)) + fw["bo"][i]
+        part = gemm(h, seq.next(c, c), c) + fw["bo"][i]
+        if mutant == "last_block_dropped" and i == n_attn - 1:
+            continue
         y = rnd(part if mutant == "residual_not_reread" else y + part)
-    h = ln(y, 2, False)
-    ff = gemm(h, seq.next(c, 8 * c)).reshape(m, 4 * c // 64, 2, 64)
-    a = act(ff[:, :, 0].reshape(m, 4 * c), ff[:, :, 1].reshape(m, 4 * c))
-    y = rnd(y + gemm(a, seq.next(4 * c, c)) + fw["b2"])
-    out = rnd(gemm(y, seq.next(c, c)) + fw["b_out"] + xr)
+    h = ln(y, n_attn, False)
+    ff = gemm(h, seq.next(c, 2 * hidden)).reshape(m, hidden // 64, 2, 64)
+    a = act(ff[:, :, 0].reshape(m, hidden), ff[:, :, 1].reshape(m, hidden))
+    y = rnd(y + gemm(a, seq.next(hidden, c), c) + fw["b2"])
+    out = rnd(gemm(y, seq.next(c, c), c) + fw["b_out"] + xr)
     assert seq.off == seq.flat.numel()
     return out.reshape(b_, t_, s_, c)
 
@@ -238,3 +264,110 @@ def test_wide_tiles_address_the_jax_weights(c):
         assert stored(5, k_in, 128 * (j // 64) + 64 + j % 64, c) == bf(p["w1"][k_in, 4 * c + j])
         assert stored(6, j, n_out, 4 * c) == bf(p["w2"][j, n_out])
         assert stored(7, k_in, n_out, c) == bf(p["w_out"][k_in, n_out])
+
+
+# -- the domain plan: other heads, attention blocks, ff_mult and widths --------
+
+def _params_cfg(c, blocks, ff, seed):
+    """Seeded raw parameters of a module of ``blocks`` attention blocks and
+    ``ff``·C hidden units (fp32; the weights ~ N(0, 1/fan_in))."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s, std=1.0: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32))  # noqa: E731
+    return dict(gn_scale=1 + n(c, std=0.1), gn_bias=n(c, std=0.1), w_in=n(c, c, std=c**-0.5),
+                b_in=n(c, std=0.1), ln_scale=1 + n(blocks + 1, c, std=0.1),
+                ln_bias=n(blocks + 1, c, std=0.1), wq=n(blocks, c, c, std=c**-0.5),
+                wk=n(blocks, c, c, std=c**-0.5), wv=n(blocks, c, c, std=c**-0.5),
+                wo=n(blocks, c, c, std=c**-0.5), bo=n(blocks, c, std=0.1),
+                w1=n(c, 2 * ff * c, std=c**-0.5), b1=n(2 * ff * c, std=0.1),
+                w2=n(ff * c, c, std=(ff * c) ** -0.5), b2=n(c, std=0.1),
+                w_out=n(c, c, std=c**-0.5), b_out=n(c, std=0.1))
+
+
+# (C, heads, blocks, ff_mult, T, S): JAX's KV-cache test config (4 heads, one
+# block) at C = 64; 16 heads of 6 in three blocks at ff_mult 2 (hidden 192:
+# three 64-unit tiles) with T = 12 in 16 rows; C = 40 at 8 heads of 5 (one
+# ragged 40-input panel, one ragged 40-column block, hidden 160 padded to 192;
+# GroupNorm in 8 groups: 32 do not divide 40)
+DOMAIN = ((64, 4, 1, 4, 32, 5), (96, 16, 3, 2, 12, 13), (40, 8, 2, 4, 20, 9))
+DOMAIN_TOL = 1e-3  # fp32 plan against the Pallas kernel, relative to max|plain - x|
+
+
+@functools.lru_cache(maxsize=None)
+def _domain_case(c, heads, blocks, ff, t, s, dtype):
+    cfg = TCfg(num_heads=heads, num_attention_blocks=blocks, ff_mult=ff,
+               norm_num_groups=math.gcd(32, c))
+    p = _params_cfg(c, blocks, ff, c + heads + blocks)
+    x = torch.from_numpy(np.random.default_rng(c + t).standard_normal((1, t, s, c))
+                         .astype(np.float32)).to(dtype)
+    return cfg, p, x, emulate_wide(x, p, cfg, heads)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", DOMAIN, ids=[f"C{c}-h{h}-b{b}-ff{f}" for c, h, b, f, _, _ in DOMAIN])
+def test_domain_plan_matches_plain(case, dtype):
+    cfg, p, x, got = _domain_case(*case, dtype)
+    want = t_motion.motion_module_plain(x, p, cfg, case[1])
+    tol = TOL if dtype == torch.bfloat16 else 1e-5
+    assert _rel(got, want, x) <= tol
+
+
+@pytest.mark.parametrize("case", DOMAIN, ids=[f"C{c}-h{h}-b{b}-ff{f}" for c, h, b, f, _, _ in DOMAIN])
+def test_domain_plan_matches_pallas_kernel(case):
+    """fp32 inputs, the JAX kernel at the module's heads, blocks and
+    ff_mult, within rtol 1e-3 of max|Pallas - x|."""
+    c, heads, blocks, ff, t, s = case
+    cfg, p, x, got = _domain_case(*case, torch.float32)
+    want = fused_motion_module(jnp.asarray(x.numpy()), {k: jnp.asarray(v.numpy()) for k, v in p.items()},
+                               heads=heads, interpret=True,
+                               cfg=JCfg(num_heads=heads, num_attention_blocks=blocks, ff_mult=ff,
+                                        norm_num_groups=math.gcd(32, c)))
+    assert _rel(got, torch.from_numpy(np.array(want, np.float32)), x) <= DOMAIN_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mutant,case", [("eight_heads", DOMAIN[0]), ("eight_heads", DOMAIN[1]),
+                                         ("last_block_dropped", DOMAIN[0]),
+                                         ("last_block_dropped", DOMAIN[1])])
+def test_wrong_domain_plans_miss_plain(mutant, case, dtype):
+    """A chain that attends with 8 heads whatever the config says, and one
+    that drops the last attention block, each miss the plain version by more
+    than the bf16 tolerance (fp32: by more than 1e-3)."""
+    cfg, p, x, _ = _domain_case(*case, dtype)
+    want = t_motion.motion_module_plain(x, p, cfg, case[1])
+    tol = TOL if dtype == torch.bfloat16 else DOMAIN_TOL
+    assert _rel(emulate_wide(x, p, cfg, case[1], mutant=mutant), want, x) > tol
+
+
+def test_domain_tiles_pad_to_whole_tiles():
+    """At C = 40 and ff_mult 4 every product's tiles cover ⌈K/64⌉ panels and
+    ⌈N/128⌉ column blocks, zero past K and N; w1's hidden units run to F =
+    192 (160 real) with zero h and gate columns past 160, as b1's; w2's
+    rows past 160 are zero."""
+    c = 40
+    p = _params_cfg(c, 2, 4, 3)
+    assert t_motion.wide_hidden(p) == 192
+    tiles = Tiles(t_motion.weight_blocks_wide(p))
+    w_in = tiles.next(c, c)
+    assert w_in.shape == (1, 1, BN, 64)
+    logical = w_in[0, 0]  # (out n, in k)
+    assert torch.equal(logical[:c, :c], p["w_in"].t().to(torch.bfloat16).float())
+    assert not logical[c:].any() and not logical[:, c:].any()
+    for _ in range(2):
+        tiles.next(c, 3 * c), tiles.next(c, c)
+    w1 = tiles.next(c, 2 * 192)  # (3, 1, 128, 64): per 64 units, h then gate columns
+    assert w1.shape == (3, 1, BN, 64)
+    h_cols = w1[:, 0, :64].reshape(192, 64)[:, :c]
+    g_cols = w1[:, 0, 64:].reshape(192, 64)[:, :c]
+    bf = lambda v: v.to(torch.bfloat16).float()  # noqa: E731
+    assert torch.equal(h_cols[:160], bf(p["w1"][:, :160].t()))
+    assert torch.equal(g_cols[:160], bf(p["w1"][:, 160:].t()))
+    assert not h_cols[160:].any() and not g_cols[160:].any()
+    w2 = tiles.next(192, c)
+    assert w2.shape == (1, 3, BN, 64)
+    rows = w2[0].permute(1, 0, 2).reshape(BN, 192)  # (out n, in k)
+    assert torch.equal(rows[:c, :160], bf(p["w2"].t())) and not rows[:, 160:].any()
+    tiles.next(c, c)
+    assert tiles.off == tiles.flat.numel()
+    b1 = t_motion.wide_b1(p)
+    assert torch.equal(b1, torch.cat([p["b1"][:160], torch.zeros(32), p["b1"][160:],
+                                      torch.zeros(32)]))

@@ -10,7 +10,18 @@ kernel's quad-lane reduction) with P rounded to the inputs' dtype (bf16 on
 the card) before P·V, which runs in 16-key steps (one when T ≤ 16); the out
 written over the unit's q rows, and only rows before T and locations
 before S stored.  Also the two wrong tilings that ``chip_smoke.py``
-checks for (the last location tile never stored, zero keys unmasked)."""
+checks for (the last location tile never stored, zero keys unmasked).
+
+The run-time-d kernel (``csrc/temporal_attention_any.cu``: every width the
+gate admits off the six above) walks the same ``tile_plan`` tiles, its
+shared rows fp32 and only the T loaded frames (no stale rows, nothing
+padded), a unit a (location, head, query frame) over 1–8 lanes that split
+its columns: scores over the T keys in fp32 (the lanes' partial sums
+added), the exp2 softmax, P rounded to the inputs' dtype, P·V in fp32, the
+out over the unit's q row.  ``any_kernel`` emulates it, held against the
+Pallas kernel in interpret mode and the plain version at d = 5 (8 heads),
+96 (4 heads) and 3 (16 heads), with a wrong kernel that reads each head
+over the next instantiated width's columns."""
 
 import math
 
@@ -160,3 +171,125 @@ def test_other_plans_compute_the_same():
     for plan in ((2, 4), (3, 2), (1, 8)):
         torch.testing.assert_close(tiled_kernel(q, k, v, HEADS, 48**-0.5, plan=plan), want,
                                    rtol=1e-6, atol=1e-6)
+
+
+# -- the run-time-d kernel -------------------------------------------------------
+
+def any_kernel(q, k, v, heads, scale, mutant=None):
+    """``(B, T, S, C)`` → ``(B, T, S, C)`` in the run-time-d kernel's tiling
+    and rounding points.  ``mutant``: ``"last_location_tile_dropped"``, or
+    ``"d_rounded_up"`` (each head's scores over the next instantiated
+    width's columns of the tile row, from the head's own first column)."""
+    b, t, s, c = q.shape
+    d = c // heads
+    dt = q.dtype
+    locs, group = t_temporal.tile_plan(c, heads, q.element_size())
+    cg = group * d
+    sblocks, hgroups = -(-s // locs), heads // group
+    sl2 = scale * LOG2E
+    dr = next(w for w in t_temporal._SUPPORTED_D + (c,) if w >= d)
+    out = torch.zeros(b, t, s, c, dtype=dt)
+    for tile in range(b * sblocks * hgroups):  # head group fastest
+        hg, r = tile % hgroups, tile // hgroups
+        sb, bi = r % sblocks, r // sblocks
+        s0, c0 = sb * locs, hg * cg
+        lv = min(locs, s - s0)
+        if mutant == "last_location_tile_dropped" and s0 + locs >= s:
+            continue
+        rows = torch.stack([x[bi, :, s0:s0 + lv, c0:c0 + cg].float() for x in (q, k, v)])
+        flat = rows.reshape(3, t, lv * cg)  # the shared rows: T frames, no padding
+        o = torch.zeros(t, lv * cg)
+        for l in range(lv):
+            for h in range(group):
+                col = l * cg + h * d
+                qc, kc = flat[0, :, col:col + d], flat[1, :, col:col + d]
+                if mutant == "d_rounded_up":
+                    qc, kc = flat[0, :, col:col + dr], flat[1, :, col:col + dr]
+                x = (qc @ kc.T) * sl2  # (query, key): the T loaded keys only
+                p = torch.exp2(x - x.amax(-1, keepdim=True))
+                p = (p * (1.0 / p.sum(-1, keepdim=True))).to(dt).float()
+                o[:, col:col + d] = p @ flat[2, :, col:col + d]
+        out[bi, :, s0:s0 + lv, c0:c0 + cg] = o.reshape(t, lv, cg).to(dt)
+    return out
+
+
+def rounded_width_error(q, k, v, heads, scale):
+    """chip_smoke's estimate of the rounded-width mutant, relative to
+    max|plain|."""
+    want = t_temporal.temporal_attention_plain(q, k, v, heads, scale)
+    return chip_smoke.rel_err(chip_smoke.rounded_width_plain(q, k, v, heads, scale), want)
+
+
+# (heads, d, T, S): packed small heads, a wide head without an instantiation,
+# and three-channel heads at the fewest frames; S leaves ragged location tiles
+ANY_CASES = ((8, 5, 32, 7), (4, 96, 17, 5), (16, 3, 8, 9))
+
+
+@pytest.mark.parametrize("heads,d,t,s", ANY_CASES)
+def test_any_kernel_matches_jax_kernel_and_plain(heads, d, t, s):
+    c = heads * d
+    assert not t_temporal.instantiated(c, heads)
+    assert t_temporal.temporal_gate((2, t, s, c), heads, auto=False)
+    scale = d**-0.5
+    q, k, v = _qkv(c + t, 2, t, s, c)
+    want = np.asarray(temporal_attention_window(*(jnp.asarray(x) for x in (q, k, v)),
+                                                heads=heads, scale=scale, interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = any_kernel(tq, tk, tv, heads, scale).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
+    plain = t_temporal.temporal_attention_plain(tq, tk, tv, heads, scale).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-3, atol=1e-3 * np.abs(plain).max())
+
+
+@pytest.mark.parametrize("heads,d,t,s", ANY_CASES)
+def test_any_kernel_in_bf16_matches_plain(heads, d, t, s):
+    c = heads * d
+    qkv = chip_smoke.attention_inputs((1, t, s, c), torch.Generator().manual_seed(d), "cpu")
+    q, k, v = (x.contiguous() for x in qkv.split(c, dim=-1))
+    scale = d**-0.5
+    want = t_temporal.temporal_attention_plain(q, k, v, heads, scale)
+    got = any_kernel(q, k, v, heads, scale)
+    assert got.dtype == torch.bfloat16
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.ATTN_TOL
+
+
+@pytest.mark.parametrize("mutant", ["d_rounded_up", "last_location_tile_dropped"])
+@pytest.mark.parametrize("heads,d,t,s", ANY_CASES)
+def test_wrong_any_kernels_are_caught(heads, d, t, s, mutant):
+    """Each head scored over the next instantiated width's columns (d = 5
+    as 8, 96 as 128, 3 as 8), and the last location tile never stored,
+    miss the plain version by more than ATTN_TOL; so do chip_smoke's own
+    estimates of them."""
+    c = heads * d
+    qkv = chip_smoke.attention_inputs((1, t, s, c), torch.Generator().manual_seed(1), "cpu")
+    q, k, v = (x.contiguous() for x in qkv.split(c, dim=-1))
+    scale = d**-0.5
+    want = t_temporal.temporal_attention_plain(q, k, v, heads, scale)
+    assert chip_smoke.rel_err(any_kernel(q, k, v, heads, scale, mutant=mutant), want) > \
+        chip_smoke.ATTN_TOL
+    if mutant == "d_rounded_up":
+        assert rounded_width_error(q, k, v, heads, scale) > chip_smoke.ATTN_TOL
+    else:
+        plain = lambda q_, k_, v_, sc: t_temporal.temporal_attention_plain(q_, k_, v_, heads, sc)  # noqa: E731
+        locs = t_temporal.tile_plan(c, heads)[0]
+        assert chip_smoke.temporal_mutant_errors(plain, q, k, v, scale, locs)[mutant] > \
+            chip_smoke.ATTN_TOL
+
+
+@pytest.mark.parametrize("c,heads,dtype", [(40, 8, torch.bfloat16), (384, 4, torch.bfloat16),
+                                           (48, 16, torch.float32), (512, 1, torch.bfloat16),
+                                           (2048, 16, torch.float32)])
+def test_any_row_stride_is_conflict_free_and_fits(c, heads, dtype):
+    """The run-time-d kernel's row stride: the tile's channels, then V
+    more only where ld / V would be even (V the widest read that divides
+    d), so 32 query rows' V-wide reads hit distinct banks; three 32-frame
+    stages of it fit in shared memory."""
+    d = c // heads
+    vec = 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    locs, group = t_temporal.tile_plan(c, heads, itemsize)
+    ld = t_temporal.any_row_stride(c, heads, itemsize)
+    assert ld % vec == 0 and (ld // vec) % 2 == 1 and ld - locs * group * d in (0, vec)
+    banks = {(r * ld // vec) % (32 // vec) for r in range(32 // vec)}
+    assert len(banks) == 32 // vec
+    assert t_temporal.kernel_takes((1, 32, 1, c), heads, dtype)

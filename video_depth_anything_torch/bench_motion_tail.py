@@ -8,10 +8,12 @@ the split by stage, at the main path's shapes.
 turns on one card; a tree without the split entry points prints ms only.
 Prints the card's name and power limit, then one JSON row per shape:
 Kernel C at the nine shapes of ``chip_smoke.py`` phase kernels (C = 64,
-128, 192, 256 and 384, 32 frames), on seeded noised weights, with the
+128, 192, 256 and 384, 32 frames) and two of its wide chain's (vitb m1 and
+vitl m0 at 518², C = 768 and 1024), on seeded noised weights, with the
 GroupNorm fold done before (``ms`` times the launch alone) and the split at
 the first shape of each width that has one; then the tail at vitl 518² and
-518×924.
+518×924 (C = 128) and, where the tree's kernel takes them, at vits' and vitb's
+widths, C = 32 and 64, on their 518² maps (``packed_output_stack=False``).
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ MOTION_SHAPES = (("m3 518x518", 64, 5476), ("m0 518x924", 192, 2442),
                  ("m2 518x924", 64, 2442), ("m3 518x924", 64, 9768),
                  ("vitl m3 518x518", 256, 5476), ("vitl m2 518x924", 256, 2442),
                  ("vitl m3 518x924", 256, 9768), ("vitb m3 518x518", 128, 5476),
-                 ("vitb m0 518x924", 384, 2442))
-TAIL_SHAPES = (("vitl 518x518", (32, 296, 296, 518, 518)),
-               ("vitl 518x924", (32, 296, 528, 518, 924)))
+                 ("vitb m0 518x924", 384, 2442), ("vitb m1 518x518", 768, 361),
+                 ("vitl m0 518x518", 1024, 1369))
+TAIL_SHAPES = (("vitl 518x518", 128, (32, 296, 296, 518, 518)),
+               ("vitl 518x924", 128, (32, 296, 528, 518, 924)),
+               ("vits 518x518 unpacked", 32, (32, 296, 296, 518, 518)),
+               ("vitb 518x518 unpacked", 64, (32, 296, 296, 518, 518)))
 
 
 def use_root(root: str) -> None:
@@ -83,11 +88,13 @@ def main(argv=None) -> int:
             row["split_ms"] = mm.motion_module_split(x, gna, gnb, w, cfg, 8, iters=args.iters)
         print(json.dumps(row), flush=True)
         del x, w, gna, gnb
-    for label, (n, h, wd, oh, ow) in TAIL_SHAPES:
-        x = rnd(n, h, wd, 128).to(torch.bfloat16)
-        w1, b1, w2, b2 = rnd(32, 128, 3, 3, std=0.1), rnd(32, std=0.1), rnd(1, 32, 1, 1, std=0.3), \
+    for label, c, (n, h, wd, oh, ow) in TAIL_SHAPES:
+        if c not in ot._SUPPORTED_C:  # an earlier tree's kernel: C = 128 only
+            continue
+        x = rnd(n, h, wd, c).to(torch.bfloat16)
+        w1, b1, w2, b2 = rnd(32, c, 3, 3, std=0.1), rnd(32, std=0.1), rnd(1, 32, 1, 1, std=0.3), \
             rnd(1, std=0.1)
-        row = {"kernel": "output_tail", "shape": f"{label} ({n}x{h}x{wd}x128 -> {oh}x{ow})",
+        row = {"kernel": "output_tail", "shape": f"{label} ({n}x{h}x{wd}x{c} -> {oh}x{ow})",
                "ms": event_ms(lambda: ot.output_tail(x, w1, b1, w2, b2, oh, ow), iters=args.iters)}
         if hasattr(ot, "output_tail_split"):
             row["split_ms"] = ot.output_tail_split(x, w1, b1, w2, b2, oh, ow, iters=args.iters)

@@ -2,9 +2,12 @@
 
 The same frozen dataclasses as ``video_depth_anything_tpu/config.py``,
 kept as a copy so that this package never imports the JAX one.  Only the
-fields that the port reads are carried: the TPU layout switches
-(``packed_output_stack``, ``fused_output_tail``) have no meaning here.
-``fp32_head_island`` is the JAX field of the same name.
+fields that the port reads are carried.  ``fp32_head_island``,
+``packed_output_stack`` and ``fused_output_tail`` are the JAX fields of the
+same names; the last two decide, as in JAX, which heads the output tail
+kernel takes (``ops/output_tail.output_tail_gate``): the port's plain
+output stack is always the unpacked chain, which JAX holds exact against
+its packed one, so ``packed_output_stack`` changes no result.
 ``remat_motion`` recomputes the four motion modules in the backward
 (``torch.utils.checkpoint``), as JAX's ``nn.remat`` does.
 """
@@ -77,6 +80,13 @@ class ModelConfig:
     # fp32 anyway; set True to force the cast in bf16 (``run.py
     # --fp32_island``).  The output tail kernel refuses while it is on.
     fp32_head_island: bool = False
+    # JAX runs vits' and vitb's output stack in a 2x2 space-to-depth layout
+    # and leaves only unpacked heads to its fused tail; off, those heads'
+    # tails (C = 32, 64) reach the tail's gate too.  The port computes the
+    # unpacked chain either way.
+    packed_output_stack: bool = True
+    # Off: the output tail kernel never runs (the plain chain does).
+    fused_output_tail: bool = True
 
 
 _VIT_CONFIGS: Mapping[str, ViTConfig] = {

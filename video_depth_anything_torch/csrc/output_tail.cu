@@ -1,7 +1,9 @@
 // The fused output tail of the DPT head, for Hopper (sm_90a).
 //
 // Replaces video_depth_anything_tpu/ops/pallas_output_stack.py:_tail_kernel
-// (via fused_output_tail).  On output_conv1's map x (N, H, W, C) bf16 it
+// (via fused_output_tail) at every width its gate admits, C in {32, 64,
+// 128} (vits' and vitb's heads under ModelConfig(packed_output_stack=False),
+// vitl's).  On output_conv1's map x (N, H, W, C) bf16 it
 // computes, for each output tile of TH x TW pixels of one frame,
 //   bilinear align_corners resize to (out_h, out_w), fp32 arithmetic,
 //     rounded to bf16 once after both passes
@@ -26,9 +28,10 @@
 // - Persistent CTAs, one per SM, each walking tiles t = blockIdx.x,
 //   t + gridDim.x, ... of TH x TW = 8 x 16 output pixels.  w1 (9 * C * 32
 //   bf16, 73.7 KB) is bulk-copied into shared memory once per CTA, on an
-//   mbarrier, in the wgmma B layout: K = 9 * C in (dy, dx, c) order, 18
-//   tiles of 32 output channels x 64 inputs, 128-byte swizzled by the host
-//   (ops/output_tail.conv_weight_tiles).
+//   mbarrier, in the wgmma B layout: K = 9 * C in (dy, dx, c) order,
+//   ceil(9 C / 64) tiles of 32 output channels x 64 inputs (18 at C = 128,
+//   9 at 64, 5 at 32, whose last tile's upper half is zero), 128-byte
+//   swizzled by the host (ops/output_tail.conv_weight_tiles).
 // - Warp-specialised: two builder warpgroups make the resized tiles, two
 //   consumer warpgroups run the conv, on two tile buffers, so that one
 //   tile's resize overlaps the previous tile's conv (the PR-2 kernel ran
@@ -48,9 +51,12 @@
 //   fragment's rows, which a shared-memory descriptor cannot express
 //   without a copy per tap.  Two fragment sets alternate, so one tap's
 //   loads overlap the previous tap's products.  B comes from w1 in shared
-//   memory.  The tile's pixels are 256-byte rows whose 16-byte chunks are
-//   XOR-swizzled by pixel % 8 within each 128-byte half, so that
-//   ldmatrix's eight rows of a matrix fall in eight different bank groups.
+//   memory.  The tile's pixels are rows of 2 C bytes whose 16-byte chunks
+//   are XOR-swizzled so that ldmatrix's eight rows of a matrix (eight
+//   consecutive pixels, one chunk) fall in eight different bank groups: by
+//   pixel % 8 within each 128-byte half at C = 128 and 64; at C = 32 (64-byte
+//   rows, two pixels a 128-byte line) by (pixel / 2) % 4, pixel parity
+//   choosing the line's half.
 // - Bias, ReLU, the 1x1, its bias and ReLU run in the epilogue on the
 //   accumulators: the 4 lanes that share a pixel hold its 32 channels and
 //   reduce them with two shuffles.
@@ -65,7 +71,6 @@
 
 namespace {
 
-constexpr int C = 128;      // vitl's head width, the only one the gate sends
 constexpr int MID = 32;     // output_conv2's hidden width
 constexpr int TH = 8;       // output rows per tile, four per consumer warpgroup
 constexpr int TW = 16;      // output columns per tile
@@ -74,9 +79,12 @@ constexpr int HW = TW + 2;  // resized tile columns with the conv halo
 constexpr int NTHREADS = 512;  // consumer warpgroups 0-1, builder warpgroups 2-3
 constexpr int NB = 256;        // builder threads
 constexpr int PATCH_H = 8, PATCH_W = 12;  // source pixels a tile's taps may reach
-constexpr int CH = C / 8;                 // 16-byte chunks per pixel
-constexpr int W1_TILES = 9 * C / 64;      // 18 B tiles of 32 x 64
 constexpr int W1_TILE = MID * 64;         // bf16 per B tile
+// 16-byte chunks per pixel, and the B tiles of 32 x 64 of K = 9 C
+template <int C>
+__host__ __device__ constexpr int chunks() { return C / 8; }
+template <int C>
+__host__ __device__ constexpr int w1_tiles() { return (9 * C + 63) / 64; }
 // named barriers (0 is __syncthreads)
 constexpr int BAR_FULL = 1, BAR_EMPTY = 3, BAR_BUILD = 5;
 
@@ -89,17 +97,21 @@ struct __align__(16) Tap {
   float w_lo, w_hi;
 };
 
+template <int C>
 struct Smem {
-  bf16 w1[W1_TILES * W1_TILE];        // 73,728 B, 1024-aligned tiles
-  bf16 tile[2][HH * HW * C];          // 2 x 46,080 B
+  bf16 w1[w1_tiles<C>() * W1_TILE];      // C = 128: 73,728 B, 1024-aligned tiles
+  bf16 tile[2][HH * HW * C];             // 2 x 46,080 B
   bf16 patch[2][PATCH_H * PATCH_W * C];  // 2 x 24,576 B
   Tap rows[2][HH], cols[2][HW];
   uint64_t w1_full;
 };
-constexpr int SMEM = sizeof(Smem) + 1024;
+template <int C>
+constexpr int smem_bytes() { return sizeof(Smem<C>) + 1024; }
 
 // element offset of chunk j (8 channels) of resized pixel p in a tile
+template <int C>
 __device__ __forceinline__ int tile_at(int p, int j) {
+  if constexpr (C == 32) return p * C + ((j ^ ((p >> 1) & 3)) << 3);
   return p * C + (((j & 8) | ((j & 7) ^ (p & 7))) << 3);
 }
 
@@ -127,10 +139,12 @@ struct TileAt {
   }
   // the tile's taps and source patch by builder thread bt, committed as
   // one cp.async group
+  template <int C>
   __device__ void copy(Tap* rows, Tap* cols, bf16* patch, const Tap* ytab, const Tap* xtab,
                        const bf16* x, const Geometry& g, int bt) const {
     if (bt < HH) cp_async16(rows + bt, ytab + ty * (HH + 1) + 1 + bt);
     else if (bt < HH + HW) cp_async16(cols + bt - HH, xtab + tx * (HW + 1) + 1 + bt - HH);
+    constexpr int CH = chunks<C>();
     const bf16* xn = x + (long long)n * g.H * g.W * C;
     for (int i = bt; i < PATCH_H * PATCH_W * CH; i += NB) {
       const int pr = i / (PATCH_W * CH), pc = (i / CH) % PATCH_W, j = i % CH;
@@ -142,13 +156,14 @@ struct TileAt {
   }
 };
 
-template <int STOP>
+template <int C, int STOP>
 __global__ void __launch_bounds__(NTHREADS, 1) output_tail_hopper(
     const bf16* __restrict__ x, const Tap* __restrict__ ytab, const Tap* __restrict__ xtab,
     const bf16* __restrict__ w1, const float* __restrict__ epi, bf16* __restrict__ out,
     const Geometry g) {
+  constexpr int CH = chunks<C>(), W1_TILES = w1_tiles<C>();
   extern __shared__ unsigned char smem_raw[];
-  Smem& sm = aligned_smem<Smem>(smem_raw);
+  Smem<C>& sm = aligned_smem<Smem<C>>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_tiles = g.N * g.tiles_y * g.tiles_x;
   if (tid == 0) {
@@ -166,7 +181,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) output_tail_hopper(
     TileAt next(blockIdx.x, g);
     if (static_cast<int>(blockIdx.x) < n_tiles) {
       next.origin(ytab, xtab);
-      next.copy(sm.rows[0], sm.cols[0], sm.patch[0], ytab, xtab, x, g, bt);
+      next.copy<C>(sm.rows[0], sm.cols[0], sm.patch[0], ytab, xtab, x, g, bt);
     }
     if (static_cast<int>(blockIdx.x) + stride < n_tiles) {
       next = TileAt(blockIdx.x + stride, g);
@@ -177,7 +192,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) output_tail_hopper(
       const int b = k & 1;
       const bool more = tile + stride < n_tiles;
       if (more) {
-        next.copy(sm.rows[b ^ 1], sm.cols[b ^ 1], sm.patch[b ^ 1], ytab, xtab, x, g, bt);
+        next.copy<C>(sm.rows[b ^ 1], sm.cols[b ^ 1], sm.patch[b ^ 1], ytab, xtab, x, g, bt);
         if (tile + 2 * stride < n_tiles) {
           next = TileAt(tile + 2 * stride, g);
           next.origin(ytab, xtab);
@@ -190,7 +205,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) output_tail_hopper(
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       bar_sync(BAR_BUILD, NB);  // the patch and the taps are in
       bf16* tb = sm.tile[b];
-      // builder thread bt: chunk j = bt % 16 of pixels bt / 16 + 16 m, in
+      // thread bt: chunk j = bt % CH of pixels bt / CH + (NB / CH) m, in
       // batches of four whose shared-memory loads all issue before any
       // store (a store could alias the loads, so the compiler would not
       // hoist them itself)
@@ -233,7 +248,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) output_tail_hopper(
               r2[q] = pack_bf16x2(lo, hi);
             }
           }
-          *reinterpret_cast<uint4*>(tb + tile_at(p, j)) = r;
+          *reinterpret_cast<uint4*>(tb + tile_at<C>(p, j)) = r;
         }
       }
       bar_sync(BAR_BUILD, NB);  // the patch buffer and the taps are free
@@ -266,7 +281,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) output_tail_hopper(
       const int ox = t_ox0 + (lane & 15);
       if (lane < 16 && oy < g.out_h && ox < g.out_w)
         out[((long long)t_n * g.out_h + oy) * g.out_w + ox] =
-            tb[tile_at((orow + 1) * HW + (lane & 15) + 1, 0)];
+            tb[tile_at<C>((orow + 1) * HW + (lane & 15) + 1, 0)];
       bar_arrive(BAR_EMPTY + b, NTHREADS);
       continue;
     }
@@ -280,7 +295,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) output_tail_hopper(
       const int p = (orow + tap / 3) * HW + tap % 3 + (lane & 15);
 #pragma unroll
       for (int kk = 0; kk < C / 16; ++kk)
-        ldmatrix_x4(a[kk][0], a[kk][1], a[kk][2], a[kk][3], tb + tile_at(p, 2 * kk + (lane >> 4)));
+        ldmatrix_x4(a[kk][0], a[kk][1], a[kk][2], a[kk][3],
+                    tb + tile_at<C>(p, 2 * kk + (lane >> 4)));
     };
     load_tap(af[0], 0);
 #pragma unroll
@@ -329,10 +345,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) output_tail_hopper(
   }
 }
 
-template <int STOP>
+template <int C, int STOP>
 int launch(const bf16* x, const Tap* ytab, const Tap* xtab, const bf16* w1, const float* epi,
            bf16* out, int N, int H, int W, int out_h, int out_w, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(output_tail_hopper<STOP>,
+  constexpr int SMEM = smem_bytes<C>();
+  cudaError_t e = cudaFuncSetAttribute(output_tail_hopper<C, STOP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0;
@@ -340,8 +357,8 @@ int launch(const bf16* x, const Tap* ytab, const Tap* xtab, const bf16* w1, cons
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const Geometry g{N, H, W, out_h, out_w, (out_w + TW - 1) / TW, (out_h + TH - 1) / TH};
   const int n_tiles = N * g.tiles_x * g.tiles_y;
-  output_tail_hopper<STOP><<<min(n_tiles, sms), NTHREADS, SMEM, stream>>>(x, ytab, xtab, w1, epi,
-                                                                          out, g);
+  output_tail_hopper<C, STOP><<<min(n_tiles, sms), NTHREADS, SMEM, stream>>>(x, ytab, xtab, w1,
+                                                                             epi, out, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -355,19 +372,31 @@ int run(LaunchFn fn, const void* x, const void* ytab, const void* xtab, const vo
             static_cast<const float*>(epi), static_cast<bf16*>(out), N, H, W, out_h, out_w, st);
 }
 
+// the instantiation of width c, stage STOP; nullptr for a width without one
+template <int STOP>
+LaunchFn launcher(int c) {
+  switch (c) {
+    case 32: return launch<32, STOP>;
+    case 64: return launch<64, STOP>;
+    case 128: return launch<128, STOP>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
-// x: contiguous (N, H, W, C) bf16, C = 128; ytab / xtab: per tile row /
-// column, the patch origin and the TH + 2 / TW + 2 halo taps (Tap, 16
-// bytes each), every tap within a PATCH_H x PATCH_W source patch (the
-// wrapper checks); w1 as 18 swizzled tiles of 32 x 64 (K = 9 * C in (dy,
-// dx, c) order); epi: fp32 [b1 (32), w2 (32), b2]; out: contiguous (N,
-// out_h, out_w) bf16.
+// x: contiguous (N, H, W, C) bf16, C in {32, 64, 128}; ytab / xtab: per
+// tile row / column, the patch origin and the TH + 2 / TW + 2 halo taps
+// (Tap, 16 bytes each), every tap within a PATCH_H x PATCH_W source patch
+// (the wrapper checks); w1 as ceil(9 C / 64) swizzled tiles of 32 x 64 (K
+// = 9 * C in (dy, dx, c) order, zero past it); epi: fp32 [b1 (32), w2
+// (32), b2]; out: contiguous (N, out_h, out_w) bf16.
 extern "C" int vda_output_tail(const void* x, const void* ytab, const void* xtab, const void* w1,
                                const void* epi, void* out, int N, int H, int W, int c, int out_h,
                                int out_w, void* stream) {
-  if (c != C) return static_cast<int>(cudaErrorInvalidValue);
-  return run(launch<2>, x, ytab, xtab, w1, epi, out, N, H, W, out_h, out_w,
+  const LaunchFn fn = launcher<2>(c);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(fn, x, ytab, xtab, w1, epi, out, N, H, W, out_h, out_w,
              static_cast<cudaStream_t>(stream));
 }
 
@@ -378,8 +407,8 @@ extern "C" int vda_output_tail_split(const void* x, const void* ytab, const void
                                      const void* w1, const void* epi, void* out, int N, int H,
                                      int W, int c, int out_h, int out_w, void* stream, int iters,
                                      float* ms) {
-  if (c != C) return static_cast<int>(cudaErrorInvalidValue);
-  const LaunchFn fns[3] = {launch<0>, launch<1>, launch<2>};
+  const LaunchFn fns[3] = {launcher<0>(c), launcher<1>(c), launcher<2>(c)};
+  if (fns[0] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0);

@@ -32,7 +32,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention", "motion_module",
            "motion_module_split", "output_tail", "resize_conv",
            "attention_variants_hopper", "flash_attention_f32", "temporal_attention_f32",
-           "motion_module_f32", "motion_module_wide")
+           "motion_module_f32", "motion_module_wide", "temporal_attention_any")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

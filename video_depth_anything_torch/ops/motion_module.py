@@ -31,15 +31,20 @@ GELU), its products in 3xTF32 on the tensor cores, on its own weight layout
 ``kernel_weights(p, cfg, torch.float32)``); ``fused_motion_module.launches``
 counts the bf16 kernel's launches, ``f32_launches`` the fp32 kernel's.
 
-At C = 768 and 1024 (``WIDE_C``: vitb m1, vitl m0/m1 under
-``VDA_FUSED_MOTION=1``) the module takes ``csrc/motion_module_wide.cu``
+The resident kernels take 8 heads, two attention blocks and ff_mult 4 at
+C in ``RESIDENT_C`` (``resident``).  Every other module the gate admits
+(``kernel_takes``: any C, heads, attention blocks and ff_mult; at the
+shipped encoders' widths, C = 768 and 1024: vitb m1, vitl m0/m1 under
+``VDA_FUSED_MOTION=1``) takes ``csrc/motion_module_wide.cu``
 instead, in either dtype: a chain of hand-written launches (row norms,
 ``wgmma`` products with fused epilogues, the frame attention) with the
 activations in a scratch that the wrapper allocates, on its own weight
-layout (``weight_blocks_wide``, bf16 tiles or fp32 hi/lo tiles); it counts on
+layout (``weight_blocks_wide``, bf16 tiles or fp32 hi/lo tiles, zero-padded
+to whole tiles; the hidden units to a multiple of 64); it counts on
 ``fused_motion_module.wide_launches`` and ``wide_f32_launches``.
 
-Bound on the H100: tensor-core FLOPs (~44·C² per token); the fp32
+Bound on the H100: tensor-core FLOPs (~44·C² per token at two blocks and
+ff_mult 4, ``(2 + 4·n_attn)·C² + 6·ff_mult·C²`` in general); the fp32
 kernel's, three times the FLOPs at the tensor cores' TF32 rate; see the
 sources.
 """
@@ -346,43 +351,71 @@ def chunk_channels(c: int, heads: int = 8) -> int:
     return d * (64 // d)
 
 
-# The chain of csrc/motion_module_wide.cu (both dtypes): its widths, the
-# rows and the output columns of a GEMM tile.
-WIDE_C = (768, 1024)
+# The chain of csrc/motion_module_wide.cu (both dtypes): the rows and the
+# output columns of a GEMM tile.
 WIDE_BM, WIDE_BN = 128, 128
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def wide_hidden(p: Dict) -> int:
+    """The wide chain's hidden units F: ff_mult·C (w1's columns / 2)
+    rounded up to a multiple of 64."""
+    return _round_up(p["w1"].shape[1] // 2, 64)
+
+
 def wide_products(p: Dict) -> list:
-    """The eight ``(K, N)`` JAX-layout weights of the wide chain's products,
-    in launch order: proj_in; per attention block ``[wq | wk | wv]`` (one
+    """The ``(K, N)`` JAX-layout weights of the wide chain's products, in
+    launch order: proj_in; per attention block ``[wq | wk | wv]`` (one
     product of 3C columns) and wo; w1 with each 64 hidden units' h columns
     followed by their 64 gate columns (so that a 128-column tile holds both
-    halves of 64 activations); w2; proj_out."""
-    c = p["w_in"].shape[0]
+    halves of 64 activations), the hidden units padded with zero columns to
+    F = ``wide_hidden``; w2 with zero rows past ff_mult·C; proj_out."""
+    c, f = p["w_in"].shape[0], p["w1"].shape[1] // 2
+    fp = wide_hidden(p)
     out = [p["w_in"]]
     for i in range(p["wq"].shape[0]):
         out += [torch.cat([p["wq"][i], p["wk"][i], p["wv"][i]], dim=1), p["wo"][i]]
-    w1 = p["w1"].reshape(c, 2, 4 * c // 64, 64).permute(0, 2, 1, 3).reshape(c, 8 * c)
-    return out + [w1, p["w2"], p["w_out"]]
+    w1 = F.pad(p["w1"].reshape(c, 2, f), (0, fp - f))
+    w1 = w1.reshape(c, 2, fp // 64, 64).permute(0, 2, 1, 3).reshape(c, 2 * fp)
+    return out + [w1, F.pad(p["w2"], (0, 0, 0, fp - f)), p["w_out"]]
+
+
+def wide_b1(p: Dict) -> torch.Tensor:
+    """b1 as the wide chain's GEGLU epilogue reads it: fp32 ``(2F,)``, the h
+    biases then the gate biases, each padded with zeros to F."""
+    f, fp = p["w1"].shape[1] // 2, wide_hidden(p)
+    return F.pad(p["b1"].to(torch.float32).reshape(2, f), (0, fp - f)).reshape(-1).contiguous()
+
+
+def _pad_to(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """``w (K, N)`` padded with zero rows and columns to a multiple of ``k``
+    rows and ``n`` columns."""
+    return F.pad(w, (0, _round_up(w.shape[1], n) - w.shape[1], 0, _round_up(w.shape[0], k) - w.shape[0]))
 
 
 def wide_tiles(w_in_out: torch.Tensor) -> torch.Tensor:
-    """``(K, N)`` weight → bf16 ``(N/128, K/64, 128, 64)``: for each 128-wide
-    column block and 64-input panel, the K-major tile (output column n's
-    inputs in a 128-byte row, its 16-byte chunk j at chunk ``j ^ (n % 8)``)
-    that one bulk copy lands as a wgmma B operand."""
+    """``(K, N)`` weight → bf16 ``(⌈N/128⌉, ⌈K/64⌉, 128, 64)``: for each
+    128-wide column block and 64-input panel, the K-major tile (output column
+    n's inputs in a 128-byte row, its 16-byte chunk j at chunk ``j ^ (n %
+    8)``) that one bulk copy lands as a wgmma B operand; zeros past K and
+    N."""
+    w_in_out = _pad_to(w_in_out, 64, WIDE_BN)
     k, n = w_in_out.shape
     t = sw128_tiles(w_in_out, rows=WIDE_BN).reshape(k // 64, n // WIDE_BN, WIDE_BN, 64)
     return t.transpose(0, 1).contiguous()
 
 
 def wide_tiles_f32(w_in_out: torch.Tensor) -> torch.Tensor:
-    """``(K, N)`` weight → fp32 ``(N/128, K/32, 2, 128, 32)``: per column block
-    and 32-input panel the 3xTF32 split (hi = rna(w), lo = rna(w − hi)) as
-    two K-major tiles in natural input order, output column n's 16-byte
-    chunk j at chunk ``j ^ (n % 8)``."""
+    """``(K, N)`` weight → fp32 ``(⌈N/128⌉, ⌈K/32⌉, 2, 128, 32)``: per column
+    block and 32-input panel the 3xTF32 split (hi = rna(w), lo = rna(w −
+    hi)) as two K-major tiles in natural input order, output column n's
+    16-byte chunk j at chunk ``j ^ (n % 8)``; zeros past K and N."""
+    w_in_out = _pad_to(w_in_out.to(torch.float32), 32, WIDE_BN)
     k, n = w_in_out.shape
-    t = w_in_out.to(torch.float32).t().reshape(n // WIDE_BN, WIDE_BN, k // 32, 32).permute(0, 2, 1, 3)
+    t = w_in_out.t().reshape(n // WIDE_BN, WIDE_BN, k // 32, 32).permute(0, 2, 1, 3)
     hi = tf32_rna(t.contiguous())
     tiles = torch.stack([hi, tf32_rna(t - hi)], 2).reshape(n // WIDE_BN, k // 32, 2, WIDE_BN, 8, 4)
     rows = torch.arange(WIDE_BN, device=t.device)
@@ -392,10 +425,26 @@ def wide_tiles_f32(w_in_out: torch.Tensor) -> torch.Tensor:
 
 def weight_blocks_wide(p: Dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The wide chain's weights: every product's ``wide_tiles`` (bf16) or
-    ``wide_tiles_f32`` (fp32), in launch order, one flat sequence (22 C²
-    bf16 values, or 44 C² floats: hi and lo)."""
+    ``wide_tiles_f32`` (fp32), in launch order, one flat sequence (at two
+    attention blocks, ff_mult 4 and C a multiple of 128: 22 C² bf16 values,
+    or 44 C² floats: hi and lo)."""
     tiles = wide_tiles if dtype == torch.bfloat16 else wide_tiles_f32
     return torch.cat([tiles(w).reshape(-1) for w in wide_products(p)])
+
+
+def wide_weight_elems(c: int, n_attn: int, hidden: int, dtype: torch.dtype) -> int:
+    """Elements of ``weight_blocks_wide`` for a module of width ``c``,
+    ``n_attn`` attention blocks and ``hidden`` (padded) units."""
+    kw, per = (64, 1) if dtype == torch.bfloat16 else (32, 2)
+    shapes = [(c, c)] + [(c, 3 * c), (c, c)] * n_attn + [(c, 2 * hidden), (hidden, c), (c, c)]
+    return sum(-(-n // WIDE_BN) * -(-k // kw) * WIDE_BN * kw * per for k, n in shapes)
+
+
+def wide_scratch_elems(m: int, c: int, hidden: int) -> int:
+    """The wide chain's scratch, elements of x's dtype for ``m`` token rows:
+    y and h rows of C rounded up to 8, and q | k | v rows of 3C rounded up to
+    8 or FF rows of ``hidden``, whichever is wider."""
+    return m * (2 * _round_up(c, 8) + max(_round_up(3 * c, 8), hidden))
 
 
 _fns = {}
@@ -415,25 +464,50 @@ def _kernel(name: str = "motion_module", symbol: Optional[str] = None):
         if name == "motion_module_split":
             fn.argtypes += [i, vp]
         if name == "motion_module_wide":
-            fn.argtypes += [vp]
+            fn.argtypes += [vp, i, i, i]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return _fns[symbol]
 
 
-# The widths of Kernel C: csrc/motion_module.cu's instantiations (vits m0
-# 192, m1-m3 64; vitb m2/m3 128, m0 on 16:9 frames 384; vitl m2/m3 256) and
-# the wide chain's (vitb m1 768, vitl m0/m1 1024 under VDA_FUSED_MOTION=1).
-_SUPPORTED_C = (64, 128, 192, 256, 384) + WIDE_C
+# The widths of the resident kernels, csrc/motion_module.cu's and _f32.cu's
+# instantiations (vits m0 192, m1-m3 64; vitb m2/m3 128, m0 on 16:9 frames
+# 384; vitl m2/m3 256), at 8 heads, two attention blocks and ff_mult 4.
+RESIDENT_C = (64, 128, 192, 256, 384)
 # Kernel operands after x, gna and gnb, in the C entry point's order.
 _OPERANDS = ("pe", "w", "b_in", "ln_scale", "ln_bias", "bo", "b1", "b2", "b_out")
+
+
+def resident(c: int, heads: int, cfg: MotionModuleConfig) -> bool:
+    """Whether a module of width ``c`` takes the resident kernel (else the
+    wide chain)."""
+    return (heads == 8 and c in RESIDENT_C and cfg.num_attention_blocks == 2
+            and cfg.ff_mult == 4)
+
+
+def kernel_takes(shape, cfg: MotionModuleConfig, heads: int, dtype) -> bool:
+    """Whether Kernel C takes ``x (B, T, S, C)`` of ``dtype`` through a
+    module of ``cfg`` at ``heads`` heads: bf16 or fp32, one transformer
+    block with APE, at least one attention block, whole heads, an even C or
+    one below 64 (the gate admits odd C only up to 7), and 8 ≤ T ≤ 32
+    within the APE table.  The resident kernel takes its five widths
+    (``resident``), the wide chain everything else.  Pure: no card
+    needed."""
+    if len(shape) != 4 or dtype not in (torch.bfloat16, torch.float32):
+        return False
+    _, t, _, c = shape
+    return (cfg.num_transformer_blocks == 1 and cfg.pos_embedding_type == "ape"
+            and cfg.num_attention_blocks >= 1 and cfg.ff_mult >= 1 and heads >= 1
+            and c % heads == 0 and (c % 2 == 0 or c < 64)
+            and 8 <= t <= min(32, cfg.temporal_max_len))
 
 
 def kernel_weights(p: Dict, cfg: MotionModuleConfig,
                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """Kernel C's operands that depend only on the parameters, for inputs of
     ``dtype``: in bf16 the weight tiles in the order the kernel streams
-    them (``weight_blocks``; ``weight_blocks_wide`` at C in ``WIDE_C``) and
+    them (``weight_blocks``; ``weight_blocks_wide`` off the resident
+    kernels' domain, with b1 as ``wide_b1``) and
     the bf16 APE table, in fp32 the fp32 kernel's hi and lo blocks
     (``weight_blocks_f32``; ``weight_blocks_wide`` in fp32) and the fp32 table (both
     under ``"w"`` and ``"pe"``, ``temporal_max_len`` rows); fp32 biases and
@@ -446,8 +520,9 @@ def kernel_weights(p: Dict, cfg: MotionModuleConfig,
                                 "b1", "b2", "b_out")}
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"motion_module kernels take bf16 or fp32, got {dtype}")
-    if c in WIDE_C:
+    if not resident(c, cfg.num_heads, cfg):
         w["w"] = weight_blocks_wide(p, dtype)
+        w["b1"] = wide_b1(p).to(p["w_in"].device)
     else:
         w["w"] = weight_blocks(p) if dtype == torch.bfloat16 else weight_blocks_f32(p)
     w["pe"] = torch.from_numpy(sinusoidal_position_table(cfg.temporal_max_len, c)).to(
@@ -485,18 +560,19 @@ def _launch_args(x, gna, gnb, w, cfg, heads):
         raise TypeError(f"motion_module kernel takes bf16 or fp32, got {x.dtype}")
     if w["w"].dtype != x.dtype or w["pe"].dtype != x.dtype:
         raise ValueError(f"motion_module weights are not kernel_weights for {x.dtype}")
-    if heads != 8 or c not in _SUPPORTED_C or not 8 <= t <= 32 or t > w["pe"].shape[0]:
+    if not kernel_takes(x.shape, cfg, heads, x.dtype) or t > w["pe"].shape[0]:
         raise NotImplementedError(
-            f"motion_module kernel takes 8 heads, C in {_SUPPORTED_C}, 8 <= T <= 32 within "
-            f"the APE table; got heads={heads}, C={c}, T={t}")
-    if cfg.num_attention_blocks != 2 or cfg.num_transformer_blocks != 1:
-        raise NotImplementedError("motion_module kernel takes one block of two attentions")
-    if x.dtype == torch.bfloat16 or c in WIDE_C:
-        n_w = 22 * c * c * (1 if x.dtype == torch.bfloat16 else 2)
+            f"motion_module kernel takes one transformer block of APE attention blocks, whole "
+            f"heads and 8 <= T <= 32 within the APE table; got heads={heads}, C={c}, T={t}, "
+            f"{cfg.num_transformer_blocks} transformer block(s) of "
+            f"{cfg.num_attention_blocks} attention block(s), {cfg.pos_embedding_type}")
+    if resident(c, heads, cfg):
+        n_w = 22 * c * c if x.dtype == torch.bfloat16 else 4096 * f32_weight_blocks(c)
     else:
-        n_w = 4096 * f32_weight_blocks(c)
+        n_w = wide_weight_elems(c, cfg.num_attention_blocks, w["b1"].numel() // 2, x.dtype)
     if w["w"].numel() != n_w:
-        raise ValueError(f"motion_module weights are not kernel_weights of a C = {c} module")
+        raise ValueError(f"motion_module weights are not kernel_weights of a C = {c} module "
+                         f"at {heads} heads and {cfg.num_attention_blocks} attention blocks")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("motion_module needs a 16-byte aligned input")
@@ -513,17 +589,20 @@ def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
                          w: Dict[str, torch.Tensor], cfg: MotionModuleConfig, heads: int):
     """Kernel C's launch alone, given the folded GroupNorm (``gn_fold``) and
     ``kernel_weights`` for x's dtype; counts on
-    ``fused_motion_module.launches`` (bf16) or ``f32_launches`` (fp32), at C
-    in ``WIDE_C`` on ``wide_launches`` or ``wide_f32_launches`` (the chain:
-    one count a module)."""
+    ``fused_motion_module.launches`` (bf16) or ``f32_launches`` (fp32), off
+    the resident kernels' domain on ``wide_launches`` or
+    ``wide_f32_launches`` (the chain: one count a module)."""
     out, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)  # _x: alive until enqueued
-    if x.shape[-1] in WIDE_C:
-        # y, h (M x C) and q|k|v / the FF activation (M x 4C) of the chain
-        scratch = torch.empty(6 * x.numel(), dtype=x.dtype, device=x.device)
+    c = x.shape[-1]
+    if not resident(c, heads, cfg):
+        hidden = w["b1"].numel() // 2
+        # y, h and q|k|v / the FF activation of the chain
+        scratch = torch.empty(wide_scratch_elems(x.numel() // c, c, hidden), dtype=x.dtype,
+                              device=x.device)
         f32 = x.dtype == torch.float32
         symbol = "motion_module_wide_f32" if f32 else "motion_module_wide"
-        cuda_build.check(_kernel("motion_module_wide", symbol)(*args, cuda_build.ptr(scratch)),
-                         symbol)
+        cuda_build.check(_kernel("motion_module_wide", symbol)(
+            *args, cuda_build.ptr(scratch), heads, cfg.num_attention_blocks, hidden), symbol)
         if f32:
             fused_motion_module.wide_f32_launches += 1
         else:
@@ -551,8 +630,9 @@ def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
     plus ``whole``.  C in ``SPLIT_C``, bf16; not counted as launches."""
     if x.dtype != torch.bfloat16:
         raise TypeError("the split instantiations are the bf16 kernel's")
-    if x.shape[-1] not in SPLIT_C:
-        raise NotImplementedError(f"the split instantiations take C in {SPLIT_C}")
+    if x.shape[-1] not in SPLIT_C or not resident(x.shape[-1], heads, cfg):
+        raise NotImplementedError(f"the split instantiations take C in {SPLIT_C} at the "
+                                  f"resident kernel's config")
     _, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)
     ms = (ctypes.c_float * 8)()
     cuda_build.check(_kernel("motion_module_split")(*args, iters, ms), "motion_module_split")

@@ -11,10 +11,14 @@ gate says no, and the port of ``xla_output_tail``
 (``pallas_output_stack.py:463``).
 
 ``output_tail_gate`` is the JAX dispatch rule (``models/dpt.py:172-233``
-and ``try_fused_output_tail``): bf16, no packed small-channel output stack
-(of the shipped heads only vitl's, C = 128, has none), C in {32, 64, 128},
+and ``try_fused_output_tail``): bf16, ``ModelConfig.fused_output_tail``
+on, no packed small-channel output stack (of the shipped heads only
+vitl's, C = 128, has none while ``packed_output_stack`` is on; with it off
+vits' C = 32 and vitb's C = 64 reach the gate too), C in {32, 64, 128},
 h, w ≥ 2, and the TPU kernel's VMEM estimate within its 97 MiB budget.
-That admits vitl's 518² window and refuses 518×924.
+That admits the 518² windows and refuses 518×924.  ``kernel_takes`` is
+the kernel's own domain (bf16, C in {32, 64, 128}, every tile's taps
+within its source patch); the gate's shapes lie inside it.
 
 Weights use the port's (the reference torch) layout: ``w1 (32, C, 3, 3)``,
 ``b1 (32,)``, ``w2 (1, 32, 1, 1)``, ``b2 (1,)``.
@@ -60,9 +64,13 @@ def _s2d_profitable(cin: int, cout: int) -> bool:
     return pad(4 * cin) * pad(4 * cout) // 4 < pad(cin) * pad(cout)
 
 
-def _packed_plan(features: int):
-    """``DPTHeadTemporal._packed_plan``: "pre" (vits), "post" (vitb) or
-    None (vitl); only None leaves the tail to the fused kernel."""
+def _packed_plan(cfg):
+    """``DPTHeadTemporal._packed_plan``: None under
+    ``packed_output_stack=False``, else "pre" (vits), "post" (vitb) or None
+    (vitl); only None leaves the tail to the fused kernel."""
+    if not cfg.packed_output_stack:
+        return None
+    features = cfg.features
     if _s2d_profitable(features, features // 2):
         return "pre"
     if _s2d_profitable(features // 2, _MID):
@@ -110,12 +118,13 @@ def _vmem_estimate(n: int, h: int, w: int, c: int, out_h: int, out_w: int) -> in
 
 def output_tail_gate(cfg, shape, dtype, out_h: int, out_w: int) -> bool:
     """True where the JAX package runs the fused Pallas tail on
-    ``output_conv1``'s map of ``shape (N, H, W, C)``: never in fp32 nor
-    under ``cfg.fp32_head_island`` (JAX ``models/dpt.py:202``).  The weight shapes
+    ``output_conv1``'s map of ``shape (N, H, W, C)``: never in fp32, under
+    ``cfg.fp32_head_island`` or with ``cfg.fused_output_tail`` off (JAX
+    ``models/dpt.py:202``).  The weight shapes
     the JAX gate also checks, ``(3, 3, C, 32)`` and 32, hold by
     construction when C is the head's ``features // 2``."""
-    if (dtype != torch.bfloat16 or cfg.fp32_head_island or len(shape) != 4
-            or _packed_plan(cfg.features) is not None):
+    if (dtype != torch.bfloat16 or cfg.fp32_head_island or not cfg.fused_output_tail
+            or len(shape) != 4 or _packed_plan(cfg) is not None):
         return False
     n, h, w, c = shape
     if c not in (32, 64, 128) or c != cfg.features // 2 or h < 2 or w < 2:
@@ -160,8 +169,9 @@ def _kernel(name: str = "output_tail"):
     return _fns[name]
 
 
-# The instantiation of csrc/output_tail.cu: vitl's head width.
-_SUPPORTED_C = (128,)
+# The instantiations of csrc/output_tail.cu: the widths the JAX gate admits
+# (vitl's head; vits' and vitb's without the packed output stack).
+_SUPPORTED_C = (32, 64, 128)
 # csrc/output_tail.cu's output tile (rows, columns) and the source patch
 # (rows, columns) its taps must stay within.
 _TILE = (8, 16)
@@ -181,9 +191,24 @@ def _patch_span(in_size: int, out_size: int, tile: int) -> int:
 
 def conv_weight_tiles(w1: torch.Tensor) -> torch.Tensor:
     """``w1 (32, C, 3, 3)`` → the kernel's wgmma B tiles: K = 9·C in (dy,
-    dx, c) order, ``sw128_tiles`` of 32 output channels × 64 inputs."""
+    dx, c) order, padded with zero rows to a multiple of 64 (C = 32: 288 of
+    320), ``sw128_tiles`` of 32 output channels × 64 inputs."""
     c = w1.shape[1]
-    return sw128_tiles(w1.permute(2, 3, 1, 0).reshape(9 * c, _MID), rows=_MID)
+    k = w1.permute(2, 3, 1, 0).reshape(9 * c, _MID)
+    k = torch.cat([k, k.new_zeros(_round_up(9 * c, 64) - 9 * c, _MID)])
+    return sw128_tiles(k, rows=_MID)
+
+
+def kernel_takes(shape, dtype, out_h: int, out_w: int) -> bool:
+    """Whether the tail kernel takes ``output_conv1``'s map of ``shape
+    (N, H, W, C)`` resized to ``(out_h, out_w)``: bf16, C in
+    ``_SUPPORTED_C``, and every tile's taps within its source patch.  Pure:
+    no card needed."""
+    if dtype != torch.bfloat16 or len(shape) != 4:
+        return False
+    _, h, w, c = shape
+    return (c in _SUPPORTED_C and _patch_span(h, out_h, _TILE[0]) <= _PATCH[0]
+            and _patch_span(w, out_w, _TILE[1]) <= _PATCH[1])
 
 
 @functools.lru_cache(maxsize=16)
@@ -251,17 +276,16 @@ def _launch_args(x, w1, b1, w2, b2, out_h: int, out_w: int):
     n, h, w, c = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"output_tail kernel takes bf16, got {x.dtype}")
-    if c not in _SUPPORTED_C:
-        raise NotImplementedError(f"output_tail kernel takes C in {_SUPPORTED_C}, got {c}")
     if (tuple(w1.shape) != (_MID, c, 3, 3) or b1.numel() != _MID or w2.numel() != _MID
             or b2.numel() != 1):
         raise ValueError("output_tail takes w1 (32, C, 3, 3), b1 (32,), w2 (1, 32, 1, 1), b2 (1,)")
     if any(t.device != x.device for t in (w1, b1, w2, b2)):
         raise ValueError("output_tail operands must share x's device")
-    if _patch_span(h, out_h, _TILE[0]) > _PATCH[0] or _patch_span(w, out_w, _TILE[1]) > _PATCH[1]:
+    if not kernel_takes(x.shape, x.dtype, out_h, out_w):
         raise NotImplementedError(
-            f"output_tail kernel: the taps of one {_TILE[0]}x{_TILE[1]} tile must stay within "
-            f"{_PATCH[0]}x{_PATCH[1]} source pixels; {h}x{w} -> {out_h}x{out_w} spreads wider")
+            f"output_tail kernel takes C in {_SUPPORTED_C} and the taps of one "
+            f"{_TILE[0]}x{_TILE[1]} tile within {_PATCH[0]}x{_PATCH[1]} source pixels; got C={c}, "
+            f"{h}x{w} -> {out_h}x{out_w}")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("output_tail needs a 16-byte aligned input")
@@ -283,6 +307,8 @@ def output_tail(x, w1, b1, w2, b2, out_h: int, out_w: int) -> torch.Tensor:
     out, _keep, args = _launch_args(x, w1, b1, w2, b2, out_h, out_w)
     cuda_build.check(_kernel()(*args), "output_tail")
     output_tail.launches += 1
+    c = x.shape[-1]
+    output_tail.width_launches[c] = output_tail.width_launches.get(c, 0) + 1
     return out
 
 
@@ -304,6 +330,7 @@ def output_tail_split(x, w1, b1, w2, b2, out_h: int, out_w: int, iters: int = 20
 
 
 output_tail.launches = 0
+output_tail.width_launches = {}  # launches by width C
 
 
 class OutputTailFn(torch.autograd.Function):

@@ -1,11 +1,16 @@
 """Kernel B: temporal attention core (``csrc/temporal_attention.cu``, and on
-fp32 operands ``csrc/temporal_attention_f32.cu``).
+fp32 operands ``csrc/temporal_attention_f32.cu``; at the other head widths
+``csrc/temporal_attention_any.cu``).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_temporal.py``
-``_temporal_kernel`` (``temporal_attention_window``) at every head width
-the JAX gate admits on the shipped encoders, d ∈ {8, 16, 24, 32, 48, 128}
-(the gate also admits d = 64 and, with location packing, other small
-widths that no shipped encoder has: the kernel raises there).  ``temporal_gate`` is the JAX
+``_temporal_kernel`` (``temporal_attention_window``) at every (T ≤ 32, C,
+heads) the JAX gate admits.  The head widths of the shipped encoders, d ∈
+{8, 16, 24, 32, 48, 128} at C ≤ 1024, take the instantiated kernels; every
+other width the gate admits (with location packing d = 1 … 7, 10, 12, 14,
+20, 28, 40, 56, 64, 80, 96, 112 and, at one or two heads, up to 512;
+without it d = 64, and d = 128 at C = 2048) takes the run-time-d kernel of
+``temporal_attention_any.cu``, bf16 or fp32.  ``kernel_takes`` is the
+kernels' domain, a pure predicate.  ``temporal_gate`` is the JAX
 dispatch rule of ``try_temporal_attention`` (``pallas_temporal.py:277-313``):
 the lane-packing constraints of the TPU kernel and, under ``auto``, head_dim
 ≤ 24.  Under ``auto`` that is, at 518², vits m0 (C = 192, d = 24) and m2
@@ -23,12 +28,13 @@ raw launch and keeps no autograd history.  ``tile_plan`` is the kernel's
 tile geometry (locations and heads per tile), which
 ``tests/test_torch_temporal_tiling.py`` emulates on the CPU; the fp32
 kernel's tiles are the same plan reckoned at 4-byte elements.
-``temporal_attention.launches`` counts the bf16 kernel's launches (and
-``width_launches`` them by head width), ``f32_launches`` the fp32
-kernel's (``f32_width_launches`` by head width): the JAX kernel on fp32
-inputs (its gate checks no dtype; the probabilities stay fp32), FFMA in
-fp32 fed from registers, the same widths and the bf16 kernel's pipelined
-walk over a ring of tiles.
+``temporal_attention.launches`` counts the bf16 kernel's launches,
+``f32_launches`` the fp32 kernel's: the JAX kernel on fp32 inputs (its
+gate checks no dtype; the probabilities stay fp32), FFMA in fp32 fed from
+registers, the same widths and the bf16 kernel's pipelined walk over a
+ring of tiles; ``any_launches`` and ``any_f32_launches`` count the
+run-time-d kernel's.  ``width_launches`` and ``f32_width_launches`` count
+each dtype's launches by head width, over both kernels.
 
 Bound on the H100: memory bytes (q, k, v read once, out written once).
 """
@@ -100,11 +106,12 @@ def temporal_attention_bwd_plain(q, k, v, g, heads: int, scale: float):
 
 
 _fns = {}
-# The instantiations of csrc/temporal_attention.cu: every head width the
-# JAX gate admits on the shipped encoders (vits 8/24/48, vitb 16/48, vitl
-# 32/128).
+# The instantiations of csrc/temporal_attention.cu and _f32.cu, at C ≤
+# 1024: every head width of the shipped encoders (vits 8/24/48, vitb 16/48,
+# vitl 32/128).  Other widths take csrc/temporal_attention_any.cu.
 _SUPPORTED_D = (8, 16, 24, 32, 48, 128)
 _TILE_BYTES = 512  # bytes of a frame's run that a tile aims at
+_SMEM_MAX = 227 * 1024  # shared memory a CTA may opt into on an H100
 
 
 def tile_plan(c: int, heads: int, itemsize: int = 2) -> tuple:
@@ -122,30 +129,65 @@ def tile_plan(c: int, heads: int, itemsize: int = 2) -> tuple:
     return locs, group
 
 
-def _kernel(name: str = "temporal_attention"):
-    """``vda_<name>`` of ``csrc/<name>.cu``: the bf16 kernel or
-    ``temporal_attention_f32``."""
-    if name not in _fns:
-        fn = getattr(cuda_build.library(name), f"vda_{name}")
+def instantiated(c: int, heads: int) -> bool:
+    """Whether ``(C, heads)`` takes the instantiated kernels (else the
+    run-time-d one)."""
+    return c // heads in _SUPPORTED_D and c <= 1024
+
+
+def any_row_stride(c: int, heads: int, itemsize: int = 2) -> int:
+    """The run-time-d kernel's shared row stride in floats: a tile's
+    ``locs · group · d`` channels, plus V where that many V-wide reads
+    would be even (V = 4, 2 or 1, the largest dividing d), so that 32 rows'
+    reads hit distinct banks."""
+    d = c // heads
+    locs, group = tile_plan(c, heads, itemsize)
+    vec = 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    base = locs * group * d
+    return base if (base // vec) % 2 else base + vec
+
+
+def kernel_takes(shape, heads: int, dtype) -> bool:
+    """Whether Kernel B takes ``(B, T, S, C)`` q, k and v of ``dtype`` at
+    ``heads`` heads: bf16 or fp32, whole heads, 1 ≤ T ≤ 32, and (off the
+    instantiated widths) the run-time-d kernel's tile rows, 3·T rows of
+    ``any_row_stride`` floats, within shared memory.  Pure: no card
+    needed."""
+    if len(shape) != 4 or dtype not in (torch.bfloat16, torch.float32):
+        return False
+    _, t, _, c = shape
+    if heads < 1 or c % heads or not 1 <= t <= 32:
+        return False
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    return instantiated(c, heads) or 3 * t * any_row_stride(c, heads, itemsize) * 4 <= _SMEM_MAX
+
+
+def _kernel(name: str = "temporal_attention", symbol: str = ""):
+    """``vda_<symbol>`` (``symbol`` = name unless given) of
+    ``csrc/<name>.cu``: the bf16 kernel, ``temporal_attention_f32``, or
+    ``temporal_attention_any``'s ``temporal_attention_any`` and
+    ``temporal_attention_any_f32``."""
+    symbol = symbol or name
+    if symbol not in _fns:
+        fn = getattr(cuda_build.library(name), f"vda_{symbol}")
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, i, i]
-        fn.argtypes += [vp] if name.endswith("f32") else [i, vp]
+        fn.argtypes += [i, vp] if symbol == "temporal_attention" else [vp]
         fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+        _fns[symbol] = fn
+    return _fns[symbol]
 
 
 def _checked(q, k, v, heads: int):
     """q, k and v as the kernel takes them, or raise."""
     t, c = q.shape[1], q.shape[-1]
-    d = c // heads
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"temporal_attention kernel takes bf16 or fp32, got "
                         f"{(q.dtype, k.dtype, v.dtype)}")
-    if c % heads or d not in _SUPPORTED_D or not 1 <= t <= 32 or c > 1024:
+    if not kernel_takes(q.shape, heads, q.dtype):
         raise NotImplementedError(
-            f"temporal_attention kernel takes 1 <= T <= 32, heads of {_SUPPORTED_D} and "
-            f"C <= 1024, got T={t}, heads={heads}, d={d}")
+            f"temporal_attention kernel takes 1 <= T <= 32, whole heads and tile rows within "
+            f"shared memory, got T={t}, C={c}, heads={heads}")
     q, k, v = (x.contiguous() for x in (q, k, v))
     for x in (k, v):
         if x.shape != q.shape or x.device != q.device:
@@ -161,6 +203,13 @@ def _launch(q, k, v, heads: int, scale: float, stop: bool = False):
     out = torch.empty_like(q)
     args = (cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
             b, t, s, c, heads, float(scale), locs, group)
+    if not instantiated(c, heads):
+        if stop:
+            raise ValueError("the split (copies only) is the instantiated bf16 kernel's")
+        symbol = "temporal_attention_any" + ("_f32" if q.dtype == torch.float32 else "")
+        err = _kernel("temporal_attention_any", symbol)(*args, cuda_build.stream_of(q))
+        cuda_build.check(err, symbol)
+        return out
     if q.dtype == torch.float32:
         if stop:
             raise ValueError("the split (copies only) is the bf16 kernel's")
@@ -179,13 +228,19 @@ def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, heads, scale)
     out = _launch(*_checked(q, k, v, heads), heads, scale)
-    d = q.shape[-1] // heads
-    if q.dtype == torch.float32:
-        temporal_attention.f32_launches += 1
-        widths = temporal_attention.f32_width_launches
+    c, f = q.shape[-1], temporal_attention
+    d = c // heads
+    f32 = q.dtype == torch.float32
+    if instantiated(c, heads):
+        if f32:
+            f.f32_launches += 1
+        else:
+            f.launches += 1
+    elif f32:
+        f.any_f32_launches += 1
     else:
-        temporal_attention.launches += 1
-        widths = temporal_attention.width_launches
+        f.any_launches += 1
+    widths = f.f32_width_launches if f32 else f.width_launches
     widths[d] = widths.get(d, 0) + 1
     return out
 
@@ -198,9 +253,11 @@ def temporal_attention_split(q, k, v, heads: int, scale: float) -> torch.Tensor:
 
 
 temporal_attention.launches = 0
-temporal_attention.width_launches = {}  # the bf16 kernel's launches by head width d
+temporal_attention.width_launches = {}  # bf16 launches by head width d, both kernels
 temporal_attention.f32_launches = 0
-temporal_attention.f32_width_launches = {}  # the fp32 kernel's launches by head width d
+temporal_attention.f32_width_launches = {}  # fp32 launches by head width d, both kernels
+temporal_attention.any_launches = 0  # the run-time-d kernel's, bf16
+temporal_attention.any_f32_launches = 0  # and fp32
 
 
 class TemporalAttentionFn(torch.autograd.Function):

@@ -164,6 +164,8 @@ def kernel_launches() -> dict:
         counts[f"{f.__name__}_f32"] = f.f32_launches
     counts["fused_motion_module_wide"] = fused_motion_module.wide_launches
     counts["fused_motion_module_wide_f32"] = fused_motion_module.wide_f32_launches
+    counts["temporal_attention_any"] = temporal_attention.any_launches
+    counts["temporal_attention_any_f32"] = temporal_attention.any_f32_launches
     return counts
 
 

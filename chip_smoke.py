@@ -190,9 +190,9 @@ Phases (each failure ends the run with a non-zero exit):
    for vits, vitb and vitl; a .pth of noised vits weights: one), each
    request's depth video against ``run``'s on the same clip and weights,
    its launches (Kernels A and C) from the server's line; ``profile_model``
-   for vits and vitl at 518x518x32 and ``examples.quickstart`` at once
+   for vits at 518x518x32 and vitl at 518x518x8, and ``examples.quickstart``
    (``param_counts`` against the port's module); ``examples.feature_pca``'s
-   level features on the card against the CPU's; ``tools.stress`` for 5 s.
+   level features on the card against the CPU's; ``tools.stress`` for 2 s.
 The card's line (``nvidia-smi``'s name and power limit) comes first and
 stands beside every time.  The last two lines are the kernels JSON object
 (launches summed over the main-path runs of phases cli, stream, train-cli,
@@ -1156,6 +1156,7 @@ def main() -> int:
     timed("window", phase_window, dev, smi)
     switch_launches = timed("fused_switch", phase_fused_switch, dev, smi)
     domain_launches, domain = timed("domain", phase_domain, dev, smi)
+    wide_launches, wide = timed("wide", phase_wide, dev, smi)
     launches = timed("cli", phase_cli, smi)
     stream_launches = timed("stream", phase_stream, dev, smi)
     timed("train", phase_train_check, dev, smi)
@@ -1167,7 +1168,7 @@ def main() -> int:
     par_launches = timed("parallel", phase_parallel, smi)
     vitg_launches = timed("vitg", phase_vitg, dev, smi)
     demo_launches = timed("tooling", phase_tooling, dev, smi)
-    rows = rows + f32_rows + domain
+    rows = rows + f32_rows + domain + wide
 
     info = {
         "flash_attention": ("flash_attention", "csrc/flash_attention.cu",
@@ -1211,6 +1212,11 @@ def main() -> int:
         "temporal_attention_any_f32": ("temporal_attention_any_f32",
                                        "csrc/temporal_attention_any.cu",
                                        "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
+        # Kernel A at D >= 320: phase wide
+        "flash_attention_wide": ("flash_attention_wide", "csrc/flash_attention_wide.cu",
+                                 "video_depth_anything_tpu/ops/pallas_attention.py:159"),
+        "flash_attention_wide_f32": ("flash_attention_wide_f32", "csrc/flash_attention_wide.cu",
+                                     "video_depth_anything_tpu/ops/pallas_attention.py:159"),
     }
     kernels = []
     for name, (wrapper, src, replaces) in info.items():
@@ -1224,7 +1230,8 @@ def main() -> int:
             count = sum(d.get(wrapper, 0) for d in (
                 launches, stream_launches, train_launches, eval_launches, par_launches,
                 vitg_launches, demo_launches))
-        count += switch_launches.get(wrapper, 0) + domain_launches.get(wrapper, 0)
+        count += (switch_launches.get(wrapper, 0) + domain_launches.get(wrapper, 0)
+                  + wide_launches.get(wrapper, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": f"video_depth_anything_torch/{src}",
             "replaces": replaces, "launches": count,
@@ -1281,6 +1288,7 @@ def zero_counts() -> None:
               output_tail) + probe_wrappers():
         f.launches = 0
     flash_attention.fast_launches = 0
+    flash_attention.wide_launches = flash_attention.wide_f32_launches = 0
     for f in (flash_attention, temporal_attention, fused_motion_module):
         f.f32_launches = 0
     fused_motion_module.wide_launches = fused_motion_module.wide_f32_launches = 0
@@ -1364,8 +1372,8 @@ def noise_weights(module, seed: int, device=None) -> None:
     """Seeded noise on every parameter (weights ~ N(0, 1/fan_in), norm
     scales ~ 1 + N(0, 0.1²), the rest ~ N(0, 0.1²)), so that no motion
     module is the identity that its zero proj_out would make it.  Drawn on
-    the CPU, or on ``device`` (faster for vitg's 1.37 B parameters; other
-    values than the CPU's)."""
+    the CPU, or on ``device`` (seconds faster for a model on the card;
+    other values than the CPU's)."""
     import torch
 
     g = torch.Generator(device=device or "cpu").manual_seed(seed)
@@ -1381,7 +1389,7 @@ def noise_weights(module, seed: int, device=None) -> None:
             p.copy_(val)
 
 
-def write_noised_pth(encoder: str, path: str) -> None:
+def write_noised_pth(encoder: str, path: str, device: str = "cpu") -> None:
     """A ``.pth`` of the model's seeded parameters under ``noise_weights``,
     in the fp32 that the module holds (what ``run --checkpoint`` and
     ``train --init_checkpoint`` load)."""
@@ -1390,9 +1398,8 @@ def write_noised_pth(encoder: str, path: str) -> None:
     from video_depth_anything_torch.io.checkpoint import save_pth
     from video_depth_anything_torch.models.vda import VDAModel
 
-    model = VDAModel(encoder, device="cpu", dtype=torch.float32)
-    model.init_params(seed=0)
-    noise_weights(model.module, seed=1)
+    model = VDAModel(encoder, device=device, dtype=torch.float32)
+    noise_weights(model.module, seed=1, device=device)
     save_pth(path, model.module.state_dict())
 
 
@@ -1513,7 +1520,7 @@ def time_window(model, xb, label: str, smi: str) -> None:
 
     model.infer_window(xb)
     torch.cuda.synchronize()
-    iters = 3
+    iters = 1  # one timed call after the warm one: the script's time limit
     t0 = time.perf_counter()
     for _ in range(iters):
         model.infer_window(xb)
@@ -1532,8 +1539,7 @@ def phase_window(dev, smi: str):
     g = torch.Generator(device=dev).manual_seed(2)
     for encoder, wb in WINDOW_BATCH.items():
         model = VDAModel(encoder, device=dev)
-        model.init_params(seed=0)
-        noise_weights(model.module, seed=1)
+        noise_weights(model.module, seed=1, device=dev)
         for (enc, h, w), (needed, absent) in WINDOW_PLANS.items():
             if enc != encoder:
                 continue
@@ -1621,8 +1627,7 @@ def phase_fused_switch(dev, smi: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(7)
     for encoder in ("vitb", "vitl"):
         model = VDAModel(encoder, device=dev)
-        model.init_params(seed=0)
-        noise_weights(model.module, seed=1)
+        noise_weights(model.module, seed=1, device=dev)
         for (enc, h, w), plan in SWITCH_PLANS.items():
             if enc != encoder:
                 continue
@@ -1730,6 +1735,9 @@ PERF_MS = {
     ("motion_module_wide", "vitl m1 518x518"): 2.2652,
     ("motion_module_wide", "vitl m1 518x924"): 3.9312,
     ("output_tail", "vitl 518x518"): 2.7828,
+    # Kernel A's Hopper kernels (rows 1 and 4)
+    ("flash_attention", "vits 518x518"): 0.2680,
+    ("flash_attention", "synthetic D=192"): 0.1992,
 }
 # (a) and (b): the windows of phase domain, vits (and vitb) 518x518 at the
 # pipeline's window batch of 4 with noised weights, and their exact launches
@@ -1948,16 +1956,20 @@ def domain_tail_row(c: int, n: int, h: int, w: int, oh: int, ow: int, g, dev,
 def domain_rows(dev) -> list:
     """(c) and the re-timed rows: Kernel B at every (C, heads) of
     ``domain_b_shapes``, Kernel C at every config of ``domain_c_shapes``,
-    each in bf16 and fp32; the tail at C = 32, 64 and 128; Kernel B's six
-    instantiated widths, the resident Kernel C and the wide chain at C =
-    768 / 1024 and the C = 128 tail at phase kernels' shapes, beside
-    PERF.md's times (PERF_MS)."""
+    each in bf16 and fp32; the tail at C = 32, 64 and 128; Kernel A at D =
+    64 and 192, Kernel B's six instantiated widths, the resident Kernel C
+    and the wide chain at C = 768 / 1024 and the C = 128 tail at phase
+    kernels' shapes, beside PERF.md's times (PERF_MS)."""
     import torch
 
     from video_depth_anything_torch import bench_temporal
 
     rows = []
     g = torch.Generator(device=dev).manual_seed(21)
+    for label, n, h, d in (("vits 518x518", 1370, 6, 64), ("synthetic D=192", 1370, 2, 192)):
+        row = attention_row("flash_attention", label, 32, n, h, d, g, dev)
+        rows.append({**row, "extra": row["extra"] + " perf_md_ms="
+                     f"{PERF_MS[('flash_attention', label)]:.4f}"})
     for n_row, (label, b, t, s, c) in enumerate(bench_temporal.SHAPES[:8]):
         rows.append(domain_temporal_row(c, 8, torch.bfloat16, 100 + n_row, dev, s=s, label=label))
     for label, c, s, _ in MOTION_ROWS[:9] + WIDE_MOTION_ROWS:
@@ -1997,8 +2009,7 @@ def phase_domain(dev, smi: str) -> tuple:
     x = torch.randn(WINDOW_BATCH["vits"], 32, 518, 518, 3, device=dev, generator=g)
     for name, encoder, impl, mode, plan, widths, tails in DOMAIN_WINDOWS:
         model = VDAModel(cfg=domain_model_config(name, encoder), device=dev, attn_impl=impl)
-        model.init_params(seed=0)
-        noise_weights(model.module, seed=1)
+        noise_weights(model.module, seed=1, device=dev)
         label = f"{name} {encoder} 4x32x518x518 {impl} VDA_FUSED_MOTION={mode}"
         with fused_switch(mode):
             check_window(model, x, label, plan, tuple(k for k in totals if k not in plan), widths)
@@ -2021,8 +2032,7 @@ def phase_domain(dev, smi: str) -> tuple:
     try:
         m32 = VDAModel(cfg=domain_model_config("kv_motion", "vits"), device=dev,
                        dtype=torch.float32, attn_impl="pallas")
-        m32.init_params(seed=0)
-        noise_weights(m32.module, seed=1)
+        noise_weights(m32.module, seed=1, device=dev)
         zero_counts()
         got = m32.infer_window(x[:1])
         torch.cuda.synchronize()
@@ -2049,6 +2059,273 @@ def phase_domain(dev, smi: str) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     check_rows(rows, "domain")
+    return totals, rows
+
+
+# Kernel A at D >= 320 (csrc/flash_attention_wide.cu), phase wide.  The d320
+# configuration: ViT-H/14's width, 1280, in 4 heads of 320 (a head count that
+# puts D in that domain; no released checkpoint has such heads), 24 blocks,
+# with vitl's DPT head and motion modules, so that Kernels B, C and the tail
+# take vitl's plan unchanged and only Kernel A's 24 launches a window are new.
+D320_VIT = dict(embed_dim=1280, depth=24, num_heads=4)
+D320_GRAD_DEPTH = 4  # the gradient check's encoder depth
+# The d320 windows (one 32-frame window, noised weights) and their exact
+# launches a call, every other count 0, with Kernel B's by head width
+# (tests/test_torch_dispatch.py holds these plans to the JAX gates): vitl's
+# head plan, Kernel A on the wide kernel in every block.
+WIDE_WINDOWS = {
+    (518, 518, "auto"): (dict(flash_attention_wide=24, fused_motion_module=1, output_tail=1), {}),
+    (518, 518, "auto:fast"): (dict(flash_attention_wide=24, fused_motion_module=1, output_tail=1),
+                              {}),
+    (518, 518, "pallas"): (dict(flash_attention_wide=24, temporal_attention=6,
+                                fused_motion_module=1, output_tail=1), {128: 4, 32: 2}),
+    (518, 924, "auto"): (dict(flash_attention_wide=24, fused_motion_module=2), {}),
+    (518, 924, "auto:fast"): (dict(flash_attention_wide=24, fused_motion_module=2), {}),
+    (518, 924, "pallas"): (dict(flash_attention_wide=24, temporal_attention=4,
+                                fused_motion_module=2), {128: 4}),
+}
+WIDE_F32_PLAN = dict(flash_attention_wide_f32=24, fused_motion_module_f32=1)  # fp32, 518x518 auto
+# The wide kernel alone: the d320 windows' shapes (B*T, N, H), then at every
+# D = 64 (mod 128) from 320 to 1984 at one frame of 3 heads and 32 frames of
+# 2, ragged N (26 and 44 keys in the last 64-key tile)
+WIDE_ROWS = (("d320 518x518", 32, 1370, 4), ("d320 518x924", 32, 2443, 4))
+WIDE_SWEEP_D = tuple(range(320, 1985, 128))
+WIDE_SWEEP_SHAPES = ((1, 1370, 3), (32, 300, 2))
+
+
+def d320_config(depth: int = 24):
+    """The port's d320 ``ModelConfig``; ``depth`` blocks, taps spread over them."""
+    import dataclasses
+
+    from video_depth_anything_torch.config import ViTConfig, get_model_config
+
+    taps = (4, 11, 17, 23) if depth == 24 else tuple(round(i * (depth - 1) / 3) for i in range(4))
+    vit = ViTConfig(**dict(D320_VIT, depth=depth))
+    return dataclasses.replace(get_model_config("vitl"), encoder="d320", vit=vit,
+                               intermediate_layer_idx=taps)
+
+
+def wide_mutant_errors(plain, q, k, v, qf, scale) -> dict:
+    """How far three wrong plans of the wide kernel miss the plain version,
+    relative to max|plain|: the last output slice (up to 192 columns) never
+    stored; S summed over the first three 64-column panels only; the
+    zero-filled pad keys of the ragged last 64-key tile counted in the
+    softmax (on the flat inputs ``qf``)."""
+    from video_depth_anything_torch.ops.flash_attention import WIDE_SLICE
+
+    want = plain(q, k, v, scale)
+    d = q.shape[-1]
+    dropped = want.clone()
+    dropped[..., (d - 1) // WIDE_SLICE * WIDE_SLICE:] = 0
+    return {"last_slice_dropped": rel_err(dropped, want),
+            "three_panels_only": rel_err(plain(q[..., :192], k[..., :192], v, scale), want),
+            "unmasked_zero_pad": zero_pad_error(plain, qf, k, v, scale, 64)}
+
+
+def sdpa_ms(q, k, v, scale):
+    """ms of ``scaled_dot_product_attention`` on ``(B, N, H, D)`` inputs, and
+    the backend it picks for them (its flash backend stops at head_dim 256)."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        backend = torch.nn.attention.SDPBackend(
+            torch._fused_sdp_choice(qt, kt, vt, scale=scale)).name.lower()
+    except (AttributeError, RuntimeError, ValueError) as e:  # a private call: name what failed
+        backend = f"unknown ({type(e).__name__})"
+    ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=3,
+                 warmup=1)
+    return ms, backend
+
+
+def wide_row(label: str, bt: int, n: int, h: int, d: int, dtype, fast: bool, g, dev) -> dict:
+    """The wide kernel at ``(bt, n, h, d)`` against its plain version on
+    peaked and flat inputs (bf16: ATTN_TOL; fp32, TF32 off: F32_TOL), with
+    wide_mutant_errors (fp32 also one TF32 pass), ms, the dense bound (the
+    row's ``bound_ms``) and the bound of the kernel's plan (S once a
+    slice), plain ms and SDPA's ms and backend."""
+    import torch
+
+    from video_depth_anything_torch.ops import flash_attention as fa
+    from video_depth_anything_torch.utils.device import event_ms as time_ms
+
+    f32 = dtype == torch.float32
+    qkv = (f32_inputs if f32 else attention_inputs)((bt, n, h * d), g, dev)
+    q, k, v = (t.view(bt, n, h, d) for t in qkv.split(h * d, dim=-1))
+    scale = d**-0.5
+    plain = lambda q_, k_, v_, sc: fa.flash_attention_plain(q_, k_, v_, sc, fast=fast)  # noqa: E731
+    got = fa.flash_attention(q, k, v, scale, fast=fast)
+    want = plain(q, k, v, scale)
+    qf = flat_inputs(q)
+    flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
+    mutants = wide_mutant_errors(plain, q, k, v, qf, scale)
+    if f32:
+        mutants["tf32_plain"] = rel_err(tf32_plain(lambda *t: plain(*t, scale), q, k, v), want)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast), iters=3, warmup=1)
+    plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=1, warmup=1)
+    lib_ms, backend = sdpa_ms(q, k, v, scale)
+    dense, plan = 4.0 * bt * h * n * n * d, fa.wide_flops(bt, n, h, d)
+    nbytes = 4.0 * bt * n * h * d * q.element_size()
+    if f32:  # 3xTF32 on the tensor cores
+        b_ms, b_by = max(3 * dense / PEAK_TF32 * 1e3, nbytes / PEAK_BYTES * 1e3), "operations"
+        plan_ms = 3 * plan / PEAK_TF32 * 1e3
+    else:
+        (b_ms, b_by), plan_ms = bound(dense, nbytes), bound(plan, nbytes)[0]
+    err = rel_err(got, want)
+    return dict(kernel="flash_attention_wide" + ("_f32" if f32 else ""),
+                shape=f"{label} (B*T={bt}, N={n}, H={h}, D={d}{', fast' if fast else ''})",
+                max_abs_err=max_err(got, want), rel_err=max(err, flat_err),
+                tol=F32_TOL if f32 else ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                extra=f" (peaked {err:.3e}, flat {flat_err:.3e}) ms/bound_ms={ms / b_ms:.2f} "
+                      f"plan_bound_ms={plan_ms:.4f} ms/plan_bound_ms={ms / plan_ms:.2f} "
+                      f"sdpa_backend={backend}")
+
+
+def wide_rows(dev) -> list:
+    """(e): the wide kernel at the d320 windows' shapes and over WIDE_SWEEP_D
+    x WIDE_SWEEP_SHAPES, bf16 and fp32 (TF32 off), exact and fast."""
+    import torch
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(22)
+    shapes = [(label, bt, n, h, 320) for label, bt, n, h in WIDE_ROWS]
+    shapes += [("synthetic", bt, n, h, d) for d in WIDE_SWEEP_D for bt, n, h in WIDE_SWEEP_SHAPES]
+    with no_tf32():
+        for label, bt, n, h, d in shapes:
+            for dtype in (torch.bfloat16, torch.float32):
+                for fast in (False, True):
+                    rows.append(wide_row(label, bt, n, h, d, dtype, fast, g, dev))
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wide(dev, smi: str) -> tuple:
+    """Kernel A at D >= 320: (d) one d320 window at 518x518 and at 518x924
+    under ``auto``, ``auto:fast`` and ``pallas`` (noised weights) against
+    the plain path within ``rounding_tol`` with the exact launches of
+    WIDE_WINDOWS, each window's ms on the kernel and the plain path; an fp32
+    518x518 window (TF32 off) within F32_WINDOW_TOL with WIDE_F32_PLAN; one
+    ``Trainer.step`` of d320 cut to D320_GRAD_DEPTH blocks at 266x266x8,
+    kernel path (the wide forward, the plain backward) against plain path.
+    Then (e), ``wide_rows``.  Returns the main-path launches (the windows)
+    and the rows."""
+    import torch
+
+    from video_depth_anything_torch.models.vda import VDAModel
+    from video_depth_anything_torch.ops.dispatch import plain_reference
+    from video_depth_anything_torch.ops.temporal_attention import temporal_attention
+
+    totals = dict.fromkeys(launch_counts(), 0)
+    g = torch.Generator(device=dev).manual_seed(22)
+    cfg = d320_config()
+    t0 = time.time()
+    with torch.device(dev):  # parameters made on the card
+        models = {impl: VDAModel(cfg=cfg, device=dev, attn_impl=impl)
+                  for impl in ("auto", "auto:fast", "pallas")}
+        noise_weights(models["auto"].module, seed=1, device=dev)
+    state = models["auto"].module.state_dict()
+    for impl in ("auto:fast", "pallas"):
+        models[impl].module.load_state_dict(state)
+    n_params = sum(p.numel() for p in models["auto"].module.parameters())
+    log(f"[wide] d320: {n_params / 1e6:.1f} M parameters, built and noised in "
+        f"{time.time() - t0:.1f} s")
+    for h, w in ((518, 518), (518, 924)):
+        x = torch.randn(1, 32, h, w, 3, device=dev, generator=g)
+        base = models["auto"]
+        with plain_reference():
+            want = base.infer_window(x)
+        with fp32_plain(base):
+            ref32 = base.infer_window(x)
+        tol, noise = rounding_tol(WINDOW_TOL, want, ref32)
+        for impl, model in models.items():
+            plan, widths = WIDE_WINDOWS[(h, w, impl)]
+            zero_counts()
+            got = model.infer_window(x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            by_width = dict(temporal_attention.width_launches)
+            rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+            finite = bool(torch.isfinite(got).all())
+            ok = finite and rel <= tol and plan_ok(counts, plan) and by_width == widths
+            log(f"[wide] window d320 1x32x{h}x{w} {impl}: rel err kernels vs plain {rel:.3e} "
+                f"(tol {tol:.3e}: plain bf16 vs fp32 activations {noise:.3e}), finite={finite}, "
+                f"launches {counts}, Kernel B by head width {by_width} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"d320 window {h}x{w} {impl} failed")
+            totals = {k: totals[k] + counts[k] for k in totals}
+        log(f"[wide] window d320 1x32x{h}x{w} bf16 auto: kernel path "
+            f"{window_ms(base, x, False):.2f} ms, plain path {window_ms(base, x, True):.2f} ms "
+            f"({smi})")
+        del x, want, ref32, got
+        torch.cuda.empty_cache()
+    for impl in ("auto:fast", "pallas"):
+        del models[impl]
+    with torch.device(dev):
+        m32 = VDAModel(cfg=cfg, device=dev, dtype=torch.float32)
+    m32.module.load_state_dict(state)
+    del models, state
+    torch.cuda.empty_cache()
+    x = torch.randn(1, 32, 518, 518, 3, device=dev, generator=g)
+    with no_tf32():
+        zero_counts()
+        got = m32.infer_window(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        with plain_reference():
+            want = m32.infer_window(x)
+        rel = float((got - want).abs().max() / want.abs().max())
+        finite = bool(torch.isfinite(got).all())
+        ok = finite and rel <= F32_WINDOW_TOL and plan_ok(counts, WIDE_F32_PLAN)
+        log(f"[wide] window d320 1x32x518x518 fp32 (TF32 off): rel err kernels vs plain {rel:.3e} "
+            f"(tol {F32_WINDOW_TOL}), finite={finite}, launches {counts} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("d320 fp32 window failed")
+        totals = {k: totals[k] + counts[k] for k in totals}
+        log(f"[wide] window d320 1x32x518x518 fp32: kernel path {window_ms(m32, x, False):.2f} ms, "
+            f"plain path {window_ms(m32, x, True):.2f} ms ({smi})")
+    del m32, x, got, want
+    torch.cuda.empty_cache()
+
+    # the gradient check: the wide forward, the plain backward (bwd_gate holds
+    # at D = 64 only, as JAX's VJP is the dense einsum backward elsewhere)
+    with torch.device(dev):
+        model = VDAModel(cfg=d320_config(D320_GRAD_DEPTH), device=dev)
+        noise_weights(model.module, seed=1, device=dev)
+    init = {k: v.clone() for k, v in model.module.state_dict().items()}
+    batch = train_batch(8, 266, g, dev)
+    got, g_kernel, counts = train_step(model, init, batch)
+    with plain_reference():
+        want, g_plain, _ = train_step(model, init, batch)
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    sq = {}
+    for name in g_plain:
+        d2, p2 = sq.get(grad_groups(name), (0.0, 0.0))
+        sq[grad_groups(name)] = (d2 + float((g_kernel[name] - g_plain[name]).pow(2).sum()),
+                                 p2 + float(g_plain[name].pow(2).sum()))
+    total = (sum(d for d, _ in sq.values()) / sum(p for _, p in sq.values())) ** 0.5
+    groups = {k: (d / p) ** 0.5 for k, (d, p) in sq.items()}
+    ok = (loss_rel <= LOSS_TOL and total <= GRAD_TOL and max(groups.values()) <= GROUP_TOL
+          and counts["flash_attention_wide"] == 2 * D320_GRAD_DEPTH
+          and counts["flash_attention_bwd"] == counts["flash_attention"] == 0)
+    log(f"[wide] train step d320 (depth {D320_GRAD_DEPTH}) 1x8x266x266: loss kernel "
+        f"{got['loss']:.6f} plain {want['loss']:.6f} (rel {loss_rel:.3e}, tol {LOSS_TOL}); grad "
+        f"rel err all {total:.3e} (tol {GRAD_TOL}), by group "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(groups.items()))
+        + f" (tol {GROUP_TOL}); launches {counts} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("d320 training check failed")
+    del model, init, g_kernel, g_plain
+    torch.cuda.empty_cache()
+
+    log(f"[wide] launches over the main path: {totals} ({smi})")
+    rows = wide_rows(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check_rows(rows, "wide")
     return totals, rows
 
 
@@ -2309,8 +2586,7 @@ def phase_train_check(dev, smi: str) -> None:
     g = torch.Generator(device=dev).manual_seed(3)
     for (encoder, side, t), needed in TRAIN_PLANS.items():
         model = VDAModel(encoder, device=dev)
-        model.init_params(seed=0)
-        noise_weights(model.module, seed=1)
+        noise_weights(model.module, seed=1, device=dev)
         init = {k: v.clone() for k, v in model.module.state_dict().items()}
         batch = train_batch(t, side, g, dev)
         got, g_kernel, counts = train_step(model, init, batch)
@@ -2624,7 +2900,7 @@ def eval_prediction_check(args, dataset, tmp: str, label: str, smi: str) -> None
     from video_depth_anything_torch.ops.dispatch import plain_reference
 
     model = vda_eval.load_model(args)
-    noise_weights(model.module, seed=1)
+    noise_weights(model.module, seed=1, device=model.device)
     rec, data = Recorder(vda_eval.build_pipeline(args, model)), TimedDataset(dataset)
     with no_tf32() if args.fp32 else contextlib.nullcontext():
         t0 = time.time()
@@ -2738,7 +3014,7 @@ def phase_eval(smi: str) -> dict:
         clip, out = os.path.join(tmp, "kitti.mp4"), os.path.join(tmp, "compare")
         write_clip(clip, 375, 1242, 40)
         ckpt = os.path.join(tmp, "noised_vits.pth")
-        write_noised_pth("vits", ckpt)
+        write_noised_pth("vits", ckpt, "cuda")
         t0 = time.time()
         os.makedirs(out)
         methods = vda_compare.run_methods(
@@ -2951,8 +3227,7 @@ def phase_stream(dev, smi: str) -> dict:
     for key, encoder, impl in (("auto:fast", "vits", "auto:fast"), ("auto", "vits", "auto"),
                                ("vitb", "vitb", "auto")):
         models[key] = VDAModel(encoder, device=dev, attn_impl=impl)
-        models[key].init_params(seed=0)
-        noise_weights(models[key].module, seed=1)
+        noise_weights(models[key].module, seed=1, device=dev)
     for impl, align in (("auto:fast", False), ("auto", True)):
         pipe = StreamingDepthPipeline(models[impl], align_each_new_frame=align, **STREAM)
         zero_counts()
@@ -3068,8 +3343,7 @@ def phase_stream(dev, smi: str) -> dict:
     log(f"[stream] launches over the streaming and KV-cache CLI runs: {totals} ({smi})")
 
     models["vitl"] = VDAModel("vitl", device=dev)
-    models["vitl"].init_params(seed=0)
-    noise_weights(models["vitl"].module, seed=1)
+    noise_weights(models["vitl"].module, seed=1, device=dev)
     for mode, key, (h, w), chunks in (
             ("feature cache", "auto", (518, 518), (8, 1)),
             ("feature cache", "auto", (518, 924), (8, 1)),
@@ -3377,7 +3651,7 @@ def _phase_parallel(smi: str) -> dict:
         # tensor-parallel streaming with the KV cache
         vitl_clip, vitl_ckpt = os.path.join(tmp, "vitl.mp4"), os.path.join(tmp, "noised_vitl.pth")
         write_clip(vitl_clip, 518, 518, 22)
-        write_noised_pth("vitl", vitl_ckpt)
+        write_noised_pth("vitl", vitl_ckpt, "cuda")
         vitl = ["--encoder", "vitl", "--checkpoint", vitl_ckpt, "--input_size", "518",
                 "--save_npz", "--input_video", vitl_clip]
         run.main(vitl + ["--output_dir", os.path.join(tmp, "vitl_single")])
@@ -3387,7 +3661,7 @@ def _phase_parallel(smi: str) -> dict:
                      ("tp", ["--model_parallel", "2"]))
         root, vits_ckpt = os.path.join(tmp, "po"), os.path.join(tmp, "noised_vits.pth")
         write_pointodyssey(root, scenes=1, frames=24, h=270, w=480)
-        write_noised_pth("vits", vits_ckpt)
+        write_noised_pth("vits", vits_ckpt, "cuda")
         train = ["-m", "video_depth_anything_torch.train", "--dataset", "pointodyssey", "--root",
                  root, "--encoder", "vits", "--init_checkpoint", vits_ckpt, "--train_encoder",
                  "--input_size", "266", "--clip_len", "8", "--batch_size", "2", "--steps", "2",
@@ -3464,7 +3738,7 @@ def native_checks(tmp: str, smi: str) -> dict:
     bit, the decoder's pixels those of cv2 in JAX's four cases (on a
     848-wide clip; on an 854-wide one the binding refuses the library and
     cv2 decodes); then a 76-frame 854x480 vits window CLI run with both
-    switches off and on, in turns (off, on, on, off), its frames/s and the
+    switches off and then on (one run each: the script's time limit), its frames/s and the
     host paths it printed, and the CLI on the 848-wide clip, whose decode
     must be native.  Returns whether each library built."""
     import io
@@ -3526,7 +3800,7 @@ def native_checks(tmp: str, smi: str) -> dict:
         clip = os.path.join(tmp, "cli76.mp4")
         write_clip(clip, 480, 854)
         depths = {}
-        for i, on in enumerate((False, True, True, False)):
+        for i, on in enumerate((False, True)):
             switch(on)
             out_dir = os.path.join(tmp, f"cli76_{i}")
             buf = io.StringIO()
@@ -3607,7 +3881,7 @@ def demo_server_check(tmp: str, smi: str) -> dict:
     clip = os.path.join(tmp, "demo.mp4")
     save_video(clip_frames(480, 480, 32), clip, fps=24)
     ckpt = os.path.join(tmp, "vits.pth")
-    write_noised_pth("vits", ckpt)
+    write_noised_pth("vits", ckpt, "cuda")
     servers = {}
     for name, extra in (("init", []), ("vits.pth", ["--checkpoint", ckpt])):
         port = free_port()
@@ -3698,15 +3972,18 @@ def demo_server_check(tmp: str, smi: str) -> dict:
     return total
 
 
+PROFILE_FRAMES = {"vits": 32, "vitl": 8}  # profile_model's frames in phase tooling
+
+
 def phase_tooling(dev, smi: str) -> dict:
     """The tooling on the card: ``native_checks``; the demo server
     (``demo_server_check``), with ``profile_model`` for vits at 518x518x32
     and ``examples.quickstart`` started beside it (their times are then
-    shared ones), then ``profile_model`` for vitl, ``param_counts`` held to
-    the port's own module;
-    ``examples.feature_pca``'s level features on the card against the CPU's
-    (fp32, TF32 off); ``tools.stress`` alone for 5 s.  Returns the demo
-    requests' launches."""
+    shared ones), then ``profile_model`` for vitl at 518x518x8 (8 frames:
+    the script's time limit), ``param_counts`` held to the port's own
+    module; ``examples.feature_pca``'s level features on the card against
+    the CPU's (fp32, TF32 off); ``tools.stress`` alone for 2 s.  Returns
+    the demo requests' launches."""
     import re
     import shutil
 
@@ -3727,8 +4004,8 @@ def phase_tooling(dev, smi: str) -> dict:
         write_clip(clip, 480, 854, 40)
         quick_out = os.path.join(tmp, "quick_depth.mp4")
         m = "video_depth_anything_torch"
-        profile = [[sys.executable, "-m", f"{m}.profile_model", "--encoder", e, "--frames", "32",
-                    "--size", "518"] for e in ("vits", "vitl")]
+        profile = [[sys.executable, "-m", f"{m}.profile_model", "--encoder", e, "--frames",
+                    str(PROFILE_FRAMES[e]), "--size", "518"] for e in ("vits", "vitl")]
         quick = [sys.executable, "-m", f"{m}.examples.quickstart", clip, "--output", quick_out]
         with ThreadPoolExecutor(1) as pool:
             # vits's profile and quickstart run beside the demo servers; vitl's
@@ -3744,7 +4021,8 @@ def phase_tooling(dev, smi: str) -> dict:
                 want = param_counts(VideoDepthAnything(get_model_config(encoder)))
             got = {k: report[k] for k in want}
             ok = got == want and report["compiled"]["gflops"] > 0 and report["frames_per_s"] > 0
-            log(f"[tooling] profile_model {encoder} 518x518x32: {json.dumps(report)} "
+            log(f"[tooling] profile_model {encoder} 518x518x{PROFILE_FRAMES[encoder]}: "
+                f"{json.dumps(report)} "
                 f"({'beside the demo servers; ' if encoder == 'vits' else ''}{smi}) params {'OK' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"profile_model {encoder}: {got} against the module's {want}")
@@ -3764,7 +4042,7 @@ def phase_tooling(dev, smi: str) -> dict:
             raise SystemExit("feature_pca's features on the card miss the CPU's")
 
         out = launch([[sys.executable, "-m", f"{m}.tools.stress", "--gb", "16", "--seconds",
-                       "5"]], "tools.stress", tag="tooling")[0]
+                       "2"]], "tools.stress", tag="tooling")[0]
         spun = next(ln for ln in out.splitlines() if ln.startswith("spun "))
         log(f"[tooling] stress: {out.splitlines()[0]}; {spun} ({smi})")
         if not re.search(r"finite True$", spun):
@@ -4043,8 +4321,8 @@ def fp32_kernel_rows(dev) -> list:
 def phase_fp32(dev, smi: str):
     """The fp32 kernels against their plain versions (``fp32_kernel_rows``);
     fp32 vits, vitb and vitl 518x518 windows, kernel path against plain
-    path, with their exact fp32 launch plans and wall ms (kernel, plain,
-    plain, kernel: each timed call after an untimed one of its path), and
+    path, with their exact fp32 launch plans and wall ms (kernel, then
+    plain: each timed call after an untimed one of its path), and
     vits and vitl windows under ``pallas`` with Kernel B's fp32 launches by
     head width (``F32_PALLAS_WIDTHS``); the CLI with ``--fp32`` in
     window mode and with ``--process_single_image`` (the main path of the
@@ -4069,8 +4347,7 @@ def phase_fp32(dev, smi: str):
         g = torch.Generator(device=dev).manual_seed(6)
         for encoder, plan in F32_WINDOW_PLANS.items():
             model = VDAModel(encoder, device=dev, dtype=torch.float32)
-            model.init_params(seed=0)
-            noise_weights(model.module, seed=1)
+            noise_weights(model.module, seed=1, device=dev)
             x = torch.randn(1, 32, 518, 518, 3, device=dev, generator=g)
             zero_counts()
             got = model.infer_window(x)
@@ -4079,14 +4356,14 @@ def phase_fp32(dev, smi: str):
             with plain_reference():
                 want = model.infer_window(x)
             ms = {"kernel": 0.0, "plain": 0.0}
-            for path in ("kernel", "plain", "plain", "kernel"):
+            for path in ("kernel", "plain"):  # one turn each: the script's time limit
                 with plain_reference() if path == "plain" else contextlib.nullcontext():
                     model.infer_window(x)  # the first call after the other path is slower
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     model.infer_window(x)
                     torch.cuda.synchronize()
-                    ms[path] += (time.perf_counter() - t0) * 1e3 / 2
+                    ms[path] += (time.perf_counter() - t0) * 1e3
             rel = float((got - want).abs().max() / want.abs().max())
             finite = bool(torch.isfinite(got).all())
             ok = (finite and rel <= F32_WINDOW_TOL and all(counts[k] == n for k, n in plan.items())
@@ -4103,8 +4380,7 @@ def phase_fp32(dev, smi: str):
 
         for encoder, widths in F32_PALLAS_WIDTHS.items():
             model = VDAModel(encoder, device=dev, dtype=torch.float32, attn_impl="pallas")
-            model.init_params(seed=0)
-            noise_weights(model.module, seed=1)
+            noise_weights(model.module, seed=1, device=dev)
             x = torch.randn(1, 32, 518, 518, 3, device=dev, generator=g)
             zero_counts()
             got = model.infer_window(x)

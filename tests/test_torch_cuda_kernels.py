@@ -596,3 +596,76 @@ def test_fp32_window_through_the_fp32_kernels(dev, no_tf32):
     with plain_reference():
         want = model.infer_window(x)
     assert chip_smoke.rel_err(got, want) <= chip_smoke.F32_WINDOW_TOL
+
+
+def _wide_counts():
+    f = fa.flash_attention
+    return (f.launches, f.fast_launches, f.f32_launches, f.wide_launches, f.wide_f32_launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,d,fast", [
+    (300, 1, 320, False), (1370, 2, 320, True), (2443, 3, 320, False), (257, 4, 448, True),
+    (64, 1, 576, False), (130, 5, 704, True), (300, 2, 1984, False), (65, 3, 1984, True),
+])
+def test_flash_attention_wide_kernel(dev, no_tf32, dtype, n, h, d, fast):
+    """D >= 320 (``csrc/flash_attention_wide.cu``): peaked and flat inputs
+    against the plain version (ATTN_TOL in bf16, F32_TOL in fp32), ragged
+    and whole 64-key tiles, one to five heads, slices of 192 columns and
+    the ragged last one; only the wide counter of the dtype moves; the
+    three wrong plans of chip_smoke.wide_mutant_errors miss."""
+    f32 = dtype == torch.float32
+    g = torch.Generator(device=dev).manual_seed(n + h + d)
+    qkv = (chip_smoke.f32_inputs if f32 else chip_smoke.attention_inputs)((2, n, h * d), g, dev)
+    q, k, v = (t.view(2, n, h, d) for t in qkv.split(h * d, dim=-1))
+    tol = chip_smoke.F32_TOL if f32 else chip_smoke.ATTN_TOL
+    before = _wide_counts()
+    got = fa.flash_attention(q, k, v, d**-0.5, fast=fast)
+    assert _wide_counts() == (*before[:3], before[3] + (not f32), before[4] + f32)
+    assert got.dtype == dtype
+    plain = lambda *x: fa.flash_attention_plain(*x, fast=fast)  # noqa: E731
+    assert chip_smoke.rel_err(got, plain(q, k, v, d**-0.5)) <= tol
+    qf = chip_smoke.flat_inputs(q)
+    assert chip_smoke.rel_err(fa.flash_attention(qf, k, v, d**-0.5, fast=fast),
+                              plain(qf, k, v, d**-0.5)) <= tol
+    mutants = chip_smoke.wide_mutant_errors(plain, q, k, v, qf, d**-0.5)
+    if n % 64 == 0:  # no pad keys to count
+        mutants.pop("unmasked_zero_pad")
+    assert min(mutants.values()) > tol
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa.flash_attention(q, k, v, d**-0.5, with_lse=True)
+
+
+def test_flash_attention_wide_refuses_what_it_cannot_read(dev):
+    """D = 320 views that no 16-byte copy can read raise before a launch."""
+    b, n, h, d = 1, 300, 2, 320
+    x = torch.zeros(b, n, h * d + 4, device=dev, dtype=torch.bfloat16)
+    q = x[..., 4:4 + h * d].unflatten(-1, (h, d))  # an 8-byte offset
+    with pytest.raises(ValueError, match="aligned base"):
+        fa.flash_attention(q, q, q, d**-0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_fn_at_d320(dev, no_tf32, dtype):
+    """FlashAttentionFn at D = 320 through strided views of one qkv tensor:
+    the wide kernel forward (no log-sum-exp kept), the plain backward (no
+    backward kernel launch), against autograd through the plain attention
+    in fp32 on the same inputs."""
+    b, n, h, d = 2, 362, 4, 320
+    gen = torch.Generator(device=dev).manual_seed(d)
+    f32 = dtype == torch.float32
+    qkv = (chip_smoke.f32_inputs if f32 else chip_smoke.attention_inputs)((b, n, h * d), gen, dev)
+    qkv = qkv.requires_grad_()
+    go = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    before = (_wide_counts(), fa.flash_attention_bwd.launches)
+    (got,) = torch.autograd.grad(fa.FlashAttentionFn.apply(q, k, v, d**-0.5), qkv, go)
+    after = (_wide_counts(), fa.flash_attention_bwd.launches)
+    assert after[1] == before[1] and after[0][3 + f32] == before[0][3 + f32] + 1
+    ref = qkv.detach().float().requires_grad_()
+    rq, rk, rv = (t.view(b, n, h, d) for t in ref.split(h * d, dim=-1))
+    (want,) = torch.autograd.grad(fa.flash_attention_plain(rq, rk, rv, d**-0.5), ref, go.float())
+    tol = chip_smoke.F32_TOL if f32 else chip_smoke.BWD_TOL
+    for part in range(3):
+        sl = slice(part * h * d, (part + 1) * h * d)
+        assert chip_smoke.rel_err(got[..., sl], want[..., sl]) <= tol

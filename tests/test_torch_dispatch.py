@@ -1,6 +1,7 @@
 """Which module takes which kernel on the vits, vitb, vitl and vitg main
 paths, at 518×518 and 518×924, in the port and in the JAX package, under
-``--attn_impl auto`` and ``pallas`` (vitg also in fp32).
+``--attn_impl auto`` and ``pallas`` (vitg and d320, 4 heads of 320 with
+vitl's head, also in fp32).
 
 The JAX side runs the JAX package's own gate functions with the kernels
 they would launch replaced by tags (and, for the temporal gate and the
@@ -65,7 +66,8 @@ def port_plan(encoder, h, w, impl="auto", dtype="bfloat16", cfg=None):
     heads = cfg.motion.num_heads
     ph, pw = h // 14, w // 14
     n = ph * pw + 1
-    plan = {"vit": "flash_attention" if flash_gate((32, n, cfg.vit.num_heads, 64)) else "plain"}
+    d = cfg.vit.embed_dim // cfg.vit.num_heads
+    plan = {"vit": "flash_attention" if flash_gate((32, n, cfg.vit.num_heads, d)) else "plain"}
     for name, mh, mw, c in _module_shapes(encoder, h, w):
         if motion_gate(cfg.motion, c, c, 32, mh, mw):
             plan[name] = "motion_module"
@@ -101,7 +103,7 @@ def jax_plan(encoder, h, w, monkeypatch, impl="auto", dtype="bfloat16", mcfg=Non
     ph, pw = h // 14, w // 14
     n = ph * pw + 1
     arr = np.float32 if dtype == "float32" else np.uint8
-    q = np.empty((32, n, mcfg.vit.num_heads, 64), arr)
+    q = np.empty((32, n, mcfg.vit.num_heads, mcfg.vit.embed_dim // mcfg.vit.num_heads), arr)
     plan = {"vit": pallas_attention.try_spatial_attention(q, q, q, 0.125) or "plain"}
     for name, mh, mw, c in _module_shapes(encoder, h, w):
         x = np.empty((1, 32, mh * mw, c), arr)
@@ -355,20 +357,25 @@ def test_kv_motion_config_forced_plan_matches_jax(monkeypatch):
         [True, False, True, True]
 
 
-def _plan_launches(encoder, cfg, impl, mode, monkeypatch):
-    """Exact launches of one 518x518 window call of ``cfg`` from the port's
-    plan: Kernel A a ViT block; Kernel B once an attention block, on the
-    instantiated or the run-time-d kernel, by head width; Kernel C once a
-    module, resident or wide; the tail once, by C."""
+def _plan_launches(encoder, cfg, impl, mode, monkeypatch, h=518, w=518):
+    """Exact launches of one ``h`` x ``w`` window call of ``cfg`` from the
+    port's plan: Kernel A a ViT block (on the wide kernel past D = 192);
+    Kernel B once an attention block, on the instantiated or the run-time-d
+    kernel, by head width; Kernel C once a module, resident or wide; the
+    tail once, by C."""
+    from video_depth_anything_torch.ops import flash_attention as fa
     from video_depth_anything_torch.ops import motion_module as mm
     from video_depth_anything_torch.ops import temporal_attention as ta
 
     monkeypatch.setenv("VDA_FUSED_MOTION", mode)
-    plan = port_plan(encoder, 518, 518, impl, cfg=cfg)
-    forced = _forced_plan(encoder, 518, 518, mode, impl, cfg=cfg)
-    counts, widths, tails = {"flash_attention": cfg.vit.depth}, {}, {}
+    plan = port_plan(encoder, h, w, impl, cfg=cfg)
+    forced = _forced_plan(encoder, h, w, mode, impl, cfg=cfg)
+    wide = fa.wide(cfg.vit.embed_dim // cfg.vit.num_heads)
+    counts, widths, tails = {}, {}, {}
+    if plan["vit"] == "flash_attention":
+        counts["flash_attention_wide" if wide else "flash_attention"] = cfg.vit.depth
     heads, blocks = cfg.motion.num_heads, cfg.motion.num_attention_blocks
-    for name, _, _, c in _module_shapes(encoder, 518, 518):
+    for name, _, _, c in _module_shapes(encoder, h, w):
         if forced[name]:
             key = "fused_motion_module" if mm.resident(c, heads, cfg.motion) else \
                 "fused_motion_module_wide"
@@ -412,3 +419,70 @@ def test_chip_smoke_domain_sweeps_cover_the_gates():
         cfg = TMCfg(num_heads=h, num_attention_blocks=nb, ff_mult=ff)
         assert mm.kernel_takes((1, 32, 1, c), cfg, h, torch.bfloat16)
     assert {(h, nb, ff) for _, h, nb, ff in c_rows} == {(8, 2, 4), *chip_smoke.DOMAIN_C_CFGS}
+
+
+# d320 (chip_smoke.py phase wide): ViT-H/14's width in 4 heads of 320, 24
+# blocks, vitl's head and motion modules.  Kernel A's gate admits D = 320
+# (the wide kernel); every module and the tail take vitl's plan, under
+# both impls and (the gates read the dtype only in the tail's) in fp32.
+_D320 = {
+    (518, 518, "auto"): dict(vit="flash_attention", m0="plain", m1="plain", m2="plain",
+                             m3="motion_module", tail="output_tail"),
+    (518, 518, "pallas"): dict(vit="flash_attention", m0="temporal_attention",
+                               m1="temporal_attention", m2="temporal_attention",
+                               m3="motion_module", tail="output_tail"),
+    (518, 924, "auto"): dict(vit="flash_attention", m0="plain", m1="plain",
+                             m2="motion_module", m3="motion_module", tail="plain"),
+    (518, 924, "pallas"): dict(vit="flash_attention", m0="temporal_attention",
+                               m1="temporal_attention", m2="motion_module", m3="motion_module",
+                               tail="plain"),
+}
+
+
+def _d320_configs():
+    import dataclasses
+
+    import chip_smoke
+    from video_depth_anything_tpu.config import ViTConfig as JViT
+
+    tc = chip_smoke.d320_config()
+    jc = dataclasses.replace(j_model_config("vitl"), vit=JViT(**chip_smoke.D320_VIT),
+                             intermediate_layer_idx=tc.intermediate_layer_idx)
+    return jc, tc
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("h,w,impl", list(_D320))
+def test_d320_dispatch_plan_matches_jax_gates(h, w, impl, dtype, monkeypatch):
+    jc, tc = _d320_configs()
+    expected = dict(_D320[(h, w, impl)])
+    if dtype == "float32":  # the tail kernel is bf16 only, in JAX as in the port
+        expected["tail"] = "plain"
+    assert jax_plan("vitl", h, w, monkeypatch, impl, dtype, mcfg=jc) == expected
+    assert port_plan("vitl", h, w, impl, dtype, cfg=tc) == expected
+    assert tc.vit.embed_dim // tc.vit.num_heads == 320 and tc.vit.depth == 24
+
+
+def test_chip_smoke_wide_windows_follow_the_plans(monkeypatch):
+    """chip_smoke.py phase wide's exact launches (WIDE_WINDOWS; ``auto:fast``
+    takes ``auto``'s plan) and its fp32 plan are the port's plans, held to
+    JAX's above, counted launch by launch; d320 is vitl with the encoder
+    swapped, and its head's shapes are vitl's."""
+    import chip_smoke
+
+    _, tc = _d320_configs()
+    for (h, w, impl), (plan, widths) in chip_smoke.WIDE_WINDOWS.items():
+        counts, got_widths, tails = _plan_launches("vitl", tc, impl.split(":")[0], "auto",
+                                                   monkeypatch, h, w)
+        assert (counts, got_widths) == (plan, widths), (h, w, impl)
+        assert tails == ({128: 1} if plan.get("output_tail") else {})
+    f32 = port_plan("vitl", 518, 518, "auto", "float32", cfg=tc)
+    want = {"flash_attention_wide_f32": 24,
+            "fused_motion_module_f32": sum(f32[m] == "motion_module" for m in ("m0", "m1", "m2",
+                                                                                 "m3"))}
+    assert f32["tail"] == "plain" and set(f32.values()) <= {"flash_attention", "motion_module",
+                                                             "plain"}
+    assert chip_smoke.WIDE_F32_PLAN == want
+    vitl = get_model_config("vitl")
+    assert (tc.features, tc.out_channels, tc.motion) == (vitl.features, vitl.out_channels,
+                                                         vitl.motion)

@@ -1,8 +1,8 @@
-"""The domains of Kernel B, Kernel C and the output tail against the JAX
+"""The domains of Kernels A, B and C and the output tail against the JAX
 gates that send work to them: every shape a JAX gate admits, the port's
-kernel takes (``kernel_takes`` of ``ops/temporal_attention``,
-``ops/motion_module`` and ``ops/output_tail``: pure predicates, the same
-checks that the launch paths raise on).
+kernel takes (``kernel_takes`` of ``ops/flash_attention``,
+``ops/temporal_attention``, ``ops/motion_module`` and ``ops/output_tail``:
+pure predicates, the same checks that the launch paths raise on).
 
 The JAX gates are asked as ``tests/test_torch_dispatch.py`` asks them: the
 JAX package's own gate functions with the kernels they would launch
@@ -13,7 +13,9 @@ Kernel B under ``auto`` and ``pallas``, Kernel C under its size rule and
 forced past it (``VDA_FUSED_MOTION=1``) at 74² locations.  The tail at C =
 32, 64 and 128 under both values of ``packed_output_stack`` and
 ``fused_output_tail``, at the map sizes of 518², 518×924, 280×924 and 70²
-frames.  Pure Python: nothing is computed."""
+frames.  Kernel A: D a multiple of 64 up to 2048, heads 1-16, N from 256
+(ragged and whole 64- and 128-key tiles, past JAX's 2048-key whole row),
+B·T 1 and 32, both dtypes.  Pure Python: nothing is computed."""
 
 import dataclasses
 import types
@@ -26,6 +28,7 @@ import torch
 
 from video_depth_anything_torch.config import MotionModuleConfig as TCfg
 from video_depth_anything_torch.config import get_model_config
+from video_depth_anything_torch.ops import flash_attention as t_flash
 from video_depth_anything_torch.ops import motion_module as t_motion
 from video_depth_anything_torch.ops import output_tail as t_tail
 from video_depth_anything_torch.ops import temporal_attention as t_temporal
@@ -33,7 +36,12 @@ from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
 from video_depth_anything_tpu.config import get_model_config as j_model_config
 from video_depth_anything_tpu.models.dpt import DPTHeadTemporal
 from video_depth_anything_tpu.ops import flash_attention as j_flash
-from video_depth_anything_tpu.ops import pallas_motion, pallas_output_stack, pallas_temporal
+from video_depth_anything_tpu.ops import (
+    pallas_attention,
+    pallas_motion,
+    pallas_output_stack,
+    pallas_temporal,
+)
 from tests.test_torch_dispatch import _FakeTPU, _Spec, _Tag
 from tests.torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -56,6 +64,46 @@ def tagged(monkeypatch):
     monkeypatch.setattr(pallas_output_stack, "_on_tpu", lambda: True)
     monkeypatch.setattr(j_flash, "_on_tpu", lambda: True)
     monkeypatch.setattr(jax, "devices", lambda *a: [_FakeTPU()])
+
+
+class _View(_Spec):
+    """A ``_Spec`` that the gate may reshape (the native layout's merge)."""
+
+    def reshape(self, *shape):
+        return _View(shape, self.dtype)
+
+
+@pytest.mark.parametrize("heads", range(1, 17))
+def test_kernel_a_takes_every_shape_the_jax_gate_admits(heads, monkeypatch):
+    """``try_spatial_attention`` with its two kernels replaced by tags: every
+    (B·T, N, H, D) it sends to either is one ``flash_gate`` admits and
+    ``kernel_takes`` takes in bf16 and fp32; every shape it refuses,
+    ``flash_gate`` refuses."""
+    monkeypatch.setattr(pallas_attention, "flash_attention_native", lambda *a, **k: _Tag("a"))
+    monkeypatch.setattr(pallas_attention, "spatial_flash_attention", lambda *a, **k: _Tag("a"))
+    admitted = 0
+    for d in range(64, 2049, 64):
+        for n in (255, 256, 300, 1370, 2048, 2443, 4097):
+            for bt in (1, 32):
+                x = _View((bt, n, heads, d), jnp.bfloat16)
+                jax_says = pallas_attention.try_spatial_attention(x, x, x, 1.0) is not None
+                assert t_flash.flash_gate(x.shape) == jax_says, (bt, n, heads, d)
+                if jax_says:
+                    admitted += 1
+                    for _, tdt in DTYPES:
+                        assert t_flash.kernel_takes(x.shape, tdt), (bt, n, heads, d, tdt)
+    assert admitted == 2 * 6 * 16  # D = 64, 192, 320, ..., 1984 at six N, two batches
+
+
+def test_kernel_a_routes_past_d192_to_the_wide_kernel():
+    """D = 64 and 192 keep the Hopper kernels, every other admitted width
+    takes the wide kernel; widths the gate refuses, and fp16, are refused."""
+    assert [d for d in range(64, 2049, 64) if t_flash.wide(d)] == list(range(320, 2049, 128))
+    assert not any(t_flash.wide(d) for d in t_flash.HEAD_DIMS)
+    for d in (128, 256, 96):
+        assert not t_flash.kernel_takes((1, 300, 2, d), torch.bfloat16)
+    assert not t_flash.kernel_takes((1, 300, 2, 320), torch.float16)
+    assert not t_flash.kernel_takes((300, 2, 320), torch.bfloat16)
 
 
 @pytest.mark.parametrize("heads", HEADS)

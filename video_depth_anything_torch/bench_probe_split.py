@@ -652,7 +652,7 @@ def main(argv=None) -> int:
     qkv[..., :2 * h * d] *= 0.5
     qkv_all = [t.view(WAVES[-1], N, h, d) for t in qkv.to(torch.bfloat16).split(h * d, dim=-1)]
     q, k, v = (t[:BATCH] for t in qkv_all)
-    strides = fa._check_inputs("flash192", q, k, v, head_dims=(d,))
+    strides = fa._check_inputs("flash192", q, k, v, takes=lambda x: x == d)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     extra = {"sdpa_ms": round(event_ms(lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, scale=d**-0.5)), 4),

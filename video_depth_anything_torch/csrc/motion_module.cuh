@@ -1,6 +1,7 @@
 // Kernel C for Hopper (sm_90a): one whole motion module (TemporalModule)
 // per block of locations.  Included by motion_module.cu (the launch) and
-// motion_module_split.cu (the split by stage), which build in parallel.
+// motion_module_split.cuh (the split by stage, one source a width), which
+// build in parallel.
 //
 // Replaces video_depth_anything_tpu/ops/pallas_motion.py:_motion_kernel
 // (via fused_motion_module).  Per CTA: one batch element and L = R / TP

@@ -1,8 +1,12 @@
 // Kernel C's split by stage (motion_module.cuh's STOP): built apart from the
-// launch so that its 32 instantiations compile in parallel with the rest.
+// launch, one width a source (motion_module_split{64,128,256,384}.cu), so
+// that its 32 instantiations compile in four processes in parallel with the
+// rest (in one, they took 60 s of a 72 s build on the card's 8-core host).
+#pragma once
+
 #include "motion_module.cuh"
 
-namespace {
+namespace mm_split {
 
 // ms[k] (k = 0..7): mean ms of `iters` launches of the kernel stopped after
 // stage k (7: the whole kernel), CUDA events around each batch.
@@ -29,18 +33,14 @@ int split(const mm::Params& p, cudaStream_t st, int iters, float* ms) {
   return err;
 }
 
-}  // namespace
+}  // namespace mm_split
 
-// The split at the widths chip_smoke.py reports it for; synchronises the
-// stream.  Other widths return cudaErrorInvalidValue.
-extern "C" int vda_motion_module_split(VDA_MM_ARGS, int iters, float* ms) {
-  const mm::Params p = VDA_MM_PARAMS;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 64: return split<64>(p, st, iters, ms);
-    case 128: return split<128>(p, st, iters, ms);
-    case 256: return split<256>(p, st, iters, ms);
-    case 384: return split<384>(p, st, iters, ms);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// vda_motion_module_split_<W>: the split at width W (one of the widths
+// chip_smoke.py reports it for); synchronises the stream.  Another C
+// returns cudaErrorInvalidValue.
+#define VDA_MM_SPLIT(W)                                                               \
+  extern "C" int vda_motion_module_split_##W(VDA_MM_ARGS, int iters, float* ms) {    \
+    if (C != W) return static_cast<int>(cudaErrorInvalidValue);                      \
+    const mm::Params p = VDA_MM_PARAMS;                                               \
+    return mm_split::split<W>(p, static_cast<cudaStream_t>(stream), iters, ms);      \
   }
-}

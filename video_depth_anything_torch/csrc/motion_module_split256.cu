@@ -1,0 +1,4 @@
+// Kernel C's split by stage at C = 256 (motion_module_split.cuh).
+#include "motion_module_split.cuh"
+
+VDA_MM_SPLIT(256)

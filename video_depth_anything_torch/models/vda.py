@@ -169,7 +169,11 @@ class VDAModel:
         parse_attn_impl(attn_impl, self.device.type)
         self.dtype = dtype
         self.attn_impl = attn_impl
-        self.module = VideoDepthAnything(self.cfg, attn_impl).to(self.device).eval()
+        # built on its device: PyTorch's default init, which init_params or
+        # a checkpoint overwrites, runs there (on the host it takes seconds)
+        with torch.device(self.device):
+            module = VideoDepthAnything(self.cfg, attn_impl)
+        self.module = module.to(self.device).eval()
 
     def init_params(self, seed: int = 0) -> None:
         init_parameters(self.module, seed)

@@ -30,9 +30,11 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention", "motion_module",
-           "motion_module_split", "output_tail", "resize_conv",
+           "motion_module_split64", "motion_module_split128", "motion_module_split256",
+           "motion_module_split384", "output_tail", "resize_conv",
            "attention_variants_hopper", "flash_attention_f32", "temporal_attention_f32",
-           "motion_module_f32", "motion_module_wide", "temporal_attention_any")
+           "motion_module_f32", "motion_module_wide", "temporal_attention_any",
+           "flash_attention_wide")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -1,37 +1,46 @@
-"""Kernel A: spatial flash attention (``csrc/flash_attention.cu``, and on
-fp32 operands ``csrc/flash_attention_f32.cu``) and its backward
+"""Kernel A: spatial flash attention (``csrc/flash_attention.cu``, on fp32
+operands ``csrc/flash_attention_f32.cu``, at D ≥ 320
+``csrc/flash_attention_wide.cu``) and its backward
 (``csrc/flash_attention_bwd.cu``).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_attention.py``
 ``_flash_kernel_native`` (``flash_attention_native``), ``_flash_kernel``
 and ``_flash_kernel_fast`` (``_flash_forward`` via
 ``spatial_flash_attention``) and ``_flash_kernel_single`` (odd head counts
-and D = 192); the backward kernel replaces ``_flash_kernel_native_bwd``
+and D ≠ 64); the backward kernel replaces ``_flash_kernel_native_bwd``
 (``_native_bwd_pallas``).  ``flash_gate`` is the JAX dispatch rule of
 ``try_spatial_attention``: head_dim a multiple of 64 but not of 128, and
-at least 256 tokens.  The forward kernel takes D = 64 (every shipped
-encoder) and D = 192 (the rest of that gate's domain up to 256), any head
-count, exact or ``fast``: the ``:fast`` impl suffix's no-max softmax.
-``bwd_gate`` is where the JAX package runs the Pallas backward (the native
-layout: D = 64, H even, at most 2048 padded keys); elsewhere its VJP is the
-dense einsum backward, and so is the port's.
+at least 256 tokens.  The forward kernels take that gate's whole domain
+(``kernel_takes``), any head count, exact or ``fast`` (the ``:fast`` impl
+suffix's no-max softmax): D = 64 (every shipped encoder) and D = 192 on
+the Hopper kernels, every D ≡ 64 (mod 128) from 320 on the wide kernel
+(``wide``: 64-query CTAs over one slice of at most 192 output columns,
+S summed over D / 64 panels).  ``bwd_gate`` is where the JAX package runs
+the Pallas backward (the native layout: D = 64, H even, at most 2048
+padded keys); elsewhere its VJP is the dense einsum backward, and so is
+the port's.
 
 ``FlashAttentionFn`` is the differentiable entry: its forward launches
-Kernel A (saving the per-row log-sum-exp), its backward the backward
-kernel; on CPU tensors both are the plain versions.  ``flash_attention``
-and ``flash_attention_bwd`` are the raw launches and keep no autograd
-history.  ``flash_attention.launches`` counts the exact variant's launches
-and ``flash_attention.fast_launches`` the fast variant's, both bf16;
+Kernel A (saving the per-row log-sum-exp where ``bwd_gate`` holds), its
+backward the backward kernel; on CPU tensors both are the plain
+versions.  ``flash_attention`` and ``flash_attention_bwd`` are the raw
+launches and keep no autograd history.  ``flash_attention.launches``
+counts the exact variant's launches and ``flash_attention.fast_launches``
+the fast variant's, both bf16 at D = 64 and 192;
 ``flash_attention.f32_launches`` counts the fp32 kernel's (either
-variant).  The fp32 kernel is the JAX kernels on fp32 inputs (their gates
-check no dtype; p stays fp32): both products in 3xTF32 on the tensor cores
-(every operand split into hi = rna(x) and lo = rna(x − hi), three TF32
-products summed in fp32: fp32-accurate), same domain, forward only (no JAX
-entry point trains in fp32), no log-sum-exp.
+variant); ``wide_launches`` and ``wide_f32_launches`` the wide kernel's
+(bf16 and fp32, either variant).  The fp32 kernels are the JAX kernels on
+fp32 inputs (their gates check no dtype; p stays fp32): both products in
+3xTF32 on the tensor cores (every operand split into hi = rna(x) and
+lo = rna(x − hi), three TF32 products summed in fp32: fp32-accurate), same
+domain, forward only (no JAX entry point trains in fp32), no
+log-sum-exp.  The wide kernel writes no log-sum-exp either: no backward
+kernel reads one at D ≠ 64.
 
 Bound on the H100: tensor-core FLOPs (4·N²·D·H·B forward, 10·N²·D·H·B
-backward); the fp32 kernel's, three times the forward's FLOPs at the
-tensor cores' TF32 rate; see the source notes.
+backward); the fp32 kernels', three times the forward's FLOPs at the
+tensor cores' TF32 rate; the wide kernel recomputes S once a slice
+(``wide_flops``); see the source notes.
 """
 
 from __future__ import annotations
@@ -43,7 +52,9 @@ import torch
 from video_depth_anything_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634
-HEAD_DIMS = (64, 192)  # the forward kernel's instantiations
+HEAD_DIMS = (64, 192)  # the Hopper forward kernels' instantiations
+WIDE_PANEL = 64  # the wide kernel's column panel (a Q, K or V tile is 64 x 64)
+WIDE_SLICE = 192  # output columns a CTA of the wide kernel keeps (three panels)
 
 
 def flash_gate(shape) -> bool:
@@ -52,6 +63,31 @@ def flash_gate(shape) -> bool:
         return False
     _, n, _, d = shape
     return d % 64 == 0 and d % 128 != 0 and n >= 256
+
+
+def wide(d: int) -> bool:
+    """Whether head width ``d`` takes the wide kernel
+    (``csrc/flash_attention_wide.cu``): D ≡ 64 (mod 128), D ≥ 320."""
+    return d % 128 == 64 and d >= 320
+
+
+def kernel_takes(shape, dtype) -> bool:
+    """Whether Kernel A's forward takes ``(B, N, H, D)`` q, k and v of
+    ``dtype``: bf16 or fp32, any B, N and H, D = 64 or 192 (the Hopper
+    kernels) or ``wide``.  Every shape ``flash_gate`` admits.  Pure: no
+    card needed."""
+    if len(shape) != 4 or dtype not in (torch.bfloat16, torch.float32):
+        return False
+    d = shape[3]
+    return d in HEAD_DIMS or wide(d)
+
+
+def wide_flops(b: int, n: int, h: int, d: int) -> float:
+    """FLOPs of the wide kernel's plan: S = Q·Kᵀ over all D once for
+    each output slice, P·V once, 2·N²·D·⌈D / 192⌉ + 2·N²·D a (b, h)
+    (the dense work is 4·N²·D)."""
+    slices = -(-d // WIDE_SLICE)
+    return 2.0 * n * n * d * (slices + 1) * b * h
 
 
 def bwd_gate(shape) -> bool:
@@ -112,6 +148,9 @@ def _kernel(name: str):
         elif name == "f32":
             fn = cuda_build.library("flash_attention_f32").vda_flash_attention_f32
             fn.argtypes = [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, vp]
+        elif name in ("wide", "wide_f32"):
+            fn = getattr(cuda_build.library("flash_attention_wide"), f"vda_flash_attention_{name}")
+            fn.argtypes = [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, vp]
         else:
             fn = getattr(cuda_build.library("flash_attention_bwd"), f"vda_flash_attention_{name}")
             fn.argtypes = [vp] * 10 + [i] * 3 + [ll] * 9 + [ctypes.c_float, vp]
@@ -150,12 +189,14 @@ def tma_geometry(t) -> tuple:
     return (d, h, n, b), tuple(strides)
 
 
-def _check_inputs(what: str, *tensors, head_dims=(64,), dtypes=(torch.bfloat16,)) -> list:
-    """Raise on what the kernels do not take; return each tensor's
-    ``(B, N, H)`` element strides from ``tma_geometry``, flat."""
+def _check_inputs(what: str, *tensors, takes=lambda d: d == 64,
+                  dtypes=(torch.bfloat16,)) -> list:
+    """Raise on what the kernels do not take (``takes``: whether they take
+    head width D); return each tensor's ``(B, N, H)`` element strides from
+    ``tma_geometry``, flat."""
     shape, device, dtype = tensors[0].shape, tensors[0].device, tensors[0].dtype
-    if shape[3] not in head_dims:
-        raise NotImplementedError(f"{what} kernel takes head_dim {head_dims}, got {shape[3]}")
+    if not takes(shape[3]):
+        raise NotImplementedError(f"{what} kernel does not take head_dim {shape[3]}")
     strides = []
     for t in tensors:
         if t.dtype not in dtypes or t.dtype != dtype:
@@ -170,10 +211,11 @@ def _check_inputs(what: str, *tensors, head_dims=(64,), dtypes=(torch.bfloat16,)
 
 def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = False):
     """Attention over ``(B, N, H, D)`` tensors, which may be strided views
-    of a fused qkv projection; D = 64 or 192, any head count, bf16 or fp32.
-    CPU tensors take the plain version; CUDA tensors launch Kernel A (its
-    fp32 kernel on fp32 operands) or raise.  ``with_lse`` (CUDA, bf16
-    only) also returns the fp32 ``(B, H, N)`` log-sum-exp of the scaled
+    of a fused qkv projection; D = 64, 192 or ``wide``, any head count,
+    bf16 or fp32 (``kernel_takes``).  CPU tensors take the plain version;
+    CUDA tensors launch Kernel A (its fp32 kernel on fp32 operands, the
+    wide kernel at D ≥ 320) or raise.  ``with_lse`` (CUDA, bf16, D = 64 or
+    192) also returns the fp32 ``(B, H, N)`` log-sum-exp of the scaled
     scores in the exp2 domain, which ``flash_attention_bwd`` takes.
 
     ``fast`` launches the no-max variant (the JAX ``:fast`` suffix): no
@@ -187,10 +229,25 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = 
         if with_lse:
             raise ValueError("the log-sum-exp comes from the CUDA kernel only")
         return flash_attention_plain(q, k, v, scale, fast=fast)
-    strides = _check_inputs("flash_attention", q, k, v, head_dims=HEAD_DIMS,
+    strides = _check_inputs("flash_attention", q, k, v, takes=lambda d: d in HEAD_DIMS or wide(d),
                             dtypes=(torch.bfloat16, torch.float32))
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    if wide(d):
+        if with_lse:
+            raise ValueError("the wide kernel writes no log-sum-exp: the backward kernel "
+                             "takes D = 64 only")
+        f32 = q.dtype == torch.float32
+        err = _kernel("wide_f32" if f32 else "wide")(
+            cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
+            b, n, h, d, *strides, n * h * d, h * d, d, float(scale), int(fast),
+            cuda_build.stream_of(q))
+        cuda_build.check(err, "flash_attention (wide)")
+        if f32:
+            flash_attention.wide_f32_launches += 1
+        else:
+            flash_attention.wide_launches += 1
+        return out
     if q.dtype == torch.float32:
         if with_lse:
             raise ValueError("the fp32 kernel writes no log-sum-exp: no JAX entry point "
@@ -220,6 +277,8 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = 
 flash_attention.launches = 0
 flash_attention.fast_launches = 0
 flash_attention.f32_launches = 0
+flash_attention.wide_launches = 0  # bf16 at D >= 320, either variant
+flash_attention.wide_f32_launches = 0  # and fp32
 
 
 def _bwd_args(q, k, v, o, lse, g, scale: float):
@@ -273,8 +332,8 @@ def flash_attention_bwd_split(q, k, v, o, lse, g, scale: float, iters: int = 20)
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable Kernel A: ``apply(q, k, v, scale, fast)`` on
     ``(B, N, H, D)``.  On the card the forward launches Kernel A (the fast
-    variant where ``fast``) and keeps its log-sum-exp; the backward
-    launches the backward kernel where ``bwd_gate`` holds and runs
+    variant where ``fast``) and, where ``bwd_gate`` holds, keeps its
+    log-sum-exp; the backward launches the backward kernel there and runs
     ``flash_attention_bwd_plain`` elsewhere (as the JAX package's blocked
     path does).  The fast forward's log-sum-exp is log2 of its row sum, so
     the backward kernel recomputes the same normalised P from it, as the
@@ -287,10 +346,10 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, scale, fast=False):
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, scale, fast=fast), None
-        elif q.dtype == torch.float32:
-            out, lse = flash_attention(q, k, v, scale, fast=fast), None
-        else:
+        elif q.dtype == torch.bfloat16 and bwd_gate(q.shape):
             out, lse = flash_attention(q, k, v, scale, with_lse=True, fast=fast)
+        else:
+            out, lse = flash_attention(q, k, v, scale, fast=fast), None
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out
@@ -298,7 +357,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        if lse is not None and bwd_gate(q.shape):
+        if lse is not None:  # kept where bwd_gate holds
             dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, ctx.scale)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, g, ctx.scale)

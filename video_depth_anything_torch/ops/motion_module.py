@@ -453,7 +453,8 @@ _fns = {}
 def _kernel(name: str = "motion_module", symbol: Optional[str] = None):
     """``vda_<symbol>`` (``symbol`` = name unless given) of
     ``csrc/<name>.cu``: the launch (``motion_module``), the split
-    (``motion_module_split``), the fp32 launch (``motion_module_f32``) or the
+    (``motion_module_split<C>``: ``motion_module_split_<C>``), the fp32
+    launch (``motion_module_f32``) or the
     wide chain (``motion_module_wide``: ``motion_module_wide`` and
     ``motion_module_wide_f32``)."""
     symbol = symbol or name
@@ -461,7 +462,7 @@ def _kernel(name: str = "motion_module", symbol: Optional[str] = None):
         fn = getattr(cuda_build.library(name), f"vda_{symbol}")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [vp] * 13 + [i, i, i, i, f, f, vp]
-        if name == "motion_module_split":
+        if name.startswith("motion_module_split"):
             fn.argtypes += [i, vp]
         if name == "motion_module_wide":
             fn.argtypes += [vp, i, i, i]
@@ -619,11 +620,11 @@ def motion_module_launch(x: torch.Tensor, gna: torch.Tensor, gnb: torch.Tensor,
 
 SPLIT_STAGES = ("gn_apply", "proj_in", "attn1_qkv", "attn1_attention", "attn1_out", "attn2",
                 "ff", "proj_out")
-SPLIT_C = (64, 128, 256, 384)  # the widths csrc/motion_module_split.cu instantiates
+SPLIT_C = (64, 128, 256, 384)  # the widths of csrc/motion_module_split<C>.cu
 
 
 def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
-    """Kernel C's time by stage (``csrc/motion_module_split.cu``): from CUDA
+    """Kernel C's time by stage (``csrc/motion_module_split<C>.cu``): from CUDA
     events around ``iters`` launches of instantiations that stop after each
     stage of ``SPLIT_STAGES`` (each writes its current activation rows
     out), the mean ms of each stage as the difference of successive stops,
@@ -635,7 +636,9 @@ def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
                                   f"resident kernel's config")
     _, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)
     ms = (ctypes.c_float * 8)()
-    cuda_build.check(_kernel("motion_module_split")(*args, iters, ms), "motion_module_split")
+    c = x.shape[-1]
+    fn = _kernel(f"motion_module_split{c}", f"motion_module_split_{c}")
+    cuda_build.check(fn(*args, iters, ms), "motion_module_split")
     out = {name: ms[k] - (ms[k - 1] if k else 0.0) for k, name in enumerate(SPLIT_STAGES)}
     out["whole"] = ms[7]
     return out

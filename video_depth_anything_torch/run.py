@@ -160,6 +160,8 @@ def kernel_launches() -> dict:
                                                 temporal_attention, fused_motion_module,
                                                 output_tail)}
     counts["flash_attention_fast"] = flash_attention.fast_launches
+    counts["flash_attention_wide"] = flash_attention.wide_launches
+    counts["flash_attention_wide_f32"] = flash_attention.wide_f32_launches
     for f in (flash_attention, temporal_attention, fused_motion_module):
         counts[f"{f.__name__}_f32"] = f.f32_launches
     counts["fused_motion_module_wide"] = fused_motion_module.wide_launches
@@ -335,7 +337,10 @@ def _save_outputs(args, frames, depths, fps, wall, device) -> None:
     if args.save_orig:
         save_video(frames, os.path.join(args.output_dir, f"{base}_orig.mp4"), fps=fps)
     if args.save_npz:
-        np.savez_compressed(os.path.join(args.output_dir, f"{base}_depth.npz"), depth=depths)
+        # uncompressed (JAX's run.py deflates): float32 depth barely
+        # deflates, and the deflate took longer than the clip's inference;
+        # np.load reads both alike
+        np.savez(os.path.join(args.output_dir, f"{base}_depth.npz"), depth=depths)
     if args.save_tiff:
         from video_depth_anything_torch.io.video import write_tiff_stack
 

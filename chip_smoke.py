@@ -2105,21 +2105,39 @@ def d320_config(depth: int = 24):
                                intermediate_layer_idx=taps)
 
 
-def wide_mutant_errors(plain, q, k, v, qf, scale) -> dict:
-    """How far three wrong plans of the wide kernel miss the plain version,
-    relative to max|plain|: the last output slice (up to 192 columns) never
-    stored; S summed over the first three 64-column panels only; the
-    zero-filled pad keys of the ragged last 64-key tile counted in the
-    softmax (on the flat inputs ``qf``)."""
-    from video_depth_anything_torch.ops.flash_attention import WIDE_SLICE
+def wide_mutant_errors(plain, q, k, v, qf, scale, f32: bool = False) -> dict:
+    """How far the wide kernel's wrong plans miss the plain version,
+    relative to max|plain|: the consumer storing its 320-column slice's
+    panel t at panel t + 1 (mod 5); S summed without the last 64 columns;
+    the zero-filled pad keys of the ragged last key tile (64 keys in bf16,
+    32 in fp32) counted in the softmax (on the flat inputs ``qf``); in fp32
+    also Vᵀ's keys left in order under P's permuted ones (key 2j at
+    position j < 4 of each 8, 2(j − 4) + 1 after)."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops.flash_attention import WIDE_PANEL, WIDE_SLICE
 
     want = plain(q, k, v, scale)
-    d = q.shape[-1]
-    dropped = want.clone()
-    dropped[..., (d - 1) // WIDE_SLICE * WIDE_SLICE:] = 0
-    return {"last_slice_dropped": rel_err(dropped, want),
-            "three_panels_only": rel_err(plain(q[..., :192], k[..., :192], v, scale), want),
-            "unmasked_zero_pad": zero_pad_error(plain, qf, k, v, scale, 64)}
+    n, d = q.shape[1], q.shape[-1]
+    rotated = want.clone()
+    for sl in range(-(-d // WIDE_SLICE)):
+        c0 = min(sl * WIDE_SLICE, d - WIDE_SLICE)
+        block = want[..., c0:c0 + WIDE_SLICE].unflatten(-1, (-1, WIDE_PANEL))
+        new = max(sl * WIDE_SLICE, c0)  # the columns the slice stores
+        rotated[..., new:c0 + WIDE_SLICE] = torch.roll(block, 1, dims=-2).flatten(-2)[
+            ..., new - c0:]
+    out = {"panels_rotated": rel_err(rotated, want),
+           "panel_dropped_from_s": rel_err(plain(q[..., :d - WIDE_PANEL], k[..., :d - WIDE_PANEL],
+                                                 v, scale), want),
+           "unmasked_zero_pad": zero_pad_error(plain, qf, k, v, scale, 32 if f32 else 64)}
+    if f32:  # P at position j is key PERM[j], V at position j key j: V's rows by PERM's inverse
+        inv = torch.tensor([0, 4, 1, 5, 2, 6, 3, 7], device=q.device)
+        n8 = -(-n // 8) * 8
+        order = (torch.arange(n8, device=q.device) // 8 * 8 + inv.repeat(n8 // 8))[:n]
+        vp = F.pad(v, (0, 0, 0, 0, 0, n8 - n))[:, order]
+        out["v_keys_unpermuted"] = rel_err(plain(q, k, vp, scale), want)
+    return out
 
 
 def sdpa_ms(q, k, v, scale):
@@ -2141,12 +2159,40 @@ def sdpa_ms(q, k, v, scale):
     return ms, backend
 
 
+def wide_ptxas(f32: bool, fast: bool) -> str:
+    """The registers and spills ptxas gave the wide kernel's entry functions
+    of this dtype and variant (Q resident and streamed), from the build
+    log."""
+    import re
+
+    from video_depth_anything_torch.ops import cuda_build
+
+    log_path = cuda_build.BUILD_DIR / "flash_attention_wide.log"
+    text = log_path.read_text() if log_path.exists() else ""
+    want = rf"flash_wideI{'f' if f32 else '13__nv_bfloat16'}Lb{int(fast)}ELb([01])E"
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = re.search(want, m.group(1))
+            spill = None
+        elif name and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{'q-resident' if name.group(1) == '1' else 'q-streamed'} {regs} regs "
+                       f"{spill} B spilled")
+            name = None
+    return "; ".join(sorted(out)) or "not in the build log"
+
+
 def wide_row(label: str, bt: int, n: int, h: int, d: int, dtype, fast: bool, g, dev) -> dict:
     """The wide kernel at ``(bt, n, h, d)`` against its plain version on
     peaked and flat inputs (bf16: ATTN_TOL; fp32, TF32 off: F32_TOL), with
     wide_mutant_errors (fp32 also one TF32 pass), ms, the dense bound (the
     row's ``bound_ms``) and the bound of the kernel's plan (S once a
-    slice), plain ms and SDPA's ms and backend."""
+    320-column slice), plain ms, SDPA's ms, ratio and backend, and the
+    registers and spills of the kernel's entry functions (``wide_ptxas``)."""
     import torch
 
     from video_depth_anything_torch.ops import flash_attention as fa
@@ -2161,8 +2207,8 @@ def wide_row(label: str, bt: int, n: int, h: int, d: int, dtype, fast: bool, g, 
     want = plain(q, k, v, scale)
     qf = flat_inputs(q)
     flat_err = rel_err(fa.flash_attention(qf, k, v, scale, fast=fast), plain(qf, k, v, scale))
-    mutants = wide_mutant_errors(plain, q, k, v, qf, scale)
-    if f32:
+    mutants = wide_mutant_errors(plain, q, k, v, qf, scale, f32=f32)
+    if f32:  # one TF32 pass
         mutants["tf32_plain"] = rel_err(tf32_plain(lambda *t: plain(*t, scale), q, k, v), want)
     ms = time_ms(lambda: fa.flash_attention(q, k, v, scale, fast=fast), iters=3, warmup=1)
     plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=1, warmup=1)
@@ -2182,7 +2228,8 @@ def wide_row(label: str, bt: int, n: int, h: int, d: int, dtype, fast: bool, g, 
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 extra=f" (peaked {err:.3e}, flat {flat_err:.3e}) ms/bound_ms={ms / b_ms:.2f} "
                       f"plan_bound_ms={plan_ms:.4f} ms/plan_bound_ms={ms / plan_ms:.2f} "
-                      f"sdpa_backend={backend}")
+                      f"ms/sdpa_ms={ms / lib_ms:.3f} sdpa_backend={backend} "
+                      f"ptxas [{wide_ptxas(f32, fast)}]")
 
 
 def wide_rows(dev) -> list:

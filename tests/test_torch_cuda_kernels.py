@@ -611,9 +611,9 @@ def _wide_counts():
 def test_flash_attention_wide_kernel(dev, no_tf32, dtype, n, h, d, fast):
     """D >= 320 (``csrc/flash_attention_wide.cu``): peaked and flat inputs
     against the plain version (ATTN_TOL in bf16, F32_TOL in fp32), ragged
-    and whole 64-key tiles, one to five heads, slices of 192 columns and
-    the ragged last one; only the wide counter of the dtype moves; the
-    three wrong plans of chip_smoke.wide_mutant_errors miss."""
+    and whole key tiles, one to five heads, one 320-column slice and the
+    overlapping last one, Q resident and streamed; only the wide counter of
+    the dtype moves; the wrong plans of chip_smoke.wide_mutant_errors miss."""
     f32 = dtype == torch.float32
     g = torch.Generator(device=dev).manual_seed(n + h + d)
     qkv = (chip_smoke.f32_inputs if f32 else chip_smoke.attention_inputs)((2, n, h * d), g, dev)
@@ -628,8 +628,8 @@ def test_flash_attention_wide_kernel(dev, no_tf32, dtype, n, h, d, fast):
     qf = chip_smoke.flat_inputs(q)
     assert chip_smoke.rel_err(fa.flash_attention(qf, k, v, d**-0.5, fast=fast),
                               plain(qf, k, v, d**-0.5)) <= tol
-    mutants = chip_smoke.wide_mutant_errors(plain, q, k, v, qf, d**-0.5)
-    if n % 64 == 0:  # no pad keys to count
+    mutants = chip_smoke.wide_mutant_errors(plain, q, k, v, qf, d**-0.5, f32=f32)
+    if n % (32 if f32 else 64) == 0:  # no pad keys to count (32-key tiles in fp32)
         mutants.pop("unmasked_zero_pad")
     assert min(mutants.values()) > tol
     with pytest.raises(ValueError, match="log-sum-exp"):

@@ -406,14 +406,15 @@ def test_launch_checks_tensor_maps_before_any_build():
 def test_split_rewrites_find_their_anchors():
     """``bench_probe_split``'s rewrites of this tree's sources (the split
     builds of the Hopper probes, ``sbf16`` among them, of the chain probe,
-    and the clock64 timeline) each find their anchor once, and it finds
-    Kernel A's D = 192 forward to time; ``bench_resize_conv`` finds the
+    of Kernel A's wide forward, and the clock64 timeline) each find their
+    anchor once, and it finds Kernel A's D = 192 forward to time and both
+    wide kinds in the wide kernel's source; ``bench_resize_conv`` finds the
     Hopper resize -> conv, whose split builds are in its source."""
     from video_depth_anything_torch import bench_probe_split as bps
     from video_depth_anything_torch import bench_resize_conv as brc
 
     designs = {d["name"]: (d, csrc, kinds) for d, csrc, kinds in bps.designs_of(str(ROOT))}
-    assert set(designs) == {"hopper", "chain-hopper", "flash"}
+    assert set(designs) == {"hopper", "chain-hopper", "flash", "wide-hopper"}
     design, csrc, kinds = designs["hopper"]
     assert kinds == ("ilv", "chunk", "sbf16")
     text = (Path(csrc) / design["file"]).read_text()
@@ -427,6 +428,12 @@ def test_split_rewrites_find_their_anchors():
     assert "RC_STOP" in rc_src.read_text()
     assert all(text.count(anchor) == 1 for anchor, _ in bps.TIMELINE)
     assert designs["flash"][2] == ("flash192",)
+    wide, wide_csrc, wide_kinds = designs["wide-hopper"]
+    assert wide_kinds == bps.WIDE_KINDS
+    wide_text = (Path(wide_csrc) / wide["file"]).read_text()
+    assert bps.rewrite(wide_text, wide, wide_kinds).count("PROBE_STOP") == 7  # 5 + 2 defines
+    assert [bps.kind_of(v) for v in ("wide", "wide:fast", "wide_f32", "wide_f32:fast")] == \
+        ["wide", "wide", "wide_f32", "wide_f32"]
 
 
 def test_chain_mix_cancels_unrolling():

@@ -3,13 +3,19 @@
 probe's seven modes, ``chain:<mode>``) spend their time on the card: each
 kernel built in full and with parts taken out, timed at the probe script's
 shapes, with its ``ptxas`` lines and the instruction mix of its softmax
-chain read from the SASS; and Kernel A's forward at D = 192 (``flash192``,
-``flash192:fast``), built in full only.
+chain read from the SASS; Kernel A's forward at D = 192 (``flash192``,
+``flash192:fast``), built in full only; and Kernel A's wide forward
+(``wide``, ``wide:fast``, ``wide_f32``, ``wide_f32:fast``), split.
 
     python -m video_depth_anything_torch.bench_probe_split [ROOT ...]
         [--variants ilv nomask chunk2 chunk4 sbf16 sbf16:fast ceiling
-                    flash192 flash192:fast chain:gemms ... chain:bf16x]
+                    flash192 flash192:fast chain:gemms ... chain:bf16x
+                    wide wide:fast wide_f32 wide_f32:fast]
         [--no-timing] [--timeline]
+
+For example ``python -m video_depth_anything_torch.bench_probe_split
+PARENT . --variants wide wide:fast wide_f32 wide_f32:fast`` times an
+unpacked parent checkout's wide kernel against this tree's, in turns.
 
 The kernels are built from the ``csrc`` of each checkout ROOT (default:
 this tree; for example an unpacked parent commit and this tree, to time
@@ -26,22 +32,31 @@ behind a ``PROBE_STOP`` / ``PROBE_FLOORF`` macro (built with the macro at
   only);
 * ``floorf`` (the Hopper design only): ``exp2_poly`` with ``floorf`` and
   ``__float2int_rz``, as the TPU kernel and the ``mma.sync`` kernels take
-  the floor and the exponent, in place of the rounding-down add.
+  the floor and the exponent, in place of the rounding-down add;
+* ``noqreload`` (the ``mma.sync`` wide kernel only): its Q panels copied
+  at the first key tile only (the later tiles read whatever the ring slot
+  holds: a timing, not a result).
 
 The designs are found from the sources (``DESIGNS``): the ``mma.sync``
 ``sbf16_kernel`` and ``chain_kernel`` of ``csrc/attention_variants.cu`` (in
 checkouts that still hold them), the Hopper probes of
 ``csrc/attention_variants_hopper.cu`` (``ilv``, ``chunk`` and, where the
 source has them, ``sbf16_hopper`` and ``chain_hopper``), and
-``csrc/flash_attention.cu`` for D = 192.  A design is built only where a
+``csrc/flash_attention.cu`` for D = 192, and ``csrc/flash_attention_wide.cu``
+(the ``mma.sync`` design of PR 22 or the Hopper one, told apart by
+their sources) for the wide variants.  A design is built only where a
 variant asked for runs on it.  Each build is timed with CUDA events
 (``utils/device.event_ms``) in turns: the builds in order, then in reverse
 order, per shape (the chain probe at 512 x 1376 x 1408 with V 128 wide;
 the spatial probes at vitl and vits, 32 x 1370; ``flash192`` at
 32 x 1370 with 2 heads of 192, q, k and v strided views of one fused qkv
 tensor, as the model's projection gives them, and again at B = 30 and 33:
-5.0 and 5.5 waves of its CTAs on 132 SMs against 5.33).  The ``full`` and
-``floorf`` builds are held against the plain versions
+5.0 and 5.5 waves of its CTAs on 132 SMs against 5.33; the wide variants
+at the d320 windows' shapes, 32 x 1370 and 32 x 2443 with 4 heads of 320,
+strided views of one fused qkv tensor, beside SDPA and the plain version,
+and the Hopper design's bf16 full build also with Q streamed and
+resident, ``qstream`` and ``qresident``).
+The ``full`` and ``floorf`` builds are held against the plain versions
 (``spatial_kernel_plain``, ``flash_attention_plain``).  ``--no-timing``
 stops after the builds and the SASS; ``--timeline`` also prints the
 phases of one CTA of this tree's Hopper ``ilv`` and ``chunk`` kernels,
@@ -220,14 +235,60 @@ CHAIN_HOPPER = {  # chain_hopper<MODE>
     "builds": _BUILDS,
     "chain_kept": {"exact": _CHAIN_EXACT_KEPT, "bf16x": {"FMNMX": 1.0, "FADD": 1.0}},
 }
-DESIGNS = (MMA_SYNC_SBF16, MMA_SYNC_CHAIN, HOPPER, CHAIN_HOPPER, FLASH)
+WIDE_KINDS = ("wide", "wide_f32")
+_WIDE_KERNELS = {"wide": "vda_flash_attention_wide", "wide_f32": "vda_flash_attention_wide_f32"}
+_STOP2_BODY = "  if (PROBE_STOP >= 2) return;\n"
+WIDE_MMA = {  # PR 22's wide kernel: mma.sync over a cp.async ring, Q copied with every K panel
+    "name": "wide-mma", "file": "flash_attention_wide.cu", "marker": "cp_async16",
+    "kernels": _WIDE_KERNELS, "exp_marker": "MUFU.EX2",
+    "rewrites": [
+        ("      if (r == p.panels - 1) {\n",
+         "      if (PROBE_STOP >= 1 && r == p.panels - 1) {\n        pf.set(sc);\n"
+         "        l_i[0] = l_i[1] = 1.f;\n      } else if (r == p.panels - 1) {\n", None),
+        ("      load_tile(buf, qb, p.qs[1], q0, p.n, r * kPanel);\n",
+         "      if (!PROBE_NOQ || j == 0) load_tile(buf, qb, p.qs[1], q0, p.n, r * kPanel);\n", None),
+    ] + [(head, head + _STOP2_BODY, None) for head in (
+        "__device__ __forceinline__ void qk_panel(float (&sc)[32], const bf16* sq, const bf16* sk,\n"
+        "                                         int lane) {\n",
+        "__device__ __forceinline__ void qk_panel(float (&sc)[32], const float* sq, const float* sk,\n"
+        "                                         int lane) {\n",
+        "__device__ __forceinline__ void pv_panel(float (&acc)[32], const PFrag<bf16>& pf,\n"
+        "                                         const float (&)[32], const bf16* sv, int lane) {\n",
+        "__device__ __forceinline__ void pv_panel(float (&acc)[32], const PFrag<float>&,\n"
+        "                                         const float (&p)[32], const float* sv, int lane) {\n")],
+    "builds": {**_BUILDS, "noqreload": ["-DPROBE_NOQ=1"]},
+}
+WIDE_HOPPER = {  # the wide kernel on wgmma fed by a TMA ring (a pre-pass splits fp32)
+    "name": "wide-hopper", "file": "flash_attention_wide.cu", "marker": "split_vt",
+    "kernels": _WIDE_KERNELS, "exp_marker": "MUFU.EX2",
+    "rewrites": [
+        ("                                             float scale_log2) {\n",
+         "                                             float scale_log2) {\n"
+         "  if (PROBE_STOP >= 1) {\n    l_i[0] = l_i[1] = 1.f;\n    return;\n  }\n", None),
+    ] + [(head, head + _STOP2_BODY, None) for head in (
+        "__device__ __forceinline__ void s_panel(float (&sc)[32], const unsigned char* q,\n"
+        "                                        const unsigned char* st) {\n",
+        "__device__ __forceinline__ void s_panel(float (&sc)[16], const unsigned char* q,\n"
+        "                                        const unsigned char* st) {\n",
+        "__device__ __forceinline__ void pv_panel(float (&acc)[32], const PFrag<bf16>& pf,\n"
+        "                                         const unsigned char* st) {\n",
+        "__device__ __forceinline__ void pv_panel(float (&acc)[32], const PFrag<float>& pf,\n"
+        "                                         const unsigned char* st) {\n")],
+    "builds": _BUILDS,
+}
+WIDE_SHAPES = (("d320 518x518", 32, 1370, 4), ("d320 518x924", 32, 2443, 4))  # label, B*T, N, H
+WIDE_D = 320
+DESIGNS = (MMA_SYNC_SBF16, MMA_SYNC_CHAIN, HOPPER, CHAIN_HOPPER, FLASH, WIDE_MMA, WIDE_HOPPER)
 
 
 def kind_of(variant: str) -> str:
     """The kernel kind a variant runs on: ``ilv``, ``chunk``, ``sbf16``,
-    ``flash192`` or ``chain`` (variants ``chain:<mode>``)."""
+    ``flash192``, ``chain`` (variants ``chain:<mode>``), ``wide`` or
+    ``wide_f32`` (each also ``:fast``)."""
     if variant in ("flash192", "flash192:fast"):
         return "flash192"
+    if variant in (*WIDE_KINDS, "wide:fast", "wide_f32:fast"):
+        return variant.split(":")[0]
     if variant.startswith("chain:"):
         if variant[6:] not in CHAIN_MODES:
             raise ValueError(variant)
@@ -247,7 +308,7 @@ def rewrite(text: str, design: dict, kinds) -> str:
                              f"{anchor[:60]!r}")
         text = text.replace(anchor, new)
     return "#ifndef PROBE_STOP\n#define PROBE_STOP 0\n#endif\n#ifndef PROBE_FLOORF\n" \
-           "#define PROBE_FLOORF 0\n#endif\n" + text
+           "#define PROBE_FLOORF 0\n#endif\n#ifndef PROBE_NOQ\n#define PROBE_NOQ 0\n#endif\n" + text
 
 
 def designs_of(root: str) -> list:
@@ -301,6 +362,12 @@ def entry(lib, kind: str):
     if kind == "flash192":
         fn = lib.vda_flash_attention_fwd
         fn.argtypes = [vp] * 4 + [i] * 4 + [ctypes.c_longlong] * 12 + [f, i, vp, vp]
+    elif kind in WIDE_KINDS:  # PR 22's: ..., scale, fast, stream; the Hopper design's takes
+        # bf16's q_resident or fp32's scratch before the stream
+        fn = getattr(lib, _WIDE_KERNELS[kind])
+        hopper = hasattr(lib, "vda_flash_attention_wide_f32_scratch")
+        fn.argtypes = ([vp] * 4 + [i] * 4 + [ctypes.c_longlong] * 12 + [f, i]
+                       + ([vp if kind == "wide_f32" else i] if hopper else []) + [vp])
     elif kind == "chain":  # q, k, v, o, bh, nq, nk, dv, mode, stream
         fn = lib.vda_chain
         fn.argtypes = [vp] * 4 + [i] * 5 + [vp]
@@ -483,6 +550,73 @@ def timeline(csrc: str, out_dir: str, variants) -> None:
                                                 rows.items()}}), flush=True)
 
 
+def time_wide(variants, builds, time_rows, gen, dev) -> None:
+    """The wide variants at WIDE_SHAPES: each build in turns, beside SDPA,
+    the plain version and the dense bound (3xTF32 in fp32); the Hopper
+    design's bf16 full build also with Q streamed and resident
+    (``:qstream``, ``:qresident``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops import cuda_build
+    from video_depth_anything_torch.ops import flash_attention as fa
+    from video_depth_anything_torch.utils.device import event_ms
+
+    d, scale = WIDE_D, WIDE_D**-0.5
+    for label, bsz, n, h in WIDE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            kind = "wide_f32" if dtype == torch.float32 else "wide"
+            mine = [v_ for v_ in variants if kind_of(v_) == kind]
+            if not mine:
+                continue
+            qkv = torch.randn(bsz, n, 3 * h * d, generator=gen, device=dev)
+            qkv[..., :2 * h * d] *= 0.5
+            q, k, v = (t.view(bsz, n, h, d) for t in qkv.to(dtype).split(h * d, dim=-1))
+            del qkv
+            strides = fa._check_inputs("wide", q, k, v, takes=fa.wide, dtypes=(dtype,))
+            scratch = (torch.empty(fa.wide_f32_scratch_elems(bsz, n, h, d), device=dev)
+                       if dtype == torch.float32 else None)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            dense = 4.0 * bsz * n * n * h * d
+            peak = PEAK_BF16 if dtype == torch.bfloat16 else 495e12 / 3
+            extra = {"sdpa_ms": round(event_ms(lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, scale=scale), iters=5, warmup=1), 4),
+                     "tensor_bound_ms": round(dense / peak * 1e3, 4)}
+            for variant in mine:
+                fast = variant.endswith(":fast")
+                plain_ms = round(event_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, scale, fast=fast), iters=2, warmup=1), 4)
+
+                def run(tag, fast=fast, q_resident=-1):
+                    out = torch.empty_like(q)
+                    tail = []
+                    if ":wide-hopper:" in tag:
+                        tail = [cuda_build.ptr(scratch) if scratch is not None else q_resident]
+                    err = builds[tag][0][kind](*(cuda_build.ptr(t) for t in (q, k, v, out)), bsz, n,
+                                               h, d, *strides, n * h * d, h * d, d, float(scale),
+                                               int(fast), *tail, cuda_build.stream_of(q))
+                    cuda_build.check(err, tag)
+                    return out
+
+                want = fa.flash_attention_plain(q, k, v, scale, fast=fast).float()
+                time_rows(label, variant, kind, run, want, {**extra, "plain_ms": plain_ms})
+                # bf16's full build with Q forced streamed and resident
+                others = ({"qstream": dict(q_resident=0), "qresident": dict(q_resident=1)}
+                          if kind == "wide" else {})
+                for tag in [t_ for t_ in builds if t_.endswith(":wide-hopper:full")]:
+                    for name, kw in others.items():
+                        o_ms = event_ms(lambda tag=tag, kw=kw: run(tag, **kw))
+                        got = run(tag, **kw).float()
+                        print(json.dumps({"enc": label, "variant": variant,
+                                          "build": f"{tag}:{name}", "ms": round(o_ms, 4),
+                                          "rel_err": float((got - want).abs().max()
+                                                           / want.abs().max()), **extra}),
+                              flush=True)
+                del want
+            del q, k, v, qt, kt, vt, scratch
+            torch.cuda.empty_cache()
+
+
 def max_sm_clock_hz() -> float:
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, check=True).stdout
@@ -556,13 +690,13 @@ def main(argv=None) -> int:
                                     CHAIN_MARKER[mode])
                 else:
                     kept = next((v for k, v in design.get("kept", {}).items() if k in func), None)
-                    mix = chain_mix(counts, nochain, kept)
+                    mix = chain_mix(counts, nochain, kept, design.get("exp_marker"))
                 row.update(mix, counts_full=dict(counts), counts_nochain=dict(nochain))
                 if "per_score_by_class" in mix and kind == "chain":
                     bh, _, nk, _ = CHAIN_SHAPE  # both designs compute 1408 query rows
                     row["chain_bound_ms"] = round(chain_bound_ms(
                         mix["per_score_by_class"], bh * 1408.0 * nk, sms, clock), 4)
-                elif "per_score_by_class" in mix:
+                elif "per_score_by_class" in mix and kind not in WIDE_KINDS:
                     row["chain_bound_ms"] = {
                         enc: round(chain_bound_ms(mix["per_score_by_class"],
                                                   BATCH * h * 1408.0 * 1408.0, sms, clock), 4)
@@ -618,7 +752,7 @@ def main(argv=None) -> int:
         del q, k, v
         torch.cuda.empty_cache()
     scale = D**-0.5
-    spatial = [v for v in args.variants if kind_of(v) not in ("flash192", "chain")]
+    spatial = [v for v in args.variants if kind_of(v) not in ("flash192", "chain", *WIDE_KINDS)]
     for enc, heads in ENCODERS if spatial else ():
         q, k, v = ((torch.randn(BATCH, N, heads * D, generator=gen, device=dev) * std)
                    .to(torch.bfloat16) for std in (0.5, 0.5, 1.0))
@@ -643,6 +777,9 @@ def main(argv=None) -> int:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
+    wide = [v_ for v_ in args.variants if kind_of(v_) in WIDE_KINDS]
+    if wide:
+        time_wide(wide, builds, time_rows, gen, dev)
     flash = [v_ for v_ in args.variants if kind_of(v_) == "flash192"]
     if not flash:
         shutil.rmtree(out_dir, ignore_errors=True)

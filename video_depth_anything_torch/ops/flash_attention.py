@@ -14,8 +14,10 @@ at least 256 tokens.  The forward kernels take that gate's whole domain
 (``kernel_takes``), any head count, exact or ``fast`` (the ``:fast`` impl
 suffix's no-max softmax): D = 64 (every shipped encoder) and D = 192 on
 the Hopper kernels, every D ≡ 64 (mod 128) from 320 on the wide kernel
-(``wide``: 64-query CTAs over one slice of at most 192 output columns,
-S summed over D / 64 panels).  ``bwd_gate`` is where the JAX package runs
+(``wide``: ``wgmma`` fed by a TMA ring, 64-query CTAs whose consumer
+warpgroup keeps one 320-column slice of O, S summed over the panels of D
+once a slice; in fp32 after a pre-pass that splits q, k and vᵀ into hi
+and lo).  ``bwd_gate`` is where the JAX package runs
 the Pallas backward (the native layout: D = 64, H even, at most 2048
 padded keys); elsewhere its VJP is the dense einsum backward, and so is
 the port's.
@@ -39,8 +41,8 @@ kernel reads one at D ≠ 64.
 
 Bound on the H100: tensor-core FLOPs (4·N²·D·H·B forward, 10·N²·D·H·B
 backward); the fp32 kernels', three times the forward's FLOPs at the
-tensor cores' TF32 rate; the wide kernel recomputes S once a slice
-(``wide_flops``); see the source notes.
+tensor cores' TF32 rate; the wide kernel computes S once a 320-column
+slice (``wide_flops``: the dense work at D = 320); see the source notes.
 """
 
 from __future__ import annotations
@@ -53,8 +55,8 @@ from video_depth_anything_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 192)  # the Hopper forward kernels' instantiations
-WIDE_PANEL = 64  # the wide kernel's column panel (a Q, K or V tile is 64 x 64)
-WIDE_SLICE = 192  # output columns a CTA of the wide kernel keeps (three panels)
+WIDE_PANEL = 64  # a 64-column panel of O (and, in bf16, of an S-step's Q and K)
+WIDE_SLICE = 320  # output columns a consumer of the wide kernel keeps (five panels)
 
 
 def flash_gate(shape) -> bool:
@@ -83,11 +85,19 @@ def kernel_takes(shape, dtype) -> bool:
 
 
 def wide_flops(b: int, n: int, h: int, d: int) -> float:
-    """FLOPs of the wide kernel's plan: S = Q·Kᵀ over all D once for
-    each output slice, P·V once, 2·N²·D·⌈D / 192⌉ + 2·N²·D a (b, h)
-    (the dense work is 4·N²·D)."""
+    """FLOPs of the wide kernel's plan: for each 320-column slice of O
+    (the last one starts at D − 320, overlapping the one before), S = Q·Kᵀ
+    over all D and P·V over the slice's 320 columns,
+    (2·N²·D + 2·N²·320)·⌈D / 320⌉ a (b, h): the dense 4·N²·D at D = 320."""
     slices = -(-d // WIDE_SLICE)
-    return 2.0 * n * n * d * (slices + 1) * b * h
+    return 2.0 * n * n * (d + WIDE_SLICE) * slices * b * h
+
+
+def wide_f32_scratch_elems(b: int, n: int, h: int, d: int) -> int:
+    """fp32 elements of the wide fp32 kernel's scratch: its pre-pass's hi
+    and lo copies of q·scale·log2 e and k, (B, N, H, D) each, and of vᵀ,
+    (B, D, H, Np) with N padded to 32 keys."""
+    return 4 * b * n * h * d + 2 * b * d * h * (-(-n // 32) * 32)
 
 
 def bwd_gate(shape) -> bool:
@@ -150,7 +160,10 @@ def _kernel(name: str):
             fn.argtypes = [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, vp]
         elif name in ("wide", "wide_f32"):
             fn = getattr(cuda_build.library("flash_attention_wide"), f"vda_flash_attention_{name}")
-            fn.argtypes = [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, vp]
+            # ..., scale, fast, then bf16's q_resident (-1: where it fits) or
+            # fp32's scratch, then the stream
+            fn.argtypes = ([vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i]
+                           + ([vp] if name == "wide_f32" else [i]) + [vp])
         else:
             fn = getattr(cuda_build.library("flash_attention_bwd"), f"vda_flash_attention_{name}")
             fn.argtypes = [vp] * 10 + [i] * 3 + [ll] * 9 + [ctypes.c_float, vp]
@@ -238,10 +251,13 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False, fast: bool = 
             raise ValueError("the wide kernel writes no log-sum-exp: the backward kernel "
                              "takes D = 64 only")
         f32 = q.dtype == torch.float32
+        # the fp32 pre-pass's hi and lo copies (stream-ordered: freed after the launch)
+        scratch = torch.empty(wide_f32_scratch_elems(b, n, h, d), dtype=torch.float32,
+                              device=q.device) if f32 else None
         err = _kernel("wide_f32" if f32 else "wide")(
             cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
             b, n, h, d, *strides, n * h * d, h * d, d, float(scale), int(fast),
-            cuda_build.stream_of(q))
+            cuda_build.ptr(scratch) if f32 else -1, cuda_build.stream_of(q))
         cuda_build.check(err, "flash_attention (wide)")
         if f32:
             flash_attention.wide_f32_launches += 1

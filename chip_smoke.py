@@ -77,14 +77,20 @@ Phases (each failure ends the run with a non-zero exit):
    (the wide chain on all four modules) and fp32 ``pallas``; each against
    the plain path with the exact launches of DOMAIN_WINDOWS (Kernel B's by
    head width, the tail's by C); then (c): Kernel B at every width the
-   gate admits at 4, 8 and 16 heads, Kernel C at every width it admits at
+   gate admits at 4, 8 and 16 heads (in fp32 also one head of 320 and of
+   512, two of 256 and C = 6 at one head on 19² locations: the fp32
+   run-time-d kernel's several boxes a row and its cp.async loader,
+   DOMAIN_F32_EXTRA), Kernel C at every width it admits at
    8 heads, two blocks and ff_mult 4 (forced) and at 4 and 16 heads, 1
    and 3 blocks and ff_mult 2 at C = 64, 96, 320 and 512, each in bf16
    and fp32 against its plain version with its mutants (Kernel B: d
-   rounded up to the next instantiated width; Kernel C: 8 heads whatever
+   rounded up to the next instantiated width, the last box of a row of
+   several never loaded; Kernel C: 8 heads whatever
    the config says, the last attention block dropped; the tail: the map
    read at half its channels), and the kernels whose domains did not change
-   re-timed beside PERF.md's times (PERF_MS).
+   re-timed beside PERF.md's times (PERF_MS).  Kernel B's bound there is the
+   largest of its FLOPs, its bytes and its softmax's exponentials on the
+   SFU (``temporal_bound``).
 4. cli: ``python -m video_depth_anything_torch.run --random_init`` (called
    in-process through ``run.main``) on synthetic 480x480 and 854x480 mp4s
    of 76 frames with vits, and on the 480x480 one with vitl and vitb, and
@@ -1210,7 +1216,7 @@ def main() -> int:
         "temporal_attention_any": ("temporal_attention_any", "csrc/temporal_attention_any.cu",
                                    "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
         "temporal_attention_any_f32": ("temporal_attention_any_f32",
-                                       "csrc/temporal_attention_any.cu",
+                                       "csrc/temporal_attention_any_f32.cu",
                                        "video_depth_anything_tpu/ops/pallas_temporal.py:59"),
         # Kernel A at D >= 320: phase wide
         "flash_attention_wide": ("flash_attention_wide", "csrc/flash_attention_wide.cu",
@@ -1803,13 +1809,43 @@ def domain_c_shapes() -> list:
     return out
 
 
+def last_box_plain(q, k, v, heads: int, scale: float, w: int):
+    """The fp32 run-time-d kernel with the last box of each one-head tile's
+    row never loaded (read as zeros): every column from the last box's
+    first, ``w · (nb - 1)``, zero in q, k and v; plain PyTorch."""
+    from video_depth_anything_torch.ops import temporal_attention as ta
+
+    d = q.shape[-1] // heads
+    nb = -(-d // w)
+    cut = [x.clone() for x in (q, k, v)]
+    for x in cut:
+        x.view(*x.shape[:3], heads, d)[..., w * (nb - 1):] = 0
+    return ta.temporal_attention_plain(*cut, heads, scale)
+
+
+def temporal_bound(c: int, heads: int, s: int, itemsize: int, f32: bool) -> tuple:
+    """Kernel B's bound on a 1×32×S×C window: the largest of the FLOPs (bf16
+    tensor cores, or fp32 CUDA cores), the bytes, and the softmax's
+    S·heads·32² exponentials on the SFU (bench_temporal.sfu_ms); ``bound_by``
+    "operations" where the FLOPs or the exponentials bind."""
+    from video_depth_anything_torch import bench_temporal
+
+    flops, nbytes = 4.0 * s * c * 32 * 32, 4.0 * 32 * s * c * itemsize
+    b_ms, b_by = (bound_f32 if f32 else bound)(flops, nbytes)
+    exp_ms = bench_temporal.sfu_ms(1, s, heads, 32)
+    return (exp_ms, "operations") if exp_ms > b_ms else (b_ms, b_by)
+
+
 def domain_temporal_row(c: int, heads: int, dtype, seed: int, dev, s: int = 0,
                         label: str = "") -> dict:
     """Kernel B at (C, heads) on a 32-frame window of ``s`` locations (0:
     DOMAIN_S, or DOMAIN_S_WIDE at C >= 640) against its plain version, with
-    the mutants (uniform attention, the last location tile never stored, and
-    off the instantiated widths d rounded up to the next of them), device ms
-    over inputs rotated past the L2, plain and SDPA ms, the bytes bound."""
+    the mutants (uniform attention, the last location tile never stored, off
+    the instantiated widths and at several heads d rounded up to the next of
+    them, and where the
+    fp32 kernel reads a row in several boxes the last box never loaded),
+    device ms over inputs rotated past the L2, plain and SDPA ms, and the
+    bound (``temporal_bound``: bytes, FLOPs or the softmax's exponentials)."""
     import torch
     import torch.nn.functional as F
 
@@ -1832,23 +1868,40 @@ def domain_temporal_row(c: int, heads: int, dtype, seed: int, dev, s: int = 0,
     dropped = want.clone()
     dropped[:, :, (s - 1) // locs * locs:] = 0
     mutants = {"uniform": rel_err(uniform, want), "last_location_tile_dropped": rel_err(dropped, want)}
-    if not ta.instantiated(c, heads) and d < 128:
+    # (at one head the rounded width reads zeros past C: no wrong kernel)
+    if not ta.instantiated(c, heads) and d < 128 and heads > 1:
         mutants["d_rounded_up"] = rel_err(rounded_width_plain(q, k, v, heads, scale), want)
+    extra = ""
+    if f32 and not ta.instantiated(c, heads):
+        plan = ta.any_f32_plan(q.shape, heads)
+        if plan["nb"] > 1:
+            mutants["last_box_dropped"] = rel_err(last_box_plain(q, k, v, heads, scale, plan["w"]),
+                                                  want)
+        extra = (f" loader={plan['loader']} boxes={plan['nb']}x{plan['bw']} class={plan['kind']}"
+                 f" {'tensor' if plan['split'] else 'tile'} slots={plan['slots']} warps={plan['nw']}")
     ms = graph_ms([lambda x=x: ta.temporal_attention(*x, heads, scale) for x in copies], reps=10)
     plain_ms = graph_ms([lambda: ta.temporal_attention_plain(q, k, v, heads, scale)], reps=3)
     q5, k5, v5 = (x.view(1, 32, s, heads, d).permute(0, 2, 3, 1, 4) for x in (q, k, v))
     lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=scale)], reps=5)
-    flops, nbytes = 4.0 * s * c * 32 * 32, 4.0 * 32 * s * c * q.element_size()
-    b_ms, b_by = (bound_f32 if f32 else bound)(flops, nbytes)
+    b_ms, b_by = temporal_bound(c, heads, s, q.element_size(), f32)
     name = ("temporal_attention" if ta.instantiated(c, heads) else "temporal_attention_any") + \
         ("_f32" if f32 else "")
     row = dict(kernel=name, shape=f"{label or 'domain'} (B=1, T=32, S={s}, C={c}, heads={heads}, "
                f"d={d})", max_abs_err=max_err(got, want), rel_err=rel_err(got, want),
                tol=F32_TOL if f32 else ATTN_TOL, mutants=mutants, ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, extra=f" ms/bound_ms={ms / b_ms:.2f}")
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               extra=f" ms/bound_ms={ms / b_ms:.2f}{extra}")
     if (name, label) in PERF_MS:
         row["extra"] += f" perf_md_ms={PERF_MS[(name, label)]:.4f}"
     return row
+
+
+# fp32 rows of the run-time-d kernel beyond the sweep's heads: (C, heads, S,
+# label): one head of 320 and of 512 and two of 256 (a row in two or three
+# TMA boxes, two or three slots), and C = 6 at one head on 19² locations (S·C·4
+# bytes not a multiple of 16: the cp.async loader)
+DOMAIN_F32_EXTRA = ((320, 1, DOMAIN_S, "one head of 320"), (512, 1, DOMAIN_S, "one head of 512"),
+                    (512, 2, DOMAIN_S, "two heads of 256"), (6, 1, DOMAIN_S_WIDE, "cp.async C=6"))
 
 
 def domain_motion_params(c: int, blocks: int, ff: int, seed: int, dev) -> dict:
@@ -1982,6 +2035,10 @@ def domain_rows(dev) -> list:
         for dtype in (torch.bfloat16, torch.float32):
             for n_row, (c, heads) in enumerate(domain_b_shapes()):
                 rows.append(domain_temporal_row(c, heads, dtype, 300 + n_row, dev))
+            if dtype == torch.float32:
+                for n_row, (c, heads, s, label) in enumerate(DOMAIN_F32_EXTRA):
+                    rows.append(domain_temporal_row(c, heads, dtype, 400 + n_row, dev, s=s,
+                                                    label=label))
             for c, heads, blocks, ff in domain_c_shapes():
                 rows.append(domain_motion_row(c, heads, blocks, ff, dtype, dev))
             torch.cuda.empty_cache()

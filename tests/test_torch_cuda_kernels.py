@@ -511,12 +511,16 @@ def test_motion_module_wide_kernel(dev, no_tf32, dtype, c, t, s):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("heads,c,t,s", [(8, 40, 32, 29), (4, 12, 17, 33), (16, 48, 8, 9),
                                          (4, 384, 32, 13), (1, 512, 32, 5), (16, 2048, 24, 3),
-                                         (8, 512, 32, 7), (2, 6, 32, 70)])
+                                         (8, 512, 32, 7), (2, 6, 32, 70), (1, 5, 32, 9),
+                                         (1, 320, 17, 7), (2, 512, 32, 11), (16, 16, 32, 41),
+                                         (1, 448, 17, 6), (1, 160, 32, 300)])
 def test_temporal_attention_any_kernel(dev, no_tf32, dtype, heads, c, t, s):
-    """Kernel B off its instantiated widths (the run-time-d kernel): packed
-    small heads, odd d, d = 96, 512 and 64, ragged location tiles, against
-    the plain version (ATTN_TOL in bf16, F32_TOL in fp32); one launch on
-    its own counter."""
+    """Kernel B off its instantiated widths (the run-time-d kernels): packed
+    small heads, odd d, d = 96, 512 and 64, ragged location tiles, in fp32
+    the cp.async loader (C = 5 and 6) and rows of two and three boxes, a
+    slot a tensor (d = 160 - 512 at one head, class 4 at d = 448, 512),
+    against the plain version (ATTN_TOL in bf16, F32_TOL in fp32); one
+    launch on its own counter."""
     g = torch.Generator(device=dev).manual_seed(c + t)
     q, k, v = (x.contiguous().to(dtype) for x in
                chip_smoke.attention_inputs((2, t, s, c), g, dev).split(c, dim=-1))
@@ -529,6 +533,19 @@ def test_temporal_attention_any_kernel(dev, no_tf32, dtype, heads, c, t, s):
         (before[0], before[1], before[2] + (not f32), before[3] + f32)
     want = ta.temporal_attention_plain(q, k, v, heads, scale)
     assert chip_smoke.rel_err(got, want) <= (chip_smoke.F32_TOL if f32 else chip_smoke.ATTN_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,c,t,s", [(8, 40, 32, 29), (1, 5, 32, 9), (1, 512, 32, 5)])
+def test_temporal_attention_any_split(dev, dtype, heads, c, t, s):
+    """The run-time-d kernels' split (copies in and out alone) returns q
+    unchanged and counts no launch."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    q, k, v = (torch.randn(1, t, s, c, device=dev, generator=g).to(dtype) for _ in range(3))
+    f = ta.temporal_attention
+    before = (f.any_launches, f.any_f32_launches)
+    assert torch.equal(ta.temporal_attention_split(q, k, v, heads, (c // heads) ** -0.5), q)
+    assert (f.any_launches, f.any_f32_launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

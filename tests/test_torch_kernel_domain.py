@@ -13,7 +13,7 @@ Kernel B under ``auto`` and ``pallas``, Kernel C under its size rule and
 forced past it (``VDA_FUSED_MOTION=1``) at 74² locations.  The tail at C =
 32, 64 and 128 under both values of ``packed_output_stack`` and
 ``fused_output_tail``, at the map sizes of 518², 518×924, 280×924 and 70²
-frames.  Kernel A: D a multiple of 64 up to 2048, heads 1-16, N from 256
+frames.  Kernel B also at every C below 32.  Kernel A: D a multiple of 64 up to 2048, heads 1-16, N from 256
 (ragged and whole 64- and 128-key tiles, past JAX's 2048-key whole row),
 B·T 1 and 32, both dtypes.  Pure Python: nothing is computed."""
 
@@ -108,8 +108,12 @@ def test_kernel_a_routes_past_d192_to_the_wide_kernel():
 
 @pytest.mark.parametrize("heads", HEADS)
 def test_kernel_b_takes_every_shape_the_jax_gate_admits(heads, tagged):
+    """C a multiple of 8 up to 2048 and every C below 32, so that the
+    widths the gate admits that are not multiples of 8 (C = 1-7, 10, 12,
+    14, 20, 28 at one head, ...) are held to ``kernel_takes`` in both
+    dtypes too."""
     admitted = 0
-    for c in WIDTHS:
+    for c in sorted(set(range(1, 32)) | set(WIDTHS)):
         for t in FRAMES:
             for jdt, tdt in DTYPES:
                 x = _Spec((1, t, LOCATIONS, c), jdt)

@@ -12,8 +12,9 @@ written over the unit's q rows, and only rows before T and locations
 before S stored.  Also the two wrong tilings that ``chip_smoke.py``
 checks for (the last location tile never stored, zero keys unmasked).
 
-The run-time-d kernel (``csrc/temporal_attention_any.cu``: every width the
-gate admits off the six above) walks the same ``tile_plan`` tiles, its
+The bf16 run-time-d kernel (``csrc/temporal_attention_any.cu``: every width
+the gate admits off the six above; the fp32 one has its own plan, held in
+``tests/test_torch_temporal_any_f32_tiling.py``) walks the same ``tile_plan`` tiles, its
 shared rows fp32 and only the T loaded frames (no stale rows, nothing
 padded), a unit a (location, head, query frame) over 1–8 lanes that split
 its columns: scores over the T keys in fp32 (the lanes' partial sums

@@ -1,8 +1,8 @@
-// Kernel B at every head width its JAX gate admits beyond the six that
-// csrc/temporal_attention.cu and csrc/temporal_attention_f32.cu instantiate:
-// the head width d = C / heads known only at run time, in bf16
-// (vda_temporal_attention_any) and in fp32 (vda_temporal_attention_any_f32)
-// from one source templated on the element type.
+// Kernel B in bf16 at every head width its JAX gate admits beyond the six
+// that csrc/temporal_attention.cu instantiates: the head width d = C /
+// heads known only at run time (vda_temporal_attention_any; the fp32
+// counterpart is csrc/temporal_attention_any_f32.cu).  The source stays
+// templated on the element type E, instantiated for bf16 only.
 //
 // Replaces video_depth_anything_tpu/ops/pallas_temporal.py:_temporal_kernel
 // (via temporal_attention_window) where the gate (try_temporal_attention)
@@ -10,14 +10,13 @@
 // location packing any d whose packed width is 128-aligned (d = 1 ... 7, 10,
 // 12, 14, 20, 28, 40, 56, 64, 80, 96, 112 at 4, 8 or 16 heads; up to d = 512
 // at one head), without it d = 64 at C = 128 ... 1024 and d = 128 at C =
-// 2048.  It computes what the instantiated kernels compute, with their
+// 2048.  It computes what the instantiated kernel computes, with its
 // numerics: fp32 scores q_t . k_t' over d, the exp2 softmax over the T <=
 // 32 key frames (keys at or past T never read), the probabilities rounded
-// to bf16 in bf16 (kept fp32 in fp32), sum_t' p . v_t' in fp32, the out in
-// the inputs' dtype.
+// to bf16, sum_t' p . v_t' in fp32, the out in bf16.
 //
-// Bound on the H100: bytes, as the instantiated kernels (T / 2 = 16 FLOP a
-// byte in bf16 at T = 32).
+// Bound on the H100: bytes (T / 2 = 16 FLOP a byte at T = 32), except at d
+// <= 3, where the softmax's exponentials (16 a clock an SM) take longer.
 //
 // Design.  The instantiated kernels' tile walk (ops/temporal_attention.
 // tile_plan: L adjacent locations x G whole heads of the natural (B, T, S,
@@ -70,12 +69,10 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ void from_f(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
 
-// 16 bytes of global memory (8 bf16 or 4 floats) to / from floats in shared
-// memory (16-byte aligned)
+// 16 bytes of global memory (8 bf16) to / from floats in shared memory
+// (16-byte aligned)
 __device__ __forceinline__ void copy16_in(float* dst, const bf16* src) {
   const uint4 u = *reinterpret_cast<const uint4*>(src);
   const bf162* h = reinterpret_cast<const bf162*>(&u);
@@ -83,9 +80,6 @@ __device__ __forceinline__ void copy16_in(float* dst, const bf16* src) {
   const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
   reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-__device__ __forceinline__ void copy16_in(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
 }
 __device__ __forceinline__ void copy16_out(bf16* dst, const float* src) {
   const float4 a = reinterpret_cast<const float4*>(src)[0];
@@ -95,40 +89,6 @@ __device__ __forceinline__ void copy16_out(bf16* dst, const float* src) {
   u.z = pack_bf16x2(b.x, b.y), u.w = pack_bf16x2(b.z, b.w);
   *reinterpret_cast<uint4*>(dst) = u;
 }
-__device__ __forceinline__ void copy16_out(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-
-template <int V>
-struct Vec;
-template <>
-struct Vec<1> {
-  float x[1];
-  __device__ __forceinline__ void load(const float* p) { x[0] = *p; }
-  __device__ __forceinline__ void store(float* p) const { *p = x[0]; }
-};
-template <>
-struct Vec<2> {
-  float x[2];
-  __device__ __forceinline__ void load(const float* p) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    x[0] = a.x, x[1] = a.y;
-  }
-  __device__ __forceinline__ void store(float* p) const {
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-  }
-};
-template <>
-struct Vec<4> {
-  float x[4];
-  __device__ __forceinline__ void load(const float* p) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-  }
-  __device__ __forceinline__ void store(float* p) const {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-};
 
 __device__ __forceinline__ void decode(const Params& p, int tile, int& b, int& s0, int& c0,
                                        int& lv) {
@@ -206,7 +166,9 @@ __device__ __forceinline__ void attend(float* sm, int ld, int nT, int d, int col
   }
 }
 
-template <typename E, int V>
+// STOP: the copies in and out alone (attend dropped, out = q): the split
+// that ops/temporal_attention.temporal_attention_split times.
+template <typename E, int V, bool STOP>
 __global__ void __launch_bounds__(kThreads) temporal_any(const Params p) {
   extern __shared__ __align__(16) float sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -236,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) temporal_any(const Params p) {
     // lane runs the same number of rounds (the shuffles need the whole warp)
     const int units = lv * p.G * p.T, per = kThreads / p.kl;
     const int sub = threadIdx.x % p.kl, first = threadIdx.x / p.kl;
-    for (int u = first; u - first < units; u += per) {
+    for (int u = first; !STOP && u - first < units; u += per) {
       const int uu = min(u, units - 1), t = uu % p.T, lh = uu / p.T;
       attend<E, V>(sm, p.ld, p.T, p.d, (lh / p.G) * p.cg + (lh % p.G) * p.d, t, p.scale_log2,
                    sub, p.kl, u < units);
@@ -258,9 +220,9 @@ __global__ void __launch_bounds__(kThreads) temporal_any(const Params p) {
   }
 }
 
-template <typename E, int V>
+template <typename E, int V, bool STOP>
 int launch(Params p, cudaStream_t stream) {
-  auto kern = temporal_any<E, V>;
+  auto kern = temporal_any<E, V, STOP>;
   static bool configured = false;
   static int sms = 0;
   if (!configured) {
@@ -280,7 +242,7 @@ int launch(Params p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
+template <typename E, bool STOP = false>
 int run(const void* q, const void* k, const void* v, void* o, int B, int T, int S, int C,
         int heads, float scale, int locs, int group, void* stream) {
   if (heads <= 0 || C % heads || T < 1 || T > kT || locs < 1 || group < 1 || heads % group)
@@ -313,25 +275,26 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int T, int 
   p.scale_log2 = scale * 1.4426950408889634f;
   if (p.tiles == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return V == 4 ? launch<E, 4>(p, st) : V == 2 ? launch<E, 2>(p, st) : launch<E, 1>(p, st);
+  return V == 4 ? launch<E, 4, STOP>(p, st)
+                : V == 2 ? launch<E, 2, STOP>(p, st) : launch<E, 1, STOP>(p, st);
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous (B, T, S, C) bf16 (vda_temporal_attention_any) or
-// fp32 (_f32), C = heads * d, 1 <= T <= 32, any d.  A tile holds `locs`
-// adjacent locations x `group` whole heads (group divides heads):
-// ops/temporal_attention.tile_plan for the inputs' element size.  Returns
-// cudaErrorInvalidValue for a tile whose rows do not fit in shared memory
-// (3 T ld floats, ld = locs group d rounded as above).
+// q, k, v, o: contiguous (B, T, S, C) bf16, C = heads * d, 1 <= T <= 32,
+// any d.  A tile holds `locs` adjacent locations x `group` whole heads
+// (group divides heads): ops/temporal_attention.tile_plan for 2-byte
+// elements.  Returns cudaErrorInvalidValue for a tile whose rows do not fit
+// in shared memory (3 T ld floats, ld = locs group d rounded as above).
 extern "C" int vda_temporal_attention_any(const void* q, const void* k, const void* v, void* o,
                                           int B, int T, int S, int C, int heads, float scale,
                                           int locs, int group, void* stream) {
   return run<bf16>(q, k, v, o, B, T, S, C, heads, scale, locs, group, stream);
 }
 
-extern "C" int vda_temporal_attention_any_f32(const void* q, const void* k, const void* v,
-                                              void* o, int B, int T, int S, int C, int heads,
-                                              float scale, int locs, int group, void* stream) {
-  return run<float>(q, k, v, o, B, T, S, C, heads, scale, locs, group, stream);
+// The copies alone (the split): the same arguments, out = q.
+extern "C" int vda_temporal_attention_any_split(const void* q, const void* k, const void* v,
+                                                void* o, int B, int T, int S, int C, int heads,
+                                                float scale, int locs, int group, void* stream) {
+  return run<bf16, true>(q, k, v, o, B, T, S, C, heads, scale, locs, group, stream);
 }

@@ -58,6 +58,7 @@
 //   producer after each consumer thread's last read of it.
 #include <algorithm>
 
+#include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -115,21 +116,6 @@ __device__ __forceinline__ void decode(const Params& p, int tile, int cg, int& b
 
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-// Round R of a reduce-scatter over the lanes of a query row: keep the half
-// of o[0, 2W) that bit R of c picks, send the other to lane ^ 2^R, and add
-// what comes back (each round a loop of constant length, fully unrolled:
-// o stays in registers).
-template <int W, int R>
-__device__ __forceinline__ void scatter_round(float* o, int c) {
-  const bool upper = c >> R & 1;
-#pragma unroll
-  for (int y = 0; y < W; ++y) {
-    const float keep = upper ? o[y + W] : o[y];
-    const float send = upper ? o[y] : o[y + W];
-    o[y] = keep + __shfl_xor_sync(0xffffffffu, send, 1 << R);
-  }
 }
 
 // One unit: query frames f0 .. f0 + QF - 1 of the head whose columns start

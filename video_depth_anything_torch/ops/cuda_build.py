@@ -34,7 +34,7 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention", "moti
            "motion_module_split384", "output_tail", "resize_conv",
            "attention_variants_hopper", "flash_attention_f32", "temporal_attention_f32",
            "motion_module_f32", "motion_module_wide", "temporal_attention_any",
-           "flash_attention_wide")
+           "flash_attention_wide", "temporal_attention_any_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -1,6 +1,7 @@
 """Kernel B: temporal attention core (``csrc/temporal_attention.cu``, and on
 fp32 operands ``csrc/temporal_attention_f32.cu``; at the other head widths
-``csrc/temporal_attention_any.cu``).
+``csrc/temporal_attention_any.cu`` in bf16 and
+``csrc/temporal_attention_any_f32.cu`` in fp32).
 
 Replaces ``video_depth_anything_tpu/ops/pallas_temporal.py``
 ``_temporal_kernel`` (``temporal_attention_window``) at every (T ≤ 32, C,
@@ -8,8 +9,9 @@ heads) the JAX gate admits.  The head widths of the shipped encoders, d ∈
 {8, 16, 24, 32, 48, 128} at C ≤ 1024, take the instantiated kernels; every
 other width the gate admits (with location packing d = 1 … 7, 10, 12, 14,
 20, 28, 40, 56, 64, 80, 96, 112 and, at one or two heads, up to 512;
-without it d = 64, and d = 128 at C = 2048) takes the run-time-d kernel of
-``temporal_attention_any.cu``, bf16 or fp32.  ``kernel_takes`` is the
+without it d = 64, and d = 128 at C = 2048) takes a run-time-d kernel:
+``temporal_attention_any.cu`` in bf16, ``temporal_attention_any_f32.cu``
+in fp32, whose geometry ``any_f32_plan`` gives.  ``kernel_takes`` is the
 kernels' domain, a pure predicate.  ``temporal_gate`` is the JAX
 dispatch rule of ``try_temporal_attention`` (``pallas_temporal.py:277-313``):
 the lane-packing constraints of the TPU kernel and, under ``auto``, head_dim
@@ -147,26 +149,127 @@ def any_row_stride(c: int, heads: int, itemsize: int = 2) -> int:
     return base if (base // vec) % 2 else base + vec
 
 
+SMS = 132  # an H100 SXM's SMs: the plan's small-batch rule on this card
+_BOX_MAX = 256  # a TMA box's elements along one dimension
+_MAX_SLOTS = 12  # the fp32 run-time-d kernel's ring slots at most
+_BAR_BYTES = 2 * _MAX_SLOTS * 8 + 128  # its barriers and the ring's alignment
+_SM_SMEM = 233472  # shared memory of one SM, 1 KB of it reserved a CTA
+
+
+def any_f32_plan(shape, heads: int, sms: int = SMS) -> dict:
+    """The fp32 run-time-d kernel's plan (``csrc/temporal_attention_any_f32.cu``
+    computes the same from the same arguments) for ``(B, T, S, C)`` at
+    ``heads`` heads on a card of ``sms`` SMs.
+
+    Tiles: ``tile_plan`` at 4-byte elements (at most 128 channels: L
+    adjacent locations where a tile holds every head, else a group of G
+    whole heads), one location a tile where those tiles would not cover
+    the SMs.  A tile's row of L·G·d floats a frame lands as ``nb`` boxes
+    of ``bw`` floats (a multiple of 4 with bw / 4 odd, so that 16-byte
+    reads of 8 adjacent frames hit 8 bank groups; the extra floats are the
+    next channels, or zeros past the end, and are never read), box b from
+    the row's column b·w: one box where the row fits in 256 floats, else
+    ⌈row / 240⌉ boxes of w (a multiple of 16) + 4.  ``loader``: ``"tma"``
+    (a 3-D tensor map (S·C, T, B) of the tensor, one box per tensor and
+    box of the row on the stage's mbarrier) where the frame stride S·C·4
+    bytes is a multiple of 16 and every box starts on a 16-byte boundary
+    (a TMA box that does not faults: C and G·d multiples of 4), else
+    ``"cp.async"`` (the consumer warps copy the rows 4 bytes at a time into
+    the same ring: C = 1, 2, 3, 5, 6, 7, 10, 14 at one head, 2, 6, 10, 14
+    at two).  ``kind`` (the consumer's width class): 0 at d ≤ 4 (a lane a
+    whole query row, ``kl`` = 1: the unit 32 lanes of 32 / ``tp`` (location,
+    head) pairs × ``tp`` query frames), 1 at d ≤ 32 (units of 32 query
+    frames, ``kl`` = 4 lanes a row), 2 at d ≤ 64 (16, 4), 3 above (8, 8), 4
+    (4, 8) where a one-head tile's CTA is alone on its SM; ``dc`` the P·V
+    pass's columns.  Ring: ``slots`` slots and ``nw`` consumer warps a CTA
+    (one more, the producer, under TMA).  A slot is a tile (q, k and v:
+    nb·32·bw floats each) with eight warps (class 0: up to sixteen) and
+    four slots where a tile has 8 or more ``units`` and they fit, else up
+    to four warps and two slots where two such CTAs fit on an SM; else
+    (``split``) a slot is one tensor, q's and k's released after the
+    scores, v's after P·V: up to four warps and up to six slots where two
+    CTAs of two slots fit (d ≤ 384), else class 4's eight warps and as
+    many slots (up to twelve) as fit in one CTA; under cp.async a multiple
+    of three.  ``smem`` is a CTA's dynamic shared
+    memory; ``None`` where no plan fits."""
+    b, t, s, c = shape
+    d = c // heads
+    locs, group = tile_plan(c, heads, 4)
+    hgroups = heads // group
+    if locs > 1 and b * -(-s // locs) * hgroups < sms:
+        locs = 1
+    row = locs * group * d
+    bw = -(-row // 4) * 4
+    bw += 4 if (bw // 4) % 2 == 0 else 0
+    if bw <= _BOX_MAX:
+        nb, w = 1, bw
+    else:
+        nb = -(-row // (_BOX_MAX - 16))
+        w = -(-(-(-row // nb)) // 16) * 16
+        bw = w + 4
+    loader = "tma" if c % 4 == 0 and (group * d) % 4 == 0 else "cp.async"
+    kind = 0 if d <= 4 else 1 if d <= 32 else 2 if d <= 64 else 3
+    vec = 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    tp = 8 if t <= 8 else 16 if t <= 16 else 32
+    qf = {1: 32, 2: 16, 3: 8, 4: 4}
+
+    def count(k):  # a tile's units in class k
+        return -(-(locs * group) // (32 // tp)) if k == 0 else locs * group * -(-t // qf[k])
+
+    units = count(kind)
+    tensor = nb * 32 * bw * 4  # one tensor's rows of a tile, bytes
+    split = False
+    if units >= 8 and _BAR_BYTES + 4 * 3 * tensor <= _SMEM_MAX:
+        nw, slots = min(16, units) if kind == 0 else 8, 4
+    elif 2 * (_BAR_BYTES + 2 * 3 * tensor + 1024) <= _SM_SMEM:
+        nw, slots = min(4, units), 2
+    else:  # a slot a tensor
+        split = True
+        if 2 * (_BAR_BYTES + 2 * tensor + 1024) <= _SM_SMEM:
+            nw, slots = min(4, units), min(6, (_SM_SMEM // 2 - 1024 - _BAR_BYTES) // tensor)
+        else:  # one CTA: class 4, eight warps on a one-head tile
+            if kind == 3:
+                kind, units = 4, count(4)
+            nw, slots = min(8, units), min(_MAX_SLOTS, (_SMEM_MAX - _BAR_BYTES) // tensor)
+        if loader == "cp.async":
+            slots -= slots % 3
+    if split:  # two slots only for one unit a warp (its v waits for its own q and k)
+        fits = kind >= 3 and vec == 4 and slots >= (2 if loader == "tma" and units <= nw else 3)
+    else:
+        fits = slots >= 1
+    fits = fits and (loader == "tma" or nb == 1)
+    kl = 1 if kind == 0 else 8 if kind >= 3 else 4
+    dc = {0: 4, 1: 8, 2: 16, 3: 16, 4: 32}[kind]
+    sblocks = -(-s // locs)
+    return dict(locs=locs, group=group, row=row, bw=bw, nb=nb, w=w, loader=loader, kind=kind,
+                kl=kl, tp=tp, dc=dc, units=units, nw=nw, split=split, slots=slots,
+                tiles=b * sblocks * hgroups,
+                smem=_BAR_BYTES + slots * (1 if split else 3) * tensor if fits else None)
+
+
 def kernel_takes(shape, heads: int, dtype) -> bool:
     """Whether Kernel B takes ``(B, T, S, C)`` q, k and v of ``dtype`` at
     ``heads`` heads: bf16 or fp32, whole heads, 1 ≤ T ≤ 32, and (off the
-    instantiated widths) the run-time-d kernel's tile rows, 3·T rows of
-    ``any_row_stride`` floats, within shared memory.  Pure: no card
-    needed."""
+    instantiated widths) the run-time-d kernel's tile: in bf16 3·T rows of
+    ``any_row_stride`` floats within shared memory, in fp32 a plan
+    (``any_f32_plan``).  Pure: no card needed."""
     if len(shape) != 4 or dtype not in (torch.bfloat16, torch.float32):
         return False
     _, t, _, c = shape
     if heads < 1 or c % heads or not 1 <= t <= 32:
         return False
-    itemsize = 2 if dtype == torch.bfloat16 else 4
-    return instantiated(c, heads) or 3 * t * any_row_stride(c, heads, itemsize) * 4 <= _SMEM_MAX
+    if instantiated(c, heads):
+        return True
+    if dtype == torch.float32:
+        return any_f32_plan(shape, heads)["smem"] is not None
+    return 3 * t * any_row_stride(c, heads, 2) * 4 <= _SMEM_MAX
 
 
 def _kernel(name: str = "temporal_attention", symbol: str = ""):
     """``vda_<symbol>`` (``symbol`` = name unless given) of
-    ``csrc/<name>.cu``: the bf16 kernel, ``temporal_attention_f32``, or
-    ``temporal_attention_any``'s ``temporal_attention_any`` and
-    ``temporal_attention_any_f32``."""
+    ``csrc/<name>.cu``: the bf16 kernel, ``temporal_attention_f32``,
+    ``temporal_attention_any`` (and its split ``temporal_attention_any_split``),
+    ``temporal_attention_any_f32`` (and ``temporal_attention_any_f32_split``)."""
     symbol = symbol or name
     if symbol not in _fns:
         fn = getattr(cuda_build.library(name), f"vda_{symbol}")
@@ -204,15 +307,14 @@ def _launch(q, k, v, heads: int, scale: float, stop: bool = False):
     args = (cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out),
             b, t, s, c, heads, float(scale), locs, group)
     if not instantiated(c, heads):
-        if stop:
-            raise ValueError("the split (copies only) is the instantiated bf16 kernel's")
-        symbol = "temporal_attention_any" + ("_f32" if q.dtype == torch.float32 else "")
-        err = _kernel("temporal_attention_any", symbol)(*args, cuda_build.stream_of(q))
+        name = "temporal_attention_any" + ("_f32" if q.dtype == torch.float32 else "")
+        symbol = name + ("_split" if stop else "")
+        err = _kernel(name, symbol)(*args, cuda_build.stream_of(q))
         cuda_build.check(err, symbol)
         return out
     if q.dtype == torch.float32:
         if stop:
-            raise ValueError("the split (copies only) is the bf16 kernel's")
+            raise ValueError("the instantiated fp32 kernel has no split (copies only) build")
         err = _kernel("temporal_attention_f32")(*args, cuda_build.stream_of(q))
     else:
         err = _kernel()(*args, int(stop), cuda_build.stream_of(q))
@@ -247,8 +349,9 @@ def temporal_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
 
 def temporal_attention_split(q, k, v, heads: int, scale: float) -> torch.Tensor:
     """Kernel B's copies in and out alone on CUDA tensors (the attention
-    dropped, out = q): the split that ``bench_temporal`` times.  Not
-    counted in ``temporal_attention.launches``."""
+    dropped, out = q): the split that ``bench_temporal`` times, of the
+    instantiated bf16 kernel and of both run-time-d kernels.  Not counted
+    in the launch counters."""
     return _launch(*_checked(q, k, v, heads), heads, scale, stop=True)
 
 

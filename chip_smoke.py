@@ -15,7 +15,9 @@ Phases (each failure ends the run with a non-zero exit):
    every head width of its domain, d = 8 to 128, and at T = 17 on a
    ragged S; Kernels A, B and C also at phase eval's native sizes,
    EVAL_ATTN, EVAL_TEMPORAL and EVAL_MOTION; Kernel C's wide chain at
-   C = 768 and 1024, WIDE_MOTION_ROWS), on inputs whose attention is
+   C = 768 and 1024, WIDE_MOTION_ROWS, each row with the chain's time by
+   launch and torch.matmul's time beside each product, and the persistent
+   GEMM's wrong plans of wide_chain_mutant_errors), on inputs whose attention is
    peaked, and
    Kernel A also on flat ones (q scaled by FLAT_Q); Kernel A's probe
    kernels (every spatial
@@ -542,6 +544,73 @@ def motion_mutant_errors(x, p: dict, cfg, heads: int) -> dict:
     return out
 
 
+def wide_chain_mutant_errors(x, p: dict, cfg, heads: int, want) -> dict:
+    """How far the wide chain's persistent GEMM would miss the plain version
+    with four wrong plans, relative to max|plain - x|: each GEGLU tile's h
+    and gate halves swapped (w1's and b1's halves exchanged), the in-place
+    residual read after the tile was stored over it (y + 2 part: wo, bo, w2
+    and b2 doubled), and at proj_out (its part the plain output less x and
+    b_out) the walk's ragged corner tile never stored (read as zeros) and
+    each CTA's accumulator carried into its next tile (``wide_schedule``'s
+    walk on this card's SMs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.ops import motion_module as mm
+
+    base = float((want.float() - x.float()).abs().max())
+    c, f = x.shape[-1], p["w1"].shape[1] // 2
+    swapped = {**p, "w1": torch.cat([p["w1"][:, f:], p["w1"][:, :f]], 1),
+               "b1": torch.cat([p["b1"][f:], p["b1"][:f]])}
+    twice = {**p, **{k: 2 * p[k] for k in ("wo", "bo", "w2", "b2")}}
+    out = {"geglu_halves_swapped": max_err(mm.motion_module_plain(x, swapped, cfg, heads), want) / base,
+           "residual_after_store": max_err(mm.motion_module_plain(x, twice, cfg, heads), want) / base}
+    m = x.numel() // c
+    bn = mm.wide_bn(c, x.dtype)
+    nm, nn = -(-m // mm.WIDE_BM), -(-c // bn)
+
+    def tiles(v):  # (M, C) -> (row block, rows, column block, columns), zero-padded
+        return F.pad(v, (0, nn * bn - c, 0, nm * mm.WIDE_BM - m)).view(nm, mm.WIDE_BM, nn, bn)
+
+    def err(t):
+        return max_err(t.reshape(nm * mm.WIDE_BM, nn * bn)[:m, :c].reshape(want.shape), want) / base
+
+    got = tiles(want.float().reshape(m, c))
+    part = tiles((want.float() - x.float()).reshape(m, c) - p["b_out"].float())
+    skipped = got.clone()
+    skipped[nm - 1, :, nn - 1] = 0
+    carried = got.clone()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count if x.is_cuda else 132
+    pairs = [(cm, cn, pm, pn) for cta in mm.wide_schedule(m, c, bn, sms)
+             for (pm, pn), (cm, cn) in zip(cta, cta[1:])]  # (tile, the CTA's tile before it)
+    out["edge_tile_skipped"] = err(skipped)
+    if pairs:  # some CTA walks more than one tile
+        i = torch.tensor(pairs, device=x.device)
+        carried[i[:, 0], :, i[:, 1]] += part[i[:, 2], :, i[:, 3]]
+        out["acc_carried"] = err(carried)
+    return out
+
+
+def wide_library_ms(x, w, cfg) -> str:
+    """``torch.matmul``'s ms on each of the wide chain's products (operands
+    of x's dtype at the products' shapes; GEGLU without its epilogue), as
+    ``" library_ms name=ms ..."``; never called by the port."""
+    import torch
+
+    from video_depth_anything_torch.bench_motion_tail import wide_product_shapes
+    from video_depth_anything_torch.utils.device import event_ms
+
+    c = x.shape[-1]
+    g = torch.Generator(device=x.device).manual_seed(1)
+    out = []
+    for name, (m, k, n) in wide_product_shapes(x.numel() // c, c, w["b1"].numel() // 2,
+                                               cfg.num_attention_blocks).items():
+        a = torch.randn(m, k, device=x.device, generator=g).to(x.dtype)
+        b = (torch.randn(k, n, device=x.device, generator=g) * k**-0.5).to(x.dtype)
+        out.append(f"{name}={event_ms(lambda: torch.matmul(a, b)):.4f}")
+    return " library_ms " + " ".join(out)
+
+
 def bwd_rel_err(got, want) -> float:
     """The worst of dq, dk and dv, each relative to its own max|plain|."""
     return max(rel_err(a, b) for a, b in zip(got, want))
@@ -816,6 +885,11 @@ def motion_row(label: str, c: int, s: int, t: int, g, dev, split: bool = False) 
     if split:
         parts = mm.motion_module_split(x, gna, gnb, w, cfg, 8)
         extra = " split_ms " + " ".join(f"{k}={v:.4f}" for k, v in parts.items())
+    if not mm.resident(c, 8, cfg):  # the wide chain: by launch, the library beside each product
+        mutants.update(wide_chain_mutant_errors(x, p, cfg, 8, want))
+        parts = mm.motion_module_wide_split(x, gna, gnb, w, cfg, 8)
+        extra = (" split_ms " + " ".join(f"{k}={v:.4f}" for k, v in parts.items())
+                 + wide_library_ms(x, w, cfg))
     fold_ms = time_ms(lambda: mm.gn_fold(x, w, cfg))
     plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, 8), iters=5)
     tokens = b * t * s
@@ -1734,12 +1808,13 @@ PERF_MS = {
     ("motion_module", "vitl m3 518x924"): 4.1916,
     ("motion_module", "vitb m3 518x518"): 0.8214,
     ("motion_module", "vitb m0 518x924"): 3.2675,
-    ("motion_module_wide", "vitb m1 518x518"): 1.5851,
-    ("motion_module_wide", "vitb m1 518x924"): 2.7277,
-    ("motion_module_wide", "vitl m0 518x518"): 7.8108,
-    ("motion_module_wide", "vitl m0 518x924"): 13.6975,
-    ("motion_module_wide", "vitl m1 518x518"): 2.2652,
-    ("motion_module_wide", "vitl m1 518x924"): 3.9312,
+    # the wide chain (bench_motion_tail --wide, in turns with the chain it replaced)
+    ("motion_module_wide", "vitb m1 518x518"): 0.7836,
+    ("motion_module_wide", "vitb m1 518x924"): 1.1948,
+    ("motion_module_wide", "vitl m0 518x518"): 3.7717,
+    ("motion_module_wide", "vitl m0 518x924"): 6.9746,
+    ("motion_module_wide", "vitl m1 518x518"): 1.0900,
+    ("motion_module_wide", "vitl m1 518x924"): 1.8020,
     ("output_tail", "vitl 518x518"): 2.7828,
     # Kernel A's Hopper kernels (rows 1 and 4)
     ("flash_attention", "vits 518x518"): 0.2680,
@@ -1957,11 +2032,13 @@ def domain_motion_row(c: int, heads: int, blocks: int, ff: int, dtype, dev, s: i
     mutants = {"last_block_dropped": max_err(mm.motion_module_plain(x, short, short_cfg, heads),
                                              want) / base,
                f"{other}_heads": max_err(mm.motion_module_plain(x, p, cfg, other), want) / base}
+    resident = mm.resident(c, heads, cfg)
+    if not resident:
+        mutants.update(wide_chain_mutant_errors(x, p, cfg, heads, want))
     ms = time_ms(lambda: mm.motion_module_launch(x, gna, gnb, w, cfg, heads), iters=5, warmup=1)
     plain_ms = time_ms(lambda: mm.motion_module_plain(x, p, cfg, heads), iters=3, warmup=1)
     tokens = 32.0 * s
     flops = tokens * ((2 + 4 * blocks) * c * c + 6 * ff * c * c + 4 * blocks * 32 * c)
-    resident = mm.resident(c, heads, cfg)
     if f32:
         b_ms, b_by = 3 * flops / PEAK_TF32 * 1e3, "operations"  # 3xTF32 on the tensor cores
     else:
@@ -4334,6 +4411,8 @@ def motion_f32_row(label: str, c: int, s: int, t: int, g, dev) -> dict:
     want = mm.motion_module_plain(x, p, cfg, 8)
     base = float((want - x).abs().max())
     mutants = motion_mutant_errors(x, p, cfg, 8)
+    if not mm.resident(c, 8, cfg):
+        mutants.update(wide_chain_mutant_errors(x, p, cfg, 8, want))
     names = tuple(p)
     mutants["tf32_plain"] = max_err(tf32_plain(
         lambda x_, *v: mm.motion_module_plain(x_, dict(zip(names, v)), cfg, 8), x,

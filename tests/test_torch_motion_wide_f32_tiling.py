@@ -8,7 +8,9 @@ rounding to bf16, the erf GELU, the attention's out scaled by 1 / sum after
 P·V.  Held within 1e-5 (relative to max|plain − x|) of the plain fp32
 module at T = 8, 12, 20 and 32 with a ragged last 128-row tile, and of the
 JAX Pallas kernel in interpret mode on fp32 inputs; three wrong plans miss
-by more than chip_smoke.py's fp32 tolerance; the hi/lo tiles bit for bit."""
+by more than chip_smoke.py's fp32 tolerance; the hi/lo tiles bit for bit.
+The fp32 products keep 128 × 128 tiles (``wide_bn``) on the persistent walk
+of ``wide_schedule``."""
 
 import functools
 
@@ -19,7 +21,7 @@ import torch
 
 import chip_smoke
 from tests.test_torch_fp32 import FP32_TOL, _motion_params, rel
-from tests.test_torch_motion_wide_tiling import BM, BN, emulate_wide, unswizzle
+from tests.test_torch_motion_wide_tiling import BM, emulate_wide, unswizzle
 from video_depth_anything_torch.config import MotionModuleConfig as TCfg
 from video_depth_anything_torch.ops import motion_module as t_motion
 from video_depth_anything_tpu.config import MotionModuleConfig as JCfg
@@ -29,6 +31,7 @@ from tests.torch_port_helpers import one_torch_thread  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MUTANT_TOL = chip_smoke.F32_TOL  # a wrong plan must miss by more than the card's tolerance
+BN = t_motion.wide_bn(4096, torch.float32)  # fp32 tiles: 128 columns at every N
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,7 +64,11 @@ def test_wide_f32_plan_matches_pallas_kernel(c):
 
 @pytest.mark.parametrize("mutant,c,t,s", [("unmasked_keys", 1024, 20, 9),
                                           ("k_from_next_head", 768, 12, 13),
-                                          ("residual_not_reread", 1024, 8, 21)])
+                                          ("residual_not_reread", 1024, 8, 21),
+                                          ("acc_carried", 768, 12, 13),
+                                          ("edge_tile_skipped", 1024, 8, 21),
+                                          ("geglu_halves_swapped", 768, 20, 9),
+                                          ("residual_after_store", 1024, 12, 13)])
 def test_wrong_wide_f32_plans_miss(mutant, c, t, s):
     x, p, want, _ = _case(c, t, s)
     assert rel(emulate_wide(x, p, TCfg(), 8, mutant=mutant), want, x) > MUTANT_TOL
@@ -76,7 +83,8 @@ def test_wide_f32_tiles_split_the_jax_weights(c):
     flat = t_motion.weight_blocks_wide(p, torch.float32)
     assert flat.numel() == 44 * c * c and flat.dtype == torch.float32
     start = 0
-    for w in t_motion.wide_products(p):
+    assert BN == 128
+    for w in t_motion.wide_products(p, torch.float32):
         k, n = w.shape
         shape = (n // BN, k // 32, 2, BN, 32)
         tiles = unswizzle(flat[start:start + int(np.prod(shape))].reshape(shape), 4)

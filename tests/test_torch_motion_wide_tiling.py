@@ -8,13 +8,17 @@ The plan: a chain of launches over the M = B·T·S token rows in (b, t, s)
 order, the activations in a device-memory scratch between them.  Row norms
 (the folded GroupNorm; LayerNorm, rounded to bf16, then + APE, rounded
 again); each product over 128-row tiles (rows past M read as zero, never
-stored: the last tile ragged) and 128-column weight tiles, k panel after k
-panel of ``weight_blocks_wide`` (un-swizzled here, read in launch order)
-into fp32 accumulators, its epilogue fused (bias; residual re-read from y;
-GEGLU from a tile's 64 h and 64 gate columns); q | k | v as one product of
-3C columns; the frame attention per (location, head) over T padded up to
-Tp = 8, 16 or 32 key frames (those past T masked), p rounded to bf16 once
-normalised, its out over h.  ``emulate_wide`` also serves the fp32 plan
+stored: the last tile ragged) and BN-column weight tiles (``wide_bn``: 256
+in bf16 where N > 128, else 128), walked by persistent CTAs in
+``wide_schedule``'s grouped order (each CTA's accumulator zeroed on a
+tile's first panel), over ``weight_blocks_wide`` (un-swizzled here, read in
+launch order) into fp32 accumulators, its epilogue fused (bias; the
+residual y read before the tile is stored over it; GEGLU from a tile's
+BN / 2 h and BN / 2 gate columns); q | k | v as one product of 3C columns;
+the frame attention per (location, head) over T padded up to Tp = 8, 16 or
+32 key frames (those past T masked), p rounded to bf16 once normalised, its
+out over h.  The emulation walks the tiles on a few CTAs (``CTAS``), so that
+each CTA takes several tiles as the card's 132 do at the real sizes.  ``emulate_wide`` also serves the fp32 plan
 (``tests/test_torch_motion_wide_f32_tiling.py``): every product in 3xTF32
 over ``wide_tiles_f32``'s hi and lo tiles, no rounding, the erf GELU.
 
@@ -23,7 +27,8 @@ and the hidden width are run-time values; products whose K is not a whole
 number of 64-input (fp32: 32) panels read the TMA's zero fill past K, their
 weight tiles are zero-padded to whole panels and 128-column blocks, and the
 epilogues store only the product's N columns; the hidden units are padded to
-a multiple of 64 with zero weights and biases.  Held at 4 heads with one
+whole halves of the GEGLU tile (``wide_hidden``) with zero weights and
+biases.  Held at 4 heads with one
 attention block (JAX's KV-cache test config), 16 heads with three blocks
 at ff_mult 2, and C = 40 (one ragged panel, one ragged column block) against
 the plain version in bf16 and fp32 and against the Pallas kernel on fp32
@@ -47,7 +52,8 @@ from tests.torch_port_helpers import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-BM, BN = t_motion.WIDE_BM, t_motion.WIDE_BN
+BM = t_motion.WIDE_BM
+CTAS = 4  # the emulated grid: every CTA walks several tiles
 
 
 def unswizzle(tiles: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -63,7 +69,7 @@ def unswizzle(tiles: torch.Tensor, chunk: int) -> torch.Tensor:
 
 class Tiles:
     """The weight sequence as the chain reads it: product after product, a
-    ``(K, N)`` product's ⌈N/128⌉·⌈K/KW⌉ tiles (bf16) or hi/lo tile pairs
+    ``(K, N)`` product's ⌈N/BN⌉·⌈K/KW⌉ tiles (bf16) or hi/lo tile pairs
     (fp32), each launch taking the next product's share."""
 
     def __init__(self, flat: torch.Tensor):
@@ -71,10 +77,11 @@ class Tiles:
         self.f32 = flat.dtype == torch.float32
 
     def next(self, k: int, n: int) -> torch.Tensor:
-        """``(⌈N/128⌉, ⌈K/KW⌉, [2,] 128, KW)`` un-swizzled tiles of the next
-        product."""
+        """``(⌈N/BN⌉, ⌈K/KW⌉, [2,] BN, KW)`` un-swizzled tiles of the next
+        product, BN = ``wide_bn(N)``."""
         kw = 32 if self.f32 else 64
-        shape = (-(-n // BN), -(-k // kw)) + ((2,) if self.f32 else ()) + (BN, kw)
+        bn = t_motion.wide_bn(n, self.flat.dtype)
+        shape = (-(-n // bn), -(-k // kw)) + ((2,) if self.f32 else ()) + (bn, kw)
         count = int(np.prod(shape))
         t = self.flat[self.off:self.off + count].reshape(shape)
         self.off += count
@@ -85,32 +92,45 @@ def tf32(x):
     return t_motion.tf32_rna(x.contiguous())
 
 
-def gemm(a: torch.Tensor, tiles: torch.Tensor, n: int = 0) -> torch.Tensor:
-    """``a (M, K)`` times the product's tiles, as the GEMM launch computes
-    it: 128-row tiles (the last padded with zero rows: TMA's fill), one
-    fp32 accumulator over the k panels in order (bf16: the panel's exact
-    products; fp32: lo·hi + hi·lo + hi·hi of the split operands), columns
-    past K of the last panel zero (TMA's fill); rows past M dropped, and
-    columns past ``n`` (when given: the epilogue stores only those)."""
+def gemm(a: torch.Tensor, tiles: torch.Tensor, n: int, mutant=None) -> torch.Tensor:
+    """``a (M, K)`` times the product's tiles (N = ``n`` columns), as the
+    persistent GEMM launch computes it: ``CTAS`` CTAs walk the 128-row ×
+    BN-column output tiles in ``wide_schedule``'s order (the last row block
+    padded with zero rows: TMA's fill), each tile one fp32 accumulator over
+    K, zeroed on its first panel (bf16: the exact products; fp32: lo·hi +
+    hi·lo + hi·hi of the split operands), columns past K zero (TMA's fill);
+    rows past M and columns past N dropped.  ``mutant``: ``"acc_carried"``
+    adds a CTA's previous tile's accumulator (not zeroed on the first
+    panel); ``"edge_tile_skipped"`` never stores the walk's last tile (the
+    ragged corner)."""
     m, k = a.shape
     nb, kp = tiles.shape[:2]
-    kw = tiles.shape[-1]
+    bn, kw = tiles.shape[-2:]
     f32 = tiles.dim() == 5
     rows = -(-m // BM) * BM
     ap = torch.zeros(rows, kp * kw)
     ap[:m, :k] = a
-    acc = torch.zeros(rows, nb * BN)
-    for p in range(kp):
-        ak = ap[:, p * kw:(p + 1) * kw]
-        if f32:
-            hi = tf32(ak)
-            lo = tf32(ak - hi)
-            wh = tiles[:, p, 0].reshape(nb * BN, kw).t()
-            wl = tiles[:, p, 1].reshape(nb * BN, kw).t()
-            acc += lo @ wh + hi @ wl + hi @ wh
-        else:
-            acc += ak @ tiles[:, p].reshape(nb * BN, kw).t()
-    return acc[:m, :n] if n else acc[:m]
+    w = tiles.transpose(1, -2).reshape(nb * bn, *tiles.shape[2:-2], kp * kw) if not f32 else \
+        tiles.permute(2, 0, 3, 1, 4).reshape(2, nb * bn, kp * kw)
+    if f32:
+        hi = tf32(ap)
+        lo = tf32(ap - hi)
+    out = torch.zeros(rows, nb * bn)
+    last = t_motion.wide_tile(-(-m // BM) * nb - 1, -(-m // BM), nb)
+    for cta in t_motion.wide_schedule(m, n, bn, CTAS):
+        acc = None
+        for mb, cb in cta:
+            r, c = slice(mb * BM, (mb + 1) * BM), slice(cb * bn, (cb + 1) * bn)
+            if f32:
+                wh, wl = w[0, c].t(), w[1, c].t()
+                part = lo[r] @ wh + hi[r] @ wl + hi[r] @ wh
+            else:
+                part = ap[r] @ w[c].t()
+            acc = part + acc if mutant == "acc_carried" and acc is not None else part
+            if mutant == "edge_tile_skipped" and (mb, cb) == last:
+                continue
+            out[r, c] = acc
+    return out[:m, :n]
 
 
 def emulate_wide(x, p, cfg, heads, mutant=None):
@@ -120,12 +140,17 @@ def emulate_wide(x, p, cfg, heads, mutant=None):
     next head's columns; ``"residual_not_reread"`` drops y from the out
     projection's residual epilogue; ``"eight_heads"`` attends with 8 heads
     whatever ``heads`` says; ``"last_block_dropped"`` skips the last
-    attention block (its weights still read)."""
+    attention block (its weights still read); ``"acc_carried"`` and
+    ``"edge_tile_skipped"`` every product as ``gemm``'s mutants;
+    ``"geglu_halves_swapped"`` takes each GEGLU tile's gate columns for its
+    h columns and the other way round; ``"residual_after_store"`` reads the
+    in-place residual y of the out projections and w2 after the tile was
+    stored over it (y + 2 part)."""
     b_, t_, s_, c = x.shape
     f32 = x.dtype == torch.float32
     rnd = (lambda v: v) if f32 else (lambda v: v.to(torch.bfloat16).float())  # noqa: E731
     tp = t_motion.padded_frames(t_)
-    n_attn, hidden = cfg.num_attention_blocks, t_motion.wide_hidden(p)
+    n_attn, hidden = cfg.num_attention_blocks, t_motion.wide_hidden(p, x.dtype)
     w = t_motion.kernel_weights(p, cfg, x.dtype)
     assert not t_motion.resident(c, heads, cfg)
     assert w["w"].numel() == t_motion.wide_weight_elems(c, n_attn, hidden, x.dtype)
@@ -138,6 +163,9 @@ def emulate_wide(x, p, cfg, heads, mutant=None):
     pe = w["pe"].float()
     seq = Tiles(w["w"])
     m, d = b_ * t_ * s_, c // heads
+    tile_mutant = mutant if mutant in ("acc_carried", "edge_tile_skipped") else None
+    mm = functools.partial(gemm, mutant=tile_mutant)
+    twice = 2.0 if mutant == "residual_after_store" else 1.0
     xr = x.float().reshape(m, c)
     bt = torch.arange(m) // s_  # (b, t) of each row
     t_of = bt % t_
@@ -172,20 +200,23 @@ def emulate_wide(x, p, cfg, heads, mutant=None):
         return rnd(rnd(hh + fw["b1"][:hidden]) * ge)
 
     h = rnd(xr * gna.reshape(-1, c)[bt] + gnb.reshape(-1, c)[bt])
-    y = rnd(gemm(h, seq.next(c, c), c) + fw["b_in"])
+    y = rnd(mm(h, seq.next(c, c), c) + fw["b_in"])
     for i in range(n_attn):
         h = ln(y, i, True)
-        qkv = rnd(gemm(h, seq.next(c, 3 * c), 3 * c))
+        qkv = rnd(mm(h, seq.next(c, 3 * c), 3 * c))
         h = attention(qkv)  # over h
-        part = gemm(h, seq.next(c, c), c) + fw["bo"][i]
+        part = mm(h, seq.next(c, c), c) + fw["bo"][i]
         if mutant == "last_block_dropped" and i == n_attn - 1:
             continue
-        y = rnd(part if mutant == "residual_not_reread" else y + part)
+        y = rnd(part if mutant == "residual_not_reread" else y + twice * part)
     h = ln(y, n_attn, False)
-    ff = gemm(h, seq.next(c, 2 * hidden)).reshape(m, hidden // 64, 2, 64)
+    u = t_motion.wide_bn(2 * hidden, x.dtype) // 2  # units a GEGLU tile
+    ff = mm(h, seq.next(c, 2 * hidden), 2 * hidden).reshape(m, hidden // u, 2, u)
+    if mutant == "geglu_halves_swapped":
+        ff = ff.flip(2)
     a = act(ff[:, :, 0].reshape(m, hidden), ff[:, :, 1].reshape(m, hidden))
-    y = rnd(y + gemm(a, seq.next(hidden, c), c) + fw["b2"])
-    out = rnd(gemm(y, seq.next(c, c), c) + fw["b_out"] + xr)
+    y = rnd(y + twice * mm(a, seq.next(hidden, c), c) + fw["b2"])
+    out = rnd(mm(y, seq.next(c, c), c) + fw["b_out"] + xr)
     assert seq.off == seq.flat.numel()
     return out.reshape(b_, t_, s_, c)
 
@@ -233,22 +264,41 @@ def test_wrong_wide_plans_miss_plain(mutant, c, t, s):
     assert _rel(emulate_wide(x, p, TCfg(), 8, mutant=mutant), want, x) > TOL
 
 
+@pytest.mark.parametrize("mutant,c,t,s", [("acc_carried", 1024, 8, 21),
+                                          ("edge_tile_skipped", 768, 12, 13),
+                                          ("geglu_halves_swapped", 1024, 20, 9),
+                                          ("residual_after_store", 768, 32, 5)])
+def test_wrong_persistent_plans_miss_plain(mutant, c, t, s):
+    """The persistent walk's wrong plans: an accumulator carried from a
+    CTA's tile into its next (no zeroing on the first panel), the walk's last
+    tile (the ragged corner) never stored, each GEGLU tile's h and gate
+    halves swapped, and the in-place residual read after the tile was stored
+    over it: each misses the plain version by more than the tolerance."""
+    p, x, _ = _case(c, t, s)
+    want = t_motion.motion_module_plain(x, p, TCfg(), 8)
+    assert _rel(emulate_wide(x, p, TCfg(), 8, mutant=mutant), want, x) > TOL
+
+
 @pytest.mark.parametrize("c", [768, 1024])
 def test_wide_tiles_address_the_jax_weights(c):
     """Product j's tile (column block nb, panel kp) holds at row n, logical
-    chunk J stored at chunk J ^ (n % 8), weight (64 kp + k, 128 nb + n) of
-    the product's (in, out) weight: proj_in, block 1's q | k | v (k and v
-    blocks), w1's interleaved h and gate columns, w2 and proj_out, read
-    straight from the JAX-layout parameters."""
+    chunk J stored at chunk J ^ (n % 8), weight (64 kp + k, 256 nb + n) of
+    the product's (in, out) weight (bf16 tiles 256 columns wide at these
+    widths): proj_in, block 1's q | k | v (k and v blocks), w1's interleaved
+    h and gate columns (128 units a tile), w2 and proj_out, read straight
+    from the JAX-layout parameters."""
     p = _params(c, 7)
     flat = t_motion.weight_blocks_wide(p)
     assert flat.numel() == 22 * c * c and flat.dtype == torch.bfloat16
     offsets = np.cumsum([0, 1, 3, 1, 3, 1, 8, 4]) * c * c  # products' starts, in C² elements
 
+    bn = t_motion.wide_bn(c)
+    assert bn == 256
+
     def stored(prod, k_in, n_out, k_dim):
-        nb, n = divmod(n_out, BN)
+        nb, n = divmod(n_out, bn)
         kp, k = divmod(k_in, 64)
-        tile = offsets[prod] + (nb * (k_dim // 64) + kp) * BN * 64
+        tile = offsets[prod] + (nb * (k_dim // 64) + kp) * bn * 64
         return flat[tile + n * 64 + (((k // 8) ^ (n % 8)) * 8) + k % 8]
 
     bf = lambda v: v.to(torch.bfloat16)  # noqa: E731
@@ -259,9 +309,9 @@ def test_wide_tiles_address_the_jax_weights(c):
         assert stored(1, k_in, c + n_out, c) == bf(p["wk"][0, k_in, n_out])
         assert stored(1, k_in, 2 * c + n_out, c) == bf(p["wv"][0, k_in, n_out])
         assert stored(4, k_in, n_out, c) == bf(p["wo"][1, k_in, n_out])
-        j = int(gen.integers(4 * c))  # hidden unit j: h column 128 (j // 64) + j % 64, gate + 64
-        assert stored(5, k_in, 128 * (j // 64) + j % 64, c) == bf(p["w1"][k_in, j])
-        assert stored(5, k_in, 128 * (j // 64) + 64 + j % 64, c) == bf(p["w1"][k_in, 4 * c + j])
+        j = int(gen.integers(4 * c))  # hidden unit j: h column 256 (j // 128) + j % 128, gate + 128
+        assert stored(5, k_in, 256 * (j // 128) + j % 128, c) == bf(p["w1"][k_in, j])
+        assert stored(5, k_in, 256 * (j // 128) + 128 + j % 128, c) == bf(p["w1"][k_in, 4 * c + j])
         assert stored(6, j, n_out, 4 * c) == bf(p["w2"][j, n_out])
         assert stored(7, k_in, n_out, c) == bf(p["w_out"][k_in, n_out])
 
@@ -340,34 +390,35 @@ def test_wrong_domain_plans_miss_plain(mutant, case, dtype):
 
 def test_domain_tiles_pad_to_whole_tiles():
     """At C = 40 and ff_mult 4 every product's tiles cover ⌈K/64⌉ panels and
-    ⌈N/128⌉ column blocks, zero past K and N; w1's hidden units run to F =
-    192 (160 real) with zero h and gate columns past 160, as b1's; w2's
-    rows past 160 are zero."""
+    ⌈N/BN⌉ column blocks (BN = 128 up to N = 128, else 256), zero past K
+    and N; w1's hidden units run to F = 256 (160 real: 192 rounded up to a
+    whole 128-unit half of the 256-column GEGLU tile) with zero h and gate
+    columns past 160, as b1's; w2's rows past 160 are zero."""
     c = 40
     p = _params_cfg(c, 2, 4, 3)
-    assert t_motion.wide_hidden(p) == 192
+    assert t_motion.wide_hidden(p) == 256
     tiles = Tiles(t_motion.weight_blocks_wide(p))
     w_in = tiles.next(c, c)
-    assert w_in.shape == (1, 1, BN, 64)
+    assert w_in.shape == (1, 1, 128, 64)
     logical = w_in[0, 0]  # (out n, in k)
     assert torch.equal(logical[:c, :c], p["w_in"].t().to(torch.bfloat16).float())
     assert not logical[c:].any() and not logical[:, c:].any()
     for _ in range(2):
         tiles.next(c, 3 * c), tiles.next(c, c)
-    w1 = tiles.next(c, 2 * 192)  # (3, 1, 128, 64): per 64 units, h then gate columns
-    assert w1.shape == (3, 1, BN, 64)
-    h_cols = w1[:, 0, :64].reshape(192, 64)[:, :c]
-    g_cols = w1[:, 0, 64:].reshape(192, 64)[:, :c]
+    w1 = tiles.next(c, 2 * 256)  # (2, 1, 256, 64): per 128 units, h then gate columns
+    assert w1.shape == (2, 1, 256, 64)
+    h_cols = w1[:, 0, :128].reshape(256, 64)[:, :c]
+    g_cols = w1[:, 0, 128:].reshape(256, 64)[:, :c]
     bf = lambda v: v.to(torch.bfloat16).float()  # noqa: E731
     assert torch.equal(h_cols[:160], bf(p["w1"][:, :160].t()))
     assert torch.equal(g_cols[:160], bf(p["w1"][:, 160:].t()))
     assert not h_cols[160:].any() and not g_cols[160:].any()
-    w2 = tiles.next(192, c)
-    assert w2.shape == (1, 3, BN, 64)
-    rows = w2[0].permute(1, 0, 2).reshape(BN, 192)  # (out n, in k)
+    w2 = tiles.next(256, c)
+    assert w2.shape == (1, 4, 128, 64)
+    rows = w2[0].permute(1, 0, 2).reshape(128, 256)  # (out n, in k)
     assert torch.equal(rows[:c, :160], bf(p["w2"].t())) and not rows[:, 160:].any()
     tiles.next(c, c)
     assert tiles.off == tiles.flat.numel()
     b1 = t_motion.wide_b1(p)
-    assert torch.equal(b1, torch.cat([p["b1"][:160], torch.zeros(32), p["b1"][160:],
-                                      torch.zeros(32)]))
+    assert torch.equal(b1, torch.cat([p["b1"][:160], torch.zeros(96), p["b1"][160:],
+                                      torch.zeros(96)]))

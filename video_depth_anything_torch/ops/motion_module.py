@@ -39,9 +39,11 @@ shipped encoders' widths, C = 768 and 1024: vitb m1, vitl m0/m1 under
 instead, in either dtype: a chain of hand-written launches (row norms,
 ``wgmma`` products with fused epilogues, the frame attention) with the
 activations in a scratch that the wrapper allocates, on its own weight
-layout (``weight_blocks_wide``, bf16 tiles or fp32 hi/lo tiles, zero-padded
-to whole tiles; the hidden units to a multiple of 64); it counts on
-``fused_motion_module.wide_launches`` and ``wide_f32_launches``.
+layout (``weight_blocks_wide``, bf16 tiles of 128 × 256 or 128 × 128 or
+fp32 hi/lo tiles of 128 × 128, zero-padded to whole tiles; the hidden units
+to whole halves of the GEGLU tile, ``wide_hidden``); its products are
+persistent CTAs walking output tiles in ``wide_tile``'s grouped order; it
+counts on ``fused_motion_module.wide_launches`` and ``wide_f32_launches``.
 
 Bound on the H100: tensor-core FLOPs (~44·C² per token at two blocks and
 ff_mult 4, ``(2 + 4·n_attn)·C² + 6·ff_mult·C²`` in general); the fp32
@@ -351,42 +353,56 @@ def chunk_channels(c: int, heads: int = 8) -> int:
     return d * (64 // d)
 
 
-# The chain of csrc/motion_module_wide.cu (both dtypes): the rows and the
-# output columns of a GEMM tile.
-WIDE_BM, WIDE_BN = 128, 128
+# The chain of csrc/motion_module_wide.cu (both dtypes): the rows of a GEMM
+# tile, and the row blocks of a group of the persistent tile walk
+# (``wide_tile``; the source's kGroupM).
+WIDE_BM, WIDE_GROUP_M = 128, 8
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def wide_hidden(p: Dict) -> int:
-    """The wide chain's hidden units F: ff_mult·C (w1's columns / 2)
-    rounded up to a multiple of 64."""
-    return _round_up(p["w1"].shape[1] // 2, 64)
+def wide_bn(n: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Output columns of the wide chain's GEMM tile for a product of ``n``
+    columns (the source's ``bn_of``): 256 in bf16 (two consumer warpgroups on
+    wgmma m64n256) where N > 128, else 128 (fp32 always: its hi and lo weight
+    tiles leave no room for 256 beside the ring)."""
+    return 256 if dtype == torch.bfloat16 and n > 128 else 128
 
 
-def wide_products(p: Dict) -> list:
+def wide_hidden(p: Dict, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The wide chain's hidden units F in ``dtype``: ff_mult·C (w1's columns
+    / 2) rounded up to a multiple of 64, then of half the GEGLU tile (128
+    where that tile is 256 columns wide), so that every tile holds whole
+    units' h and gate columns."""
+    f = _round_up(p["w1"].shape[1] // 2, 64)
+    return _round_up(f, wide_bn(2 * f, dtype) // 2)
+
+
+def wide_products(p: Dict, dtype: torch.dtype = torch.bfloat16) -> list:
     """The ``(K, N)`` JAX-layout weights of the wide chain's products, in
     launch order: proj_in; per attention block ``[wq | wk | wv]`` (one
-    product of 3C columns) and wo; w1 with each 64 hidden units' h columns
-    followed by their 64 gate columns (so that a 128-column tile holds both
-    halves of 64 activations), the hidden units padded with zero columns to
-    F = ``wide_hidden``; w2 with zero rows past ff_mult·C; proj_out."""
+    product of 3C columns) and wo; w1 with each U hidden units' h columns
+    followed by their U gate columns (U = half the GEGLU tile, so that a
+    tile holds both halves of U activations), the hidden units padded with
+    zero columns to F = ``wide_hidden``; w2 with zero rows past ff_mult·C;
+    proj_out."""
     c, f = p["w_in"].shape[0], p["w1"].shape[1] // 2
-    fp = wide_hidden(p)
+    fp = wide_hidden(p, dtype)
+    u = wide_bn(2 * fp, dtype) // 2
     out = [p["w_in"]]
     for i in range(p["wq"].shape[0]):
         out += [torch.cat([p["wq"][i], p["wk"][i], p["wv"][i]], dim=1), p["wo"][i]]
     w1 = F.pad(p["w1"].reshape(c, 2, f), (0, fp - f))
-    w1 = w1.reshape(c, 2, fp // 64, 64).permute(0, 2, 1, 3).reshape(c, 2 * fp)
+    w1 = w1.reshape(c, 2, fp // u, u).permute(0, 2, 1, 3).reshape(c, 2 * fp)
     return out + [w1, F.pad(p["w2"], (0, 0, 0, fp - f)), p["w_out"]]
 
 
-def wide_b1(p: Dict) -> torch.Tensor:
+def wide_b1(p: Dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """b1 as the wide chain's GEGLU epilogue reads it: fp32 ``(2F,)``, the h
     biases then the gate biases, each padded with zeros to F."""
-    f, fp = p["w1"].shape[1] // 2, wide_hidden(p)
+    f, fp = p["w1"].shape[1] // 2, wide_hidden(p, dtype)
     return F.pad(p["b1"].to(torch.float32).reshape(2, f), (0, fp - f)).reshape(-1).contiguous()
 
 
@@ -397,14 +413,15 @@ def _pad_to(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
 
 
 def wide_tiles(w_in_out: torch.Tensor) -> torch.Tensor:
-    """``(K, N)`` weight → bf16 ``(⌈N/128⌉, ⌈K/64⌉, 128, 64)``: for each
-    128-wide column block and 64-input panel, the K-major tile (output column
-    n's inputs in a 128-byte row, its 16-byte chunk j at chunk ``j ^ (n %
-    8)``) that one bulk copy lands as a wgmma B operand; zeros past K and
-    N."""
-    w_in_out = _pad_to(w_in_out, 64, WIDE_BN)
+    """``(K, N)`` weight → bf16 ``(⌈N/BN⌉, ⌈K/64⌉, BN, 64)``, BN =
+    ``wide_bn(N)``: for each BN-wide column block and 64-input panel, the
+    K-major tile (output column n's inputs in a 128-byte row, its 16-byte
+    chunk j at chunk ``j ^ (n % 8)``) that one bulk copy lands as a wgmma B
+    operand; zeros past K and N."""
+    bn = wide_bn(w_in_out.shape[1])
+    w_in_out = _pad_to(w_in_out, 64, bn)
     k, n = w_in_out.shape
-    t = sw128_tiles(w_in_out, rows=WIDE_BN).reshape(k // 64, n // WIDE_BN, WIDE_BN, 64)
+    t = sw128_tiles(w_in_out, rows=bn).reshape(k // 64, n // bn, bn, 64)
     return t.transpose(0, 1).contiguous()
 
 
@@ -413,23 +430,24 @@ def wide_tiles_f32(w_in_out: torch.Tensor) -> torch.Tensor:
     block and 32-input panel the 3xTF32 split (hi = rna(w), lo = rna(w −
     hi)) as two K-major tiles in natural input order, output column n's
     16-byte chunk j at chunk ``j ^ (n % 8)``; zeros past K and N."""
-    w_in_out = _pad_to(w_in_out.to(torch.float32), 32, WIDE_BN)
+    bn = wide_bn(w_in_out.shape[1], torch.float32)
+    w_in_out = _pad_to(w_in_out.to(torch.float32), 32, bn)
     k, n = w_in_out.shape
-    t = w_in_out.t().reshape(n // WIDE_BN, WIDE_BN, k // 32, 32).permute(0, 2, 1, 3)
+    t = w_in_out.t().reshape(n // bn, bn, k // 32, 32).permute(0, 2, 1, 3)
     hi = tf32_rna(t.contiguous())
-    tiles = torch.stack([hi, tf32_rna(t - hi)], 2).reshape(n // WIDE_BN, k // 32, 2, WIDE_BN, 8, 4)
-    rows = torch.arange(WIDE_BN, device=t.device)
+    tiles = torch.stack([hi, tf32_rna(t - hi)], 2).reshape(n // bn, k // 32, 2, bn, 8, 4)
+    rows = torch.arange(bn, device=t.device)
     src = torch.arange(8, device=t.device)[None, :] ^ (rows % 8)[:, None]
-    return tiles[:, :, :, rows[:, None], src].reshape(n // WIDE_BN, k // 32, 2, WIDE_BN, 32).contiguous()
+    return tiles[:, :, :, rows[:, None], src].reshape(n // bn, k // 32, 2, bn, 32).contiguous()
 
 
 def weight_blocks_wide(p: Dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The wide chain's weights: every product's ``wide_tiles`` (bf16) or
     ``wide_tiles_f32`` (fp32), in launch order, one flat sequence (at two
-    attention blocks, ff_mult 4 and C a multiple of 128: 22 C² bf16 values,
+    attention blocks, ff_mult 4 and C a multiple of 256: 22 C² bf16 values,
     or 44 C² floats: hi and lo)."""
     tiles = wide_tiles if dtype == torch.bfloat16 else wide_tiles_f32
-    return torch.cat([tiles(w).reshape(-1) for w in wide_products(p)])
+    return torch.cat([tiles(w).reshape(-1) for w in wide_products(p, dtype)])
 
 
 def wide_weight_elems(c: int, n_attn: int, hidden: int, dtype: torch.dtype) -> int:
@@ -437,7 +455,33 @@ def wide_weight_elems(c: int, n_attn: int, hidden: int, dtype: torch.dtype) -> i
     ``n_attn`` attention blocks and ``hidden`` (padded) units."""
     kw, per = (64, 1) if dtype == torch.bfloat16 else (32, 2)
     shapes = [(c, c)] + [(c, 3 * c), (c, c)] * n_attn + [(c, 2 * hidden), (hidden, c), (c, c)]
-    return sum(-(-n // WIDE_BN) * -(-k // kw) * WIDE_BN * kw * per for k, n in shapes)
+    return sum(-(-n // wide_bn(n, dtype)) * -(-k // kw) * wide_bn(n, dtype) * kw * per
+               for k, n in shapes)
+
+
+def wide_tile(tile: int, nm: int, nn: int) -> tuple:
+    """``(row block, column block)`` of output tile ``tile`` of a product
+    with ``nm`` row blocks and ``nn`` column blocks, in the persistent walk's
+    grouped order (the source's ``tile_coords``): groups of
+    ``WIDE_GROUP_M`` row blocks (the last group ragged), column block after
+    column block within a group, the group's rows before the next column,
+    so that one wave of CTAs reads a few A panels and weight column blocks.
+    Pure."""
+    per_group = WIDE_GROUP_M * nn
+    group, r = divmod(tile, per_group)
+    first = group * WIDE_GROUP_M
+    rows = min(nm - first, WIDE_GROUP_M)
+    return first + r % rows, r // rows
+
+
+def wide_schedule(m: int, n: int, bn: int, ctas: int) -> list:
+    """The persistent GEMM's walk over an ``(m, n)`` output of ``bn``-wide
+    tiles on ``ctas`` CTAs (the grid: at most one an SM): CTA b's list of
+    ``(row block, column block)``, tiles b, b + ctas, ... in ``wide_tile``'s
+    order.  Pure."""
+    nm, nn = -(-m // WIDE_BM), -(-n // bn)
+    grid = min(ctas, nm * nn)
+    return [[wide_tile(t, nm, nn) for t in range(b, nm * nn, grid)] for b in range(grid)]
 
 
 def wide_scratch_elems(m: int, c: int, hidden: int) -> int:
@@ -450,13 +494,16 @@ def wide_scratch_elems(m: int, c: int, hidden: int) -> int:
 _fns = {}
 
 
+_fns = {}
+
+
 def _kernel(name: str = "motion_module", symbol: Optional[str] = None):
     """``vda_<symbol>`` (``symbol`` = name unless given) of
     ``csrc/<name>.cu``: the launch (``motion_module``), the split
     (``motion_module_split<C>``: ``motion_module_split_<C>``), the fp32
     launch (``motion_module_f32``) or the
-    wide chain (``motion_module_wide``: ``motion_module_wide`` and
-    ``motion_module_wide_f32``)."""
+    wide chain (``motion_module_wide``: ``motion_module_wide``,
+    ``motion_module_wide_f32`` and its split ``motion_module_wide_split``)."""
     symbol = symbol or name
     if symbol not in _fns:
         fn = getattr(cuda_build.library(name), f"vda_{symbol}")
@@ -466,6 +513,8 @@ def _kernel(name: str = "motion_module", symbol: Optional[str] = None):
             fn.argtypes += [i, vp]
         if name == "motion_module_wide":
             fn.argtypes += [vp, i, i, i]
+            if symbol.endswith("_split"):
+                fn.argtypes += [i, i, vp]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return _fns[symbol]
@@ -523,7 +572,7 @@ def kernel_weights(p: Dict, cfg: MotionModuleConfig,
         raise TypeError(f"motion_module kernels take bf16 or fp32, got {dtype}")
     if not resident(c, cfg.num_heads, cfg):
         w["w"] = weight_blocks_wide(p, dtype)
-        w["b1"] = wide_b1(p).to(p["w_in"].device)
+        w["b1"] = wide_b1(p, dtype).to(p["w_in"].device)
     else:
         w["w"] = weight_blocks(p) if dtype == torch.bfloat16 else weight_blocks_f32(p)
     w["pe"] = torch.from_numpy(sinusoidal_position_table(cfg.temporal_max_len, c)).to(
@@ -642,6 +691,36 @@ def motion_module_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
     out = {name: ms[k] - (ms[k - 1] if k else 0.0) for k, name in enumerate(SPLIT_STAGES)}
     out["whole"] = ms[7]
     return out
+
+
+def wide_launch_names(n_attn: int) -> list:
+    """The wide chain's launches in order: the GroupNorm apply, proj_in, per
+    attention block its LayerNorm (+ APE), q | k | v, frame attention and out
+    projection, the feed-forward's LayerNorm, GEGLU, w2 and proj_out."""
+    out = ["gn", "proj_in"]
+    for i in range(1, n_attn + 1):
+        out += [f"ln{i}", f"qkv{i}", f"attn{i}", f"out{i}"]
+    return out + ["ln_ff", "geglu", "w2", "proj_out"]
+
+
+def motion_module_wide_split(x, gna, gnb, w, cfg, heads, iters: int = 20) -> dict:
+    """The wide chain's time by launch (``vda_motion_module_wide_split``):
+    CUDA events between its launches over ``iters`` runs after a warm one,
+    the mean ms of each launch of ``wide_launch_names``.  Off the resident
+    domain, either dtype; not counted as launches."""
+    c = x.shape[-1]
+    if resident(c, heads, cfg):
+        raise NotImplementedError("the wide chain's split takes modules off the resident domain")
+    _, _x, args = _launch_args(x, gna, gnb, w, cfg, heads)
+    hidden = w["b1"].numel() // 2
+    scratch = torch.empty(wide_scratch_elems(x.numel() // c, c, hidden), dtype=x.dtype,
+                          device=x.device)
+    ms = (ctypes.c_float * 64)()
+    fn = _kernel("motion_module_wide", "motion_module_wide_split")
+    cuda_build.check(fn(*args, cuda_build.ptr(scratch), heads, cfg.num_attention_blocks, hidden,
+                        int(x.dtype == torch.float32), iters, ms), "motion_module_wide_split")
+    names = wide_launch_names(cfg.num_attention_blocks)
+    return dict(zip(names, ms[:len(names)]))
 
 
 fused_motion_module.launches = 0
